@@ -1,0 +1,288 @@
+#!/usr/bin/env python3
+"""Smoke run of jepsen_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the Hopper kernels from ``jepsen_tpu_torch/ops/csrc``, holds each
+against its plain torch version on the card (bit-equal: they are boolean
+operators), drives the main path — the register linearizability check of
+a 10k-op, 5-process, 5-value history through ``linearizable(accelerator=
+"gpu")`` — and checks that the path went through both kernels. Prints one
+JSON line per phase, then a ``kernels`` line, the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure
+raises, so the exit code is not 0. Without a CUDA device it exits 1 and
+prints no result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+N_OPS, N_PROCS, N_VALUES, SEED = 10_000, 5, 5, 42
+# H100 SXM published peaks (dense): int8 tensor rate and HBM bandwidth
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls, after
+    one warm-up call, timed with CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def random_chunk_inputs(S, V, T, G, U, seed):
+    """Seeded chunk-product inputs on the card; about a fifth of the
+    steps are padding (valid = 0), slots cover 0 .. S-1, and the
+    returning slot is pending, as in a real history (else the kill
+    empties every product)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    pend = rng.random((T, G, S)) < 0.5
+    slots = rng.integers(0, S, (T, G)).astype(np.int32)
+    np.put_along_axis(pend, slots[..., None], True, axis=2)
+    arrs = (pend, rng.integers(0, U, (T, G, S)).astype(np.int32),
+            (rng.random((U, V, V)) < 0.3).astype(np.float32), slots,
+            (rng.random((T, G)) < 0.8))
+    if slots.max() != S - 1:
+        raise AssertionError("the slots must reach S - 1")
+    return [torch.from_numpy(a).cuda() for a in arrs]
+
+
+def check_chunk_product(name, S, V, T, G, U, seed):
+    import torch
+    from jepsen_tpu_torch.ops import matrix_kernels as mk
+    args = random_chunk_inputs(S, V, T, G, U, seed)
+    got = mk.chunk_product(*args, S, V)
+    ref = mk.chunk_product_torch(*args, S, V)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, ref))
+    ones = int(ref.float().sum().item())
+    emit({"phase": "chunk_product", "case": name, "S": S, "V": V,
+          "MV": (1 << S) * V, "T": T, "G": G, "U": U, "equal": equal,
+          "ones": ones})
+    if not equal:
+        raise AssertionError(f"chunk_product {name} differs from plain")
+    if ones == 0:
+        raise AssertionError(f"chunk_product {name}: inputs test nothing")
+
+
+def check_combine(B, C, MV, seed, eye_start):
+    import numpy as np
+    import torch
+    from jepsen_tpu_torch.ops import matrix_kernels as mk
+    rng = np.random.default_rng(seed)
+    P = torch.from_numpy(rng.random((B, C, MV, MV)) < 0.02).cuda()
+    P = (P | torch.eye(MV, dtype=torch.bool, device="cuda")).to(
+        torch.bfloat16)
+    if eye_start:
+        tot0 = torch.eye(MV, device="cuda").expand(B, MV, MV)
+    else:
+        tot0 = torch.from_numpy(rng.random((B, MV, MV)) < 0.05).cuda()
+    tot0 = tot0.to(torch.bfloat16)
+    got = mk.combine_product(P, tot0)
+    ref = mk.combine_product_torch(P, tot0)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, ref))
+    emit({"phase": "combine_product", "B": B, "C": C, "MV": MV,
+          "equal": equal, "ones": int(ref.float().sum().item())})
+    if not equal:
+        raise AssertionError(f"combine_product {(B, C, MV)} differs")
+
+
+def headline_inputs(stream):
+    """The chunk-product and combine inputs the main path builds for
+    ``stream`` (one key), on the card."""
+    import numpy as np
+    from jepsen_tpu_torch.models import cas_register_spec
+    from jepsen_tpu_torch.ops import jitlin
+    V = jitlin._bucket(len(stream.intern), floor=8)
+    prep = jitlin._returns_prepass(stream.kind, stream.slot, stream.f,
+                                   stream.a, stream.b)
+    S, R = prep[3], prep[0].shape[0]
+    C, T = jitlin._matrix_plan(1, S, R, V)
+    (pend, ids, slots, valid), uops = jitlin._matrix_grids(
+        [prep], S, V, 1, C, T, "cuda")
+    math = jitlin._kernel_math(S, V, cas_register_spec().step_ids, C,
+                               pend.device)
+    mt, _ = math.uop_tables(uops)
+    mtT = mt.transpose(1, 2).contiguous()
+    return dict(S=S, V=V, C=C, T=T, MV=math.MV, n_sq=math.n_sq,
+                args=(pend, ids, mtT, slots, valid),
+                pend_np=np.asarray(prep[1]))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from jepsen_tpu_torch.checker.linear_cpu import check_stream
+    from jepsen_tpu_torch.checker.linear_encode import encode_register_ops
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.histories import corrupt_reads, register_history
+    from jepsen_tpu_torch.ops import _build
+    from jepsen_tpu_torch.ops import matrix_kernels as mk
+    from jepsen_tpu_torch.ops.jitlin import matrix_check
+
+    # 1. device
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "name": name, "count":
+          torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.build_all()
+    ptxas = {k: [ln.strip() for ln in v.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for k, v in _build.ptxas_report.items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "ptxas": ptxas})
+
+    # 3-4. each kernel against its plain version
+    check_chunk_product("mv64", 3, 8, 64, 64, 16, 1)
+    check_chunk_product("mv256_headline_plan", 5, 8, 64, 256, 64, 2)
+    check_chunk_product("mv512", 6, 8, 16, 64, 32, 3)
+    check_chunk_product("mv512_s8", 8, 2, 16, 32, 16, 4)
+    check_combine(1, 256, 256, 5, eye_start=True)
+    check_combine(4, 8, 512, 6, eye_start=False)
+
+    # 5. the main path
+    history = register_history(N_OPS, n_procs=N_PROCS, seed=SEED,
+                               n_values=N_VALUES)
+    stream = encode_register_ops(history)
+    twin = check_stream(stream)
+    if twin.valid is not True:
+        raise AssertionError("the CPU twin rejects the headline history")
+    chk = linearizable(accelerator="gpu")
+    mk.chunk_product.launches = 0
+    mk.combine_product.launches = 0
+    t0 = time.perf_counter()
+    res = chk.check({}, history, {})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"chunk_product": mk.chunk_product.launches,
+                "combine_product": mk.combine_product.launches}
+    if res["valid?"] is not True or res["algorithm"] != "torch-matrix":
+        raise AssertionError(f"headline check: {res}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"main path skipped a kernel: {launches}")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = chk.check({}, history, {})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if out["valid?"] is not True:
+            raise AssertionError(f"timed check: {out}")
+    med = statistics.median(times)
+    # where the check's time goes: the host encode, and the matrix
+    # check (prepass, grids, copies in, both kernels, verdict read back)
+    enc_s, mc_s = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        encode_register_ops(history)
+        enc_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        matrix_check(stream)
+        torch.cuda.synchronize()
+        mc_s.append(time.perf_counter() - t0)
+    bad = corrupt_reads(history, n=2, seed=0)
+    got_bad = chk.check({}, bad, {})
+    cpu_bad = linearizable(accelerator="cpu").check({}, bad, {})
+    if got_bad["valid?"] is not False or \
+            got_bad.get("failed-op") != cpu_bad.get("failed-op"):
+        raise AssertionError(f"corrupted history: {got_bad} vs {cpu_bad}")
+    emit({"phase": "main_path", "ops": N_OPS, "events": len(stream),
+          "valid": res["valid?"], "algorithm": res["algorithm"],
+          "launches": launches, "first_check_s": first_s,
+          "check_s": times, "median_check_s": med,
+          "ops_per_sec": N_OPS / med,
+          "median_encode_s": statistics.median(enc_s),
+          "median_matrix_check_s": statistics.median(mc_s),
+          "invalid_copy_failed_op":
+          got_bad.get("failed-op"), "card": name, "power": smi})
+
+    # 6. each kernel at the main path's shapes
+    hd = headline_inputs(stream)
+    S, V, C, T, MV = hd["S"], hd["V"], hd["C"], hd["T"], hd["MV"]
+    args = hd["args"]
+    kern_P = mk.chunk_product(*args, S, V)
+    plain_P = mk.chunk_product_torch(*args, S, V)
+    err_p = (kern_P.float() - plain_P.float()).abs().max().item()
+    ms_p = cuda_ms(lambda: mk.chunk_product(*args, S, V), 20)
+    plain_ms_p = cuda_ms(lambda: mk.chunk_product_torch(*args, S, V), 3)
+    # data-dependent work: each valid return runs the squarings its
+    # pending count needs plus one compose product (the kill is a gather)
+    npend = hd["pend_np"].sum(axis=1)
+    sq = sum((npend > (1 << q)).astype(int) for q in range(hd["n_sq"]))
+    ops_p = float(((sq + 1) * 2.0 * MV ** 3).sum())
+    bytes_p = (sum(a.numel() * a.element_size() for a in args)
+               + C * MV * MV * 2)
+    P4 = kern_P.reshape(1, C, MV, MV)
+    tot0 = torch.eye(MV, dtype=torch.bfloat16, device="cuda")[None]
+    kern_t = mk.combine_product(P4, tot0)
+    plain_t = mk.combine_product_torch(P4, tot0)
+    err_c = (kern_t.float() - plain_t.float()).abs().max().item()
+    ms_c = cuda_ms(lambda: mk.combine_product(P4, tot0), 20)
+    plain_ms_c = cuda_ms(lambda: mk.combine_product_torch(P4, tot0), 3)
+    ops_c = C * 2.0 * MV ** 3
+    bytes_c = (C + 2) * MV * MV * 2
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    kernels = []
+    for kname, src, rep, err, ms, pms, ops, nb in (
+            ("chunk_product", "jepsen_tpu_torch/ops/csrc/chunk_product.cu",
+             "jepsen_tpu/ops/pallas_matrix.py:464", err_p, ms_p,
+             plain_ms_p, ops_p, bytes_p),
+            ("combine_product",
+             "jepsen_tpu_torch/ops/csrc/chunk_combine.cu",
+             "jepsen_tpu/ops/pallas_matrix.py:824", err_c, ms_c,
+             plain_ms_c, ops_c, bytes_c)):
+        b_ms, b_by = bound(ops, nb)
+        kernels.append({"name": kname, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": launches[kname],
+                        "max_abs_err": err, "equal": err == 0.0,
+                        "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None})
+        if err != 0.0:
+            raise AssertionError(f"{kname} differs at the headline shape")
+    emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
+          "T": T, "valid_returns": int(len(npend)),
+          "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,
+          "combine_ops": ops_c, "combine_bytes": bytes_c})
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,117 @@
+"""Linearizability checker for CASRegister histories.
+
+Reference surface: jepsen.checker/linearizable (checker.clj:185-216) as
+ported by jepsen_tpu/checker/linearizable.py. Two rungs, tried in order:
+
+* ``torch-matrix`` — the block-composed transfer-matrix check
+  (ops/jitlin.matrix_check) on the device, for histories in its regime.
+  An exact True settles valid; False or inexact passes the history on.
+* ``cpu`` — the exact CPU twin (linear_cpu.check_stream), which settles
+  everything the matrix rung did not, with the failing op.
+
+``accelerator`` is "gpu" (the device rung whenever in regime), "cpu" or
+"auto" (the device rung from AUTO_TPU_THRESHOLD events up).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+from jepsen_tpu_torch.checker import Checker
+from jepsen_tpu_torch.checker.linear_cpu import (
+    LinearResult, cas_register_step_py, check_stream,
+)
+from jepsen_tpu_torch.checker.linear_encode import EV_RETURN, encode_register_ops
+from jepsen_tpu_torch.history import Intern
+from jepsen_tpu_torch.models import CASRegister, Model, cas_register_spec
+
+# Histories below this many events run on CPU under accelerator="auto"
+# (jepsen_tpu/checker/linearizable.py:36).
+AUTO_TPU_THRESHOLD = 512
+
+# Failure reports re-run the exact CPU search to recover the dying
+# frontier; skip that recovery for histories longer than this.
+MAX_REPORT_EVENTS = 200_000
+
+ACCELERATORS = ("gpu", "cpu", "auto")
+
+
+class LinearizableChecker(Checker):
+    def __init__(self, model: Model | None = None,
+                 accelerator: str = "auto", device=None):
+        self.model = model if model is not None else CASRegister()
+        if not isinstance(self.model, CASRegister):
+            raise TypeError("the torch checker handles CASRegister models "
+                            f"only, not {type(self.model).__name__}")
+        if accelerator not in ACCELERATORS:
+            raise ValueError(f"accelerator {accelerator!r} not in "
+                             f"{ACCELERATORS}")
+        self.accelerator = accelerator
+        # None = the CUDA device; resolved when the device rung runs
+        self.device = device
+
+    def check(self, test, history, opts):
+        accelerator = opts.get("accelerator", self.accelerator)
+        intern = Intern()
+        # a non-None initial register value interns FIRST so its id is
+        # the initial state
+        if self.model.value is not None:
+            intern.id(self.model.value)
+        stream = encode_register_ops(history, intern=intern)
+        init_id = (0 if self.model.value is None
+                   else stream.intern.id(self.model.value))
+        res = self._search_stream(stream, cas_register_spec(init_id),
+                                  accelerator)
+        return self._finish(res, history, stream, init_id)
+
+    def _search_stream(self, stream, spec, accelerator) -> LinearResult:
+        from jepsen_tpu_torch.ops.jitlin import matrix_check, matrix_ok
+
+        device_regime = not (accelerator == "cpu" or (
+            accelerator == "auto" and len(stream) < AUTO_TPU_THRESHOLD))
+        attempted = False
+        if device_regime:
+            n_returns = int((np.asarray(stream.kind) == EV_RETURN).sum())
+            if matrix_ok(stream.n_slots, len(stream.intern), n_returns):
+                attempted = True
+                m = matrix_check(stream, step_ids=spec.step_ids,
+                                 init_state=spec.init_state,
+                                 num_states=len(stream.intern),
+                                 device=self.device)
+                # copied settle rule of jepsen_tpu/checker/linearizable.py
+                # :347-383 with explain off: only an exact True settles
+                if m is not None and not m[2] and m[0]:
+                    return LinearResult(valid=True, algorithm="torch-matrix")
+        res = check_stream(stream, step=cas_register_step_py,
+                           init_state=spec.init_state)
+        if attempted:
+            res.algorithm = "jitlin-cpu(fallback)"
+        return res
+
+    # copied from jepsen_tpu/checker/linearizable.py:675-713 without the
+    # plot, trace and explain artifacts
+    def _finish(self, res: LinearResult, history, stream,
+                init_state: int) -> dict:
+        out: dict[str, Any] = {
+            "valid?": res.valid,
+            "algorithm": res.algorithm,
+            "configs-max": res.configs_max,
+        }
+        if res.valid is False and res.failed_op_index >= 0:
+            i = res.failed_op_index
+            lo = max(0, i - 5)
+            out["failed-op"] = history[i] if i < len(history) else None
+            out["context"] = history[lo: i + 1][-10:]
+            if res.final_configs is None and len(stream) <= MAX_REPORT_EVENTS:
+                res2 = check_stream(stream, step=cas_register_step_py,
+                                    init_state=init_state)
+                if res2.valid is False:
+                    res.final_configs = res2.final_configs
+            if res.final_configs is not None:
+                out["final-configs"] = res.final_configs
+        return out
+
+
+def linearizable(model=None, **kw) -> Checker:
+    return LinearizableChecker(model=model, **kw)

@@ -1,0 +1,484 @@
+"""Block-composed transfer-matrix linearizability check (the matrix
+path of jepsen_tpu/ops/jitlin.py).
+
+A *configuration* is (mask, state): ``mask`` is the bitset of pending-op
+slots already linearized, ``state`` the interned model state. The whole
+configuration space of one history is ``2^S masks x V states``, so the
+frontier is a 0/1 vector of length MV = 2^S * V, and each return event is
+a *linear* boolean operator on it: closure under "linearize any pending
+op" is (I + L)^S with L = sum_t pend_t * (R_t (kron) M_t), reached in
+ceil(log2 S) boolean squarings, and the kill of configurations that did
+not linearize the returning op is a row gather + mask. Composing these
+operators is associative, so the history's returns split into C chunks
+of T returns whose products compute in parallel (one CUDA block per
+chunk, ``matrix_kernels.chunk_product``) and then chain in time order
+(``matrix_kernels.combine_product``). The verdict: is any configuration
+reachable from the initial state alive at the end?
+
+Routing is fixed: on a CUDA device both stages run their hand-written
+kernels, on the CPU their plain torch versions. Outside the regime
+(``matrix_ok`` and MV <= KERNEL_MAX_MV) ``matrix_check`` returns None and
+the caller's CPU rung settles the history.
+"""
+from __future__ import annotations
+
+import threading
+import types
+
+import numpy as np
+import torch
+
+from jepsen_tpu_torch.device import resolve_device
+from jepsen_tpu_torch.models import cas_register_spec
+from jepsen_tpu_torch.ops import matrix_kernels
+
+EV_INVOKE, EV_RETURN, EV_NOOP = 0, 1, 2
+
+# Most recent dispatch routing of the calling thread.
+_DISPATCH_INFO = threading.local()
+
+
+def last_dispatch_info() -> dict:
+    """{'products': 'cuda'|'torch', 'combine': 'cuda'|'torch'} of the
+    calling thread's most recent matrix dispatch (empty before the first
+    one)."""
+    return dict(getattr(_DISPATCH_INFO, "value", {}))
+
+
+# copied from jepsen_tpu/ops/jitlin.py:380-424
+def _returns_prepass(kind, slot, f, a, b):
+    """Host pre-pass for the matrix kernel: the per-slot op table and
+    pending mask evolve deterministically from the event stream alone
+    (invokes/returns), independent of the frontier — so each return's
+    (pending set, op table, returning slot) is computable up front.
+
+    Per slot t, the pending bit at event i is ``#invokes(t) <= i  >
+    #returns(t) < i``, and the current op is the last invoke of t at or
+    before i, found by searchsorted into t's invoke positions.
+
+    Returns numpy arrays over the R return events."""
+    kind = np.asarray(kind)
+    slot = np.asarray(slot)
+    fabs = np.stack([np.asarray(f, np.int64), np.asarray(a, np.int64),
+                     np.asarray(b, np.int64)], axis=1)
+    S = int(slot.max(initial=0)) + 1
+    ret_idx = np.nonzero(kind == EV_RETURN)[0]
+    R = ret_idx.shape[0]
+    if R == 0:
+        return (np.zeros((0,), np.int32), np.zeros((0, S), bool),
+                np.zeros((0, S, 3), np.int64), S)
+    r_slot = slot[ret_idx].astype(np.int32)
+    r_pend = np.zeros((R, S), bool)
+    r_ops = np.zeros((R, S, 3), np.int64)
+    is_inv = kind == EV_INVOKE
+    is_ret = kind == EV_RETURN
+    for t in range(S):
+        on_t = slot == t
+        inv_pos = np.nonzero(is_inv & on_t)[0]
+        # a return of slot t at i still sees t pending — it is the op
+        # being linearized-and-killed
+        n_inv = np.cumsum(is_inv & on_t)
+        n_ret_before = np.cumsum(is_ret & on_t) - (is_ret & on_t)
+        r_pend[:, t] = (n_inv > n_ret_before)[ret_idx]
+        if inv_pos.size == 0:
+            continue  # slot never invoked: never pending, op stays 0
+        j = np.searchsorted(inv_pos, ret_idx, side="right") - 1
+        has = j >= 0
+        src = inv_pos[np.where(has, j, 0)]
+        r_ops[:, t, :] = np.where(has[:, None], fabs[src], 0)
+    return r_slot, r_pend, r_ops, S
+
+
+# copied from jepsen_tpu/ops/jitlin.py:427-452
+def receiver_kill_tables(S: int, V: int):
+    """The transfer-matrix operators' static bit tables:
+
+    - receiver [S, M, M] f32: R_t[r | bit_t, r] = 1 for slots t not in
+      mask r (the mask-receiver map of linearizing pending op t)
+    - kill_idx [S, MV] i32 / kill_mask [S, MV] f32: the
+      closure-then-kill row gather+mask for a return on slot s
+    """
+    M = 1 << S
+    MV = M * V
+    r = np.arange(M)
+    receiver = np.zeros((S, M, M), np.float32)
+    for t in range(S):
+        src = r[((r >> t) & 1) == 0]
+        receiver[t, src | (1 << t), src] = 1.0
+    rows = np.arange(MV)
+    rr, ww = rows // V, rows % V
+    kill_idx = np.zeros((S, MV), np.int32)
+    kill_mask = np.zeros((S, MV), np.float32)
+    for s in range(S):
+        ok = ((rr >> s) & 1) == 0
+        kill_idx[s] = np.where(ok, (rr | (1 << s)) * V + ww, 0)
+        kill_mask[s] = ok.astype(np.float32)
+    return receiver, kill_idx, kill_mask
+
+
+def _n_squarings(S: int) -> int:
+    n_sq = 0
+    while (1 << n_sq) < S:
+        n_sq += 1
+    return n_sq
+
+
+def _bmm(x, y):
+    """Thresholded boolean product of 0/1 float32 batches: exact, since
+    counts <= MV <= 2^12 are exact in float32."""
+    return (torch.matmul(x, y) > 0).to(torch.float32)
+
+
+def _kernel_math(S: int, V: int, step_ids, G: int, device):
+    """The static tables, the per-return operator step and the
+    chunk-product combiners of jepsen_tpu/ops/jitlin.py:455-583, in
+    float32 torch with a > 0 threshold after every product (every
+    intermediate is exactly 0/1, so any association of the boolean
+    product yields the same matrix)."""
+    M = 1 << S
+    MV = M * V
+    receiver, kill_idx, kill_mask = receiver_kill_tables(S, V)
+    n_sq = _n_squarings(S)
+    receiver_t = torch.as_tensor(receiver, device=device)
+    kill_idx_t = torch.as_tensor(kill_idx, dtype=torch.int64, device=device)
+    kill_mask_t = torch.as_tensor(kill_mask, device=device)
+    eye = torch.eye(MV, dtype=torch.float32, device=device)
+    v_range = torch.arange(V, dtype=torch.int32, device=device)
+
+    def uop_tables(uops):
+        """[U, 3] distinct-op table -> [U, V, V] transition matrices
+        mt[u, v, w] (old state v -> new state w) + [U] oob flags."""
+        st2, ok = step_ids(v_range[None, :], uops[:, 0:1], uops[:, 1:2],
+                           uops[:, 2:3])
+        # INVARIANT: transitions leaving [0, V) are DROPPED (the
+        # equality below can't match), under-approximating
+        # reachability — so alive=True with oob set proves nothing and
+        # callers must treat it as unknown. The oob flag surfaces it.
+        oob = (ok & ((st2 < 0) | (st2 >= V))).any(dim=1)
+        mt = ok[:, :, None] & (st2[:, :, None] == v_range[None, None, :])
+        return mt.to(torch.float32), oob
+
+    def make_step(mt_tab, oob_tab):
+        def step(carry, inp):
+            P, inexact = carry
+            pend_g, ids_g, s_g, val_g = inp
+            ids_g = ids_g.long()
+            mt = mt_tab[ids_g]                   # [G, S, V, V] gather
+            oob = oob_tab[ids_g]                 # [G, S]
+            gated = pend_g.to(torch.float32)
+            # row = (receiver mask a, NEW state w); col = (source mask
+            # b, OLD state v): L[(a,w),(b,v)] = Σ_t pend_t R_t[a,b] M_t[v,w]
+            L = torch.einsum("gt,tab,gtvw->gawbv", gated, receiver_t, mt)
+            Bm = ((L.reshape(G, MV, MV) + eye) > 0).to(torch.float32)
+            for _ in range(n_sq):
+                Bm = _bmm(Bm, Bm)                # (I+L)^(2^k) -> closure
+            s_g = s_g.long()
+            idx = kill_idx_t[s_g]                # [G, MV]
+            A = (torch.gather(Bm, 1, idx[:, :, None].expand(G, MV, MV))
+                 * kill_mask_t[s_g][:, :, None])
+            val = val_g.to(torch.bool)
+            A = torch.where(val[:, None, None], A, eye)
+            return (_bmm(A, P),
+                    inexact | (oob & pend_g.to(torch.bool)
+                               & val[:, None]).any(dim=1))
+        return step
+
+    def chain_time(seq):
+        """[n, MV, MV] time-ordered chunk products -> their composed
+        product (later chunk on the LEFT), by the pairing tree of
+        make_combine."""
+        while seq.shape[0] > 1:
+            odd = seq[-1:] if seq.shape[0] % 2 else None
+            pairs = seq[:-1] if odd is not None else seq
+            seq = _bmm(pairs[1::2], pairs[0::2])
+            if odd is not None:
+                seq = torch.cat([seq, odd], dim=0)
+        return seq[0]
+
+    def make_combine(B: int, C: int, init_state: int):
+        def _combine(P, inexact, tot0):
+            # total_b = P[b,C-1] @ ... @ P[b,0] @ tot0[b], tree-reduced
+            # per level with the later chunk on the LEFT
+            seq = P.reshape(B, C, MV, MV).to(torch.float32)
+            while seq.shape[1] > 1:
+                odd = seq[:, -1:] if seq.shape[1] % 2 else None
+                pairs = seq[:, :-1] if odd is not None else seq
+                seq = _bmm(pairs[:, 1::2], pairs[:, 0::2])
+                if odd is not None:
+                    seq = torch.cat([seq, odd], dim=1)
+            total = _bmm(seq[:, 0], tot0.to(torch.float32)).to(
+                torch.bfloat16)
+            alive = (total[:, :, init_state] > 0).any(dim=1)
+            return alive, inexact.reshape(B, C).any(dim=1), total
+        return _combine
+
+    return types.SimpleNamespace(
+        M=M, MV=MV, n_sq=n_sq, eye=eye, v_range=v_range,
+        receiver=receiver_t, kill_idx=kill_idx_t, kill_mask=kill_mask_t,
+        uop_tables=uop_tables, make_step=make_step, chain_time=chain_time,
+        make_combine=make_combine)
+
+
+def _build_matrix_kernel(S: int, V: int, step_ids, init_state: int,
+                         g_steps: int, n_chunks: int, n_keys: int, device):
+    """The two-stage matrix dispatch for one static chunk layout
+    (jepsen_tpu/ops/jitlin.py:586-821): chunk g = b * C + c holds key
+    b's c-th slice of T = ``g_steps`` returns. Stage 1 computes every
+    chunk's [MV, MV] product (``matrix_kernels.chunk_product``), stage 2
+    chains each key's C products onto its carry ``tot0``
+    (``matrix_kernels.combine_product``)."""
+    B, C, T = n_keys, n_chunks, g_steps
+    math = _kernel_math(S, V, step_ids, B * C, device)
+    MV = math.MV
+    route = "cuda" if device.type == "cuda" else "torch"
+
+    def _dispatch_total(pend, op_ids, uops, slots, valid, tot0):
+        mt_tab, oob_tab = math.uop_tables(uops)
+        mtT = mt_tab.transpose(1, 2).contiguous()
+        P = matrix_kernels.chunk_product(pend, op_ids, mtT, slots, valid,
+                                         S, V)
+        # the oob -> inexact reduction runs on the small id grids
+        # outside the kernel
+        inexact = (oob_tab[op_ids.long()] & pend
+                   & valid[..., None]).any(dim=2).any(dim=0)
+        total = matrix_kernels.combine_product(
+            P.reshape(B, C, MV, MV), tot0.to(torch.bfloat16))
+        _DISPATCH_INFO.value = {"products": route, "combine": route}
+        alive = (total[:, :, init_state] > 0).any(dim=1)
+        return alive, inexact.reshape(B, C).any(dim=1), total
+
+    def init_total():
+        return torch.eye(MV, dtype=torch.bfloat16, device=device).expand(
+            B, MV, MV)
+
+    def run(pend, op_ids, uops, slots, valid):
+        """pend [T,G,S]; op_ids [T,G,S] (indices into uops [U,3]);
+        slots [T,G]; valid [T,G], with chunk g = key * C + chunk.
+        Returns (alive[B], inexact[B])."""
+        alive, inexact, _ = _dispatch_total(pend, op_ids, uops, slots,
+                                            valid, init_total())
+        return alive, inexact
+
+    def run_resume(pend, op_ids, uops, slots, valid, tot0):
+        """Segmented variant: ``tot0`` [B, MV, MV] is the composed
+        operator product of the previous segments. Returns (alive,
+        inexact, total) with total staying on the device."""
+        return _dispatch_total(pend, op_ids, uops, slots, valid, tot0)
+
+    run.resume = run_resume
+    run.init_total = init_total
+    return run
+
+
+# copied from jepsen_tpu/ops/jitlin.py:949-951,976-979: matrix-path
+# applicability — cost is quadratic in MV = 2^S * V, so the value domain
+# must be small; below MIN_RETURNS composing matrices can't pay.
+MATRIX_MAX_SLOTS = 8
+MATRIX_MAX_STATES = 16
+MATRIX_MIN_RETURNS = 2000
+# per-step [G, MV, MV] intermediates: cap G * MV^2
+MATRIX_MAX_ELEMS = 1 << 28
+
+
+def matrix_ok(S: int, num_states: int | None, n_returns: int) -> bool:
+    return (num_states is not None and S <= MATRIX_MAX_SLOTS
+            and num_states <= MATRIX_MAX_STATES
+            and n_returns >= MATRIX_MIN_RETURNS)
+
+
+def kernel_ok(S: int, V: int) -> bool:
+    """Is the operator dimension within the chunk-product kernel's
+    shared-memory regime (MV = 2^S * V <= KERNEL_MAX_MV)?"""
+    return (1 << S) * V <= matrix_kernels.KERNEL_MAX_MV
+
+
+def matrix_check(stream, step_ids=None, init_state: int = 0,
+                 num_states: int | None = None, force: bool = False,
+                 device=None):
+    """Exact aliveness check of ONE history via block-composed transfer
+    matrices. Returns (alive, died, inexact, peak) with died=-1/peak=0
+    placeholders, or None when the matrix regime doesn't apply
+    (``force=True`` skips the ``matrix_ok`` size gate, for differential
+    tests; the kernel's MV <= KERNEL_MAX_MV gate always holds)."""
+    if step_ids is None:
+        step_ids = cas_register_spec().step_ids
+    num_states = num_states if num_states is not None else len(stream.intern)
+    kind, slot = np.asarray(stream.kind), np.asarray(stream.slot)
+    S = int(slot.max(initial=0)) + 1
+    R = int((kind == EV_RETURN).sum())
+    if not force and not matrix_ok(S, num_states, R):
+        return None
+    if not kernel_ok(S, _bucket(num_states, floor=8)):
+        return None
+    return matrix_check_batch([stream], step_ids=step_ids,
+                              init_state=init_state,
+                              num_states=num_states, device=device)[0]
+
+
+def matrix_check_resume(stream, tot0=None, step_ids=None,
+                        init_state: int = 0, num_states: int | None = None,
+                        n_slots: int | None = None, device=None):
+    """Segmented transfer-matrix verification of one long history: checks
+    a segment starting from the composed operator product ``tot0`` of the
+    prior segments (None = identity) and returns ``(alive, inexact,
+    total)`` with ``total`` staying on the device for the next segment.
+    Segments must cut at quiescent points, share the slot dimension
+    (``n_slots``) and share the state basis (``num_states``)."""
+    if step_ids is None:
+        step_ids = cas_register_spec().step_ids
+    if num_states is None:
+        num_states = len(stream.intern)
+    V = _bucket(num_states, floor=8)
+    prep = _returns_prepass(np.asarray(stream.kind), np.asarray(stream.slot),
+                            np.asarray(stream.f), np.asarray(stream.a),
+                            np.asarray(stream.b))
+    S = max(n_slots or 1, prep[3])
+    if tot0 is not None and tot0.shape[-1] != (1 << S) * V:
+        raise ValueError(
+            f"carry dimension {tot0.shape[-1]} != (1<<{S})*{V}: segments "
+            f"must share n_slots and num_states")
+    R_max = prep[0].shape[0]
+    if R_max == 0:
+        # no returns in this segment: the chain's aliveness is whatever
+        # the carried product says (a dead chain must not revive)
+        if tot0 is None:
+            return True, False, tot0
+        alive = (tot0[:, :, init_state] > 0).any(dim=1)
+        return alive, False, tot0
+    dev = resolve_device(device)
+    return _matrix_dispatch([prep], S, R_max, V, step_ids, init_state, dev,
+                            resume=True, tot0=tot0)
+
+
+def matrix_check_batch(streams, step_ids=None, init_state: int = 0,
+                       num_states: int | None = None, device=None):
+    """Batched transfer-matrix check over independent per-key histories
+    in ONE dispatch: all keys' chunk products advance together, then
+    each key's chunks chain separately. Returns [(alive, -1, inexact,
+    0)] per stream. Callers gate the regime (matrix_ok, kernel_ok)."""
+    if step_ids is None:
+        step_ids = cas_register_spec().step_ids
+    if num_states is None:
+        num_states = max(len(s.intern) for s in streams)
+    V = _bucket(num_states, floor=8)
+    B = len(streams)
+    kinds = [np.asarray(s.kind) for s in streams]
+    slots_np = [np.asarray(s.slot) for s in streams]
+    S = max(int(sl.max(initial=0)) + 1 for sl in slots_np)
+    R_max = max(int((k == EV_RETURN).sum()) for k in kinds)
+    if R_max == 0:
+        return [(True, -1, False, 0)] * B
+    dev = resolve_device(device)
+    preps = [_returns_prepass(kinds[i], slots_np[i], np.asarray(s.f),
+                              np.asarray(s.a), np.asarray(s.b))
+             for i, s in enumerate(streams)]
+    alive, inexact = _matrix_dispatch(preps, S, R_max, V, step_ids,
+                                      init_state, dev)
+    alive, inexact = alive.cpu().numpy(), inexact.cpu().numpy()
+    return [(bool(alive[b]), -1, bool(inexact[b]), 0) for b in range(B)]
+
+
+# copied from jepsen_tpu/ops/jitlin.py:1361-1405, without the mesh branch
+def _matrix_plan(B, S, R_max, V):
+    """(C, T) for one dispatch's chunk layout: per key, C chunks of T
+    returns (padded with identity); chunk g = b*C + c. R is bucketed so
+    nearby history lengths share a layout. The chunk count targets
+    G = B*C ≈ 256 for one history and ≈ 2048 for key batches, with C
+    capped at 256 and by the element budget."""
+    MV = (1 << S) * V
+    if B * MV * MV > MATRIX_MAX_ELEMS:
+        raise ValueError(
+            f"matrix_check_batch out of regime: keys * MV^2 = "
+            f"{B * MV * MV} > {MATRIX_MAX_ELEMS}; split the key batch")
+    rb = _bucket(R_max, floor=64)
+    target_g = 256 if B == 1 else 2048
+    C = int(np.clip(target_g // B, 1, 256))
+    C = max(1, min(C, MATRIX_MAX_ELEMS // (B * MV * MV)))
+    T = -(-rb // C)
+    return C, T
+
+
+# copied from jepsen_tpu/ops/jitlin.py:1408-1470, without the mesh branch;
+# the grids land on ``device`` as int32/bool tensors
+def _matrix_grids(preps, S, V, B, C, T, device):
+    """Pads each key's return grids into the (T, G) chunk layout and
+    interns the batch's distinct ops. Returns ([pend, ids, slots, valid]
+    grids, uops) as tensors on ``device``."""
+
+    def key_arrays(p):
+        r_slot, r_pend, r_ops, s_k = p
+        R = r_slot.shape[0]
+        pad = C * T - R
+        slot_p = np.concatenate([r_slot, np.zeros((pad,), np.int32)])
+        pend_p = np.zeros((C * T, S), bool)
+        pend_p[:R, :s_k] = r_pend
+        ops_p = np.zeros((C * T, S, 3), np.int64)
+        ops_p[:R, :s_k] = r_ops
+        val_p = np.concatenate([np.ones((R,), bool), np.zeros((pad,), bool)])
+        return slot_p, pend_p, ops_p, val_p
+
+    slots, pends, opss, vals = zip(*[key_arrays(p) for p in preps])
+    all_ops = np.concatenate([o.reshape(-1, 3) for o in opss])
+    # interning via packed scalar keys when fields fit 21 bits
+    if all_ops.size and 0 <= all_ops.min() and all_ops.max() < (1 << 21):
+        packed = ((all_ops[:, 0] << 42) | (all_ops[:, 1] << 21)
+                  | all_ops[:, 2])
+        keys, inv = np.unique(packed, return_inverse=True)
+        uops = np.stack([keys >> 42, (keys >> 21) & 0x1FFFFF,
+                         keys & 0x1FFFFF], axis=1)
+    else:
+        uops, inv = np.unique(all_ops, axis=0, return_inverse=True)
+    ids = inv.astype(np.int32).reshape(B, C * T, S)
+    ub = _bucket(len(uops), floor=16)
+    uops = np.concatenate(
+        [uops, np.zeros((ub - len(uops), 3), uops.dtype)]).astype(np.int32)
+
+    def as_tg(x):
+        # [B, C*T, ...] → [B, C, T, ...] → [T, B, C, ...] → [T, B*C, ...]
+        x = np.asarray(x).reshape((B, C, T) + x.shape[2:])
+        x = np.moveaxis(x, 2, 0)
+        x = np.ascontiguousarray(x.reshape((T, B * C) + x.shape[3:]))
+        return torch.from_numpy(x).to(device)
+
+    grids = [as_tg(np.stack(pends)), as_tg(ids),
+             as_tg(np.stack(slots).astype(np.int32)), as_tg(np.stack(vals))]
+    return grids, torch.from_numpy(uops).to(device)
+
+
+def _matrix_dispatch(preps, S, R_max, V, step_ids, init_state, device,
+                     resume: bool = False, tot0=None):
+    """Builds one dispatch's chunk grids and runs both stages, returning
+    device tensors (alive[B], inexact[B]; plus the composed total
+    [B, MV, MV] when ``resume``)."""
+    B = len(preps)
+    C, T = _matrix_plan(B, S, R_max, V)
+    grids, uops = _matrix_grids(preps, S, V, B, C, T, device)
+    run = _matrix_cache(S, V, step_ids, init_state, T, C, B, device)
+    if resume:
+        if tot0 is None:
+            tot0 = run.init_total()
+        return run.resume(grids[0], grids[1], uops, grids[2], grids[3],
+                          tot0.to(device))
+    return run(grids[0], grids[1], uops, grids[2], grids[3])
+
+
+_MATRIX_CACHE: dict = {}
+
+
+def _matrix_cache(S, V, step_ids, init_state, T, C, B, device):
+    key = (S, V, id(step_ids), init_state, T, C, B, str(device))
+    fn = _MATRIX_CACHE.get(key)
+    if fn is None:
+        fn = _build_matrix_kernel(S, V, step_ids, init_state, T, C, B,
+                                  device)
+        _MATRIX_CACHE[key] = fn
+    return fn
+
+
+# copied from jepsen_tpu/ops/jitlin.py:2040-2046
+def _bucket(n: int, floor: int = 64) -> int:
+    """Round counts up to a power of two >= floor."""
+    b = floor
+    while b < n:
+        b *= 2
+    return b

@@ -1,0 +1,68 @@
+"""jepsen_tpu_torch and chip_smoke.py stand alone: no module of the port
+and no line of chip_smoke.py imports ``jax`` or ``jepsen_tpu``, and a CPU
+check through the port leaves neither in ``sys.modules``."""
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "jepsen_tpu")
+
+
+def _sources():
+    return sorted((ROOT / "jepsen_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or "", node.lineno
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [(name, line) for name, line in _imported_roots(path)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_sources_exist():
+    names = {p.name for p in _sources()}
+    assert {"jitlin.py", "matrix_kernels.py", "linearizable.py",
+            "chip_smoke.py"} <= names
+    assert sorted(p.name for p in
+                  (ROOT / "jepsen_tpu_torch/ops/csrc").glob("*.cu")) == [
+        "chunk_combine.cu", "chunk_product.cu"]
+
+
+def test_cpu_check_loads_neither_jax_nor_reference():
+    code = """
+import sys
+from jepsen_tpu_torch.checker.linearizable import linearizable
+from jepsen_tpu_torch.histories import register_history
+from jepsen_tpu_torch.ops import jitlin
+jitlin.MATRIX_MIN_RETURNS = 10
+out = linearizable(accelerator="gpu", device="cpu").check(
+    {}, register_history(120, n_procs=3, seed=2, n_values=4), {})
+assert out["valid?"] is True and out["algorithm"] == "torch-matrix", out
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+print("LEAKED", leaked)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "LEAKED []" in proc.stdout, proc.stdout
