@@ -84,27 +84,64 @@ def check_chunk_product(name, S, V, T, G, U, seed):
         raise AssertionError(f"chunk_product {name}: inputs test nothing")
 
 
-def check_combine(B, C, MV, seed, eye_start):
+# combine cases: (B, C, MV, density of P, P holds the identity, tot0 is
+# the identity (else random), seed). C = 0, 1 and 2, odd C (a node is
+# carried up the tree), B > 1, MV from 16 (one partly filled word) to
+# 512, saturating and all-zero P.
+COMBINE_CASES = [
+    (1, 256, 256, 0.02, True, True, 5), (4, 8, 512, 0.02, True, False, 6),
+    (2, 0, 64, 0.02, True, False, 7), (1, 1, 256, 0.02, True, False, 8),
+    (1, 2, 256, 0.006, False, True, 9), (1, 37, 256, 0.006, False, False, 10),
+    (1, 255, 256, 0.006, False, False, 11),
+    (3, 16, 128, 0.012, False, False, 12), (2, 7, 16, 0.1, False, False, 13),
+    (1, 9, 64, 0.025, False, False, 14), (2, 33, 128, 0.012, False, True, 15),
+    (1, 37, 512, 0.003, False, True, 16), (1, 37, 256, 0.5, False, False, 17),
+    (2, 8, 256, 0.0, False, False, 18)]
+
+
+def check_combine(B, C, MV, density, p_eye, eye_start, seed):
     import numpy as np
     import torch
     from jepsen_tpu_torch.ops import matrix_kernels as mk
     rng = np.random.default_rng(seed)
-    P = torch.from_numpy(rng.random((B, C, MV, MV)) < 0.02).cuda()
-    P = (P | torch.eye(MV, dtype=torch.bool, device="cuda")).to(
-        torch.bfloat16)
+    P = torch.from_numpy(rng.random((B, C, MV, MV)) < density).cuda()
+    if p_eye:
+        P = P | torch.eye(MV, dtype=torch.bool, device="cuda")
     if eye_start:
         tot0 = torch.eye(MV, device="cuda").expand(B, MV, MV)
     else:
         tot0 = torch.from_numpy(rng.random((B, MV, MV)) < 0.05).cuda()
-    tot0 = tot0.to(torch.bfloat16)
+    P, tot0 = P.to(torch.bfloat16), tot0.to(torch.bfloat16)
     got = mk.combine_product(P, tot0)
     ref = mk.combine_product_torch(P, tot0)
     torch.cuda.synchronize()
     equal = bool(torch.equal(got, ref))
+    ones = int(ref.float().sum().item())
     emit({"phase": "combine_product", "B": B, "C": C, "MV": MV,
-          "equal": equal, "ones": int(ref.float().sum().item())})
+          "density": density, "equal": equal, "ones": ones})
     if not equal:
         raise AssertionError(f"combine_product {(B, C, MV)} differs")
+    if (ones == 0) != (density == 0.0 and not p_eye and C > 0):
+        raise AssertionError(f"combine_product {(B, C, MV)}: {ones} ones")
+
+
+def device_kernels(fn):
+    """[(kernel name, device us)] of the CUDA kernels that one call of
+    ``fn()`` runs, in launch order, from ``torch.profiler`` (after one
+    warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    return [(e.name.replace("(anonymous namespace)::", "").split("(")[0]
+             .removeprefix("void "), e.time_range.end - e.time_range.start)
+            for e in evs]
 
 
 def headline_inputs(stream):
@@ -166,8 +203,8 @@ def main() -> int:
     check_chunk_product("mv256_headline_plan", 5, 8, 64, 256, 64, 2)
     check_chunk_product("mv512", 6, 8, 16, 64, 32, 3)
     check_chunk_product("mv512_s8", 8, 2, 16, 32, 16, 4)
-    check_combine(1, 256, 256, 5, eye_start=True)
-    check_combine(4, 8, 512, 6, eye_start=False)
+    for case in COMBINE_CASES:
+        check_combine(*case)
 
     # 5. the main path
     history = register_history(N_OPS, n_procs=N_PROCS, seed=SEED,
@@ -209,6 +246,12 @@ def main() -> int:
         matrix_check(stream)
         torch.cuda.synchronize()
         mc_s.append(time.perf_counter() - t0)
+    # device time of one check, by kernel (the profiler's own cost is in
+    # its wall time, so the busy share is taken against median_check_s)
+    by_name = {}
+    for kname, us in device_kernels(lambda: chk.check({}, history, {})):
+        by_name[kname] = by_name.get(kname, 0.0) + us
+    busy_ms = sum(by_name.values()) / 1e3
     bad = corrupt_reads(history, n=2, seed=0)
     got_bad = chk.check({}, bad, {})
     cpu_bad = linearizable(accelerator="cpu").check({}, bad, {})
@@ -222,6 +265,10 @@ def main() -> int:
           "ops_per_sec": N_OPS / med,
           "median_encode_s": statistics.median(enc_s),
           "median_matrix_check_s": statistics.median(mc_s),
+          "device_busy_ms": busy_ms,
+          "device_busy_share": busy_ms / 1e3 / med,
+          "device_us_by_kernel": sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:8],
           "invalid_copy_failed_op":
           got_bad.get("failed-op"), "card": name, "power": smi})
 
@@ -273,10 +320,20 @@ def main() -> int:
                         "bound_by": b_by, "library_ms": None})
         if err != 0.0:
             raise AssertionError(f"{kname} differs at the headline shape")
+    # the combine's CUDA launches and device time, from the profiler, and
+    # the density of P, which its time depends on (products run over set
+    # bits)
+    comb_k = device_kernels(lambda: mk.combine_product(P4, tot0))
+    if not comb_k:
+        raise AssertionError("the profiler saw no combine kernel")
+    kernels[1].update(cuda_launches_per_call=len(comb_k),
+                      device_ms=sum(us for _, us in comb_k) / 1e3,
+                      p_ones_frac=kern_P.float().mean().item())
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,
-          "combine_ops": ops_c, "combine_bytes": bytes_c})
+          "combine_ops": ops_c, "combine_bytes": bytes_c,
+          "combine_kernels_us": comb_k})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,8 +7,9 @@ parallel (one ``nvcc`` each, all started together) at first use; a
 library already built from the same source is reused. A build failure
 raises with the compiler's output.
 
-Every C entry takes its pointers and the CUDA stream as ``void*`` and
-returns ``cudaGetLastError()`` after its launch.
+Every C entry takes its pointers and the CUDA stream as ``void*``,
+enqueues its launches without synchronising, and returns the first
+non-zero ``cudaGetLastError()`` of its launches (0 when all were taken).
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "chunk_product": ("jt_chunk_product",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "chunk_combine": ("jt_chunk_combine", [_P, _P, _P, _I, _I, _I, _P]),
+    "chunk_combine": ("jt_chunk_combine",
+                      [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

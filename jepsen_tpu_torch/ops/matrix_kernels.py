@@ -18,8 +18,9 @@ import ctypes
 import numpy as np
 import torch
 
-# The kernels keep three bit-packed [MV, MV] matrices resident in shared
-# memory (3 * 32 KB at MV = 512); the counterpart of
+# The chunk product keeps three bit-packed [MV, MV] matrices resident in
+# shared memory (3 * 32 KB at MV = 512), and so does the combine at most;
+# the counterpart of
 # jepsen_tpu/ops/pallas_matrix.py:98 PALLAS_MAX_MV.
 KERNEL_MAX_MV = 512
 KERNEL_MAX_SLOTS = 8
@@ -143,7 +144,9 @@ def combine_product(P, tot0):
     """total[b] = P[b, C-1] @ ... @ P[b, 0] @ tot0[b], thresholded > 0
     after every product. P [B, C, MV, MV] 0/1 (bf16), tot0 [B, MV, MV]
     0/1 (bf16) -> total [B, MV, MV] bf16 — the layout of
-    jepsen_tpu/ops/pallas_matrix.py ``_build_combine``."""
+    jepsen_tpu/ops/pallas_matrix.py ``_build_combine``. On the card the
+    products are bit-packed into a workspace and multiplied as a tree
+    spread over all SMs (``csrc/chunk_combine.cu``)."""
     if P.device.type == "cpu":
         return combine_product_torch(P, tot0)
     if P.device.type != "cuda":
@@ -152,8 +155,9 @@ def combine_product(P, tot0):
     if MV != MV2 or tuple(tot0.shape) != (B, MV, MV):
         raise ValueError(f"combine_product: shapes {tuple(P.shape)} and "
                          f"{tuple(tot0.shape)} do not chain")
-    if MV > KERNEL_MAX_MV:
-        raise ValueError(f"combine_product: MV={MV} > {KERNEL_MAX_MV}")
+    if not _is_pow2(MV) or not 8 <= MV <= KERNEL_MAX_MV:
+        raise ValueError(f"combine_product: MV={MV} outside the kernel "
+                         f"(a power of two, 8 <= MV <= {KERNEL_MAX_MV})")
     if tot0.device != P.device:
         raise ValueError("combine_product: inputs on different devices")
     dev = P.device
@@ -163,11 +167,17 @@ def combine_product(P, tot0):
     out = torch.empty((B, MV, MV), dtype=torch.bfloat16, device=dev)
     if B == 0:
         return out
+    # bit-packed [MV, W] nodes: the C + 1 leaves per key, and the
+    # ping-pong buffer for the tree's first level (sized for a fan-in of
+    # 2, enough for any)
+    W = (MV + 31) // 32
+    ws = torch.empty((B * (C + 1 + (C + 2) // 2) * MV * W,),
+                     dtype=torch.int32, device=dev)
     from jepsen_tpu_torch.ops import _build
     lib = _build.library("chunk_combine")
     with torch.cuda.device(dev):
-        rc = lib.jt_chunk_combine(_ptr(Pb), _ptr(tb), _ptr(out), B, C, MV,
-                                  _stream(dev))
+        rc = lib.jt_chunk_combine(_ptr(Pb), _ptr(tb), _ptr(out), _ptr(ws),
+                                  B, C, MV, _stream(dev))
     _check_launch(rc, "combine_product")
     combine_product.launches += 1
     return out

@@ -79,15 +79,20 @@ def test_static_tables_copy_matches_reference():
             assert np.array_equal(got, ref)
 
 
-@pytest.mark.parametrize("B,C,MV,eye", [(2, 5, 64, True), (2, 5, 64, False),
-                                        (1, 3, 16, False)])
-def test_combine_matches_pallas_interpret_and_oracle(B, C, MV, eye):
+@pytest.mark.parametrize("B,C,MV,eye,density", [
+    pytest.param(2, 5, 64, True, 0.2, id="2-5-64-True"),
+    pytest.param(2, 5, 64, False, 0.2, id="2-5-64-False"),
+    pytest.param(1, 3, 16, False, 0.2, id="1-3-16-False"),
+    pytest.param(1, 1, 32, False, 0.2, id="c1"),
+    pytest.param(1, 9, 32, False, 0.5, id="odd-c9-dense"),
+    pytest.param(3, 4, 16, False, 0.2, id="b3-random-tot0")])
+def test_combine_matches_pallas_interpret_and_oracle(B, C, MV, eye, density):
     import jax.numpy as jnp
     from jepsen_tpu.ops.pallas_matrix import _build_combine, _combine_oracle
     from jepsen_tpu_torch.ops import matrix_kernels as mk
 
     rng = np.random.default_rng(1)
-    P = (rng.random((B, C, MV, MV)) < 0.2).astype(np.float32)
+    P = (rng.random((B, C, MV, MV)) < density).astype(np.float32)
     tot0 = (np.broadcast_to(np.eye(MV, dtype=np.float32), (B, MV, MV)).copy()
             if eye else (rng.random((B, MV, MV)) < 0.1).astype(np.float32))
     ref = _combine_oracle(P, tot0)
@@ -163,8 +168,25 @@ def test_wrappers_run_plain_on_cpu_and_reject_other_devices():
         mk.chunk_product(*(a.to("meta") for a in args), 1, 8)
 
 
+# (B, C, MV, density of P, P holds the identity, tot0 is the identity,
+# seed): the combine cases of chip_smoke.py — C = 0, 1, 2, odd C, B > 1,
+# MV 16 to 512, saturating and all-zero P
+CARD_COMBINE_CASES = [
+    (1, 256, 256, 0.02, True, True, 5), (4, 8, 512, 0.02, True, False, 6),
+    (2, 0, 64, 0.02, True, False, 7), (1, 1, 256, 0.02, True, False, 8),
+    (1, 2, 256, 0.006, False, True, 9), (1, 37, 256, 0.006, False, False, 10),
+    (1, 255, 256, 0.006, False, False, 11),
+    (3, 16, 128, 0.012, False, False, 12), (2, 7, 16, 0.1, False, False, 13),
+    (1, 9, 64, 0.025, False, False, 14), (2, 33, 128, 0.012, False, True, 15),
+    (1, 37, 512, 0.003, False, True, 16), (1, 37, 256, 0.5, False, False, 17),
+    (2, 8, 256, 0.0, False, False, 18)]
+
+
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card(cuda_device):
+@pytest.mark.parametrize("B,C,MV,density,p_eye,eye_start,seed",
+                         CARD_COMBINE_CASES)
+def test_kernels_match_plain_on_card(cuda_device, B, C, MV, density, p_eye,
+                                     eye_start, seed):
     """On the card: both kernels bit-equal to their plain versions."""
     from jepsen_tpu_torch.ops import matrix_kernels as mk
 
@@ -173,9 +195,13 @@ def test_kernels_match_plain_on_card(cuda_device):
             for a in _inputs(S, V, T, U, G, live=True)]
     assert torch.equal(mk.chunk_product(*args, S, V),
                        mk.chunk_product_torch(*args, S, V))
-    P = (torch.rand(2, 5, 64, 64, device=cuda_device) < 0.1).to(
-        torch.bfloat16)
-    tot0 = torch.eye(64, device=cuda_device, dtype=torch.bfloat16).expand(
-        2, 64, 64)
+    rng = np.random.default_rng(seed)
+    P = rng.random((B, C, MV, MV)) < density
+    if p_eye:
+        P = P | np.eye(MV, dtype=bool)
+    tot0 = (np.broadcast_to(np.eye(MV, dtype=bool), (B, MV, MV))
+            if eye_start else rng.random((B, MV, MV)) < 0.05)
+    P, tot0 = (torch.from_numpy(np.array(x)).to(
+        cuda_device, torch.bfloat16) for x in (P, tot0))
     assert torch.equal(mk.combine_product(P, tot0),
                        mk.combine_product_torch(P, tot0))
