@@ -47,37 +47,51 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def random_chunk_inputs(S, V, T, G, U, seed):
+def random_chunk_inputs(S, V, T, G, U, seed, kind="live"):
     """Seeded chunk-product inputs on the card; about a fifth of the
     steps are padding (valid = 0), slots cover 0 .. S-1, and the
     returning slot is pending, as in a real history (else the kill
-    empties every product)."""
+    empties every product). ``kind`` reshapes them: "write" makes every
+    slot pending at every valid step and every op a write (one all-ones
+    transition row, the densest closure rows); "one_state" lets every op
+    keep the state (for V = 1); "padding_chunk" makes chunk 0 all
+    padding."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     pend = rng.random((T, G, S)) < 0.5
     slots = rng.integers(0, S, (T, G)).astype(np.int32)
     np.put_along_axis(pend, slots[..., None], True, axis=2)
-    arrs = (pend, rng.integers(0, U, (T, G, S)).astype(np.int32),
-            (rng.random((U, V, V)) < 0.3).astype(np.float32), slots,
-            (rng.random((T, G)) < 0.8))
-    if slots.max() != S - 1:
+    pend, ids, mtT, slots, valid = (
+        pend, rng.integers(0, U, (T, G, S)).astype(np.int32),
+        (rng.random((U, V, V)) < 0.3).astype(np.float32), slots,
+        (rng.random((T, G)) < 0.8))
+    if kind == "write":
+        pend[:] = True
+        mtT[:] = 0.0
+        mtT[np.arange(U), np.arange(U) % V, :] = 1.0
+    elif kind == "one_state":
+        mtT[:] = 1.0
+    elif kind == "padding_chunk":
+        valid[:, 0] = False
+    if T * G > 1 and slots.max() != S - 1:
         raise AssertionError("the slots must reach S - 1")
-    return [torch.from_numpy(a).cuda() for a in arrs]
+    return [torch.from_numpy(a).cuda()
+            for a in (pend, ids, mtT, slots, valid)]
 
 
-def check_chunk_product(name, S, V, T, G, U, seed):
+def check_chunk_product(name, S, V, T, G, U, seed, kind="live"):
     import torch
     from jepsen_tpu_torch.ops import matrix_kernels as mk
-    args = random_chunk_inputs(S, V, T, G, U, seed)
+    args = random_chunk_inputs(S, V, T, G, U, seed, kind)
     got = mk.chunk_product(*args, S, V)
     ref = mk.chunk_product_torch(*args, S, V)
     torch.cuda.synchronize()
     equal = bool(torch.equal(got, ref))
     ones = int(ref.float().sum().item())
-    emit({"phase": "chunk_product", "case": name, "S": S, "V": V,
-          "MV": (1 << S) * V, "T": T, "G": G, "U": U, "equal": equal,
-          "ones": ones})
+    emit({"phase": "chunk_product", "case": name, "kind": kind, "S": S,
+          "V": V, "MV": (1 << S) * V, "T": T, "G": G, "U": U,
+          "equal": equal, "ones": ones})
     if not equal:
         raise AssertionError(f"chunk_product {name} differs from plain")
     if ones == 0:
@@ -144,6 +158,56 @@ def device_kernels(fn):
             for e in evs]
 
 
+def chunk_entry_call(fn, args, S, V):
+    """A no-argument call of the chunk-product C entry ``fn`` on the
+    operands the wrapper derives from ``args``: the kernel alone, with no
+    range check or operand prep. Returns the output tensor."""
+    import ctypes
+    import torch
+    from jepsen_tpu_torch.ops import matrix_kernels as mk
+    T, G, _ = args[0].shape
+    MV = (1 << S) * V
+    tensors = (*mk.chunk_operands(*args, S, V),
+               torch.empty((G, MV, MV), dtype=torch.bfloat16, device="cuda"))
+    out = tensors[-1]
+
+    def call():
+        rc = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors), T, G, S,
+                V, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"chunk_product launch failed: {rc}")
+        return out
+    return call
+
+
+def nvidia_smi(query: str) -> str:
+    """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def level_pass_words(pend, ids, mtT, slots, valid, S, V) -> float:
+    """Shared-memory words the chunk-product kernel reads for these
+    inputs: per valid return, (1 + sources) * W for each row its level
+    passes rewrite (level popcount(a & pm) >= 1; sources = the set bits
+    of mt_s[w] summed over the slots s in pm & a) and W for each of the
+    MV / 2 kill pairs, with W = MV / 32 words a row."""
+    import torch
+    M, MV = 1 << S, (1 << S) * V
+    W = max(1, MV // 32)
+    dev = pend.device
+    abits = ((torch.arange(M, device=dev)[:, None]
+              >> torch.arange(S, device=dev)) & 1).float()      # [M, S]
+    pf = (pend > 0).float()                                     # [T, G, S]
+    cnt = (mtT > 0).sum(dim=2).float()[ids.long()]              # [T, G, S, V]
+    level = torch.einsum("tgs,ms->tgm", pf, abits)
+    sources = torch.einsum("tgs,ms,tgsv->tgmv", pf, abits, cnt)
+    rows = ((1 + sources) * (level >= 1)[..., None]).sum(dim=(2, 3))
+    return float(((rows + MV // 2) * W * (valid > 0)).sum().item())
+
+
 def headline_inputs(stream):
     """The chunk-product and combine inputs the main path builds for
     ``stream`` (one key), on the card."""
@@ -181,12 +245,12 @@ def main() -> int:
 
     # 1. device
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = nvidia_smi("name,power.limit")
+    max_sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     emit({"phase": "device", "name": name, "count":
           torch.cuda.device_count(), "nvidia_smi": smi,
+          "max_sm_mhz": max_sm_mhz, "sms": n_sm,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # 2. build
@@ -203,6 +267,18 @@ def main() -> int:
     check_chunk_product("mv256_headline_plan", 5, 8, 64, 256, 64, 2)
     check_chunk_product("mv512", 6, 8, 16, 64, 32, 3)
     check_chunk_product("mv512_s8", 8, 2, 16, 32, 16, 4)
+    check_chunk_product("write_all_pending", 5, 8, 32, 64, 8, 5, "write")
+    check_chunk_product("s1", 1, 8, 64, 32, 4, 6)
+    check_chunk_product("v1_s8", 8, 1, 16, 16, 8, 7, "one_state")
+    check_chunk_product("v32_s4", 4, 32, 8, 16, 16, 8)
+    check_chunk_product("padding_chunk", 5, 8, 32, 16, 16, 9,
+                        "padding_chunk")
+    check_chunk_product("g1_t1", 5, 8, 1, 1, 8, 11)
+    # V is a template parameter of the kernel: with the cases above, one
+    # case for each V it takes (1, 2, 4, 8, 16, 32); V = 16 is the main
+    # path's for 9-16 distinct values
+    check_chunk_product("v16_s5", 5, 16, 16, 64, 32, 12)
+    check_chunk_product("v4_s6", 6, 4, 32, 64, 16, 13)
     for case in COMBINE_CASES:
         check_combine(*case)
 
@@ -279,15 +355,34 @@ def main() -> int:
     kern_P = mk.chunk_product(*args, S, V)
     plain_P = mk.chunk_product_torch(*args, S, V)
     err_p = (kern_P.float() - plain_P.float()).abs().max().item()
+    entry = chunk_entry_call(_build.library("chunk_product")
+                             .jt_chunk_product, args, S, V)
+    if not torch.equal(entry(), plain_P):
+        raise AssertionError("the chunk-product entry differs from plain")
+    # ms: the wrapper with its operand prep and range check, as the main
+    # path calls it and as the combine is timed; entry_ms: the kernel
+    # alone (C entry on the wrapper's operands)
     ms_p = cuda_ms(lambda: mk.chunk_product(*args, S, V), 20)
+    entry_ms_p = cuda_ms(entry, 50)
     plain_ms_p = cuda_ms(lambda: mk.chunk_product_torch(*args, S, V), 3)
-    # data-dependent work: each valid return runs the squarings its
-    # pending count needs plus one compose product (the kill is a gather)
+    prod_k = device_kernels(entry)
+    prod_us = sum(us for k, us in prod_k
+                  if k.startswith("chunk_product_kernel"))
+    if prod_us <= 0:
+        raise AssertionError(f"the profiler saw no chunk product: {prod_k}")
+    # the dense-product model (dense_bound_ms): each valid return runs
+    # the squarings its pending count needs plus one compose product, at
+    # the int8 tensor rate
     npend = hd["pend_np"].sum(axis=1)
     sq = sum((npend > (1 << q)).astype(int) for q in range(hd["n_sq"]))
     ops_p = float(((sq + 1) * 2.0 * MV ** 3).sum())
     bytes_p = (sum(a.numel() * a.element_size() for a in args)
                + C * MV * MV * 2)
+    # this design's bound: the bytes, or the shared-memory words its level
+    # and kill passes read at 32 words a clock per SM
+    words_p = level_pass_words(*args, S, V)
+    t_bytes_p = bytes_p / PEAK_BYTES
+    t_words_p = words_p / (n_sm * 32 * max_sm_mhz * 1e6)
     P4 = kern_P.reshape(1, C, MV, MV)
     tot0 = torch.eye(MV, dtype=torch.bfloat16, device="cuda")[None]
     kern_t = mk.combine_product(P4, tot0)
@@ -304,15 +399,16 @@ def main() -> int:
                 "operations" if t_ops >= t_bytes else "bytes")
 
     kernels = []
-    for kname, src, rep, err, ms, pms, ops, nb in (
+    for kname, src, rep, err, ms, pms, (b_ms, b_by) in (
             ("chunk_product", "jepsen_tpu_torch/ops/csrc/chunk_product.cu",
              "jepsen_tpu/ops/pallas_matrix.py:464", err_p, ms_p,
-             plain_ms_p, ops_p, bytes_p),
+             plain_ms_p,
+             (max(t_bytes_p, t_words_p) * 1e3,
+              "bytes" if t_bytes_p >= t_words_p else "operations")),
             ("combine_product",
              "jepsen_tpu_torch/ops/csrc/chunk_combine.cu",
              "jepsen_tpu/ops/pallas_matrix.py:824", err_c, ms_c,
-             plain_ms_c, ops_c, bytes_c)):
-        b_ms, b_by = bound(ops, nb)
+             plain_ms_c, bound(ops_c, bytes_c))):
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[kname],
                         "max_abs_err": err, "equal": err == 0.0,
@@ -320,6 +416,14 @@ def main() -> int:
                         "bound_by": b_by, "library_ms": None})
         if err != 0.0:
             raise AssertionError(f"{kname} differs at the headline shape")
+    # the chunk product's operations term counts shared-memory word reads
+    # (at 32 words a clock per SM), not int8 tensor operations
+    kernels[0].update(entry_ms=entry_ms_p, device_ms=prod_us / 1e3,
+                      dense_bound_ms=bound(ops_p, bytes_p)[0],
+                      bound_operations="shared_words",
+                      shared_words=words_p,
+                      shared_words_ms=t_words_p * 1e3)
+    kernels[1].update(bound_operations="int8_ops")
     # the combine's CUDA launches and device time, from the profiler, and
     # the density of P, which its time depends on (products run over set
     # bits)
@@ -332,6 +436,11 @@ def main() -> int:
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,
+          "chunk_product_shared_words": words_p,
+          "chunk_product_bytes_ms": t_bytes_p * 1e3,
+          "chunk_product_words_ms": t_words_p * 1e3,
+          "chunk_product_device_us": prod_us,
+          "chunk_product_kernels_us": prod_k,
           "combine_ops": ops_c, "combine_bytes": bytes_c,
           "combine_kernels_us": comb_k})
     emit({"kernels": kernels})

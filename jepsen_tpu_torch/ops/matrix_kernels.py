@@ -18,9 +18,9 @@ import ctypes
 import numpy as np
 import torch
 
-# The chunk product keeps three bit-packed [MV, MV] matrices resident in
-# shared memory (3 * 32 KB at MV = 512), and so does the combine at most;
-# the counterpart of
+# The chunk product keeps one bit-packed [MV, MV] matrix resident in
+# shared memory (32 KB at MV = 512), the combine at most three; the
+# counterpart of
 # jepsen_tpu/ops/pallas_matrix.py:98 PALLAS_MAX_MV.
 KERNEL_MAX_MV = 512
 KERNEL_MAX_SLOTS = 8
@@ -55,7 +55,10 @@ def chunk_product(pend, ids, mtT, slots, valid, S: int, V: int):
     pend [T,G,S] (0/1), ids [T,G,S] int (indices into mtT), mtT [U,V,V]
     (0/1, mtT[u, w, v] = transition v -> w), slots [T,G] int in [0, S),
     valid [T,G] (0/1) -> P [G, MV, MV] bf16 0/1 with MV = 2^S * V — the
-    layout of jepsen_tpu/ops/pallas_matrix.py ``_build``."""
+    layout of jepsen_tpu/ops/pallas_matrix.py ``_build``. On the card each
+    return's closure is computed row by row in level order on one
+    bit-packed matrix in shared memory, with no matrix products
+    (``csrc/chunk_product.cu``)."""
     if pend.device.type == "cpu":
         return chunk_product_torch(pend, ids, mtT, slots, valid, S, V)
     if pend.device.type != "cuda":
@@ -66,10 +69,10 @@ def chunk_product(pend, ids, mtT, slots, valid, S: int, V: int):
     if S_in != S or S > KERNEL_MAX_SLOTS:
         raise ValueError(f"chunk_product: S={S} (pend has {S_in} slots, "
                          f"kernel takes <= {KERNEL_MAX_SLOTS})")
-    if not _is_pow2(V) or V > KERNEL_MAX_V or MV > KERNEL_MAX_MV:
+    if not _is_pow2(V) or V > KERNEL_MAX_V or not 8 <= MV <= KERNEL_MAX_MV:
         raise ValueError(f"chunk_product: V={V}, MV={MV} outside the "
                          f"kernel (V a power of two <= {KERNEL_MAX_V}, "
-                         f"MV <= {KERNEL_MAX_MV})")
+                         f"8 <= MV <= {KERNEL_MAX_MV})")
     if (tuple(ids.shape) != (T, G, S) or tuple(slots.shape) != (T, G)
             or tuple(valid.shape) != (T, G)
             or tuple(mtT.shape) != (U, V, V)):
@@ -85,9 +88,30 @@ def chunk_product(pend, ids, mtT, slots, valid, S: int, V: int):
     if bool((((ids < 0) | (ids >= U)).any()
              | ((valid > 0) & ((slots < 0) | (slots >= S))).any()).item()):
         raise ValueError("chunk_product: an op id or slot out of range")
-    # the kernel's compact operands: the pending set as a bitmask per
-    # step, the returning slot (-1 for a padding step), and each uop's
-    # transition rows as V-bit words mtbits[u, w] = {v : mtT[u,w,v] > 0}
+    operands = chunk_operands(pend, ids, mtT, slots, valid, S, V)
+    out = torch.empty((G, MV, MV), dtype=torch.bfloat16, device=dev)
+    if G == 0:
+        return out
+    from jepsen_tpu_torch.ops import _build
+    lib = _build.library("chunk_product")
+    with torch.cuda.device(dev):
+        rc = lib.jt_chunk_product(*(_ptr(x) for x in operands), _ptr(out),
+                                  T, G, S, V, _stream(dev))
+    _check_launch(rc, "chunk_product")
+    chunk_product.launches += 1
+    return out
+
+
+chunk_product.launches = 0
+
+
+def chunk_operands(pend, ids, mtT, slots, valid, S: int, V: int):
+    """The chunk-product kernel's compact operands, in the order of the C
+    entry ``jt_chunk_product``: the pending set as a bitmask per step
+    [T, G], the returning slot (-1 for a padding step) [T, G], the op ids
+    [T, G, S], and each uop's transition rows as V-bit words mtbits[u, w]
+    = {v : mtT[u, w, v] > 0} [U, V], all int32 and contiguous."""
+    dev = pend.device
     bits = torch.arange(S, dtype=torch.int32, device=dev)
     pmask = ((pend > 0).to(torch.int32) << bits).sum(
         dim=2, dtype=torch.int32).contiguous()
@@ -98,22 +122,7 @@ def chunk_product(pend, ids, mtT, slots, valid, S: int, V: int):
     words = ((mtT > 0).to(torch.int64) << vbits).sum(dim=2)
     mtbits = torch.where(words >= (1 << 31), words - (1 << 32),
                          words).to(torch.int32).contiguous()
-    ids32 = ids.to(torch.int32).contiguous()
-    out = torch.empty((G, MV, MV), dtype=torch.bfloat16, device=dev)
-    if G == 0:
-        return out
-    from jepsen_tpu_torch.ops import _build
-    lib = _build.library("chunk_product")
-    with torch.cuda.device(dev):
-        rc = lib.jt_chunk_product(
-            _ptr(pmask), _ptr(sv), _ptr(ids32), _ptr(mtbits), _ptr(out),
-            T, G, S, V, _stream(dev))
-    _check_launch(rc, "chunk_product")
-    chunk_product.launches += 1
-    return out
-
-
-chunk_product.launches = 0
+    return pmask, sv, ids.to(torch.int32).contiguous(), mtbits
 
 
 def chunk_product_torch(pend, ids, mtT, slots, valid, S: int, V: int):

@@ -1,6 +1,6 @@
-"""jepsen_tpu_torch and chip_smoke.py stand alone: no module of the port
-and no line of chip_smoke.py imports ``jax`` or ``jepsen_tpu``, and a CPU
-check through the port leaves neither in ``sys.modules``."""
+"""jepsen_tpu_torch, chip_smoke.py and combine_sweep.py stand alone: none
+of their lines imports ``jax`` or ``jepsen_tpu``, and a CPU check through
+the port leaves neither in ``sys.modules``."""
 from __future__ import annotations
 
 import ast
@@ -17,7 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "jepsen_tpu")
 
 def _sources():
     return sorted((ROOT / "jepsen_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "combine_sweep.py"]
 
 
 def _imported_roots(path: Path):

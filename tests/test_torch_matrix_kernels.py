@@ -70,6 +70,98 @@ def test_chunk_product_matches_numpy_oracle(S, V, T, U, G, seed, live):
     assert np.array_equal(mk._oracle_product(S, V, *args), ref)
 
 
+def _level_order_replay(S, V, pend, ids, mtT, slots, valid):
+    """Numpy replay of csrc/chunk_product.cu over dense 0/1 rows: per
+    valid return, P's rows are rewritten in place level by level (level
+    = number of pending bits of the mask a),
+        X(a, w) = P(a, w) | OR_{s in pm & a} OR_{v in mt_s[w]} X(a^2^s, v)
+    then the kill moves row block a | 2^slot into block a and zeroes it,
+    for each a with bit slot clear."""
+    M = 1 << S
+    T, G = slots.shape
+    out = np.zeros((G, M * V, M * V), np.float32)
+    for g in range(G):
+        P = np.eye(M * V, dtype=bool)
+        for t in range(T):
+            if not valid[t, g]:
+                continue
+            pm = sum(1 << s for s in range(S) if pend[t, g, s])
+            for p in range(1, bin(pm).count("1") + 1):
+                for a in range(M):
+                    if bin(a & pm).count("1") != p:
+                        continue
+                    for s in range(S):
+                        if (a & pm) >> s & 1:
+                            b = a ^ (1 << s)
+                            mt = mtT[ids[t, g, s]] > 0     # [w, v]
+                            P[a * V:(a + 1) * V] |= (
+                                mt.astype(np.int64)
+                                @ P[b * V:(b + 1) * V].astype(np.int64)) > 0
+            s = slots[t, g]
+            for a in range(M):
+                if not a >> s & 1:
+                    hi = (a | (1 << s)) * V
+                    P[a * V:(a + 1) * V] = P[hi:hi + V]
+                    P[hi:hi + V] = False
+        out[g] = P
+    return out
+
+
+def _corner_inputs(kind, S, V, T, U, G, seed):
+    """`_inputs` with live returns, reshaped by ``kind`` to exercise one
+    corner of the chunk-product kernel."""
+    pend, ids, mtT, slots, valid = _inputs(S, V, T, U, G, seed, live=True)
+    if kind == "all_pending_write":
+        # a write moves every old state to its value: one all-ones row
+        pend[:] = 1.0
+        mtT[:] = 0.0
+        for u in range(U):
+            mtT[u, u % V, :] = 1.0
+    elif kind == "one_state":
+        mtT[:] = 1.0           # V = 1: every op keeps the one state
+    elif kind == "padding_chunk":
+        valid[:, 1 % G] = 0.0
+    elif kind == "slot_not_pending":
+        # step 1 returns a slot that is not pending, in every chunk
+        np.put_along_axis(pend[1], slots[1, :, None], 0.0, axis=1)
+        valid[1] = 1.0
+    return pend, ids, mtT, slots, valid
+
+
+# case: (kind, S, V, T, U, G, seed)
+REPLAY_CASES = {
+    "all_pending_write": ("all_pending_write", 3, 4, 5, 4, 2, 11),
+    "s1": ("live", 1, 8, 6, 4, 2, 12),
+    "v1_s4": ("one_state", 4, 1, 6, 2, 2, 13),
+    "v32_s2": ("live", 2, 32, 3, 4, 2, 14),
+    "v16_s3": ("live", 3, 16, 4, 8, 2, 16),
+    "padding_chunk": ("padding_chunk", 3, 8, 5, 8, 3, 15),
+    "slot_not_pending": ("slot_not_pending", 3, 4, 8, 4, 3, 17),
+    "live_s5_v8": ("live", 5, 8, 4, 16, 2, 17)}
+
+
+@pytest.mark.parametrize("case", list(REPLAY_CASES))
+def test_level_order_replay_matches_oracle_and_pallas(case):
+    """The chunk-product kernel's algorithm (level-order closure, kill by
+    row pairs) equals the reference's squarings-then-products, exactly."""
+    from jepsen_tpu.ops.pallas_matrix import _build, _oracle_product
+
+    kind, S, V, *shape = REPLAY_CASES[case]
+    args = _corner_inputs(kind, S, V, *shape)
+    got = _level_order_replay(S, V, *args)
+    ref = _oracle_product(S, V, *args)
+    assert ref.sum() > 0
+    assert np.array_equal(got, ref)
+    pallas = np.asarray(_build(S, V, args[0].shape[0], args[2].shape[0],
+                               interpret=True, variant="f32")(*args))
+    assert np.array_equal(got, pallas.astype(np.float32))
+    assert np.array_equal(_port(S, V, args), ref)
+    if case == "padding_chunk":
+        assert np.array_equal(got[1], np.eye(got.shape[1]))
+    if case == "slot_not_pending":
+        assert (ref.sum(axis=(1, 2)) > 0).all()
+
+
 def test_static_tables_copy_matches_reference():
     from jepsen_tpu.ops.pallas_matrix import _static_tables as ref_tables
     from jepsen_tpu_torch.ops.matrix_kernels import _static_tables
@@ -182,19 +274,43 @@ CARD_COMBINE_CASES = [
     (2, 8, 256, 0.0, False, False, 18)]
 
 
+# chunk-product cases on the card, (kind, S, V, T, U, G, seed): the
+# shapes of chip_smoke.py's — dense write rows with every slot pending,
+# S = 1, V = 1 at MV = 256, V = 32 at MV = 512, a padding chunk, G = T = 1,
+# and V = 16 (the main path's V for 9-16 values) and V = 4, so that every
+# V the kernel is instantiated for (1 to 32) runs
+CARD_CHUNK_CASES = {
+    "live_s3_v8": ("live", 3, 8, 16, 16, 8, 0),
+    "all_pending_write": ("all_pending_write", 5, 8, 32, 8, 64, 21),
+    "s1": ("live", 1, 8, 64, 4, 32, 22),
+    "v1_s8": ("one_state", 8, 1, 16, 8, 16, 23),
+    "v32_s4": ("live", 4, 32, 8, 16, 16, 24),
+    "padding_chunk": ("padding_chunk", 5, 8, 32, 16, 16, 25),
+    "g1_t1": ("live", 5, 8, 1, 8, 1, 26),
+    "v16_s5": ("live", 5, 16, 16, 32, 32, 27),
+    "v4_s6": ("live", 6, 4, 32, 16, 32, 28),
+    "v2_s7": ("live", 7, 2, 16, 8, 16, 29)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,C,MV,density,p_eye,eye_start,seed",
-                         CARD_COMBINE_CASES)
-def test_kernels_match_plain_on_card(cuda_device, B, C, MV, density, p_eye,
-                                     eye_start, seed):
+@pytest.mark.parametrize("kernel,case", [
+    *(pytest.param("combine", c, id="-".join(map(str, c)))
+      for c in CARD_COMBINE_CASES),
+    *(pytest.param("chunk", c, id=name)
+      for name, c in CARD_CHUNK_CASES.items())])
+def test_kernels_match_plain_on_card(cuda_device, kernel, case):
     """On the card: both kernels bit-equal to their plain versions."""
     from jepsen_tpu_torch.ops import matrix_kernels as mk
 
-    S, V, T, U, G = 3, 8, 16, 16, 8
-    args = [torch.from_numpy(a).to(cuda_device)
-            for a in _inputs(S, V, T, U, G, live=True)]
-    assert torch.equal(mk.chunk_product(*args, S, V),
-                       mk.chunk_product_torch(*args, S, V))
+    if kernel == "chunk":
+        kind, S, V, *shape = case
+        args = [torch.from_numpy(a).to(cuda_device)
+                for a in _corner_inputs(kind, S, V, *shape)]
+        ref = mk.chunk_product_torch(*args, S, V)
+        assert ref.float().sum() > 0
+        assert torch.equal(mk.chunk_product(*args, S, V), ref)
+        return
+    B, C, MV, density, p_eye, eye_start, seed = case
     rng = np.random.default_rng(seed)
     P = rng.random((B, C, MV, MV)) < density
     if p_eye:
