@@ -1,13 +1,21 @@
 """Linearizability checker for CASRegister histories.
 
 Reference surface: jepsen.checker/linearizable (checker.clj:185-216) as
-ported by jepsen_tpu/checker/linearizable.py. Two rungs, tried in order:
+ported by jepsen_tpu/checker/linearizable.py. Three rungs, tried in
+order:
 
 * ``torch-matrix`` — the block-composed transfer-matrix check
   (ops/jitlin.matrix_check) on the device, for histories in its regime.
   An exact True settles valid; False or inexact passes the history on.
+* ``torch-frontier`` — the reference's ``jitlin-device`` rung: the
+  frontier scan of the whole history (ops/jitlin.JitLinKernel, the
+  dense-table or sparse-frontier kernel) on the device. It settles
+  valid, or invalid with the event at which the frontier died; an
+  overflowed frontier that died ("unknown") passes the history on.
+  Streams with more than 32 slots (masks are uint32) skip it.
 * ``cpu`` — the exact CPU twin (linear_cpu.check_stream), which settles
-  everything the matrix rung did not, with the failing op.
+  everything the device rungs did not, with the failing op. After a
+  device rung ran, its algorithm reads ``jitlin-cpu(fallback)``.
 
 ``accelerator`` is "gpu" (the device rung whenever in regime), "cpu" or
 "auto" (the device rung from AUTO_TPU_THRESHOLD events up).
@@ -33,6 +41,10 @@ AUTO_TPU_THRESHOLD = 512
 # Failure reports re-run the exact CPU search to recover the dying
 # frontier; skip that recovery for histories longer than this.
 MAX_REPORT_EVENTS = 200_000
+
+# The frontier rung's sparse capacity K
+# (jepsen_tpu/checker/linearizable.py:54).
+FRONTIER_CAPACITY = 256
 
 ACCELERATORS = ("gpu", "cpu", "auto")
 
@@ -66,7 +78,9 @@ class LinearizableChecker(Checker):
         return self._finish(res, history, stream, init_id)
 
     def _search_stream(self, stream, spec, accelerator) -> LinearResult:
-        from jepsen_tpu_torch.ops.jitlin import matrix_check, matrix_ok
+        from jepsen_tpu_torch.ops.frontier_kernels import SPARSE_MAX_SLOTS
+        from jepsen_tpu_torch.ops.jitlin import (
+            JitLinKernel, matrix_check, matrix_ok, verdict)
 
         device_regime = not (accelerator == "cpu" or (
             accelerator == "auto" and len(stream) < AUTO_TPU_THRESHOLD))
@@ -83,6 +97,22 @@ class LinearizableChecker(Checker):
                 # :347-383 with explain off: only an exact True settles
                 if m is not None and not m[2] and m[0]:
                     return LinearResult(valid=True, algorithm="torch-matrix")
+            # the dense table takes S <= 12, so the uint32 masks bound both
+            if stream.n_slots <= SPARSE_MAX_SLOTS:
+                attempted = True
+                # copied from jepsen_tpu/checker/linearizable.py:485-502
+                kernel = JitLinKernel(step_ids=spec.step_ids,
+                                      init_state=spec.init_state,
+                                      device=self.device)
+                alive, died, overflow, peak = kernel.check(
+                    stream, capacity=FRONTIER_CAPACITY)
+                valid = verdict(alive, overflow)
+                if valid != "unknown":
+                    return LinearResult(
+                        valid=valid, failed_event=died,
+                        failed_op_index=(int(stream.op_index[died])
+                                         if died >= 0 else -1),
+                        configs_max=peak, algorithm="torch-frontier")
         res = check_stream(stream, step=cas_register_step_py,
                            init_state=spec.init_state)
         if attempted:

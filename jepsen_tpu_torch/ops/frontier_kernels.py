@@ -1,0 +1,391 @@
+"""The frontier scans of the ``jitlin-device`` rung: wrappers around the
+hand-written Hopper kernels in ``csrc/``, and their plain torch versions.
+
+A *configuration* is (mask, state): ``mask`` the bitset of pending-op
+slots already linearized, ``state`` the interned model state. Both scans
+walk one history's events in order: an invoke opens its slot's op, a
+return first closes the frontier under "linearize any pending op not yet
+linearized" and then keeps only the configurations that linearized the
+returning op, clearing its bit. The verdict is whether any configuration
+survives the last return.
+
+* :func:`frontier_dense` — the exact frontier as a dense ``[2^S, V]``
+  boolean table (jepsen_tpu/ops/jitlin.py ``_build_dense_step``). It
+  covers the whole configuration space, so it cannot overflow; a
+  transition leaving ``[0, V)`` sets ``inexact``.
+* :func:`frontier_sparse` — a capacity-K list of (uint32 mask, int32
+  state) pairs kept sorted and distinct (jepsen_tpu/ops/jitlin.py
+  ``_build_step``). Past K distinct configurations the K smallest are
+  kept and ``overflow`` is set.
+
+Both return the reference's ``run.resume`` results, the verdict and the
+final frontier, and match it bit for bit. A wrapper takes its plain
+version only for tensors that lie on the CPU; for CUDA tensors it
+launches its kernel once for the whole history, or raises. Each wrapper
+counts its kernel launches in ``.launches``. The kernels carry a copy of
+the CAS-register transition, so on CUDA a wrapper raises for any other
+``step_ids``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from jepsen_tpu_torch.models import _cas_step_ids
+from jepsen_tpu_torch.ops.matrix_kernels import _check_launch, _ptr, _stream
+
+EV_INVOKE, EV_RETURN, EV_NOOP = 0, 1, 2
+# copied from jepsen_tpu/ops/jitlin.py:110-111
+SENTINEL_MASK = 0xFFFFFFFF
+SENTINEL_STATE = 0x7FFFFFFF
+
+# The dense kernel keeps the table bit-packed in shared memory, with a
+# level-order table of its 2^S rows (jitlin.DENSE_MAX_SLOTS).
+DENSE_MAX_SLOTS = 12
+DENSE_MAX_V = 512
+# Masks are uint32, as in the reference.
+SPARSE_MAX_SLOTS = 32
+# The sparse kernel sorts its candidates, the frontier and each entry's
+# expansions, in shared memory: at most SPARSE_MAX_CANDIDATES pairs.
+SPARSE_MAX_CANDIDATES = 1 << 14
+
+
+def _host_events(kind, slot, f, a, b):
+    """The event columns as host int64 numpy arrays."""
+    return [np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x,
+                       dtype=np.int64) for x in (kind, slot, f, a, b)]
+
+
+def _device_events(kind, slot, f, a, b, device):
+    """The event columns as contiguous int32 tensors on ``device``."""
+    return [torch.as_tensor(x).to(device=device, dtype=torch.int32)
+            .contiguous() for x in (kind, slot, f, a, b)]
+
+
+def _check_events(ev, S: int, what: str) -> None:
+    kind, slot = ev[0], ev[1]
+    if kind.numel() and bool((((kind < 0) | (kind > EV_NOOP)).any()
+                              | ((kind != EV_NOOP)
+                                 & ((slot < 0) | (slot >= S))).any()).item()):
+        raise ValueError(f"{what}: an event kind or slot out of range "
+                         f"(S={S})")
+
+
+def _check_cas(step_ids, what: str) -> None:
+    if step_ids is not None and step_ids is not _cas_step_ids:
+        raise ValueError(f"{what}: the kernel computes the CAS-register "
+                         "transition only")
+
+
+# ---------------------------------------------------------------------------
+# dense table
+# ---------------------------------------------------------------------------
+
+def init_table(S: int, V: int, init_state: int, device=None) -> torch.Tensor:
+    """The dense scan's initial frontier: (mask 0, init_state) alone
+    (jepsen_tpu/ops/jitlin.py:370-373)."""
+    t = torch.zeros((1 << S, V), dtype=torch.bool, device=device)
+    t[0, init_state] = True
+    return t
+
+
+def frontier_dense(kind, slot, f, a, b, table0, step_ids=None):
+    """Dense-table frontier scan of one history from ``table0``.
+
+    kind/slot/f/a/b [E] int (events), table0 [2^S, V] bool -> (alive,
+    died, inexact, peak, table): 0-d tensors bool, int32, bool, int32 and
+    the final [2^S, V] bool table, as jepsen_tpu/ops/jitlin.py
+    ``_build_dense_step``'s ``run.resume`` returns them. ``died`` is the
+    index of the return at which the frontier emptied (-1 when it
+    survives), ``peak`` the largest closed table's population (at least
+    1). On the card one launch of ``csrc/frontier_dense.cu`` runs the
+    whole event loop."""
+    if table0.device.type == "cpu":
+        return frontier_dense_torch(kind, slot, f, a, b, table0, step_ids)
+    if table0.device.type != "cuda":
+        raise ValueError(f"frontier_dense: unsupported device "
+                         f"{table0.device}")
+    _check_cas(step_ids, "frontier_dense")
+    M, V = table0.shape
+    S = M.bit_length() - 1
+    if M != 1 << S or not 1 <= S <= DENSE_MAX_SLOTS \
+            or not 1 <= V <= DENSE_MAX_V:
+        raise ValueError(f"frontier_dense: table [{M}, {V}] outside the "
+                         f"kernel ([2^S, V], 1 <= S <= {DENSE_MAX_SLOTS}, "
+                         f"V <= {DENSE_MAX_V})")
+    dev = table0.device
+    ev = _device_events(kind, slot, f, a, b, dev)
+    _check_events(ev, S, "frontier_dense")
+    E = ev[0].numel()
+    t_in = table0.to(torch.uint8).contiguous()
+    t_out = torch.empty((M, V), dtype=torch.uint8, device=dev)
+    out = torch.empty((4,), dtype=torch.int32, device=dev)
+    from jepsen_tpu_torch.ops import _build
+    lib = _build.library("frontier_dense")
+    with torch.cuda.device(dev):
+        rc = lib.jt_frontier_dense(*(_ptr(x) for x in ev), _ptr(t_in),
+                                   _ptr(t_out), _ptr(out), E, S, V,
+                                   _stream(dev))
+    _check_launch(rc, "frontier_dense")
+    frontier_dense.launches += 1
+    return (out[0] != 0, out[1], out[2] != 0, out[3], t_out.to(torch.bool))
+
+
+frontier_dense.launches = 0
+
+
+def frontier_dense_torch(kind, slot, f, a, b, table0, step_ids=None):
+    """Plain torch version of :func:`frontier_dense`: the event loop of
+    jepsen_tpu/ops/jitlin.py:287-347 in Python over tensors on
+    ``table0``'s device. The closure is the reference's: S [M, V] x
+    [V, V] products a pass, iterated to a fixpoint (at most S passes).
+    The out-of-range flag of every invoke is computed up front: the
+    reference ORs it in at each invoke, dead frontier or not. The loop
+    stops at the return where the table empties: after it nothing
+    changes."""
+    if step_ids is None:
+        step_ids = _cas_step_ids
+    dev = table0.device
+    M, V = table0.shape
+    S = M.bit_length() - 1
+    kind, slot, f, a, b = _host_events(kind, slot, f, a, b)
+    rows = torch.arange(M, device=dev)
+    bits = 1 << torch.arange(S, device=dev)
+    xor_idx = rows[None, :] ^ bits[:, None]             # [S, M]
+    has_bit = (rows[None, :] & bits[:, None]) != 0      # [S, M]
+    v_range = torch.arange(V, dtype=torch.int32, device=dev)
+    inv = np.nonzero(kind == EV_INVOKE)[0]
+    # per invoke: the slot's [V, V] transition and its out-of-range flag
+    st2, ok = step_ids(v_range[None, :],
+                       *(torch.as_tensor(x[inv, None], dtype=torch.int32,
+                                         device=dev) for x in (f, a, b)))
+    oob = (ok & ((st2 < 0) | (st2 >= V))).any(dim=1)
+    inv_row = np.full(len(kind), -1)
+    inv_row[inv] = np.arange(len(inv))
+    mt = torch.zeros((S, V, V), dtype=torch.float32, device=dev)
+    table = table0.to(torch.bool).clone()
+    pend, died = 0, -1
+    peak = torch.ones((), dtype=torch.int32, device=dev)
+    for e in range(len(kind)):
+        s = int(slot[e])
+        if kind[e] == EV_INVOKE:
+            i = inv_row[e]
+            mt[s] = (ok[i, :, None]
+                     & (st2[i, :, None] == v_range[None, :])).float()
+            pend |= 1 << s
+        elif kind[e] == EV_RETURN:
+            tc = _dense_closure(table, pend, mt, xor_idx, has_bit, S)
+            table = torch.where(~has_bit[s][:, None], tc[xor_idx[s]], False)
+            peak = torch.maximum(peak, tc.sum(dtype=torch.int32))
+            pend &= ~(1 << s)
+            if not bool(table.any()):
+                # an empty table stays empty: nothing changes after this
+                died = e
+                break
+
+    def scalar(x, dtype):
+        return torch.tensor(x, dtype=dtype, device=dev)
+    return (scalar(died < 0, torch.bool), scalar(died, torch.int32),
+            oob.any(), peak, table)
+
+
+def _dense_closure(table, pend, mt, xor_idx, has_bit, S):
+    """jepsen_tpu/ops/jitlin.py:287-306: OR into every row r with bit t of
+    a pending slot t the image of row r ^ 2^t under t's transition,
+    until nothing changes (at most S passes)."""
+    pbits = torch.tensor([(pend >> t) & 1 for t in range(S)], dtype=torch.bool,
+                         device=table.device)
+    gate = (pbits[:, None] & has_bit)[:, :, None]       # [S, M, 1]
+    for _ in range(S):
+        donors = table[xor_idx].to(torch.float32)        # [S, M, V]
+        contrib = torch.einsum("smv,svw->smw", donors, mt) > 0
+        t2 = table | (contrib & gate).any(dim=0)
+        changed = bool((t2 != table).any())
+        table = t2
+        if not changed:
+            break
+    return table
+
+
+# ---------------------------------------------------------------------------
+# sparse frontier
+# ---------------------------------------------------------------------------
+
+# A (uint32 mask, int32 state) pair as one int64 sort key, ordered as the
+# reference's two-key lax.sort orders the pairs (mask unsigned, then
+# state signed): (mask - 2^31) * 2^32 + (state + 2^31). The sentinel pair
+# (0xFFFFFFFF, 0x7FFFFFFF) is the largest key, 2^63 - 1.
+SENTINEL_KEY = (1 << 63) - 1
+
+
+def _pack(mask, state):
+    return ((mask.to(torch.int64) - (1 << 31)) << 32) \
+        + (state.to(torch.int64) + (1 << 31))
+
+
+def _unpack(keys):
+    return (keys >> 32) + (1 << 31), (keys & 0xFFFFFFFF) - (1 << 31)
+
+
+def init_frontier(K: int, init_state: int, device=None):
+    """The sparse scan's initial frontier: (0, init_state) then K - 1
+    sentinel pairs (jepsen_tpu/ops/jitlin.py:241-245), as (uint32 mask,
+    int32 state) tensors."""
+    mask = torch.full((K,), SENTINEL_MASK, dtype=torch.int64, device=device)
+    state = torch.full((K,), SENTINEL_STATE, dtype=torch.int32, device=device)
+    mask[0] = 0
+    state[0] = init_state
+    return mask.to(torch.uint32), state
+
+
+def frontier_sparse(kind, slot, f, a, b, mask0, state0, n_slots: int,
+                    step_ids=None):
+    """Capacity-K sparse frontier scan of one history from ``(mask0,
+    state0)`` with ``n_slots`` slots.
+
+    kind/slot/f/a/b [E] int (events), mask0 [K] uint32, state0 [K] int32
+    -> (alive, died, overflow, peak, mask, state): 0-d tensors bool,
+    int32, bool, int32 and the final frontier, as jepsen_tpu/ops/jitlin.py
+    ``_build_step``'s ``run.resume`` returns them. ``overflow`` is set
+    when a closure pass found more than K distinct configurations;
+    ``peak`` is the largest closed frontier kept (at least 1). On the
+    card one launch of ``csrc/frontier_sparse.cu`` runs the whole event
+    loop."""
+    S, K = n_slots, mask0.shape[0]
+    if not 1 <= S <= SPARSE_MAX_SLOTS:
+        raise ValueError(f"frontier_sparse: S={S} outside 1 <= S <= "
+                         f"{SPARSE_MAX_SLOTS} (masks are uint32)")
+    if mask0.device.type == "cpu":
+        return frontier_sparse_torch(kind, slot, f, a, b, mask0, state0,
+                                     n_slots, step_ids)
+    if mask0.device.type != "cuda":
+        raise ValueError(f"frontier_sparse: unsupported device "
+                         f"{mask0.device}")
+    _check_cas(step_ids, "frontier_sparse")
+    if not 1 <= K or K * (S + 1) > SPARSE_MAX_CANDIDATES \
+            or tuple(state0.shape) != (K,):
+        raise ValueError(f"frontier_sparse: K={K} with S={S} outside the "
+                         f"kernel (K * (S + 1) <= {SPARSE_MAX_CANDIDATES})")
+    dev = mask0.device
+    if state0.device != dev:
+        raise ValueError("frontier_sparse: inputs on different devices")
+    ev = _device_events(kind, slot, f, a, b, dev)
+    _check_events(ev, S, "frontier_sparse")
+    E = ev[0].numel()
+    m_in = mask0.to(torch.uint32).contiguous()
+    s_in = state0.to(torch.int32).contiguous()
+    m_out = torch.empty((K,), dtype=torch.uint32, device=dev)
+    s_out = torch.empty((K,), dtype=torch.int32, device=dev)
+    out = torch.empty((4,), dtype=torch.int32, device=dev)
+    from jepsen_tpu_torch.ops import _build
+    lib = _build.library("frontier_sparse")
+    with torch.cuda.device(dev):
+        rc = lib.jt_frontier_sparse(*(_ptr(x) for x in ev), _ptr(m_in),
+                                    _ptr(s_in), _ptr(m_out), _ptr(s_out),
+                                    _ptr(out), E, S, K, _stream(dev))
+    _check_launch(rc, "frontier_sparse")
+    frontier_sparse.launches += 1
+    return out[0] != 0, out[1], out[2] != 0, out[3], m_out, s_out
+
+
+frontier_sparse.launches = 0
+
+
+def frontier_sparse_torch(kind, slot, f, a, b, mask0, state0, n_slots: int,
+                          step_ids=None, work: dict | None = None):
+    """Plain torch version of :func:`frontier_sparse`: the event loop of
+    jepsen_tpu/ops/jitlin.py:126-218 in Python over tensors on
+    ``mask0``'s device, with the pairs as int64 sort keys. With a
+    ``work`` dict it adds up the closure's work there: ``passes``,
+    ``candidates`` (the list's valid pairs and their expansions) and
+    ``compares`` (n log2 n for each pass's n candidates)."""
+    if step_ids is None:
+        step_ids = _cas_step_ids
+    dev = mask0.device
+    S, K = n_slots, mask0.shape[0]
+    kind, slot, f, a, b = _host_events(kind, slot, f, a, b)
+    slot_bits = 1 << torch.arange(S, dtype=torch.int64, device=dev)
+    cur = torch.zeros((3, S), dtype=torch.int32, device=dev)
+    keys = _pack(mask0, state0)
+    pend = 0
+    alive, died, overflow, peak = True, -1, False, 1
+    for e in range(len(kind)):
+        s = int(slot[e])
+        if kind[e] == EV_INVOKE:
+            cur[:, s] = torch.tensor([f[e], a[e], b[e]], dtype=torch.int32)
+            pend |= 1 << s
+        elif kind[e] == EV_RETURN:
+            keys, count, ovf = _sparse_closure(keys, pend, cur, slot_bits,
+                                               K, S, step_ids, work)
+            mask, state = _unpack(keys)
+            has = (mask != SENTINEL_MASK) & ((mask & (1 << s)) != 0)
+            k2 = torch.where(has, _pack(mask & ~(1 << s), state),
+                             SENTINEL_KEY)
+            keys, _ = _dedup_compact(k2, K)
+            overflow = overflow or ovf
+            peak = max(peak, count)
+            pend &= ~(1 << s)
+            if not bool((_unpack(keys)[0] != SENTINEL_MASK).any()):
+                # an empty list stays empty: nothing changes after this
+                alive, died = False, e
+                break
+    mask, state = _unpack(keys)
+
+    def scalar(x, dtype):
+        return torch.tensor(x, dtype=dtype, device=dev)
+    return (scalar(alive, torch.bool), scalar(died, torch.int32),
+            scalar(overflow, torch.bool), scalar(peak, torch.int32),
+            mask.to(torch.uint32), state.to(torch.int32))
+
+
+def _dedup_compact(keys, K: int):
+    """jepsen_tpu/ops/jitlin.py:129-140: the K smallest distinct keys,
+    padded with the sentinel, and whether a (K+1)-th distinct key with a
+    valid mask existed."""
+    u = torch.unique(keys, sorted=True)
+    overflow = u.numel() > K and \
+        int(_unpack(u[K])[0]) != SENTINEL_MASK
+    kept = torch.full((K,), SENTINEL_KEY, dtype=torch.int64,
+                      device=keys.device)
+    n = min(K, u.numel())
+    kept[:n] = u[:n]
+    return kept, overflow
+
+
+def _sparse_closure(keys, pend, cur, slot_bits, K, S, step_ids, work):
+    """jepsen_tpu/ops/jitlin.py:142-171: each pass expands every valid
+    configuration by every pending slot it has not linearized, then
+    keeps the K smallest distinct configurations; passes stop when the
+    count of valid configurations does not grow, or after S. Returns
+    (keys, count, overflow)."""
+    pbits = torch.tensor([(pend >> t) & 1 for t in range(S)], dtype=torch.bool,
+                         device=keys.device)
+
+    def count_valid(k):
+        return int((_unpack(k)[0] != SENTINEL_MASK).sum())
+
+    count, overflow = count_valid(keys), False
+    for _ in range(S):
+        mask, state = _unpack(keys)
+        valid = mask != SENTINEL_MASK
+        can = (valid[:, None] & pbits[None, :]
+               & ((mask[:, None] & slot_bits[None, :]) == 0))
+        st2, ok = step_ids(state.to(torch.int32)[:, None], cur[0][None, :],
+                           cur[1][None, :], cur[2][None, :])
+        new = torch.where(can & ok, _pack(mask[:, None] | slot_bits[None, :],
+                                          st2), SENTINEL_KEY)
+        cand = torch.cat([keys, new.reshape(-1)])
+        if work is not None:
+            n = int((cand != SENTINEL_KEY).sum())
+            work["passes"] = work.get("passes", 0) + 1
+            work["candidates"] = work.get("candidates", 0) + n
+            work["compares"] = work.get("compares", 0) + n * max(
+                1, (n - 1).bit_length())
+        keys, ovf = _dedup_compact(cand, K)
+        c2 = count_valid(keys)
+        overflow = overflow or ovf
+        grew = c2 > count
+        count = c2
+        if not grew:
+            break
+    return keys, count, overflow

@@ -16,9 +16,15 @@ chunk, ``matrix_kernels.chunk_product``) and then chain in time order
 reachable from the initial state alive at the end?
 
 Routing is fixed: on a CUDA device both stages run their hand-written
-kernels, on the CPU their plain torch versions. Outside the regime
-(``matrix_ok`` and MV <= KERNEL_MAX_MV) ``matrix_check`` returns None and
-the caller's CPU rung settles the history.
+kernels, on the CPU their plain torch versions. Above KERNEL_MAX_MV (the
+kernels' shared-memory regime) both stages run the reference's XLA route
+instead (``_scan_products``/``_scan_total``), as torch batched products:
+bf16 with a > 0 threshold on the card, float32 on the CPU. Outside
+``matrix_ok`` ``matrix_check`` returns None.
+
+The frontier rung below it (:class:`JitLinKernel`) scans one history's
+events with the dense-table or the sparse-frontier kernel
+(``frontier_kernels``), chosen by ``_dense_ok``.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ import torch
 
 from jepsen_tpu_torch.device import resolve_device
 from jepsen_tpu_torch.models import cas_register_spec
-from jepsen_tpu_torch.ops import matrix_kernels
+from jepsen_tpu_torch.ops import frontier_kernels, matrix_kernels
 
 EV_INVOKE, EV_RETURN, EV_NOOP = 0, 1, 2
 
@@ -39,9 +45,10 @@ _DISPATCH_INFO = threading.local()
 
 
 def last_dispatch_info() -> dict:
-    """{'products': 'cuda'|'torch', 'combine': 'cuda'|'torch'} of the
-    calling thread's most recent matrix dispatch (empty before the first
-    one)."""
+    """{'products': 'cuda'|'torch'|'scan', 'combine': 'cuda'|'torch'|
+    'scan'} of the calling thread's most recent matrix dispatch ('scan':
+    the batched-product route above KERNEL_MAX_MV; empty before the
+    first one)."""
     return dict(getattr(_DISPATCH_INFO, "value", {}))
 
 
@@ -124,25 +131,27 @@ def _n_squarings(S: int) -> int:
 
 
 def _bmm(x, y):
-    """Thresholded boolean product of 0/1 float32 batches: exact, since
-    counts <= MV <= 2^12 are exact in float32."""
-    return (torch.matmul(x, y) > 0).to(torch.float32)
+    """Thresholded boolean product of 0/1 batches, in their dtype: exact
+    in float32 (counts <= MV <= 2^12), and in bf16 too, where the card
+    accumulates in float32 and a count >= 1 rounds to a value >= 1."""
+    return (torch.matmul(x, y) > 0).to(x.dtype)
 
 
-def _kernel_math(S: int, V: int, step_ids, G: int, device):
+def _kernel_math(S: int, V: int, step_ids, G: int, device,
+                 dtype=torch.float32):
     """The static tables, the per-return operator step and the
     chunk-product combiners of jepsen_tpu/ops/jitlin.py:455-583, in
-    float32 torch with a > 0 threshold after every product (every
+    ``dtype`` torch with a > 0 threshold after every product (every
     intermediate is exactly 0/1, so any association of the boolean
     product yields the same matrix)."""
     M = 1 << S
     MV = M * V
     receiver, kill_idx, kill_mask = receiver_kill_tables(S, V)
     n_sq = _n_squarings(S)
-    receiver_t = torch.as_tensor(receiver, device=device)
+    receiver_t = torch.as_tensor(receiver, dtype=dtype, device=device)
     kill_idx_t = torch.as_tensor(kill_idx, dtype=torch.int64, device=device)
-    kill_mask_t = torch.as_tensor(kill_mask, device=device)
-    eye = torch.eye(MV, dtype=torch.float32, device=device)
+    kill_mask_t = torch.as_tensor(kill_mask, dtype=dtype, device=device)
+    eye = torch.eye(MV, dtype=dtype, device=device)
     v_range = torch.arange(V, dtype=torch.int32, device=device)
 
     def uop_tables(uops):
@@ -156,7 +165,7 @@ def _kernel_math(S: int, V: int, step_ids, G: int, device):
         # callers must treat it as unknown. The oob flag surfaces it.
         oob = (ok & ((st2 < 0) | (st2 >= V))).any(dim=1)
         mt = ok[:, :, None] & (st2[:, :, None] == v_range[None, None, :])
-        return mt.to(torch.float32), oob
+        return mt.to(dtype), oob
 
     def make_step(mt_tab, oob_tab):
         def step(carry, inp):
@@ -165,11 +174,11 @@ def _kernel_math(S: int, V: int, step_ids, G: int, device):
             ids_g = ids_g.long()
             mt = mt_tab[ids_g]                   # [G, S, V, V] gather
             oob = oob_tab[ids_g]                 # [G, S]
-            gated = pend_g.to(torch.float32)
+            gated = pend_g.to(dtype)
             # row = (receiver mask a, NEW state w); col = (source mask
             # b, OLD state v): L[(a,w),(b,v)] = Σ_t pend_t R_t[a,b] M_t[v,w]
             L = torch.einsum("gt,tab,gtvw->gawbv", gated, receiver_t, mt)
-            Bm = ((L.reshape(G, MV, MV) + eye) > 0).to(torch.float32)
+            Bm = ((L.reshape(G, MV, MV) + eye) > 0).to(dtype)
             for _ in range(n_sq):
                 Bm = _bmm(Bm, Bm)                # (I+L)^(2^k) -> closure
             s_g = s_g.long()
@@ -199,15 +208,14 @@ def _kernel_math(S: int, V: int, step_ids, G: int, device):
         def _combine(P, inexact, tot0):
             # total_b = P[b,C-1] @ ... @ P[b,0] @ tot0[b], tree-reduced
             # per level with the later chunk on the LEFT
-            seq = P.reshape(B, C, MV, MV).to(torch.float32)
+            seq = P.reshape(B, C, MV, MV).to(dtype)
             while seq.shape[1] > 1:
                 odd = seq[:, -1:] if seq.shape[1] % 2 else None
                 pairs = seq[:, :-1] if odd is not None else seq
                 seq = _bmm(pairs[:, 1::2], pairs[:, 0::2])
                 if odd is not None:
                     seq = torch.cat([seq, odd], dim=1)
-            total = _bmm(seq[:, 0], tot0.to(torch.float32)).to(
-                torch.bfloat16)
+            total = _bmm(seq[:, 0], tot0.to(dtype)).to(torch.bfloat16)
             alive = (total[:, :, init_state] > 0).any(dim=1)
             return alive, inexact.reshape(B, C).any(dim=1), total
         return _combine
@@ -226,13 +234,35 @@ def _build_matrix_kernel(S: int, V: int, step_ids, init_state: int,
     b's c-th slice of T = ``g_steps`` returns. Stage 1 computes every
     chunk's [MV, MV] product (``matrix_kernels.chunk_product``), stage 2
     chains each key's C products onto its carry ``tot0``
-    (``matrix_kernels.combine_product``)."""
+    (``matrix_kernels.combine_product``). Outside ``kernel_ok`` both
+    stages are the reference's scan route instead (``_scan_total``)."""
     B, C, T = n_keys, n_chunks, g_steps
-    math = _kernel_math(S, V, step_ids, B * C, device)
+    scan = not kernel_ok(S, V)
+    # the scan route's products: bf16 on the card, as the reference's
+    # (jitlin.py:618-619), float32 on the CPU
+    dtype = (torch.bfloat16 if scan and device.type == "cuda"
+             else torch.float32)
+    math = _kernel_math(S, V, step_ids, B * C, device, dtype)
     MV = math.MV
     route = "cuda" if device.type == "cuda" else "torch"
 
+    def _scan_total(pend, op_ids, uops, slots, valid, tot0):
+        """jepsen_tpu/ops/jitlin.py:644-663: a [G, MV, MV] batched step
+        per chunk row, then the tree combine. No Pallas kernel computes
+        this band in the reference, and here it is plain batched
+        products."""
+        mt_tab, oob_tab = math.uop_tables(uops)
+        step = math.make_step(mt_tab, oob_tab)
+        carry = (math.eye.expand(B * C, MV, MV),
+                 torch.zeros((B * C,), dtype=torch.bool, device=device))
+        for t in range(T):
+            carry = step(carry, (pend[t], op_ids[t], slots[t], valid[t]))
+        _DISPATCH_INFO.value = {"products": "scan", "combine": "scan"}
+        return math.make_combine(B, C, init_state)(*carry, tot0)
+
     def _dispatch_total(pend, op_ids, uops, slots, valid, tot0):
+        if scan:
+            return _scan_total(pend, op_ids, uops, slots, valid, tot0)
         mt_tab, oob_tab = math.uop_tables(uops)
         mtT = mt_tab.transpose(1, 2).contiguous()
         P = matrix_kernels.chunk_product(pend, op_ids, mtT, slots, valid,
@@ -287,9 +317,11 @@ def matrix_ok(S: int, num_states: int | None, n_returns: int) -> bool:
 
 
 def kernel_ok(S: int, V: int) -> bool:
-    """Is the operator dimension within the chunk-product kernel's
-    shared-memory regime (MV = 2^S * V <= KERNEL_MAX_MV)?"""
-    return (1 << S) * V <= matrix_kernels.KERNEL_MAX_MV
+    """Is the operator dimension within the matrix kernels' shared-memory
+    regime (MV = 2^S * V <= KERNEL_MAX_MV, V <= KERNEL_MAX_V)? Outside it
+    the matrix path takes the scan route."""
+    return ((1 << S) * V <= matrix_kernels.KERNEL_MAX_MV
+            and V <= matrix_kernels.KERNEL_MAX_V)
 
 
 def matrix_check(stream, step_ids=None, init_state: int = 0,
@@ -299,7 +331,7 @@ def matrix_check(stream, step_ids=None, init_state: int = 0,
     matrices. Returns (alive, died, inexact, peak) with died=-1/peak=0
     placeholders, or None when the matrix regime doesn't apply
     (``force=True`` skips the ``matrix_ok`` size gate, for differential
-    tests; the kernel's MV <= KERNEL_MAX_MV gate always holds)."""
+    tests)."""
     if step_ids is None:
         step_ids = cas_register_spec().step_ids
     num_states = num_states if num_states is not None else len(stream.intern)
@@ -307,8 +339,6 @@ def matrix_check(stream, step_ids=None, init_state: int = 0,
     S = int(slot.max(initial=0)) + 1
     R = int((kind == EV_RETURN).sum())
     if not force and not matrix_ok(S, num_states, R):
-        return None
-    if not kernel_ok(S, _bucket(num_states, floor=8)):
         return None
     return matrix_check_batch([stream], step_ids=step_ids,
                               init_state=init_state,
@@ -355,7 +385,7 @@ def matrix_check_batch(streams, step_ids=None, init_state: int = 0,
     """Batched transfer-matrix check over independent per-key histories
     in ONE dispatch: all keys' chunk products advance together, then
     each key's chunks chain separately. Returns [(alive, -1, inexact,
-    0)] per stream. Callers gate the regime (matrix_ok, kernel_ok)."""
+    0)] per stream. Callers gate the regime (matrix_ok)."""
     if step_ids is None:
         step_ids = cas_register_spec().step_ids
     if num_states is None:
@@ -482,3 +512,73 @@ def _bucket(n: int, floor: int = 64) -> int:
     while b < n:
         b *= 2
     return b
+
+
+# copied from jepsen_tpu/ops/jitlin.py:1819-1829: the dense table's
+# regime. Its closure holds an [S, 2^S, V] intermediate in the reference.
+DENSE_MAX_SLOTS = 12
+DENSE_MAX_STATES = 512
+DENSE_MAX_ELEMS = 1 << 21
+
+
+def _dense_ok(S: int, num_states: int | None) -> bool:
+    if num_states is None:
+        return False
+    vb = _bucket(num_states, floor=16)
+    return (S <= DENSE_MAX_SLOTS and num_states <= DENSE_MAX_STATES
+            and S * (1 << S) * vb <= DENSE_MAX_ELEMS)
+
+
+# copied from jepsen_tpu/ops/jitlin.py:2049-2054
+def verdict(alive: bool, overflow: bool):
+    """Soundness rules: a surviving (possibly truncated) frontier proves
+    linearizability; an empty frontier after overflow proves nothing."""
+    if alive:
+        return True
+    return "unknown" if overflow else False
+
+
+class JitLinKernel:
+    """The frontier scan of one history (jepsen_tpu/ops/jitlin.py:1984-
+    2031): the exact dense table when the configuration space is small
+    enough (``_dense_ok``), else the capacity-K sparse frontier."""
+
+    def __init__(self, step_ids=None, init_state: int = 0, device=None):
+        self.step_ids = (step_ids if step_ids is not None
+                         else cas_register_spec().step_ids)
+        self.init_state = init_state
+        # None = the CUDA device
+        self.device = device
+
+    def route(self, S: int, num_states: int | None) -> str:
+        """"dense" or "sparse": the choice of the reference's
+        ``JitLinKernel._get`` (jitlin.py:2002)."""
+        return "dense" if _dense_ok(S, num_states) else "sparse"
+
+    def check(self, stream, capacity: int = 256):
+        """Single history. Returns (alive, died_event, overflow, peak).
+
+        The reference's ``check`` goes through ``parallel.batch_check``,
+        which re-runs the matrix screen on histories in its regime and
+        scans only those it leaves undecided (not alive, or inexact).
+        The checker reaches this rung only after its own matrix rung
+        left the history undecided (or out of regime), so the direct
+        scan gives the reference's result."""
+        S = max(1, stream.n_slots)
+        intern = getattr(stream, "intern", None)
+        num_states = len(intern) if intern is not None else None
+        dev = resolve_device(self.device)
+        events = (stream.kind, stream.slot, stream.f, stream.a, stream.b)
+        if self.route(S, num_states) == "dense":
+            vb = _bucket(num_states, floor=16)
+            out = frontier_kernels.frontier_dense(
+                *events, frontier_kernels.init_table(S, vb, self.init_state,
+                                                     dev),
+                step_ids=self.step_ids)
+        else:
+            mask0, state0 = frontier_kernels.init_frontier(
+                capacity, self.init_state, dev)
+            out = frontier_kernels.frontier_sparse(
+                *events, mask0, state0, S, step_ids=self.step_ids)
+        alive, died, overflow, peak = (x.item() for x in out[:4])
+        return bool(alive), int(died), bool(overflow), int(peak)

@@ -40,11 +40,12 @@ def test_no_jax_or_reference_imports(path):
 
 def test_port_sources_exist():
     names = {p.name for p in _sources()}
-    assert {"jitlin.py", "matrix_kernels.py", "linearizable.py",
-            "chip_smoke.py"} <= names
+    assert {"jitlin.py", "matrix_kernels.py", "frontier_kernels.py",
+            "linearizable.py", "chip_smoke.py"} <= names
     assert sorted(p.name for p in
                   (ROOT / "jepsen_tpu_torch/ops/csrc").glob("*.cu")) == [
-        "chunk_combine.cu", "chunk_product.cu"]
+        "chunk_combine.cu", "chunk_product.cu", "frontier_dense.cu",
+        "frontier_sparse.cu"]
 
 
 def test_cpu_check_loads_neither_jax_nor_reference():

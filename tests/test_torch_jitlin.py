@@ -96,17 +96,96 @@ def test_matrix_check_oob_is_inexact(pallas_interpret):
     assert got[2] is True
 
 
-def test_matrix_check_gates():
+@pytest.fixture
+def small_matrix_budget(monkeypatch):
+    """One chunk per history in both packages, so that the MV = 1024
+    products of the scan route stay a few seconds on the CPU."""
+    from jepsen_tpu.ops import jitlin as ref_jit
+    from jepsen_tpu_torch.ops import jitlin
+    for mod in (ref_jit, jitlin):
+        monkeypatch.setattr(mod, "MATRIX_MAX_ELEMS", 1 << 20)
+
+
+def test_matrix_check_gates(small_matrix_budget):
+    from jepsen_tpu.ops import jitlin as ref_jit
     from jepsen_tpu_torch.ops import jitlin
 
     h = register_history(60, n_procs=3, seed=5, n_values=4)
-    _, s = _streams(h)
+    ref_s, s = _streams(h)
     # below MATRIX_MIN_RETURNS without force: out of regime
     assert jitlin.matrix_check(s, device="cpu") is None
-    # MV = 2^S * V beyond the kernel's shared-memory regime
+    # MV = 2^S * V beyond the kernel's shared-memory regime: the scan
+    # route gives the reference's verdict
     assert jitlin.kernel_ok(6, 8) and not jitlin.kernel_ok(6, 16)
-    assert jitlin.matrix_check(s, force=True, num_states=100,
-                               device="cpu") is None
+    got = jitlin.matrix_check(s, force=True, num_states=100, device="cpu")
+    assert got == ref_jit.matrix_check(ref_s, force=True, num_states=100)
+    assert got == (True, -1, False, 0)
+    assert jitlin.last_dispatch_info() == {"products": "scan",
+                                           "combine": "scan"}
+
+
+def _mv1024_history(case):
+    """Six processes over 9-16 values: S = 6, V = 16, MV = 1024."""
+    h = register_history(70, n_procs=6, seed=21, n_values=12)
+    return corrupt_reads(h, n=1, seed=4) if case == "invalid" else h
+
+
+@pytest.mark.parametrize("case", ["valid", "invalid"])
+def test_scan_route_mv1024_matches_jax_scan_total(case,
+                                                  small_matrix_budget):
+    """Above KERNEL_MAX_MV the matrix path runs the reference's XLA
+    route (``_scan_products``/``_scan_total``) as torch batched
+    products: the same (alive, inexact) as the JAX package's scan."""
+    from jepsen_tpu.ops import jitlin as ref_jit
+    from jepsen_tpu_torch.ops import jitlin
+
+    ref_s, s = _streams(_mv1024_history(case))
+    S, V = s.n_slots, jitlin._bucket(len(s.intern), floor=8)
+    assert (1 << S) * V == 1024
+    ref = ref_jit.matrix_check(ref_s, force=True)
+    assert ref_jit.last_dispatch_info()["variant"] == "scan"
+    got = jitlin.matrix_check(s, force=True, device="cpu")
+    assert got == ref
+    assert got[0] is (case == "valid")
+    assert jitlin.last_dispatch_info()["products"] == "scan"
+
+
+def test_scan_route_resume_two_segments(small_matrix_budget):
+    """``matrix_check_resume`` at MV = 1024 (where the CUDA kernels do
+    not reach) over two quiescent segments: each segment's (alive,
+    inexact, total) equals the JAX package's, and the chain equals the
+    one-shot check."""
+    from jepsen_tpu.checker.linear_encode import EventStream as RefStream
+    from jepsen_tpu.ops import jitlin as ref_jit
+    from jepsen_tpu_torch.checker.linear_encode import EventStream
+    from jepsen_tpu_torch.ops import jitlin
+
+    ref_s, s = _streams(_mv1024_history("valid"))
+    cut = ref_jit.quiescent_cuts(ref_s.kind, len(ref_s) // 2 + 8)[0]
+    assert 0 < cut < len(s)
+
+    def seg(cls, st, lo, hi):
+        return cls(kind=st.kind[lo:hi], slot=st.slot[lo:hi], f=st.f[lo:hi],
+                   a=st.a[lo:hi], b=st.b[lo:hi],
+                   op_index=st.op_index[lo:hi], n_slots=st.n_slots,
+                   n_ops=st.n_ops, intern=st.intern)
+
+    kw = dict(num_states=len(s.intern), n_slots=s.n_slots)
+    a1, i1, t1 = ref_jit.matrix_check_resume(seg(RefStream, ref_s, 0, cut),
+                                             **kw)
+    pa1, pi1, pt1 = jitlin.matrix_check_resume(
+        seg(EventStream, s, 0, cut), device="cpu", **kw)
+    a2, i2, t2 = ref_jit.matrix_check_resume(
+        seg(RefStream, ref_s, cut, len(ref_s)), tot0=t1, **kw)
+    pa2, pi2, pt2 = jitlin.matrix_check_resume(
+        seg(EventStream, s, cut, len(s)), tot0=pt1, device="cpu", **kw)
+    for p, r in ((pt1, t1), (pa1, a1), (pi1, i1), (pt2, t2), (pa2, a2),
+                 (pi2, i2)):
+        assert np.array_equal(p.float().numpy(),
+                              np.asarray(r, dtype=np.float32))
+    assert pt2.shape == (1, 1024, 1024)
+    assert bool(pa2[0]) is jitlin.matrix_check(s, force=True,
+                                               device="cpu")[0] is True
 
 
 def test_resume_two_segments_from_jax_carry(pallas_interpret):

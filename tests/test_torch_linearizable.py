@@ -55,10 +55,35 @@ def test_checker_matches_jax(case, accelerator, small_matrix_regime):
         assert got["context"] == ref["context"]
         assert got["final-configs"] == ref["final-configs"]
     if accelerator == "gpu":
+        # invalid histories pass the matrix rung on to the frontier rung,
+        # which settles them with the failing event
         assert got["algorithm"] == ("torch-matrix" if got["valid?"]
-                                    else "jitlin-cpu(fallback)")
+                                    else "torch-frontier")
     else:   # cpu, and auto below AUTO_TPU_THRESHOLD events
         assert got["algorithm"] == "jitlin-cpu"
+
+
+@pytest.mark.parametrize("case", sorted(HISTORIES))
+def test_frontier_rung_matches_jax_device_regime(case):
+    """Below MATRIX_MIN_RETURNS both checkers settle on their frontier
+    rung (the JAX package's ``jitlin-device``, its scan jitted on the CPU
+    backend): the same verdict, ``configs-max`` (the frontier's peak),
+    and for invalid histories the same failing op, context and final
+    configurations."""
+    from jepsen_tpu.checker.linearizable import linearizable as ref_lin
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+
+    h = HISTORIES[case]()
+    ref = ref_lin(accelerator="tpu").check({}, h, {"explain": False})
+    got = linearizable(accelerator="gpu", device="cpu").check(
+        {}, h, {"explain": False})
+    assert (ref["algorithm"], got["algorithm"]) == ("jitlin-tpu",
+                                                    "torch-frontier")
+    assert got["valid?"] == ref["valid?"]
+    assert got["configs-max"] == ref["configs-max"] > 1
+    if got["valid?"] is False:
+        for key in ("failed-op", "context", "final-configs"):
+            assert got[key] == ref[key], key
 
 
 def test_initial_value_interns_first(small_matrix_regime):
