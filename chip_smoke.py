@@ -19,7 +19,15 @@ just before it and read just after:
   corrupted: the frontier rung on the sparse-frontier kernel;
 * a history with S = 6 slots and V = 16 states (MV = 1024): the matrix
   rung's batched-product route above the kernels' MV = 512, one-shot and
-  resumed over two quiescent segments.
+  resumed over two quiescent segments;
+* the Elle checks: ``list_append.check(accelerator="gpu")`` on bench.py's
+  50k-txn list-append history, valid (settled by the φ screen, no
+  launch), with 50 crossed pairs at the end, and with the pairs 900 txns
+  apart (50 clusters of about 900 nodes: the cluster-screen kernel); the
+  anomalous graph without φ (the global path: the trim kernel); and a
+  10k-txn rw-register history with wr cycles, each against the port's
+  cpu oracle. Both Elle kernels are first held against their plain
+  versions on random graphs and clusters and on the main path's inputs.
 
 Prints one JSON line per phase, then a ``kernels`` line, the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -41,6 +49,7 @@ FRESH_VALUES = 10 ** 9
 # the tensor cores (the rate used for the scans' 32-bit integer operations)
 # and HBM bandwidth
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_OPS = 989e12
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -294,18 +303,22 @@ def slice_stream(stream, lo: int, hi: int):
 def reset_launches():
     from jepsen_tpu_torch.ops import frontier_kernels as fk
     from jepsen_tpu_torch.ops import matrix_kernels as mk
+    from jepsen_tpu_torch.ops import scc_kernels as sk
     for fn in (mk.chunk_product, mk.combine_product, fk.frontier_dense,
-               fk.frontier_sparse):
+               fk.frontier_sparse, sk.cluster_screen, sk.scc_trim):
         fn.launches = 0
 
 
 def read_launches() -> dict:
     from jepsen_tpu_torch.ops import frontier_kernels as fk
     from jepsen_tpu_torch.ops import matrix_kernels as mk
+    from jepsen_tpu_torch.ops import scc_kernels as sk
     return {"chunk_product": mk.chunk_product.launches,
             "combine_product": mk.combine_product.launches,
             "frontier_dense": fk.frontier_dense.launches,
-            "frontier_sparse": fk.frontier_sparse.launches}
+            "frontier_sparse": fk.frontier_sparse.launches,
+            "cluster_screen": sk.cluster_screen.launches,
+            "scc_trim": sk.scc_trim.launches}
 
 
 def device_kernels(fn):
@@ -347,6 +360,343 @@ def chunk_entry_call(fn, args, S, V):
             raise RuntimeError(f"chunk_product launch failed: {rc}")
         return out
     return call
+
+
+# the Elle histories: bench.py's 50k-txn list-append shape, with 50
+# crossed pairs for the anomalous copies
+ELLE_TXNS, ELLE_PAIRS = 50_000, 50
+
+
+class recorded:
+    """Within the block, records the arguments of every call that
+    jepsen_tpu_torch.ops.scc makes to the Elle kernels' wrappers (in
+    ``.calls[name]``); the calls still go to the wrappers."""
+
+    def __enter__(self):
+        import types
+        from jepsen_tpu_torch.ops import scc, scc_kernels
+        self.calls = {"cluster_screen": [], "scc_trim": []}
+
+        def rec(name):
+            def call(*args):
+                self.calls[name].append(args)
+                return getattr(scc_kernels, name)(*args)
+            return call
+        self._mod = scc
+        scc.scc_kernels = types.SimpleNamespace(
+            cluster_screen=rec("cluster_screen"), scc_trim=rec("scc_trim"))
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.ops import scc_kernels
+        self._mod.scc_kernels = scc_kernels
+        return False
+
+
+def dep_edges(history):
+    """The port's columnar graph of a list-append history: (n, src, dst)
+    of its dependency (ww, wr, rw) edges."""
+    from jepsen_tpu_torch.elle import columnar
+    graph = columnar._build(history)[0]
+    codes, src, dst = graph.cols
+    dep = codes <= 2
+    return graph.n, src[dep], dst[dep]
+
+
+def trim_inputs(n, src, dst):
+    """The trim wrapper's inputs on the card, bucketed and padded as
+    ``ops.scc.trim_to_cycles`` hands them over."""
+    import torch
+    from jepsen_tpu_torch.ops import scc
+    from jepsen_tpu_torch.ops.jitlin import _bucket
+    (s, d), valid = scc._padded((src, dst), len(src))
+    return [torch.from_numpy(x).cuda() for x in (s, d, valid)] + [
+        _bucket(n, floor=64)]
+
+
+def check_trim(case, src, dst, valid, n, max_iters=512):
+    """The trim kernel against its plain version on the card: the mask
+    and the step count bit-equal. Returns (ms, plain_ms, steps, err)."""
+    import torch
+    from jepsen_tpu_torch.ops import scc_kernels as sk
+    got, steps = sk.scc_trim(src, dst, valid, n, max_iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, ref_steps = sk.scc_trim_torch(src, dst, valid, n, max_iters)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    equal = bool(torch.equal(got, ref)) and int(steps) == int(ref_steps)
+    ms = cuda_ms(lambda: sk.scc_trim(src, dst, valid, n, max_iters), 5)
+    emit({"phase": "scc_trim", "case": case, "nodes": n,
+          "edges": int(valid.sum()), "steps": int(steps),
+          "residue": int(got.sum()), "equal": equal, "ms": ms,
+          "plain_ms": plain_ms, "launches_per_call": 1})
+    if not equal:
+        raise AssertionError(f"scc_trim {case} differs from plain")
+    return ms, plain_ms, int(steps), 0.0 if equal else 1.0
+
+
+def screen_clusters(B, V, seed, cyclic):
+    """Seeded clusters of V nodes on the card, as the screen wrapper
+    takes them: each a chain 0 -> 1 -> ... -> V-1 (the longest peel) plus
+    3V random forward edges; with ``cyclic``, one backward edge in every
+    other cluster. Rows in random order."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, V, (B, 3 * V))
+    b = rng.integers(0, V, (B, 3 * V))
+    lo, hi = np.minimum(a, b), np.maximum(a, b)
+    chain_s = np.broadcast_to(np.arange(V - 1), (B, V - 1))
+    src = np.concatenate([lo, chain_s], axis=1)
+    dst = np.concatenate([hi, chain_s + 1], axis=1)
+    cid = np.broadcast_to(np.arange(B)[:, None], src.shape)
+    keep = src != dst
+    cid, src, dst = cid[keep], src[keep], dst[keep]
+    if cyclic:
+        back = np.arange(0, B, 2)
+        cid = np.concatenate([cid, back])
+        src = np.concatenate([src, np.full(len(back), V - 1)])
+        dst = np.concatenate([dst, rng.integers(0, V - 1, len(back))])
+    perm = rng.permutation(len(cid))
+    cols = [torch.from_numpy(np.ascontiguousarray(x[perm]).astype(np.int32))
+            .cuda() for x in (cid, src, dst)]
+    return cols + [torch.ones(len(cid), dtype=torch.bool, device="cuda")]
+
+
+def check_screen(case, cid, src, dst, valid, B, V):
+    """The screen kernel against its plain version on the card, bit-equal.
+    Returns (ms, plain_ms, err, flagged)."""
+    import torch
+    from jepsen_tpu_torch.ops import scc_kernels as sk
+    got = sk.cluster_screen(cid, src, dst, valid, B, V)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = sk.cluster_screen_torch(cid, src, dst, valid, B, V)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((got.to(torch.int32) - ref.to(torch.int32)).abs().max())
+    ms = cuda_ms(lambda: sk.cluster_screen(cid, src, dst, valid, B, V), 10)
+    flagged = int(got.sum())
+    emit({"phase": "cluster_screen", "case": case, "B": B, "V": V,
+          "edges": int(valid.sum()), "flagged": flagged,
+          "equal": err == 0.0, "ms": ms, "plain_ms": plain_ms})
+    if err != 0.0:
+        raise AssertionError(f"cluster_screen {case} differs from plain")
+    return ms, plain_ms, err, flagged
+
+
+def without_builder(result: dict) -> dict:
+    """A list-append result without the key naming its builder, which
+    differs between the columnar path and the cpu oracle's."""
+    return {k: v for k, v in result.items() if k != "builder"}
+
+
+def elle_main_path(case, history, want_types, name, smi):
+    """``list_append.check(accelerator="gpu")`` on ``history`` against
+    the port's cpu oracle, its launches, the median of 5 checks, the
+    phase split and the screen's device time. Returns the launches."""
+    import torch
+    from jepsen_tpu_torch.elle import columnar, list_append
+    t0 = time.perf_counter()
+    oracle = list_append.check(history, accelerator="cpu")
+    cpu_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    got = list_append.check(history, accelerator="gpu")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    lc = read_launches()
+    if without_builder(got) != oracle or got["anomaly-types"] != want_types:
+        raise AssertionError(f"elle {case}: {got['anomaly-types']} vs "
+                             f"{oracle['anomaly-types']}, maps equal: "
+                             f"{without_builder(got) == oracle}")
+    if (lc["cluster_screen"] > 0) != bool(want_types) or lc["scc_trim"]:
+        raise AssertionError(f"elle {case}: launches {lc}")
+    times, phases = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = list_append.check(history, accelerator="gpu")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        phases.append(dict(columnar.LAST_PHASE_SECONDS))
+        if out["anomaly-types"] != want_types:
+            raise AssertionError(f"elle {case}: timed check {out}")
+    med = statistics.median(times)
+    kerns = device_kernels(
+        lambda: list_append.check(history, accelerator="gpu"))
+    screen_ms = sum(us for k, us in kerns
+                    if k.startswith("cluster_screen")) / 1e3
+    n_txns = got["txn-count"]
+    emit({"phase": "elle_main_path", "case": case, "txns": n_txns,
+          "edges": got["edge-count"], "valid": got["valid?"],
+          "anomaly_types": got["anomaly-types"], "equals_cpu_oracle": True,
+          "launches": lc, "first_check_s": first_s, "check_s": times,
+          "median_check_s": med, "txns_per_sec": n_txns / med,
+          "phase_seconds": phases, "cpu_oracle_s": cpu_s,
+          "screen_device_ms": screen_ms,
+          "device_busy_ms": sum(us for _, us in kerns) / 1e3,
+          "card": name, "power": smi})
+    return lc
+
+
+def elle_phases(name, smi) -> list:
+    """The Elle slice on the card: both kernels against their plain
+    versions, then list_append.check on the valid, anomalous and
+    wide-window 50k-txn histories, the global (trim) path, and a
+    rw-register history, each against the port's cpu oracle. Returns the
+    two kernels' entries of the kernels line."""
+    import numpy as np
+    import torch
+    import jepsen_tpu_torch.elle as elle
+    from jepsen_tpu_torch.convert import graph_from_numpy
+    from jepsen_tpu_torch.elle import columnar, rw_register
+    from jepsen_tpu_torch.histories import elle_history, rw_register_history
+    h_valid = elle_history(ELLE_TXNS)
+    h_pairs = elle_history(ELLE_TXNS, crossed_pairs=ELLE_PAIRS)
+    h_wide = elle_history(ELLE_TXNS, crossed_pairs=ELLE_PAIRS, wide=True)
+
+    # 8a. the trim against its plain version
+    rng = np.random.default_rng(SEED)
+    rs, rd = rng.integers(0, 1 << 16, (2, 1 << 18))
+    fwd = rng.random(1 << 18) >= 0.01
+    chain_n = 5000
+    for case, (n, src, dst) in (
+            ("valid_50k_dep", dep_edges(h_valid)),
+            ("pairs_50k_dep", dep_edges(h_pairs)),
+            ("random_64k_256k", (1 << 16, np.where(fwd, np.minimum(rs, rd),
+                                                   np.maximum(rs, rd)),
+                                 np.where(fwd, np.maximum(rs, rd),
+                                          np.minimum(rs, rd)))),
+            ("chain_5000_capped", (chain_n, np.arange(chain_n - 1),
+                                   np.arange(1, chain_n)))):
+        s, d, valid, nb = trim_inputs(n, src, dst)
+        check_trim(case, s, d, valid, nb)
+
+    # 8b. the screen against its plain version: random clusters, and the
+    # wide-window history's own (recorded from one check)
+    for V, B in ((8, 512), (64, 128), (256, 64), (1024, 16)):
+        for cyclic in (False, True):
+            cols = screen_clusters(B, V, SEED + V, cyclic)
+            _, _, _, flagged = check_screen(
+                f"random_v{V}_{'cyclic' if cyclic else 'acyclic'}",
+                *cols, B, V)
+            if flagged != (B // 2 if cyclic else 0):
+                raise AssertionError(f"screen V={V}: {flagged} flagged")
+    from jepsen_tpu_torch.elle import list_append
+    with recorded() as rec:
+        list_append.check(h_wide, accelerator="gpu")
+    wide_calls = rec.calls["cluster_screen"]
+    # the 50 clusters of about 900 nodes, chunked by SCREEN_MAX_ELEMS into
+    # 32 + 18 at V = 1024
+    if len(wide_calls) != -(-ELLE_PAIRS // 32) \
+            or any(c[5] != 1024 for c in wide_calls):
+        raise AssertionError(f"wide-window screen calls: "
+                             f"{[c[4:] for c in wide_calls]}")
+    screen = {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "bytes": 0.0,
+              "ops": 0.0, "clusters": 0}
+    for i, (cid, src, dst, valid, B, V) in enumerate(wide_calls):
+        ms, pms, err, flagged = check_screen(f"wide_window_chunk{i}", cid,
+                                             src, dst, valid, B, V)
+        n_real = int(cid[valid].max()) + 1
+        if flagged != n_real:
+            raise AssertionError(f"wide-window chunk {i}: {flagged} of "
+                                 f"{n_real} clusters flagged")
+        n_edges = int(valid.sum())
+        screen["ms"] += ms
+        screen["plain_ms"] += pms
+        screen["err"] = max(screen["err"], err)
+        # edges in (cid, src, dst int32 and the valid byte), a flag out
+        screen["bytes"] += 13.0 * n_edges + n_real
+        screen["ops"] += float(n_edges + n_real * V)
+        screen["clusters"] += n_real
+
+    # 8c. the main path: the valid, anomalous and wide-window histories
+    elle_main_path("valid_50k", h_valid, [], name, smi)
+    elle_main_path("pairs_at_end_50k", h_pairs, ["G1c", "realtime-cycle"],
+                   name, smi)
+    lc_wide = elle_main_path("wide_window_50k", h_wide,
+                             ["G1c", "realtime-cycle"], name, smi)
+
+    # 8d. the global path: the anomalous graph without φ takes the trim on
+    # the card. The builders never void φ themselves (a completion pairs
+    # with its process's latest invoke, so their sequential test cannot
+    # fail), so φ is dropped from the built graph.
+    graph = columnar._build(h_pairs)[0]
+    graph.time_order = None
+    graph_cpu = graph_from_numpy(graph.n, *graph.cols)
+    t0 = time.perf_counter()
+    oracle = elle.check_cycles(graph_cpu, accelerator="cpu")
+    cpu_s = time.perf_counter() - t0
+    reset_launches()
+    with recorded() as rec:
+        t0 = time.perf_counter()
+        got = elle.check_cycles(graph, accelerator="gpu")
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+    lc_global = read_launches()
+    if got != oracle or sorted(got) != ["G1c", "realtime-cycle"] \
+            or lc_global["scc_trim"] < 1 or lc_global["cluster_screen"]:
+        raise AssertionError(f"global path: {sorted(got)} vs "
+                             f"{sorted(oracle)}, launches {lc_global}")
+    (ts, td, tv, tn, _), = rec.calls["scc_trim"]
+    t_ms, t_pms, t_steps, t_err = check_trim("global_path_input", ts, td,
+                                             tv, tn)
+    emit({"phase": "elle_global_path", "txns": graph.n,
+          "edges": graph.edge_count(), "anomaly_types": sorted(got),
+          "equals_cpu_oracle": True, "launches": lc_global,
+          "check_s": gpu_s, "cpu_oracle_s": cpu_s, "trim_steps": t_steps,
+          "card": name, "power": smi})
+
+    # 8e. rw-register: a 10k-txn history with wr cycles
+    h_rw = rw_register_history(10_000, crossed_pairs=5, seed=SEED)
+    oracle = rw_register.check(h_rw, accelerator="cpu")
+    reset_launches()
+    t0 = time.perf_counter()
+    got = rw_register.check(h_rw, accelerator="gpu")
+    torch.cuda.synchronize()
+    rw_s = time.perf_counter() - t0
+    lc_rw = read_launches()
+    if got != oracle or "G1c" not in got["anomaly-types"] \
+            or lc_rw["cluster_screen"] < 1:
+        raise AssertionError(f"rw-register: {got['anomaly-types']} vs "
+                             f"{oracle['anomaly-types']}, launches {lc_rw}")
+    emit({"phase": "elle_rw_register", "txns": got["txn-count"],
+          "edges": got["edge-count"], "anomaly_types": got["anomaly-types"],
+          "equals_cpu_oracle": True, "launches": lc_rw, "check_s": rw_s,
+          "card": name, "power": smi})
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    n_edges = int(tv.sum())
+    t_bytes = 9.0 * n_edges + tn
+    t_ops = float(n_edges + tn) * t_steps
+    s_bound, t_bound = (bound(screen["ops"], screen["bytes"]),
+                        bound(t_ops, t_bytes))
+    return [
+        {"name": "cluster_screen", "route": "cuda",
+         "source": "jepsen_tpu_torch/ops/csrc/cluster_screen.cu",
+         "replaces": "jepsen_tpu/ops/scc.py:195",
+         "launches": lc_wide["cluster_screen"],
+         "max_abs_err": screen["err"], "equal": screen["err"] == 0.0,
+         "ms": screen["ms"], "plain_ms": screen["plain_ms"],
+         "bound_ms": s_bound[0], "bound_by": s_bound[1], "library_ms": None,
+         "bound_operations": "int32_ops", "clusters": screen["clusters"],
+         "bytes": screen["bytes"], "int32_ops": screen["ops"],
+         "shape": "wide_window_50k: the check's screen calls, summed"},
+        {"name": "scc_trim", "route": "cuda",
+         "source": "jepsen_tpu_torch/ops/csrc/scc_trim.cu",
+         "replaces": "jepsen_tpu/ops/scc.py:31",
+         "launches": lc_global["scc_trim"], "max_abs_err": t_err,
+         "equal": t_err == 0.0, "ms": t_ms, "plain_ms": t_pms,
+         "bound_ms": t_bound[0], "bound_by": t_bound[1], "library_ms": None,
+         "bound_operations": "int32_ops", "steps": t_steps,
+         "nodes": tn, "edges": n_edges, "bytes": t_bytes,
+         "int32_ops": t_ops,
+         "shape": "global path: pairs_at_end_50k's dependency edges"}]
 
 
 def nvidia_smi(query: str) -> str:
@@ -627,6 +977,22 @@ def main() -> int:
         matrix_check(st6)
         torch.cuda.synchronize()
         mc6.append(time.perf_counter() - t0)
+    # the scan route's device time, and its bound: the bf16 operations of
+    # its batched products (per valid return n_sq squarings and the kill
+    # product, then the C - 1 tree products and the product onto tot0),
+    # or the bytes of the [C, MV, MV] bf16 chunk products written and
+    # read once
+    scan_k = device_kernels(lambda: matrix_check(st6))
+    scan_device_ms = sum(us for _, us in scan_k) / 1e3
+    prep6 = jitlin._returns_prepass(st6.kind, st6.slot, st6.f, st6.a,
+                                    st6.b)
+    C6, T6 = jitlin._matrix_plan(1, 6, prep6[0].shape[0], 16)
+    n_products = (int((st6.kind == 1).sum()) * (jitlin._n_squarings(6) + 1)
+                  + C6)
+    scan_ops = n_products * 2.0 * 1024 ** 3
+    scan_bytes = 2.0 * C6 * 1024 * 1024 * 2
+    scan_bound_ms = max(scan_ops / PEAK_BF16_OPS, scan_bytes / PEAK_BYTES) \
+        * 1e3
     cut = quiescent_cut(st6)
     kw = dict(num_states=len(st6.intern), n_slots=st6.n_slots)
     a1, _, t1 = jitlin.matrix_check_resume(slice_stream(st6, 0, cut), **kw)
@@ -643,7 +1009,13 @@ def main() -> int:
           "dispatch": jitlin.last_dispatch_info(), "launches": lc6,
           "matrix_check_s": mc6, "median_matrix_check_s":
           statistics.median(mc6), "resume_cut": cut,
-          "resume_equals_one_shot": True, "card": name, "power": smi})
+          "resume_equals_one_shot": True, "C": C6, "T": T6,
+          "scan_device_ms": scan_device_ms, "scan_products": n_products,
+          "scan_bf16_ops": scan_ops, "scan_bytes": scan_bytes,
+          "scan_bound_ms": scan_bound_ms,
+          "scan_bound_by": ("operations" if scan_ops / PEAK_BF16_OPS
+                            >= scan_bytes / PEAK_BYTES else "bytes"),
+          "card": name, "power": smi})
 
     # 6. each kernel at the main path's shapes
     hd = headline_inputs(stream)
@@ -795,6 +1167,9 @@ def main() -> int:
                         "bound_operations": "int32_word_ops", **extra})
         if err != 0.0:
             raise AssertionError(f"{kname} differs at the main path's shape")
+    # 8. the Elle slice: list-append and rw-register checks through the
+    # cluster screen and the trim
+    kernels += elle_phases(name, smi)
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,

@@ -2,8 +2,11 @@
 
 The register linearizability check runs through hand-written Hopper
 kernels (``ops/csrc/*.cu``): the per-chunk transfer-matrix product and
-the chunk combine. Everything else on that path is numpy host code or
-plain torch. The package imports neither ``jax`` nor ``jepsen_tpu``;
+the chunk combine; the frontier rung through the dense-table and
+sparse-frontier scans. The Elle txn checks (``elle.list_append``,
+``elle.rw_register``) run their cycle search through the per-cluster
+screen and the trim. Everything else on those paths is numpy host code
+or plain torch. The package imports neither ``jax`` nor ``jepsen_tpu``;
 what it needs from the host-only modules of the JAX package is copied
 here, each copy naming its origin.
 

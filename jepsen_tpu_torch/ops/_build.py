@@ -35,11 +35,14 @@ SIGNATURES = {
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "chunk_combine": ("jt_chunk_combine",
                       [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "cluster_screen": ("jt_cluster_screen",
+                       [_P, _P, _P, _P, _P, _I, _I, _P]),
     "frontier_dense": ("jt_frontier_dense",
                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "frontier_sparse": ("jt_frontier_sparse",
                         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P]),
+    "scc_trim": ("jt_scc_trim", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

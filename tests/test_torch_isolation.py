@@ -41,11 +41,24 @@ def test_no_jax_or_reference_imports(path):
 def test_port_sources_exist():
     names = {p.name for p in _sources()}
     assert {"jitlin.py", "matrix_kernels.py", "frontier_kernels.py",
-            "linearizable.py", "chip_smoke.py"} <= names
+            "linearizable.py", "chip_smoke.py", "scc.py", "scc_kernels.py",
+            "txn.py", "columnar.py", "list_append.py",
+            "rw_register.py"} <= names
+    assert (ROOT / "jepsen_tpu_torch/elle/__init__.py") in _sources()
     assert sorted(p.name for p in
                   (ROOT / "jepsen_tpu_torch/ops/csrc").glob("*.cu")) == [
-        "chunk_combine.cu", "chunk_product.cu", "frontier_dense.cu",
-        "frontier_sparse.cu"]
+        "chunk_combine.cu", "chunk_product.cu", "cluster_screen.cu",
+        "frontier_dense.cu", "frontier_sparse.cu", "scc_trim.cu"]
+
+
+def _leaked_modules(code: str) -> str:
+    """Runs ``code`` in a fresh interpreter, which prints the jax and
+    jepsen_tpu modules it ended up importing; returns its output."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
 
 
 def test_cpu_check_loads_neither_jax_nor_reference():
@@ -62,8 +75,24 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("LEAKED", leaked)
 """
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert "LEAKED []" in proc.stdout, proc.stdout
+    out = _leaked_modules(code)
+    assert "LEAKED []" in out, out
+
+
+def test_elle_cpu_check_loads_neither_jax_nor_reference():
+    code = """
+import sys
+from jepsen_tpu_torch.elle import list_append, rw_register
+from jepsen_tpu_torch.histories import elle_history, rw_register_history
+out = list_append.check(elle_history(300, crossed_pairs=2),
+                        accelerator="gpu", device="cpu")
+assert out["anomaly-types"] == ["G1c", "realtime-cycle"], out
+out = rw_register.check(rw_register_history(300, crossed_pairs=0),
+                        accelerator="gpu", device="cpu")
+assert out["valid?"] is True, out
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+print("LEAKED", leaked)
+"""
+    out = _leaked_modules(code)
+    assert "LEAKED []" in out, out
