@@ -37,6 +37,7 @@ exits 1 and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -204,30 +205,67 @@ def frontier_err(got, ref) -> float:
     return err
 
 
-# frontier cases: (name, history maker, table S or None, sparse Ks)
+# frontier cases: (name, history maker, dense table, sparse Ks, start).
+# The table is None (the dense kernel runs when the stream is in its
+# regime) or (S, V), V None for the stream's bucket. The start is "init"
+# (the initial frontier) or "unsorted" (a seeded list with duplicates and
+# an invalid-mask entry, which the kernel's first pass takes on its CTA
+# path). Each kernel picks its path by shape: the dense table by its rows
+# (one word, V <= 32, and rows a lane x nibbles a row <= 16 on the warp
+# path: S = 5 and S = 7 at V = 16; S = 8 and 12, and V = 256 or 512, on
+# the CTA path), the sparse pass by its list and candidates (S = 12,
+# K = 256 has passes of more than 64 candidates).
 def frontier_cases():
     from jepsen_tpu_torch.histories import corrupt_reads, register_history
     return [
         ("valid_s5", lambda: register_history(1000, 5, 101, 5), None,
-         (256, 16, 4)),
+         (256, 16, 4), "init"),
         ("corrupted_s5", lambda: corrupt_reads(
             register_history(1000, 5, 102, 5), n=2, seed=1), None,
-         (256, 16, 4)),
+         (256, 16, 4), "init"),
         ("crashed", lambda: crashed(register_history(1000, 5, 103, 4), 150),
-         None, (256, 16, 4)),
+         None, (256, 16, 4), "init"),
         ("fresh_values", lambda: register_history(1000, 5, 107,
                                                   FRESH_VALUES), None,
-         (256, 16, 4)),
-        ("s1", lambda: register_history(600, 1, 104, 6), None, ()),
-        ("s12", lambda: register_history(800, 12, 105, 4), 12, ()),
-        ("v256_s3", lambda: register_history(1000, 3, 106, 300), None, ()),
+         (256, 16, 4), "init"),
+        ("s1", lambda: register_history(600, 1, 104, 6), None, (), "init"),
+        ("s12", lambda: register_history(800, 12, 105, 4), (12, None),
+         (256, 16), "init"),
+        ("v256_s3", lambda: register_history(1000, 3, 106, 300), None, (),
+         "init"),
+        ("s6_v512", lambda: register_history(1000, 6, 108, 300), (6, 512),
+         (), "init"),
+        ("s7_v512", lambda: register_history(1000, 7, 109, 300), (7, 512),
+         (), "init"),
+        ("s7_v16", lambda: register_history(1000, 7, 111, 5), (7, 16), (),
+         "init"),
+        ("unsorted_start", lambda: register_history(1000, 5, 110, 5), None,
+         (256, 16, 4), "unsorted"),
     ]
 
 
-def check_frontier(name, history, S_table, Ks):
-    """The dense kernel (when the stream is in its regime) and the sparse
-    kernel at each K, each against its plain version on the card, bit for
-    bit."""
+def unsorted_frontier(K: int, seed: int):
+    """A seeded (mask, state) list of K pairs on the card, unsorted, with
+    duplicates, one invalid-mask entry and one sentinel pair."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    mask = rng.integers(0, 4, K).astype(np.int64)
+    state = rng.integers(0, 3, K).astype(np.int32)
+    mask[::3], state[::3] = mask[0], state[0]
+    mask[-1], state[-1] = 0xFFFFFFFF, 2
+    if K > 2:
+        mask[1], state[1] = 0xFFFFFFFF, 0x7FFFFFFF
+    return (torch.from_numpy(mask).cuda().to(torch.uint32),
+            torch.from_numpy(state).cuda())
+
+
+def check_frontier(name, history, table, Ks, start):
+    """The dense kernel (when the stream is in its regime, or at the
+    table given) and the sparse kernel at each K, each against its plain
+    version on the card, bit for bit; with each run's kernel time and the
+    returns (dense) or closure passes (sparse) it ran on its warp path and
+    in all, by its own count, held equal to the plain version's."""
     import torch
     from jepsen_tpu_torch.checker.linear_encode import encode_register_ops
     from jepsen_tpu_torch.ops import frontier_kernels as fk
@@ -236,27 +274,42 @@ def check_frontier(name, history, S_table, Ks):
     ev = card_events(stream)
     S = max(1, stream.n_slots)
     runs = []
-    if S_table is not None or _dense_ok(S, len(stream.intern)):
-        St = S_table or S
-        V = _bucket(len(stream.intern), floor=16)
+    if table is not None or _dense_ok(S, len(stream.intern)):
+        St, V = table or (S, None)
+        V = V or _bucket(len(stream.intern), floor=16)
         t0 = fk.init_table(St, V, 0, "cuda")
         runs.append(("frontier_dense", {"S": St, "V": V},
                      lambda: fk.frontier_dense(*ev, t0),
-                     lambda: fk.frontier_dense_torch(*ev, t0)))
+                     lambda work: fk.frontier_dense_torch(*ev, t0,
+                                                          work=work)))
     for K in Ks:
-        m0, s0 = fk.init_frontier(K, 0, "cuda")
+        m0, s0 = (fk.init_frontier(K, 0, "cuda") if start == "init"
+                  else unsorted_frontier(K, K))
         runs.append(("frontier_sparse", {"S": S, "K": K},
                      lambda m0=m0, s0=s0: fk.frontier_sparse(*ev, m0, s0, S),
-                     lambda m0=m0, s0=s0: fk.frontier_sparse_torch(
-                         *ev, m0, s0, S)))
+                     lambda work, m0=m0, s0=s0: fk.frontier_sparse_torch(
+                         *ev, m0, s0, S, work=work)))
     for phase, shape, kern, plain in runs:
-        got, ref = kern(), plain()
+        work = {}
+        got = kern()
+        warp, total = getattr(fk, phase).paths.tolist()
+        ref = plain(work)
         torch.cuda.synchronize()
         err = frontier_err(got, ref)
-        emit({"phase": phase, "case": name, **shape, "events": len(stream),
-              "result": [int(x) for x in got[:4]], "equal": err == 0.0})
+        ms = cuda_ms(kern, 3)
+        unit = "returns" if phase == "frontier_dense" else "passes"
+        path = {unit: total, f"warp_{unit}": warp,
+                f"warp_{unit[:-1]}_share": warp / max(1, total),
+                "plain_work": work}
+        emit({"phase": phase, "case": name, **shape, "start": start,
+              "events": len(stream), "result": [int(x) for x in got[:4]],
+              "equal": err == 0.0, "ms": ms, **path})
         if err != 0.0:
             raise AssertionError(f"{phase} {name} {shape} differs from plain")
+        if [warp, total] != [work.get(f"warp_{unit}", 0), work.get(unit, 0)]:
+            raise AssertionError(f"{phase} {name} {shape}: the kernel ran "
+                                 f"{warp} of {total} {unit} on its warp "
+                                 f"path, the plain version counts {work}")
 
 
 def dense_scan_ops(stream, died: int, V: int) -> float:
@@ -321,20 +374,27 @@ def read_launches() -> dict:
             "scc_trim": sk.scc_trim.launches}
 
 
-def device_kernels(fn):
+def device_kernels(fn, want: str = ""):
     """[(kernel name, device us)] of the CUDA kernels that one call of
     ``fn()`` runs, in launch order, from ``torch.profiler`` (after one
-    warm-up call)."""
+    warm-up call); with ``want``, a trace that holds a kernel whose name
+    contains it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
+    # the profiler now and then returns a trace without the device's
+    # events, or without some of them: take the call again, up to three
+    # times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if evs and any(want in e.name for e in evs):
+            break
     return [(e.name.replace("(anonymous namespace)::", "").split("(")[0]
              .removeprefix("void "), e.time_range.end - e.time_range.start)
             for e in evs]
@@ -777,11 +837,19 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     _build.build_all()
+    # the compiler's resource report, each kernel's registers and spills
+    # after its name; a spill in a frontier scan fails the run
     ptxas = {k: [ln.strip() for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln
+                 or "Compiling entry" in ln]
              for k, v in _build.ptxas_report.items()}
+    spills = {k: [ln for ln in lines
+                  if any(int(x) for x in re.findall(r"(\d+) bytes spill", ln))]
+              for k, lines in ptxas.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+          "spills": spills, "ptxas": ptxas})
+    if spills.get("frontier_dense") or spills.get("frontier_sparse"):
+        raise AssertionError(f"a frontier scan spills registers: {spills}")
 
     # 3-4. each kernel against its plain version
     check_chunk_product("mv64", 3, 8, 64, 64, 16, 1)
@@ -803,10 +871,11 @@ def main() -> int:
     for case in COMBINE_CASES:
         check_combine(*case)
     # the frontier kernels: valid, corrupted and crashed histories, S from
-    # 1 to 12 and V from 16 to 512 (fresh_values) for the dense table,
-    # K = 256, 16 and 4 for the sparse list (16 and 4 overflow)
-    for case, make, S_table, Ks in frontier_cases():
-        check_frontier(case, make(), S_table, Ks)
+    # 1 to 12 and V from 16 to 512 for the dense table (both paths), K =
+    # 256, 16 and 4 for the sparse list (16 and 4 overflow; both paths),
+    # from the initial frontier and from an unsorted one
+    for case, make, table, Ks, start in frontier_cases():
+        check_frontier(case, make(), table, Ks, start)
 
     # 5. the main path
     history = register_history(N_OPS, n_procs=N_PROCS, seed=SEED,
@@ -1109,17 +1178,25 @@ def main() -> int:
     Vb = jitlin._bucket(len(bad_stream.intern), floor=16)
     tb = fk.init_table(Sb, Vb, 0, "cuda")
     kern_d = fk.frontier_dense(*ev_bad, tb)
+    warp_d, returns_d = fk.frontier_dense.paths.tolist()
+    work_d = {}
     t0 = time.perf_counter()
-    plain_d = fk.frontier_dense_torch(*ev_bad, tb)
+    plain_d = fk.frontier_dense_torch(*ev_bad, tb, work=work_d)
     torch.cuda.synchronize()
     plain_ms_d = (time.perf_counter() - t0) * 1e3
     err_d = frontier_err(kern_d, plain_d)
+    if [warp_d, returns_d] != [work_d["warp_returns"], work_d["returns"]]:
+        raise AssertionError(f"frontier_dense ran {warp_d} of {returns_d} "
+                             f"returns on its warp path, the plain version "
+                             f"counts {work_d}")
     ms_d = cuda_ms(lambda: fk.frontier_dense(*ev_bad, tb), 20)
     died_d = int(kern_d[1])
     ev_ok = card_events(stream)
     t_ok = fk.init_table(max(1, stream.n_slots), Vb, 0, "cuda")
     ms_d_full = cuda_ms(lambda: fk.frontier_dense(*ev_ok, t_ok), 5)
-    dense_k = device_kernels(lambda: fk.frontier_dense(*ev_bad, tb))
+    returns_full = fk.frontier_dense.paths.tolist()[1]
+    dense_k = device_kernels(lambda: fk.frontier_dense(*ev_bad, tb),
+                             "frontier_dense_kernel")
     ops_d = dense_scan_ops(bad_stream, died_d, Vb)
     bytes_d = 5 * 4 * len(bad_stream) + 2 * tb.numel() + 16
     st_f = fresh_runs["valid"][0]
@@ -1127,16 +1204,28 @@ def main() -> int:
     Sf = max(1, st_f.n_slots)
     m0, s0 = fk.init_frontier(256, 0, "cuda")
     kern_s = fk.frontier_sparse(*ev_f, m0, s0, Sf)
+    warp_s, passes_s = fk.frontier_sparse.paths.tolist()
     work = {}
     t0 = time.perf_counter()
     plain_s = fk.frontier_sparse_torch(*ev_f, m0, s0, Sf, work=work)
     torch.cuda.synchronize()
     plain_ms_s = (time.perf_counter() - t0) * 1e3
     err_s = frontier_err(kern_s, plain_s)
+    if [warp_s, passes_s] != [work["warp_passes"], work["passes"]]:
+        raise AssertionError(f"frontier_sparse ran {warp_s} of {passes_s} "
+                             f"passes on its warp path, the plain version "
+                             f"counts {work}")
     ms_s = cuda_ms(lambda: fk.frontier_sparse(*ev_f, m0, s0, Sf), 5)
-    sparse_k = device_kernels(lambda: fk.frontier_sparse(*ev_f, m0, s0, Sf))
+    sparse_k = device_kernels(lambda: fk.frontier_sparse(*ev_f, m0, s0, Sf),
+                              "frontier_sparse_kernel")
     ops_s = float(work["compares"] + work["candidates"])
     bytes_s = 5 * 4 * len(st_f) + 2 * 256 * 8 + 16
+
+    def named_ms(kern, name):
+        """The device ms of the profiled kernels called ``name`` (None
+        when the trace lacks them: not measured)."""
+        us = [u for n, u in kern if n.startswith(name)]
+        return sum(us) / 1e3 if us else None
 
     def scan_bound(ops, nbytes):
         t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
@@ -1148,8 +1237,14 @@ def main() -> int:
              "jepsen_tpu/ops/jitlin.py:249", err_d, ms_d, plain_ms_d,
              scan_bound(ops_d, bytes_d), launches_bad["frontier_dense"],
              {"S": Sb, "V": Vb, "events": len(bad_stream), "died": died_d,
+              "returns": returns_d, "warp_returns": warp_d,
+              "us_per_return": ms_d * 1e3 / returns_d,
+              "warp_return_share": warp_d / returns_d,
               "ms_valid_full_scan": ms_d_full,
-              "device_ms": sum(us for _, us in dense_k) / 1e3,
+              "us_per_return_valid_full_scan":
+                  ms_d_full * 1e3 / returns_full,
+              "device_ms": named_ms(dense_k, "frontier_dense_kernel"),
+              "device_kernels_us": dense_k,
               "word_ops": ops_d, "bytes": bytes_d}),
             ("frontier_sparse",
              "jepsen_tpu_torch/ops/csrc/frontier_sparse.cu",
@@ -1157,7 +1252,11 @@ def main() -> int:
              scan_bound(ops_s, bytes_s),
              fresh_runs["valid"][1]["frontier_sparse"],
              {"S": Sf, "K": 256, "events": len(st_f), "work": work,
-              "device_ms": sum(us for _, us in sparse_k) / 1e3,
+              "passes": passes_s, "warp_passes": warp_s,
+              "us_per_pass": ms_s * 1e3 / passes_s,
+              "warp_pass_share": warp_s / passes_s,
+              "device_ms": named_ms(sparse_k, "frontier_sparse_kernel"),
+              "device_kernels_us": sparse_k,
               "bytes": bytes_s})):
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": rep, "launches": lc,

@@ -13,34 +13,43 @@
 // cleared, and counts the closed table's population into peak. alive and
 // died follow the table's emptiness; inexact is set when a transition of
 // any invoke leaves [0, V). Results: alive, died, inexact, peak and the
-// final table, bit for bit those of the reference's `run.resume`.
+// final table, bit for bit those of the reference's `run.resume`; and the
+// returns the scan closed on the warp path and in all (the path taken,
+// which the caller holds against the plain version's count).
 //
 // What bounds it. The work is tiny (one table of at most 16 KB, a few
 // words a row) and serial: every return depends on the one before, and a
-// return is npend level passes and a kill, each ordered after the last.
+// return is npend level rounds and a kill, each ordered after the last.
 // The bytes (events in, table in and out) take microseconds at 3.35 TB/s,
 // and the operations far less; what bounds it is latency, the chain of
-// barriers of one CTA, about npend + 4 of them a return.
+// dependent steps a return takes.
 //
 // Design. One CTA per history, the event loop inside it, so a check is one
-// launch. The table lives bit-packed in shared memory ([2^S][W] words,
-// W = ceil(V / 32)). The transition is the CAS register's, a __device__
-// copy of `_cas_step_ids` (jepsen_tpu_torch/models): at an invoke thread v
-// computes nxt_s[v], a next-state vector that is the reference's one-hot
-// [V, V] matrix in V words. The closure is a single level-order pass, as
-// in chunk_product.cu: the rows are ordered by level popcount(r & pm) (the
-// order is rebuilt at each return, one position per row from a binomial
-// table), and the rows of level p read only rows of level p - 1, already
-// final; a path of the closure adds at most npend bits, so this is the
-// reference's fixpoint. The threads take (row, source word) items of a
-// level and OR the image bits of the source words into the row with
-// shared-memory atomics. The kill moves block r | 2^s onto block r and
-// zeroes it, one thread a pair, counting the population on the way.
-// Invokes need no barrier: the next return's first barrier orders them.
-// The out-of-range flag depends only on each invoke's (f, a, b) and V, so
-// it is computed for all invokes at once before the loop, and the loop
-// stops at the return where the table empties (after it the table stays
-// empty and no count changes).
+// launch. The transition is the CAS register's, a __device__ copy of
+// `_cas_step_ids` (jepsen_tpu_torch/models). The closure runs level by
+// level: a row's level is popcount(r & pm), and the rows of level p read
+// only rows r ^ 2^t of level p - 1, already final; a path of the closure
+// adds at most npend bits, so this is the reference's fixpoint. The kill
+// moves row r | 2^s onto row r and zeroes it, counting the population on
+// the way. The whole CTA unpacks the table and computes the out-of-range
+// flag of every invoke up front (it depends only on each invoke's (f, a, b)
+// and V); the loop stops at the return where the table empties (after it
+// the table stays empty and no count changes). Two paths, chosen by shape:
+// - Warp path (one-word rows and at most kWarpCost = 16 for rows a lane x
+//   nibbles a row: S <= 7 at V <= 16, S <= 6 at V <= 32; the main path's
+//   S = 5, V = 16). Warp 0 runs the event loop alone, no CTA barrier orders
+//   a return, and the table lives in its registers (warp_scan_rows); an
+//   image is an OR of per-nibble tables built at the invoke, so no
+//   level-order table and no bit-serial chain.
+// - CTA path (V > 32, or more rows): the table bit-packed in shared memory
+//   ([2^S][W] words, W = ceil(V / 32)), the invoke's next-state vector
+//   nxt_s (the reference's one-hot [V, V] matrix in V words), the rows
+//   ordered by level at each return (one position per row from a binomial
+//   table), the threads taking the (row, source word) items of a level and
+//   ORing the image bits with shared-memory atomics, a barrier after each
+//   level. Here each barrier orders enough work: with rows of many words
+//   one warp alone was slower, and past the warp path's bound its serial
+//   rounds cost more than the barriers (timed on the card; PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,7 +59,11 @@ constexpr int kThreads = 256;
 constexpr int kMaxSlots = 12;
 constexpr int kBinomN = kMaxSlots + 1;
 constexpr int kEvChunk = 512;  // events staged in shared memory at a time
+// the warp path's tables: rows a lane x nibbles a row at most this (the
+// closure's loads a source and round); past it the CTA path is faster
+constexpr int kWarpCost = 16;
 constexpr int kInvoke = 0, kReturn = 1;
+constexpr unsigned kFull = 0xffffffffu;
 
 // copied from jepsen_tpu_torch/models/__init__.py _cas_step_ids: read v ok
 // iff v == state or v == 0 (None); write v -> v; cas (a, b) ok iff
@@ -62,6 +75,14 @@ __device__ __forceinline__ int cas_step(int state, int f, int a, int b,
                  (is_cas && state == a);
   *ok = k;
   return is_write ? a : ((is_cas && k) ? b : state);
+}
+
+// nxt[v] of an invoke's op: its next state, -1 where the op does not apply
+// or the state leaves [0, V)
+__device__ __forceinline__ int next_state(int v, int f, int a, int b, int V) {
+  bool ok;
+  const int st = cas_step(v, f, a, b, &ok);
+  return (ok && st >= 0 && st < V) ? st : -1;
 }
 
 // copied from chunk_product.cu: position of mask a when the masks are
@@ -86,29 +107,202 @@ __device__ __forceinline__ int level_order_pos(int a, int pm, int S,
 
 __device__ __forceinline__ int warp_sum(int x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The kill of slot s by items (pair, word) it = start, start + stride, ...:
+// row r <- row r | 2^s for r without bit s, row r | 2^s <- 0. Returns the
+// population the items held and whether any moved row was not empty.
+__device__ __forceinline__ int kill_items(uint32_t* T, int s, int M, int W,
+                                          int start, int stride, bool* any) {
+  int pop = 0;
+  for (int it = start; it < (M >> 1) * W; it += stride) {
+    const int q = it / W, j = it - (it / W) * W;
+    const int lo = ((q >> s) << (s + 1)) | (q & ((1 << s) - 1));
+    const int hi = lo | (1 << s);
+    const uint32_t x = T[hi * W + j];
+    pop += __popc(x) + __popc(T[lo * W + j]);
+    *any |= x != 0u;
+    T[lo * W + j] = x;
+    T[hi * W + j] = 0u;
+  }
+  return pop;
+}
+
+// Stages events [e0, e0 + n) into ev ([5][kEvChunk]) by threads
+// first .. first + nthr - 1.
+__device__ __forceinline__ void stage_events(
+    int* ev, const int* kind, const int* slot, const int* fv, const int* av,
+    const int* bv, int e0, int n, int first, int nthr) {
+  for (int k = first; k < n; k += nthr) {
+    ev[k] = kind[e0 + k];
+    ev[kEvChunk + k] = slot[e0 + k];
+    ev[2 * kEvChunk + k] = fv[e0 + k];
+    ev[3 * kEvChunk + k] = av[e0 + k];
+    ev[4 * kEvChunk + k] = bv[e0 + k];
+  }
+}
+
+// The warp path for one-word rows (V <= 32), run by warp 0 alone: row
+// r = lane + 32 i lives in the lane's register x[i] (kRows = max(1, 2^S /
+// 32) rows a lane; lanes past 2^S hold empty rows that stay empty). Round p
+// of the closure ORs into the rows of level p the images of their rows
+// r ^ 2^t: a __shfl_xor_sync for t < 5, the register x[i ^ 2^(t-5)]
+// otherwise (t and i unrolled, so every index is known to the compiler).
+// An image is an OR of per-nibble tables (nib[t][j][n]: the states that
+// the nibble n at bits 4j .. 4j + 3 steps to under t's op), built at the
+// invoke, so a source costs kNib = ceil(V / 4) (4 or 8) loads that do not
+// wait on each other; the round takes no branch on the data. The kill moves
+// registers or shuffles; __reduce_add_sync counts the population and
+// __any_sync tells emptiness. Returns with x written back to T.
+template <int kRows, int kNib>
+__device__ __forceinline__ void warp_scan_rows(const int* kind, const int* slot,
+                               const int* fv, const int* av, const int* bv,
+                               uint32_t* T, uint32_t* nib, int* ev, int E,
+                               int S, int V, int lane, bool* alive_out,
+                               int* died_out, int* peak_out,
+                               int* returns_out) {
+  // the slots a table of 32 * kRows rows can have: S itself past 32 rows
+  constexpr int kSlots = 5 + (kRows >= 2) + (kRows >= 4);
+  const int M = 1 << S;
+  uint32_t x[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+    x[i] = lane + 32 * i < M ? T[lane + 32 * i] : 0u;
+  int pm = 0, died = -1, peak = 1, returns = 0;
+  bool alive = true;
+  for (int e = 0; e < E && alive; ++e) {
+    const int k = e % kEvChunk;
+    if (k == 0) {
+      __syncwarp();  // every lane is done with the last chunk's events
+      stage_events(ev, kind, slot, fv, av, bv, e, min(kEvChunk, E - e), lane,
+                   32);
+      __syncwarp();
+    }
+    const int kd = ev[k], s = ev[kEvChunk + k];
+    if (kd == kInvoke) {
+      const int f = ev[2 * kEvChunk + k], a = ev[3 * kEvChunk + k],
+                b = ev[4 * kEvChunk + k];
+      // lane takes nibble j = lane / 4 (states 4j .. 4j + 3; none past V)
+      // and the 4 nibble values n = 4 (lane % 4) .. + 3
+      const int j = lane >> 2;
+      auto image = [&](int v) -> uint32_t {
+        const int st = v < V ? next_state(v, f, a, b, V) : -1;
+        return st >= 0 ? 1u << st : 0u;
+      };
+      const uint32_t w0 = image(4 * j), w1 = image(4 * j + 1),
+                     w2 = image(4 * j + 2), w3 = image(4 * j + 3);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int n = 4 * (lane & 3) + m;
+        nib[s * 128 + j * 16 + n] = ((n & 1) ? w0 : 0u) | ((n & 2) ? w1 : 0u) |
+                                    ((n & 4) ? w2 : 0u) | ((n & 8) ? w3 : 0u);
+      }
+      pm |= 1 << s;
+      continue;
+    }
+    if (kd != kReturn) continue;
+    __syncwarp();  // the invokes' tables
+    const int npend = __popc(pm);
+    for (int p = 1; p <= npend; ++p) {
+      // a round's sources are the rows as it starts (rows of level p read
+      // rows of level p - 1), so the slots' shuffles and loads do not wait
+      // on each other; nor does any branch on a slot or on the data
+      uint32_t acc[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) acc[i] = 0u;
+#pragma unroll
+      for (int t = 0; t < kSlots; ++t) {
+        const bool on = t < S && ((pm >> t) & 1);
+        const uint32_t* nt = nib + t * 128;
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const uint32_t y =
+              t < 5 ? __shfl_xor_sync(kFull, x[i], 1 << (t < 5 ? t : 0))
+                    : x[i ^ ((t < 5 ? 0 : 1 << (t - 5)) & (kRows - 1))];
+          const int r = lane + 32 * i;
+          // kNib independent loads (a nibble past V is 0: empty image)
+          uint32_t img = 0u;
+#pragma unroll
+          for (int j = 0; j < kNib; ++j)
+            img |= nt[j * 16 + ((y >> (4 * j)) & 15)];
+          acc[i] |= (on && __popc(r & pm) == p && ((r >> t) & 1)) ? img : 0u;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) x[i] |= acc[i];
+    }
+    __syncwarp();  // every lane has read the tables a later invoke rewrites
+    ++returns;
+    // kill: row r <- row r | 2^s for r without bit s, row r | 2^s <- 0
+    int pop = 0;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) pop += __popc(x[i]);
+    pop = __reduce_add_sync(kFull, pop);
+    if (s < 5) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const uint32_t y = __shfl_xor_sync(kFull, x[i], 1 << s);
+        x[i] = ((lane >> s) & 1) ? 0u : y;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 5; ++q) {
+        if (s - 5 != q || (1 << q) >= kRows) continue;
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          if (i & (1 << q)) continue;
+          x[i] = x[i | (1 << q)];
+          x[i | (1 << q)] = 0u;
+        }
+      }
+    }
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) any |= x[i] != 0u;
+    peak = max(peak, pop);
+    pm &= ~(1 << s);
+    if (!__any_sync(kFull, any)) {
+      died = e;
+      alive = false;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+    if (lane + 32 * i < M) T[lane + 32 * i] = x[i];
+  *alive_out = alive;
+  *died_out = died;
+  *peak_out = peak;
+  *returns_out = returns;
+}
+
+// kRows > 0: the warp path with kRows rows a lane and rows of kNib
+// nibbles; kRows == 0: the CTA path.
+template <int kRows, int kNib>
+__global__ void __launch_bounds__(kThreads, 1)
 frontier_dense_kernel(const int* __restrict__ kind,
                       const int* __restrict__ slot,
                       const int* __restrict__ fv, const int* __restrict__ av,
                       const int* __restrict__ bv,
                       const uint8_t* __restrict__ table0,  // [M, V] 0/1
                       uint8_t* __restrict__ table_out,     // [M, V] 0/1
-                      int* __restrict__ out,  // alive, died, inexact, peak
+                      // alive, died, inexact, peak, returns closed on
+                      // the warp path, returns closed
+                      int* __restrict__ out,
                       int E, int S, int V) {
   extern __shared__ uint32_t smem[];
   const int M = 1 << S;
   const int W = (V + 31) >> 5;  // words a row
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  constexpr bool kWarp = kRows > 0;
   uint32_t* T = smem;                          // [M][W]
-  int* nxt = (int*)(T + M * W);                // [S][V]
-  int* binom = nxt + S * V;                    // [kBinomN][kBinomN]
-  int* ev = binom + kBinomN * kBinomN;         // [5][kEvChunk]
-  int* cnt = ev + 5 * kEvChunk;                // [2] population, by parity
-  uint16_t* ord = (uint16_t*)(cnt + 2);        // [M] level order
+  int* ev = (int*)(T + M * W);                 // [5][kEvChunk]
+  int* nxt = ev + 5 * kEvChunk;                // [S][V]; warp path:
+  uint32_t* nib = (uint32_t*)nxt;              // [kMaxSlots][8][16] images
+  int* cnt = nxt + (kWarp ? kMaxSlots * 128 : S * V);  // CTA path: [2]
+  int* binom = cnt + 2;                        // CTA path: [kBinomN]^2
+  uint16_t* ord = (uint16_t*)(binom + kBinomN * kBinomN);  // CTA path: [M]
 
   for (int e = tid; e < M * W; e += kThreads) {
     const int r = e / W, j = e - (e / W) * W;
@@ -117,14 +311,17 @@ frontier_dense_kernel(const int* __restrict__ kind,
       w |= (table0[(size_t)r * V + j * 32 + q] != 0) ? 1u << q : 0u;
     T[e] = w;
   }
-  for (int e = tid; e < S * V; e += kThreads) nxt[e] = -1;
-  for (int q = tid; q < kBinomN * kBinomN; q += kThreads) {
-    const int nn = q / kBinomN, kk = q % kBinomN;
-    int r = 1;
-    for (int i = 0; i < kk; ++i) r = r * (nn - i) / (i + 1);  // 0 if kk > nn
-    binom[q] = r;
+  if (!kWarp)
+    for (int e = tid; e < S * V; e += kThreads) nxt[e] = -1;
+  if (!kWarp) {
+    for (int q = tid; q < kBinomN * kBinomN; q += kThreads) {
+      const int nn = q / kBinomN, kk = q % kBinomN;
+      int r = 1;
+      for (int i = 0; i < kk; ++i) r = r * (nn - i) / (i + 1);  // 0 if kk > nn
+      binom[q] = r;
+    }
+    if (tid < 2) cnt[tid] = 0;
   }
-  if (tid < 2) cnt[tid] = 0;
   // inexact: an invoke's transition leaves [0, V) for some state
   bool oob = false;
   for (int e = tid; e < E; e += kThreads) {
@@ -138,101 +335,92 @@ frontier_dense_kernel(const int* __restrict__ kind,
   }
   const int inexact = __syncthreads_or(oob);
 
-  int pm = 0, died = -1, peak = 1, par = 0;
+  int died = -1, peak = 1, returns = 0;
   bool alive = true;
-  for (int e0 = 0; e0 < E && alive; e0 += kEvChunk) {
-    const int n = min(kEvChunk, E - e0);
-    __syncthreads();  // every thread is done with the last chunk's events
-    for (int k = tid; k < n; k += kThreads) {
-      ev[k] = kind[e0 + k];
-      ev[kEvChunk + k] = slot[e0 + k];
-      ev[2 * kEvChunk + k] = fv[e0 + k];
-      ev[3 * kEvChunk + k] = av[e0 + k];
-      ev[4 * kEvChunk + k] = bv[e0 + k];
-    }
+  if (kWarp) {
+    // warp 0 runs the event loop; the others wait at the barrier below
+    if (tid < 32)
+      warp_scan_rows<(kWarp ? kRows : 1), kNib>(kind, slot, fv, av, bv, T, nib,
+                                               ev, E, S, V, lane, &alive,
+                                               &died, &peak, &returns);
     __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const int kd = ev[k], s = ev[kEvChunk + k];
-      if (kd == kInvoke) {
-        const int f = ev[2 * kEvChunk + k], a = ev[3 * kEvChunk + k],
-                  b = ev[4 * kEvChunk + k];
-        for (int v = tid; v < V; v += kThreads) {
-          bool ok;
-          const int st = cas_step(v, f, a, b, &ok);
-          nxt[s * V + v] = (ok && st >= 0 && st < V) ? st : -1;
-        }
-        pm |= 1 << s;
-        continue;
-      }
-      if (kd != kReturn) continue;
-      __syncthreads();  // nxt of the invokes since the last return
-      for (int r = tid; r < M; r += kThreads)
-        ord[level_order_pos(r, pm, S, binom)] = (uint16_t)r;
+  } else {
+    int pm = 0, par = 0;
+    for (int e0 = 0; e0 < E && alive; e0 += kEvChunk) {
+      const int n = min(kEvChunk, E - e0);
+      __syncthreads();  // every thread is done with the last chunk's events
+      stage_events(ev, kind, slot, fv, av, bv, e0, n, tid, kThreads);
       __syncthreads();
-      // closure, level by level: rows of level p read rows of level p - 1
-      const int npend = __popc(pm), nf = S - npend;
-      int first = 1 << nf;  // level-0 rows come first and keep their bits
-      for (int p = 1; p <= npend; ++p) {
-        const int count = binom[npend * kBinomN + p] << nf;
-        for (int it = tid; it < count * W; it += kThreads) {
-          const int r = ord[first + it / W];
-          const int j = it - (it / W) * W;
-          int m = r & pm;
-          while (m) {
-            const int t = __ffs(m) - 1;
-            m &= m - 1;
-            uint32_t src = T[(r ^ (1 << t)) * W + j];
-            const int* nx = nxt + t * V + j * 32;
-            while (src) {
-              const int q = __ffs((int)src) - 1;
-              src &= src - 1;
-              const int w = nx[q];
-              if (w >= 0) atomicOr(&T[r * W + (w >> 5)], 1u << (w & 31));
+      for (int k = 0; k < n; ++k) {
+        const int kd = ev[k], s = ev[kEvChunk + k];
+        if (kd == kInvoke) {
+          const int f = ev[2 * kEvChunk + k], a = ev[3 * kEvChunk + k],
+                    b = ev[4 * kEvChunk + k];
+          for (int v = tid; v < V; v += kThreads)
+            nxt[s * V + v] = next_state(v, f, a, b, V);
+          pm |= 1 << s;
+          continue;
+        }
+        if (kd != kReturn) continue;
+        __syncthreads();  // nxt of the invokes since the last return
+        for (int r = tid; r < M; r += kThreads)
+          ord[level_order_pos(r, pm, S, binom)] = (uint16_t)r;
+        __syncthreads();
+        // closure, level by level: rows of level p read rows of level p - 1
+        const int npend = __popc(pm), nf = S - npend;
+        int first = 1 << nf;  // level-0 rows come first and keep their bits
+        for (int p = 1; p <= npend; ++p) {
+          const int count = binom[npend * kBinomN + p] << nf;
+          for (int it = tid; it < count * W; it += kThreads) {
+            const int r = ord[first + it / W];
+            const int j = it - (it / W) * W;
+            for (int m = r & pm; m; m &= m - 1) {
+              const int t = __ffs(m) - 1;
+              // one source word j of row r ^ 2^t
+              uint32_t src = T[(r ^ (1 << t)) * W + j];
+              const int* nx = nxt + t * V + j * 32;
+              while (src) {
+                const int q = __ffs((int)src) - 1;
+                src &= src - 1;
+                const int w = nx[q];
+                if (w >= 0) atomicOr(&T[r * W + (w >> 5)], 1u << (w & 31));
+              }
             }
           }
+          first += count;
+          __syncthreads();
         }
-        first += count;
-        __syncthreads();
-      }
-      // kill: row r <- row r | 2^s for r without bit s, row r | 2^s <- 0,
-      // counting the closed table's population
-      int pop = 0;
-      bool any = false;
-      for (int it = tid; it < (M >> 1) * W; it += kThreads) {
-        const int q = it / W, j = it - (it / W) * W;
-        const int lo = ((q >> s) << (s + 1)) | (q & ((1 << s) - 1));
-        const int hi = lo | (1 << s);
-        const uint32_t x = T[hi * W + j];
-        pop += __popc(x) + __popc(T[lo * W + j]);
-        any |= x != 0u;
-        T[lo * W + j] = x;
-        T[hi * W + j] = 0u;
-      }
-      pop = warp_sum(pop);
-      if ((tid & 31) == 0) atomicAdd(&cnt[par], pop);
-      const bool now_alive = __syncthreads_or(any);
-      peak = max(peak, cnt[par]);
-      // the other parity's counter is next read after two more barriers
-      if (tid == 0) cnt[par ^ 1] = 0;
-      par ^= 1;
-      pm &= ~(1 << s);
-      if (!now_alive) {
-        died = e0 + k;
-        alive = false;
-        break;
+        // kill, counting the closed table's population
+        bool any = false;
+        const int pop = warp_sum(kill_items(T, s, M, W, tid, kThreads, &any));
+        if (lane == 0) atomicAdd(&cnt[par], pop);
+        const bool now_alive = __syncthreads_or(any);
+        peak = max(peak, cnt[par]);
+        // the other parity's counter is next read after two more barriers
+        if (tid == 0) cnt[par ^ 1] = 0;
+        par ^= 1;
+        pm &= ~(1 << s);
+        ++returns;
+        if (!now_alive) {
+          died = e0 + k;
+          alive = false;
+          break;
+        }
       }
     }
+    __syncthreads();
   }
-  __syncthreads();
   for (int e = tid; e < M * V; e += kThreads) {
     const int r = e / V, v = e - (e / V) * V;
     table_out[e] = (uint8_t)((T[r * W + (v >> 5)] >> (v & 31)) & 1u);
   }
-  if (tid == 0) {
+  if (tid == 0) {  // thread 0 is lane 0 of the warp that ran the warp path
     out[0] = alive ? 1 : 0;
     out[1] = died;
     out[2] = inexact ? 1 : 0;
     out[3] = peak;
+    out[4] = kWarp ? returns : 0;
+    out[5] = returns;
   }
 }
 
@@ -243,16 +431,34 @@ extern "C" int jt_frontier_dense(void* kind, void* slot, void* f, void* a,
                                  void* out, int E, int S, int V,
                                  void* stream) {
   if (S < 1 || S > kMaxSlots || V < 1) return (int)cudaErrorInvalidValue;
-  const int M = 1 << S;
-  const size_t smem = ((size_t)M * ((V + 31) / 32) + (size_t)S * V +
-                       kBinomN * kBinomN + 5 * kEvChunk + 2) *
-                          sizeof(int) +
-                      (size_t)M * sizeof(uint16_t);
+  const size_t M = (size_t)1 << S, words = M * ((V + 31) / 32);
+  // the warp path: one-word rows, kWarpCost bounding rows a lane x nibbles
+  const int nib = V <= 16 ? 4 : 8;
+  const int rows = V <= 32 && (M > 32 ? (int)M / 32 : 1) * nib <= kWarpCost
+                       ? (M > 32 ? (int)M / 32 : 1)
+                       : 0;
+  size_t smem =
+      (words + 5 * kEvChunk + (rows ? kMaxSlots * 128 : (size_t)S * V) + 2) *
+      sizeof(int);
+  if (!rows)
+    smem += kBinomN * kBinomN * sizeof(int) + M * sizeof(uint16_t);
+  void (*kernel)(const int*, const int*, const int*, const int*, const int*,
+                 const uint8_t*, uint8_t*, int*, int, int, int) =
+      frontier_dense_kernel<0, 0>;
+  if (nib == 4) {
+    kernel = rows == 1   ? frontier_dense_kernel<1, 4>
+             : rows == 2 ? frontier_dense_kernel<2, 4>
+             : rows == 4 ? frontier_dense_kernel<4, 4>
+                         : kernel;
+  } else {
+    kernel = rows == 1   ? frontier_dense_kernel<1, 8>
+             : rows == 2 ? frontier_dense_kernel<2, 8>
+                         : kernel;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      frontier_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  frontier_dense_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)kind, (const int*)slot, (const int*)f, (const int*)a,
       (const int*)b, (const uint8_t*)table0, (uint8_t*)table_out, (int*)out,
       E, S, V);

@@ -17,29 +17,54 @@
 // valid entries does not grow, or after S. The kill keeps the entries
 // holding bit s, with the bit cleared. peak is the largest count a
 // closure ended with. Results: alive, died, overflow, peak and the final
-// list, bit for bit those of the reference's `run.resume`.
+// list, bit for bit those of the reference's `run.resume`; and the closure
+// passes run on the warp path and in all (the path taken, which the
+// caller holds against the plain version's count).
 //
 // What bounds it. The data is small (events in, 2 KB of list in and out at
 // K = 256) and the work serial: each pass depends on the one before and
-// each return on the last, and a pass is a sort with a barrier at each of
-// its log2(n)(log2(n) + 1) / 2 steps. So latency bounds it, the chain of
-// barriers of one CTA, far from the byte or operation bound.
+// each return on the last. So latency bounds it, far from the byte or
+// operation bound; what sets the time is the length of the dependent chain
+// a pass and a return take, and in a CTA every barrier adds to that chain.
 //
 // Design. One CTA per history, the event loop inside it, so a check is one
 // launch. A pair is one 64-bit key, mask << 32 | (state ^ 2^31), which
 // orders as the reference's two-key sort and makes the sentinel pair the
-// largest key. The list stays sorted and distinct in shared memory. A pass
-// gathers the list's keys and the valid expansions into a candidate buffer
-// in shared memory (at most K * (S + 1) keys; the transition is a
-// __device__ copy of the CAS register's `_cas_step_ids`), sorts only the
-// candidates that exist, rounded up to a power of two (a bitonic sort; one
-// warp with __syncwarp when there are at most 64), and keeps the first K
-// distinct keys by a block-wide prefix count: the same K pairs as the
-// reference's sort of all K * (S + 1) slots, since both keep the K
-// smallest distinct pairs. The kill needs no sort: clearing one bit in the
-// masks that hold it keeps their order and their distinctness, so it is a
-// stable compaction. After the frontier empties nothing changes any more
-// (an empty list has no candidates), so the loop stops there.
+// largest key. After the first closure pass the list in shared memory is
+// sorted and distinct, valid keys first, and `len` entries long (sentinels
+// after); every loop runs over the live list, not over K. Warp 0 runs the
+// event loop alone; the other warps wait on a named barrier and join only
+// for a CTA-path pass.
+// - Warp path (the common case): the list holds at most kWarpList = 64 keys
+//   (two a lane) and the pass at most kWarpCand = 64 candidates. Each lane
+//   counts its keys' expansions, a warp prefix count places them, and the
+//   warp's sum is the exact candidate count. The pass then runs in one warp
+//   with no CTA barrier and no block scan: a rank sort (a key's place is
+//   the number of smaller keys plus the equal ones before it, every lane
+//   reading every candidate by broadcast loads that do not wait on each
+//   other; a shuffle bitonic sort's chain of dependent steps took longer),
+//   duplicates found against the neighbour (__shfl_up_sync), the first K
+//   distinct kept by ballot and popcount, overflow from the (K+1)-th
+//   distinct key, and growth from the popcount of the valid ones.
+// - CTA path (a longer list or more candidates, and the first pass after a
+//   given list, which may be unsorted or hold duplicates; the reference
+//   counts that raw list before the pass): all threads gather the list's
+//   keys and expansions, placed by one block prefix count, sort the
+//   candidates that exist (rounded up to a power of two, at least 64; a
+//   bitonic sort whose steps within 64 keys run in registers, one warp a
+//   block, so only the steps across blocks take a barrier each) and keep
+//   the first K distinct by a second block prefix count.
+// - The kill is warp 0's alone at any length: clearing one bit in the masks
+//   that hold it keeps their order and distinctness, so it is a stable
+//   compaction in place, 32 keys a ballot.
+// The transition is a __device__ copy of the CAS register's
+// `_cas_step_ids`. For it the expansions of a sorted, distinct list by one
+// slot are themselves sorted once adjacent duplicates go (adding bit t keeps
+// the order of masks that lack it; within a mask a read keeps the states'
+// order, a write sends all to `a`, a CAS passes one state), so the CTA
+// path's sort could become a merge of 1 + npend runs; other models (ROADMAP
+// item 5) lose that property and would need a sort within each mask group.
+// After the frontier empties nothing changes any more, so the loop stops.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,9 +76,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSlots = 32;
 constexpr int kEvChunk = 512;  // events staged in shared memory at a time
+constexpr int kWarpList = 64;  // the warp path's largest list (2 a lane)
+constexpr int kWarpCand = 64;  // and its largest pass (2 candidates a lane)
 constexpr int kInvoke = 0, kReturn = 1;
 constexpr u64 kSentinel = ~0ull;  // (0xFFFFFFFF, 0x7FFFFFFF)
 constexpr uint32_t kSentinelMask = 0xFFFFFFFFu;
+constexpr unsigned kFull = 0xffffffffu;
+// warp 0's command to the CTA at the hand-off barrier
+constexpr int kCmdPass = 1, kCmdEnd = 2;
 
 __device__ __forceinline__ u64 pack(uint32_t mask, int state) {
   return ((u64)mask << 32) | (u64)((uint32_t)state ^ 0x80000000u);
@@ -77,13 +107,84 @@ __device__ __forceinline__ int cas_step(int state, int f, int a, int b,
   return is_write ? a : ((is_cas && k) ? b : state);
 }
 
-// Ascending bitonic sort of c[0, n), n a power of two, by the threads
-// lane0 .. lane0 + nthr - 1 of the CTA; `warp_only` syncs with __syncwarp.
-__device__ __forceinline__ void bitonic(u64* c, int n, int idx, int nthr,
-                                        bool warp_only) {
-  for (int k = 2; k <= n; k <<= 1) {
+// The expansion of key by slot t under the op (f, a, b), or kSentinel when
+// there is none: an invalid or sentinel key, t already in its mask, an op
+// that does not apply, or an expansion that equals the sentinel.
+__device__ __forceinline__ u64 expand(u64 key, int t, int f, int a, int b) {
+  const uint32_t m = key_mask(key), bit = 1u << t;
+  if (m == kSentinelMask || (m & bit)) return kSentinel;
+  bool ok;
+  const int st = cas_step(key_state(key), f, a, b, &ok);
+  return ok ? pack(m | bit, st) : kSentinel;
+}
+
+// Whether key is among the sorted keys F[0, len).
+__device__ __forceinline__ bool in_sorted(const u64* F, int len, u64 key) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (F[mid] < key) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo < len && F[lo] == key;
+}
+
+__device__ __forceinline__ void named_barrier() {
+  asm volatile("bar.sync 1, %0;" ::"r"(kThreads) : "memory");
+}
+
+// the lanes below `lane` (0 <= lane <= 32) as a mask
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+  return lane >= 32 ? ~0u : (1u << lane) - 1u;
+}
+
+// Steps of the bitonic stages k = k_lo .. k_hi (powers of two <= 64) on 64
+// keys in registers: the lane holds elements i0 = base + lane (x0) and
+// i0 + 32 (x1), base a multiple of 64; each stage k runs its steps
+// j = min(k / 2, 32) .. 1, ascending where (i & k) == 0.
+__device__ __forceinline__ void bitonic_regs(u64& x0, u64& x1, int i0,
+                                             int k_lo, int k_hi, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 64; k <<= 1) {
+    if (k < k_lo) continue;
+    if (k > k_hi) break;
+    const bool asc0 = (i0 & k) == 0, asc1 = ((i0 + 32) & k) == 0;
+#pragma unroll
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = idx; i < (n >> 1); i += nthr) {
+      if (j == 32) {  // k == 64: element i0 against i0 + 32, one direction
+        const u64 lo = min(x0, x1), hi = max(x0, x1);
+        x0 = asc0 ? lo : hi;
+        x1 = asc0 ? hi : lo;
+        continue;
+      }
+      const bool lower = (lane & j) == 0;
+      const u64 y0 = __shfl_xor_sync(kFull, x0, j);
+      const u64 y1 = __shfl_xor_sync(kFull, x1, j);
+      x0 = (lower == asc0) ? min(x0, y0) : max(x0, y0);
+      x1 = (lower == asc1) ? min(x1, y1) : max(x1, y1);
+    }
+  }
+}
+
+// Ascending bitonic sort of c[0, n) by the whole CTA, n a power of two and
+// at least 64: each warp sorts 64-key blocks in registers, and of each
+// later stage k the steps j >= 64 go through shared memory, a barrier
+// each, the steps j < 64 through registers again, one barrier for them.
+__device__ void block_sort(u64* c, int n, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  auto in_regs = [&](int k_lo, int k_hi) {
+    for (int base = warp * 64; base < n; base += kWarps * 64) {
+      u64 x0 = c[base + lane], x1 = c[base + 32 + lane];
+      bitonic_regs(x0, x1, base + lane, k_lo, k_hi, lane);
+      c[base + lane] = x0;
+      c[base + 32 + lane] = x1;
+    }
+    __syncthreads();
+  };
+  in_regs(2, 64);
+  for (int k = 128; k <= n; k <<= 1) {
+    for (int j = k >> 1; j >= 64; j >>= 1) {
+      for (int i = tid; i < (n >> 1); i += kThreads) {
         const int lo = ((i / j) * 2 * j) + (i % j);
         const int hi = lo + j;
         const u64 x = c[lo], y = c[hi];
@@ -92,8 +193,17 @@ __device__ __forceinline__ void bitonic(u64* c, int n, int idx, int nthr,
           c[hi] = x;
         }
       }
-      if (warp_only) __syncwarp(); else __syncthreads();
+      __syncthreads();
     }
+    // the steps j = 32 .. 1 of stage k are stage 64's steps, in the
+    // direction (i & k) gives the whole block: passed as bit 6 of i0
+    for (int base = warp * 64; base < n; base += kWarps * 64) {
+      u64 x0 = c[base + lane], x1 = c[base + 32 + lane];
+      bitonic_regs(x0, x1, ((base & k) ? 64 : 0) + lane, 64, 64, lane);
+      c[base + lane] = x0;
+      c[base + 32 + lane] = x1;
+    }
+    __syncthreads();
   }
 }
 
@@ -104,7 +214,7 @@ __device__ __forceinline__ int block_scan(int x, int* scratch, int* total) {
   int incl = x;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    const int y = __shfl_up_sync(kFull, incl, o);
     if (lane >= o) incl += y;
   }
   if (lane == 31) scratch[warp] = incl;
@@ -125,7 +235,212 @@ __device__ __forceinline__ int block_scan(int x, int* scratch, int* total) {
   return out;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// What warp 0 hands the CTA for one pass, and what the pass hands back.
+struct PassArgs {
+  int cmd;
+  int n_in;   // entries of F to expand (K for a given, raw list)
+  int given;  // the list as given: unsorted, maybe with duplicates
+  int npend;
+  int pslot[kMaxSlots];  // the pending slots, ascending
+  int len;    // in: n_in; out: distinct keys kept
+  int count;  // in: the valid keys before the pass; out: valid keys kept
+  int ovf;    // out: a (K+1)-th distinct valid key existed
+};
+
+// One closure pass by the whole CTA: the n_in entries of F and their
+// expansions into C (placed by a block prefix count), sorted, and the
+// first K distinct back into F.
+__device__ void cta_pass(u64* F, u64* C, const int* cur, PassArgs* A,
+                         int* scratch, int K) {
+  const int tid = threadIdx.x;
+  const int n_in = A->n_in, np1 = A->npend + 1;
+  const int items = n_in * np1;
+  // item i is entry i / np1, itself (i % np1 == 0) or its expansion by
+  // the (i % np1 - 1)-th pending slot; a thread takes a contiguous run
+  const int per = (items + kThreads - 1) / kThreads;
+  const int lo = min(items, tid * per), hi = min(items, lo + per);
+  auto cand = [&](int i) -> u64 {
+    const int ki = i / np1, ti = i - ki * np1;
+    const u64 key = F[ki];
+    if (ti == 0 || key == kSentinel) return key;
+    const int t = A->pslot[ti - 1];
+    return expand(key, t, cur[t], cur[kMaxSlots + t], cur[2 * kMaxSlots + t]);
+  };
+  int mine = 0;
+  for (int i = lo; i < hi; ++i) mine += cand(i) != kSentinel;
+  int n;
+  int pos = block_scan(mine, scratch, &n);
+  // a sorted list's pass whose expansions all lie in the list changes
+  // nothing (A->len and A->count stay as warp 0 set them)
+  bool fresh = A->given;
+  for (int i = lo; i < hi; ++i) {
+    const u64 c = cand(i);
+    if (c == kSentinel) continue;
+    C[pos++] = c;
+    if (i % np1 != 0) fresh = fresh || !in_sorted(F, n_in, c);
+  }
+  int n2 = kWarpCand;
+  while (n2 < n) n2 <<= 1;
+  for (int i = n + tid; i < n2; i += kThreads) C[i] = kSentinel;
+  if (!__syncthreads_or(fresh)) return;
+  block_sort(C, n2, tid);
+  // the first K distinct keys; one scan counts the distinct keys (low 16
+  // bits) and the distinct valid ones (high 16 bits): n2 <= 2^14
+  const int per2 = (n2 + kThreads - 1) / kThreads;
+  const int lo2 = min(n2, tid * per2), hi2 = min(n2, lo2 + per2);
+  int d = 0;
+  for (int i = lo2; i < hi2; ++i) {
+    if (C[i] == kSentinel || (i > 0 && C[i] == C[i - 1])) continue;
+    d += 1 + ((key_mask(C[i]) != kSentinelMask) << 16);
+  }
+  int both;
+  int at = block_scan(d, scratch, &both) & 0xFFFF;
+  for (int i = lo2; i < hi2; ++i) {
+    if (C[i] == kSentinel || (i > 0 && C[i] == C[i - 1])) continue;
+    if (at < K) F[at] = C[i];
+    else if (at == K && key_mask(C[i]) != kSentinelMask) A->ovf = 1;
+    ++at;
+  }
+  const int distinct = both & 0xFFFF, kept = min(distinct, K);
+  // a given list may shrink; a sorted one never does (its keys are
+  // candidates)
+  for (int i = kept + tid; i < n_in; i += kThreads) F[i] = kSentinel;
+  if (tid == 0) {
+    A->len = kept;
+    A->count = min(both >> 16, K);
+  }
+  __syncthreads();
+}
+
+// One closure pass by warp 0, when the list (len <= 64) has at most
+// kWarpCand candidates. Returns false, with nothing changed, when it has
+// more. C[0, 64) stages the candidates, C[64, 128) their sorted order.
+__device__ __forceinline__ bool warp_pass(u64* F, u64* C, const int* cur,
+                                          uint32_t pm, int len, int K,
+                                          int lane, int* len_out,
+                                          int* count_out, bool* ovf_out) {
+  const unsigned lt = lanes_below(lane);
+  const bool two_keys = len > 32;
+  const u64 k0 = lane < len ? F[lane] : kSentinel;
+  const u64 k1 = two_keys && lane + 32 < len ? F[lane + 32] : kSentinel;
+  // the list's keys are candidates 0 .. len - 1; the expansions follow,
+  // slot by slot, placed by ballot (expanding several slots at once
+  // measured slower: a pass has about 3 pending slots)
+  int n = len;
+  for (uint32_t rem = pm; rem; rem &= rem - 1) {
+    const int t = __ffs(rem) - 1;
+    const int f = cur[t], a = cur[kMaxSlots + t], b = cur[2 * kMaxSlots + t];
+    const u64 c0 = expand(k0, t, f, a, b);
+    const unsigned b0 = __ballot_sync(kFull, c0 != kSentinel);
+    const int p0 = n + __popc(b0 & lt);
+    if (c0 != kSentinel && p0 < kWarpCand) C[p0] = c0;
+    n += __popc(b0);
+    if (two_keys) {
+      const u64 c1 = expand(k1, t, f, a, b);
+      const unsigned b1 = __ballot_sync(kFull, c1 != kSentinel);
+      const int p1 = n + __popc(b1 & lt);
+      if (c1 != kSentinel && p1 < kWarpCand) C[p1] = c1;
+      n += __popc(b1);
+    }
+  }
+  if (n > kWarpCand) return false;
+  if (lane < len) C[lane] = k0;
+  if (lane + 32 < len) C[lane + 32] = k1;
+  // the sorted order, sentinels where no key lands
+  C[kWarpCand + lane] = kSentinel;
+  C[kWarpCand + 32 + lane] = kSentinel;
+  __syncwarp();
+  // with one candidate a lane, __match_any_sync finds the equal ones: an
+  // expansion is in the list when a lane below len holds it, and of equal
+  // keys the lowest lane is the first
+  const bool two = n > 32;
+  const u64 y0 = lane < n ? C[lane] : kSentinel;
+  const u64 y1 = lane + 32 < n ? C[lane + 32] : kSentinel;
+  const unsigned same = two ? 0u : __match_any_sync(kFull, y0);
+  // a pass whose expansions all lie in the list changes nothing: the list
+  // is its result, with the same count and no overflow
+  bool fresh = false;
+  if (two) {
+    for (int i = len + lane; i < n; i += 32)
+      fresh |= !in_sorted(F, len, C[i]);
+  } else {
+    fresh = lane >= len && lane < n && !(same & lanes_below(len));
+  }
+  if (!__any_sync(kFull, fresh)) {
+    *len_out = len;
+    *count_out =
+        __popc(__ballot_sync(kFull, key_mask(k0) != kSentinelMask &&
+                                        lane < len)) +
+        __popc(__ballot_sync(kFull, key_mask(k1) != kSentinelMask &&
+                                        lane + 32 < len));
+    *ovf_out = false;
+    return true;
+  }
+  // rank sort: a key lands at the number of smaller keys; of equal keys
+  // only the first writes, and the slots left empty hold sentinels. Every
+  // lane reads every candidate (broadcast loads that do not wait on each
+  // other).
+  int r0 = 0, r1 = 0;
+  bool dup0 = false, dup1 = false;
+  if (two) {
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) {
+      const u64 c = C[i];
+      r0 += c < y0;
+      r1 += c < y1;
+      dup0 |= c == y0 && i < lane;
+      dup1 |= c == y1 && i < lane + 32;
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) r0 += C[i] < y0;
+    dup0 = lane != __ffs(same) - 1;
+  }
+  if (lane < n && !dup0) C[kWarpCand + r0] = y0;
+  if (lane + 32 < n && !dup1) C[kWarpCand + r1] = y1;
+  __syncwarp();
+  const u64 x0 = C[kWarpCand + lane], x1 = C[kWarpCand + 32 + lane];
+  // the distinct keys are the slots that hold one, in order
+  const bool d0 = x0 != kSentinel, d1 = two && x1 != kSentinel;
+  const unsigned b0 = __ballot_sync(kFull, d0), b1 = __ballot_sync(kFull, d1);
+  const bool v0 = d0 && key_mask(x0) != kSentinelMask,
+             v1 = d1 && key_mask(x1) != kSentinelMask;
+  const int dv = __popc(__ballot_sync(kFull, v0)) +
+                 (two ? __popc(__ballot_sync(kFull, v1)) : 0);
+  const int q0 = __popc(b0 & lt), q1 = __popc(b0) + __popc(b1 & lt);
+  const int distinct = __popc(b0) + __popc(b1);
+  // a sorted list's keys are all candidates, so the kept list is at least
+  // len long and overwrites every old entry
+  if (d0 && q0 < K) F[q0] = x0;
+  if (d1 && q1 < K) F[q1] = x1;
+  *ovf_out = __any_sync(kFull, (v0 && q0 == K) || (v1 && q1 == K));
+  *len_out = min(distinct, K);
+  *count_out = min(dv, K);
+  __syncwarp();
+  return true;
+}
+
+// The kill by warp 0: keep the entries of F[0, len) holding bit s, with
+// the bit cleared, compacted in place 32 at a time; returns their number.
+__device__ __forceinline__ int warp_kill(u64* F, int len, int s, int lane) {
+  const unsigned lt = lanes_below(lane);
+  int kept = 0;
+  for (int i0 = 0; i0 < len; i0 += 32) {
+    const int i = i0 + lane;
+    const u64 key = i < len ? F[i] : kSentinel;
+    const uint32_t m = key_mask(key);
+    const bool keep = m != kSentinelMask && ((m >> s) & 1u);
+    const unsigned b = __ballot_sync(kFull, keep);
+    __syncwarp();  // this chunk is read; writes land below kept + 32 <= i0 + 32
+    if (keep) F[kept + __popc(b & lt)] = key - ((u64)1 << (32 + s));
+    kept += __popc(b);
+  }
+  for (int i = kept + lane; i < len; i += 32) F[i] = kSentinel;
+  __syncwarp();
+  return kept;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 frontier_sparse_kernel(const int* __restrict__ kind,
                        const int* __restrict__ slot,
                        const int* __restrict__ fv, const int* __restrict__ av,
@@ -134,146 +449,137 @@ frontier_sparse_kernel(const int* __restrict__ kind,
                        const int* __restrict__ state0,
                        uint32_t* __restrict__ mask_out,
                        int* __restrict__ state_out,
-                       int* __restrict__ out,  // alive, died, overflow, peak
+                       // alive, died, overflow, peak, closure passes on
+                       // the warp path, closure passes
+                       int* __restrict__ out,
                        int E, int S, int K, int cap) {
   extern __shared__ u64 smem64[];
-  const int tid = threadIdx.x;
-  u64* F = smem64;                      // [K] the list, sorted, distinct
+  __shared__ PassArgs A;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  u64* F = smem64;                      // [K] the list
   u64* C = F + K;                       // [cap] candidates
-  int* ev = (int*)(C + cap);            // [5][kEvChunk]
+  int* ev = (int*)(C + cap);            // [5][kEvChunk], warp 0's
   int* cur = ev + 5 * kEvChunk;         // [3][kMaxSlots] open ops f, a, b
   int* scratch = cur + 3 * kMaxSlots;   // [kWarps + 1]
-  int* nc = scratch + kWarps + 1;       // [1] candidate count
 
   // the list as given (the first closure pass sorts and dedups it)
   for (int i = tid; i < K; i += kThreads) F[i] = pack(mask0[i], state0[i]);
   for (int i = tid; i < 3 * kMaxSlots; i += kThreads) cur[i] = 0;
-
-  int pm = 0, died = -1, peak = 1;
-  bool alive = true, overflow = false;
-  for (int e0 = 0; e0 < E && alive; e0 += kEvChunk) {
-    const int n = min(kEvChunk, E - e0);
-    __syncthreads();  // every thread is done with the last chunk's events
-    for (int k = tid; k < n; k += kThreads) {
-      ev[k] = kind[e0 + k];
-      ev[kEvChunk + k] = slot[e0 + k];
-      ev[2 * kEvChunk + k] = fv[e0 + k];
-      ev[3 * kEvChunk + k] = av[e0 + k];
-      ev[4 * kEvChunk + k] = bv[e0 + k];
-    }
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const int kd = ev[k], s = ev[kEvChunk + k];
-      if (kd == kInvoke) {
-        if (tid == 0) {
-          cur[s] = ev[2 * kEvChunk + k];
-          cur[kMaxSlots + s] = ev[3 * kEvChunk + k];
-          cur[2 * kMaxSlots + s] = ev[4 * kEvChunk + k];
-        }
-        pm |= 1 << s;
-        continue;
-      }
-      if (kd != kReturn) continue;
-      __syncthreads();  // the last kill's list and the invokes' ops
-      // --- closure passes -------------------------------------------------
-      int loc = 0;
-      for (int i = tid; i < K; i += kThreads)
-        loc += key_mask(F[i]) != kSentinelMask;
-      int count;
-      block_scan(loc, scratch, &count);
-      for (int pass = 0; pass < S; ++pass) {
-        if (tid == 0) *nc = 0;
-        __syncthreads();
-        // the list's keys, then each valid entry's expansions
-        for (int i = tid; i < K * (S + 1); i += kThreads) {
-          const int ki = i / (S + 1), t = i - ki * (S + 1) - 1;
-          const u64 key = F[ki];
-          if (key == kSentinel) continue;
-          u64 cand = key;
-          if (t >= 0) {
-            const uint32_t m = key_mask(key);
-            if (m == kSentinelMask || !((pm >> t) & 1) || ((m >> t) & 1u))
-              continue;
-            bool ok;
-            const int st = cas_step(key_state(key), cur[t], cur[kMaxSlots + t],
-                                    cur[2 * kMaxSlots + t], &ok);
-            if (!ok) continue;
-            cand = pack(m | (1u << t), st);
-            if (cand == kSentinel) continue;
-          }
-          C[atomicAdd(nc, 1)] = cand;
-        }
-        __syncthreads();
-        const int ncand = *nc;
-        int n2 = 1;
-        while (n2 < ncand) n2 <<= 1;
-        for (int i = ncand + tid; i < n2; i += kThreads) C[i] = kSentinel;
-        __syncthreads();
-        if (n2 <= 64) {
-          if (tid < 32) bitonic(C, n2, tid, 32, true);
-          __syncthreads();
-        } else {
-          bitonic(C, n2, tid, kThreads, false);
-        }
-        // keep the first K distinct keys: thread tid takes a contiguous
-        // run of the sorted candidates
-        const int per = (n2 + kThreads - 1) / kThreads;
-        const int lo = min(n2, tid * per), hi = min(n2, lo + per);
-        int d = 0;
-        for (int i = lo; i < hi; ++i)
-          d += C[i] != kSentinel && (i == 0 || C[i] != C[i - 1]);
-        int distinct;
-        int pos = block_scan(d, scratch, &distinct);
-        int c2 = 0;
-        bool ovf = false;
-        for (int i = lo; i < hi; ++i) {
-          if (C[i] == kSentinel || (i > 0 && C[i] == C[i - 1])) continue;
-          if (pos < K) {
-            F[pos] = C[i];
-            c2 += key_mask(C[i]) != kSentinelMask;
-          } else if (pos == K) {
-            ovf = key_mask(C[i]) != kSentinelMask;
-          }
-          ++pos;
-        }
-        for (int i = distinct + tid; i < K; i += kThreads) F[i] = kSentinel;
-        overflow |= __syncthreads_or(ovf);
-        int total;
-        block_scan(c2, scratch, &total);
-        const bool grew = total > count;
-        count = total;
-        if (!grew) break;
-      }
-      peak = max(peak, count);
-      // --- kill: keep entries holding bit s, clearing it; order and
-      // distinctness survive, so a stable compaction is enough -------------
-      const int per = (K + kThreads - 1) / kThreads;
-      const int lo = min(K, tid * per), hi = min(K, lo + per);
-      int keep = 0;
-      for (int i = lo; i < hi; ++i) {
-        const uint32_t m = key_mask(F[i]);
-        keep += m != kSentinelMask && ((m >> s) & 1u);
-      }
-      int kept;
-      int pos = block_scan(keep, scratch, &kept);
-      for (int i = lo; i < hi; ++i) {
-        const u64 key = F[i];
-        const uint32_t m = key_mask(key);
-        if (m != kSentinelMask && ((m >> s) & 1u))
-          C[pos++] = key - ((u64)1 << (32 + s));
-      }
-      __syncthreads();
-      for (int i = tid; i < K; i += kThreads)
-        F[i] = i < kept ? C[i] : kSentinel;
-      pm &= ~(1 << s);
-      if (kept == 0) {
-        died = e0 + k;
-        alive = false;
-        break;
-      }
-    }
-  }
   __syncthreads();
+
+  // warp 0's scan state (uniform over its lanes)
+  enum { kEvents, kClosure, kAfterCta, kKill };
+  int phase = kEvents, e = 0, s = 0, pass = 0, len = K, count = 0;
+  int died = -1, peak = 1, warp_passes = 0, passes = 0;
+  uint32_t pm = 0;
+  bool alive = true, overflow = false, sorted = false;
+  for (;;) {
+    if (warp == 0) {
+      // the event loop, until the scan ends or a pass needs the CTA
+      for (;;) {
+        if (phase == kAfterCta) {
+          len = A.len;
+          overflow |= A.ovf != 0;
+          const bool grew = A.count > count;
+          count = A.count;
+          phase = (grew && ++pass < S) ? kClosure : kKill;
+        }
+        if (phase == kEvents) {
+          if (!alive || e >= E) {
+            if (lane == 0) A.cmd = kCmdEnd;
+            break;
+          }
+          const int k = e % kEvChunk;
+          if (k == 0) {
+            const int n = min(kEvChunk, E - e);
+            __syncwarp();  // every lane is done with the last chunk's events
+            for (int i = lane; i < n; i += 32) {
+              ev[i] = kind[e + i];
+              ev[kEvChunk + i] = slot[e + i];
+              ev[2 * kEvChunk + i] = fv[e + i];
+              ev[3 * kEvChunk + i] = av[e + i];
+              ev[4 * kEvChunk + i] = bv[e + i];
+            }
+            __syncwarp();
+          }
+          const int kd = ev[k], sl = ev[kEvChunk + k];
+          if (kd == kInvoke) {
+            if (lane == 0) {
+              cur[sl] = ev[2 * kEvChunk + k];
+              cur[kMaxSlots + sl] = ev[3 * kEvChunk + k];
+              cur[2 * kMaxSlots + sl] = ev[4 * kEvChunk + k];
+            }
+            pm |= 1u << sl;
+            ++e;
+            continue;
+          }
+          if (kd != kReturn) {
+            ++e;
+            continue;
+          }
+          __syncwarp();  // the invokes' ops
+          s = sl;
+          pass = 0;
+          if (sorted) {
+            count = len;  // after a kill every entry is valid
+          } else {  // the reference counts the given list as it is
+            int c = 0;
+            for (int i = lane; i < K; i += 32)
+              c += key_mask(F[i]) != kSentinelMask;
+            count = __reduce_add_sync(kFull, c);
+          }
+          phase = kClosure;
+        }
+        if (phase == kClosure) {
+          if (sorted && len <= kWarpList) {
+            int len2, c2;
+            bool ovf;
+            if (warp_pass(F, C, cur, pm, len, K, lane, &len2, &c2, &ovf)) {
+              ++warp_passes;
+              ++passes;
+              len = len2;
+              overflow |= ovf;
+              const bool grew = c2 > count;
+              count = c2;
+              phase = (grew && ++pass < S) ? kClosure : kKill;
+              continue;
+            }
+          }
+          // hand the pass to the CTA
+          __syncwarp();  // every lane has read the last pass's results
+          if (lane < S && ((pm >> lane) & 1u))
+            A.pslot[__popc(pm & lanes_below(lane))] = lane;
+          if (lane == 0) {
+            A.cmd = kCmdPass;
+            A.n_in = sorted ? len : K;
+            A.given = !sorted;
+            A.len = A.n_in;
+            A.count = count;
+            A.npend = __popc(pm);
+            A.ovf = 0;
+          }
+          sorted = true;
+          ++passes;
+          phase = kAfterCta;
+          break;
+        }
+        if (phase == kKill) {
+          peak = max(peak, count);
+          len = warp_kill(F, len, s, lane);
+          pm &= ~(1u << s);
+          if (len == 0) {
+            died = e;
+            alive = false;
+          }
+          ++e;
+          phase = kEvents;
+        }
+      }
+    }
+    named_barrier();  // warp 0's command and its list
+    if (A.cmd == kCmdEnd) break;
+    cta_pass(F, C, cur, &A, scratch, K);
+  }
   for (int i = tid; i < K; i += kThreads) {
     mask_out[i] = key_mask(F[i]);
     state_out[i] = key_state(F[i]);
@@ -283,6 +589,8 @@ frontier_sparse_kernel(const int* __restrict__ kind,
     out[1] = died;
     out[2] = overflow ? 1 : 0;
     out[3] = peak;
+    out[4] = warp_passes;
+    out[5] = passes;
   }
 }
 
@@ -294,10 +602,10 @@ extern "C" int jt_frontier_sparse(void* kind, void* slot, void* f, void* a,
                                   int E, int S, int K, void* stream) {
   if (S < 1 || S > kMaxSlots || K < 1 || K * (S + 1) > (1 << 14))
     return (int)cudaErrorInvalidValue;
-  int cap = 1;
+  int cap = 2 * kWarpCand;  // the warp path's staging and sorted order
   while (cap < K * (S + 1)) cap <<= 1;
   const size_t smem = ((size_t)K + cap) * sizeof(u64) +
-                      (5 * kEvChunk + 3 * kMaxSlots + kWarps + 2) *
+                      (5 * kEvChunk + 3 * kMaxSlots + kWarps + 1) *
                           sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       frontier_sparse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -39,8 +39,8 @@ EV_INVOKE, EV_RETURN, EV_NOOP = 0, 1, 2
 SENTINEL_MASK = 0xFFFFFFFF
 SENTINEL_STATE = 0x7FFFFFFF
 
-# The dense kernel keeps the table bit-packed in shared memory, with a
-# level-order table of its 2^S rows (jitlin.DENSE_MAX_SLOTS).
+# The dense kernel's tables: [2^S, V] bits, S <= 12 and V <= 512
+# (jitlin.DENSE_MAX_SLOTS).
 DENSE_MAX_SLOTS = 12
 DENSE_MAX_V = 512
 # Masks are uint32, as in the reference.
@@ -48,6 +48,24 @@ SPARSE_MAX_SLOTS = 32
 # The sparse kernel sorts its candidates, the frontier and each entry's
 # expansions, in shared memory: at most SPARSE_MAX_CANDIDATES pairs.
 SPARSE_MAX_CANDIDATES = 1 << 14
+# Where each kernel runs in one warp (kWarpList, kWarpCand and kWarpCost
+# in csrc/, which alone decide it): a sparse closure pass whose sorted list
+# holds at most 64 keys and which has at most 64 candidates; the whole
+# dense scan when its rows are one word (V <= 32) and rows a lane (2^S /
+# 32, at least 1) times nibbles a row (4 up to V = 16, else 8) is at most
+# 16. The plain versions count their work at the same thresholds; each
+# kernel reports the work it ran on its warp path and in all (``.paths``
+# of its wrapper), and chip_smoke.py and the card tests hold the two
+# counts equal.
+SPARSE_WARP_LIST = 64
+SPARSE_WARP_CANDIDATES = 64
+DENSE_WARP_COST = 16
+
+
+def dense_warp_path(S: int, V: int) -> bool:
+    """Whether ``frontier_dense`` runs a [2^S, V] table on its warp path."""
+    nibbles = 4 if V <= 16 else 8
+    return V <= 32 and max(1, (1 << S) // 32) * nibbles <= DENSE_WARP_COST
 
 
 def _host_events(kind, slot, f, a, b):
@@ -99,7 +117,9 @@ def frontier_dense(kind, slot, f, a, b, table0, step_ids=None):
     index of the return at which the frontier emptied (-1 when it
     survives), ``peak`` the largest closed table's population (at least
     1). On the card one launch of ``csrc/frontier_dense.cu`` runs the
-    whole event loop."""
+    whole event loop, and ``frontier_dense.paths`` becomes its [2] int32
+    tensor on the card: the returns it closed on the warp path, and in
+    all."""
     if table0.device.type == "cpu":
         return frontier_dense_torch(kind, slot, f, a, b, table0, step_ids)
     if table0.device.type != "cuda":
@@ -119,7 +139,7 @@ def frontier_dense(kind, slot, f, a, b, table0, step_ids=None):
     E = ev[0].numel()
     t_in = table0.to(torch.uint8).contiguous()
     t_out = torch.empty((M, V), dtype=torch.uint8, device=dev)
-    out = torch.empty((4,), dtype=torch.int32, device=dev)
+    out = torch.empty((6,), dtype=torch.int32, device=dev)
     from jepsen_tpu_torch.ops import _build
     lib = _build.library("frontier_dense")
     with torch.cuda.device(dev):
@@ -128,13 +148,16 @@ def frontier_dense(kind, slot, f, a, b, table0, step_ids=None):
                                    _stream(dev))
     _check_launch(rc, "frontier_dense")
     frontier_dense.launches += 1
+    frontier_dense.paths = out[4:]
     return (out[0] != 0, out[1], out[2] != 0, out[3], t_out.to(torch.bool))
 
 
 frontier_dense.launches = 0
+frontier_dense.paths = None
 
 
-def frontier_dense_torch(kind, slot, f, a, b, table0, step_ids=None):
+def frontier_dense_torch(kind, slot, f, a, b, table0, step_ids=None,
+                         work: dict | None = None):
     """Plain torch version of :func:`frontier_dense`: the event loop of
     jepsen_tpu/ops/jitlin.py:287-347 in Python over tensors on
     ``table0``'s device. The closure is the reference's: S [M, V] x
@@ -142,7 +165,9 @@ def frontier_dense_torch(kind, slot, f, a, b, table0, step_ids=None):
     The out-of-range flag of every invoke is computed up front: the
     reference ORs it in at each invoke, dead frontier or not. The loop
     stops at the return where the table empties: after it nothing
-    changes."""
+    changes. With a ``work`` dict it adds up there the ``returns`` it
+    closed and ``warp_returns``, those the kernel closes on its warp path
+    (all of them at a table shape :func:`dense_warp_path` takes)."""
     if step_ids is None:
         step_ids = _cas_step_ids
     dev = table0.device
@@ -178,6 +203,10 @@ def frontier_dense_torch(kind, slot, f, a, b, table0, step_ids=None):
             table = torch.where(~has_bit[s][:, None], tc[xor_idx[s]], False)
             peak = torch.maximum(peak, tc.sum(dtype=torch.int32))
             pend &= ~(1 << s)
+            if work is not None:
+                work["returns"] = work.get("returns", 0) + 1
+                work["warp_returns"] = (work.get("warp_returns", 0)
+                                        + dense_warp_path(S, V))
             if not bool(table.any()):
                 # an empty table stays empty: nothing changes after this
                 died = e
@@ -250,7 +279,8 @@ def frontier_sparse(kind, slot, f, a, b, mask0, state0, n_slots: int,
     when a closure pass found more than K distinct configurations;
     ``peak`` is the largest closed frontier kept (at least 1). On the
     card one launch of ``csrc/frontier_sparse.cu`` runs the whole event
-    loop."""
+    loop, and ``frontier_sparse.paths`` becomes its [2] int32 tensor on
+    the card: the closure passes it ran on the warp path, and in all."""
     S, K = n_slots, mask0.shape[0]
     if not 1 <= S <= SPARSE_MAX_SLOTS:
         raise ValueError(f"frontier_sparse: S={S} outside 1 <= S <= "
@@ -276,7 +306,7 @@ def frontier_sparse(kind, slot, f, a, b, mask0, state0, n_slots: int,
     s_in = state0.to(torch.int32).contiguous()
     m_out = torch.empty((K,), dtype=torch.uint32, device=dev)
     s_out = torch.empty((K,), dtype=torch.int32, device=dev)
-    out = torch.empty((4,), dtype=torch.int32, device=dev)
+    out = torch.empty((6,), dtype=torch.int32, device=dev)
     from jepsen_tpu_torch.ops import _build
     lib = _build.library("frontier_sparse")
     with torch.cuda.device(dev):
@@ -285,10 +315,12 @@ def frontier_sparse(kind, slot, f, a, b, mask0, state0, n_slots: int,
                                     _ptr(out), E, S, K, _stream(dev))
     _check_launch(rc, "frontier_sparse")
     frontier_sparse.launches += 1
+    frontier_sparse.paths = out[4:]
     return out[0] != 0, out[1], out[2] != 0, out[3], m_out, s_out
 
 
 frontier_sparse.launches = 0
+frontier_sparse.paths = None
 
 
 def frontier_sparse_torch(kind, slot, f, a, b, mask0, state0, n_slots: int,
@@ -296,9 +328,12 @@ def frontier_sparse_torch(kind, slot, f, a, b, mask0, state0, n_slots: int,
     """Plain torch version of :func:`frontier_sparse`: the event loop of
     jepsen_tpu/ops/jitlin.py:126-218 in Python over tensors on
     ``mask0``'s device, with the pairs as int64 sort keys. With a
-    ``work`` dict it adds up the closure's work there: ``passes``,
-    ``candidates`` (the list's valid pairs and their expansions) and
-    ``compares`` (n log2 n for each pass's n candidates)."""
+    ``work`` dict it adds up the closure's work there: ``returns``,
+    ``passes``, ``candidates`` (the list's pairs and their expansions),
+    ``compares`` (n log2 n for each pass's n candidates) and
+    ``warp_passes``, the passes the kernel runs in one warp: those after
+    the scan's first, from a list of at most SPARSE_WARP_LIST pairs, with
+    at most SPARSE_WARP_CANDIDATES candidates."""
     if step_ids is None:
         step_ids = _cas_step_ids
     dev = mask0.device
@@ -309,14 +344,19 @@ def frontier_sparse_torch(kind, slot, f, a, b, mask0, state0, n_slots: int,
     keys = _pack(mask0, state0)
     pend = 0
     alive, died, overflow, peak = True, -1, False, 1
+    returns = np.nonzero(kind == EV_RETURN)[0]
+    first_return = int(returns[0]) if len(returns) else -1
     for e in range(len(kind)):
         s = int(slot[e])
         if kind[e] == EV_INVOKE:
             cur[:, s] = torch.tensor([f[e], a[e], b[e]], dtype=torch.int32)
             pend |= 1 << s
         elif kind[e] == EV_RETURN:
+            if work is not None:
+                work["returns"] = work.get("returns", 0) + 1
             keys, count, ovf = _sparse_closure(keys, pend, cur, slot_bits,
-                                               K, S, step_ids, work)
+                                               K, S, step_ids, work,
+                                               given=e == first_return)
             mask, state = _unpack(keys)
             has = (mask != SENTINEL_MASK) & ((mask & (1 << s)) != 0)
             k2 = torch.where(has, _pack(mask & ~(1 << s), state),
@@ -352,12 +392,14 @@ def _dedup_compact(keys, K: int):
     return kept, overflow
 
 
-def _sparse_closure(keys, pend, cur, slot_bits, K, S, step_ids, work):
+def _sparse_closure(keys, pend, cur, slot_bits, K, S, step_ids, work,
+                    given=False):
     """jepsen_tpu/ops/jitlin.py:142-171: each pass expands every valid
     configuration by every pending slot it has not linearized, then
     keeps the K smallest distinct configurations; passes stop when the
-    count of valid configurations does not grow, or after S. Returns
-    (keys, count, overflow)."""
+    count of valid configurations does not grow, or after S. ``given``
+    marks the scan's first closure, whose first pass starts from the list
+    as given (the kernel's CTA path). Returns (keys, count, overflow)."""
     pbits = torch.tensor([(pend >> t) & 1 for t in range(S)], dtype=torch.bool,
                          device=keys.device)
 
@@ -365,7 +407,7 @@ def _sparse_closure(keys, pend, cur, slot_bits, K, S, step_ids, work):
         return int((_unpack(k)[0] != SENTINEL_MASK).sum())
 
     count, overflow = count_valid(keys), False
-    for _ in range(S):
+    for it in range(S):
         mask, state = _unpack(keys)
         valid = mask != SENTINEL_MASK
         can = (valid[:, None] & pbits[None, :]
@@ -381,6 +423,10 @@ def _sparse_closure(keys, pend, cur, slot_bits, K, S, step_ids, work):
             work["candidates"] = work.get("candidates", 0) + n
             work["compares"] = work.get("compares", 0) + n * max(
                 1, (n - 1).bit_length())
+            length = int((keys != SENTINEL_KEY).sum())
+            warp = (not given or it > 0) and length <= SPARSE_WARP_LIST \
+                and n <= SPARSE_WARP_CANDIDATES
+            work["warp_passes"] = work.get("warp_passes", 0) + warp
         keys, ovf = _dedup_compact(cand, K)
         c2 = count_valid(keys)
         overflow = overflow or ovf
