@@ -27,7 +27,13 @@ just before it and read just after:
   anomalous graph without φ (the global path: the trim kernel); and a
   10k-txn rw-register history with wr cycles, each against the port's
   cpu oracle. Both Elle kernels are first held against their plain
-  versions on random graphs and clusters and on the main path's inputs.
+  versions on random graphs and clusters and on the main path's inputs
+  (the trim also on a graph of 2^19 nodes and 2^20 edges, past the
+  "auto" mode's TRIM_DEVICE_MIN_EDGES; the screen through its public
+  wrapper and through the main path's host route, also on 5,000
+  clusters, past the sort's shared-memory bins), each with its own count
+  of its work held equal to the plain version's; one wide-window screen
+  call is split into its upload, sort and offsets, peel and read-back.
 
 Prints one JSON line per phase, then a ``kernels`` line, the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -427,32 +433,6 @@ def chunk_entry_call(fn, args, S, V):
 ELLE_TXNS, ELLE_PAIRS = 50_000, 50
 
 
-class recorded:
-    """Within the block, records the arguments of every call that
-    jepsen_tpu_torch.ops.scc makes to the Elle kernels' wrappers (in
-    ``.calls[name]``); the calls still go to the wrappers."""
-
-    def __enter__(self):
-        import types
-        from jepsen_tpu_torch.ops import scc, scc_kernels
-        self.calls = {"cluster_screen": [], "scc_trim": []}
-
-        def rec(name):
-            def call(*args):
-                self.calls[name].append(args)
-                return getattr(scc_kernels, name)(*args)
-            return call
-        self._mod = scc
-        scc.scc_kernels = types.SimpleNamespace(
-            cluster_screen=rec("cluster_screen"), scc_trim=rec("scc_trim"))
-        return self
-
-    def __exit__(self, *exc):
-        from jepsen_tpu_torch.ops import scc_kernels
-        self._mod.scc_kernels = scc_kernels
-        return False
-
-
 def dep_edges(history):
     """The port's columnar graph of a list-append history: (n, src, dst)
     of its dependency (ww, wr, rw) edges."""
@@ -475,14 +455,19 @@ def trim_inputs(n, src, dst):
 
 
 def check_trim(case, src, dst, valid, n, max_iters=512):
-    """The trim kernel against its plain version on the card: the mask
-    and the step count bit-equal. Returns (ms, plain_ms, steps, err)."""
+    """The trim kernel against its plain version on the card: the mask,
+    the step count and the kernel's work count (worklist items, row
+    entries walked) against the plain version's, all equal. Returns (ms,
+    plain_ms, steps, err, work)."""
     import torch
     from jepsen_tpu_torch.ops import scc_kernels as sk
     got, steps = sk.scc_trim(src, dst, valid, n, max_iters)
+    items, walked = sk.scc_trim.work.tolist()
     torch.cuda.synchronize()
+    work = {}
     t0 = time.perf_counter()
-    ref, ref_steps = sk.scc_trim_torch(src, dst, valid, n, max_iters)
+    ref, ref_steps = sk.scc_trim_torch(src, dst, valid, n, max_iters,
+                                       work=work)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     equal = bool(torch.equal(got, ref)) and int(steps) == int(ref_steps)
@@ -490,49 +475,42 @@ def check_trim(case, src, dst, valid, n, max_iters=512):
     emit({"phase": "scc_trim", "case": case, "nodes": n,
           "edges": int(valid.sum()), "steps": int(steps),
           "residue": int(got.sum()), "equal": equal, "ms": ms,
-          "plain_ms": plain_ms, "launches_per_call": 1})
+          "us_per_step": ms * 1e3 / max(1, int(steps)),
+          "plain_ms": plain_ms, "launches_per_call": 1,
+          "work_items": items, "work_walked": walked, "plain_work": work})
     if not equal:
         raise AssertionError(f"scc_trim {case} differs from plain")
-    return ms, plain_ms, int(steps), 0.0 if equal else 1.0
+    if [items, walked] != [work["items"], work["walked"]]:
+        raise AssertionError(f"scc_trim {case}: the kernel counts "
+                             f"{items, walked}, the plain version {work}")
+    return ms, plain_ms, int(steps), 0.0, {"items": items,
+                                           "walked": walked}
 
 
 def screen_clusters(B, V, seed, cyclic):
-    """Seeded clusters of V nodes on the card, as the screen wrapper
-    takes them: each a chain 0 -> 1 -> ... -> V-1 (the longest peel) plus
-    3V random forward edges; with ``cyclic``, one backward edge in every
-    other cluster. Rows in random order."""
-    import numpy as np
+    """``histories.chain_clusters`` on the card, as the screen wrapper
+    takes them (the valid column all True)."""
     import torch
-    rng = np.random.default_rng(seed)
-    a = rng.integers(0, V, (B, 3 * V))
-    b = rng.integers(0, V, (B, 3 * V))
-    lo, hi = np.minimum(a, b), np.maximum(a, b)
-    chain_s = np.broadcast_to(np.arange(V - 1), (B, V - 1))
-    src = np.concatenate([lo, chain_s], axis=1)
-    dst = np.concatenate([hi, chain_s + 1], axis=1)
-    cid = np.broadcast_to(np.arange(B)[:, None], src.shape)
-    keep = src != dst
-    cid, src, dst = cid[keep], src[keep], dst[keep]
-    if cyclic:
-        back = np.arange(0, B, 2)
-        cid = np.concatenate([cid, back])
-        src = np.concatenate([src, np.full(len(back), V - 1)])
-        dst = np.concatenate([dst, rng.integers(0, V - 1, len(back))])
-    perm = rng.permutation(len(cid))
-    cols = [torch.from_numpy(np.ascontiguousarray(x[perm]).astype(np.int32))
-            .cuda() for x in (cid, src, dst)]
-    return cols + [torch.ones(len(cid), dtype=torch.bool, device="cuda")]
+    from jepsen_tpu_torch.histories import chain_clusters
+    cols = [torch.from_numpy(x).cuda()
+            for x in chain_clusters(B, V, seed, cyclic)]
+    return cols + [torch.ones(cols[0].numel(), dtype=torch.bool,
+                              device="cuda")]
 
 
 def check_screen(case, cid, src, dst, valid, B, V):
-    """The screen kernel against its plain version on the card, bit-equal.
-    Returns (ms, plain_ms, err, flagged)."""
+    """The screen kernel against its plain version on the card: the flags
+    and the kernel's work count (nodes removed, edges their rows held)
+    against the plain version's, equal. Returns (ms, plain_ms, err,
+    flagged, work)."""
     import torch
     from jepsen_tpu_torch.ops import scc_kernels as sk
     got = sk.cluster_screen(cid, src, dst, valid, B, V)
+    removed, walked = sk.cluster_screen.work.tolist()
     torch.cuda.synchronize()
+    work = {}
     t0 = time.perf_counter()
-    ref = sk.cluster_screen_torch(cid, src, dst, valid, B, V)
+    ref = sk.cluster_screen_torch(cid, src, dst, valid, B, V, work=work)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = float((got.to(torch.int32) - ref.to(torch.int32)).abs().max())
@@ -540,10 +518,103 @@ def check_screen(case, cid, src, dst, valid, B, V):
     flagged = int(got.sum())
     emit({"phase": "cluster_screen", "case": case, "B": B, "V": V,
           "edges": int(valid.sum()), "flagged": flagged,
-          "equal": err == 0.0, "ms": ms, "plain_ms": plain_ms})
+          "equal": err == 0.0, "ms": ms, "plain_ms": plain_ms,
+          "work_removed": removed, "work_walked": walked,
+          "plain_work": work})
     if err != 0.0:
         raise AssertionError(f"cluster_screen {case} differs from plain")
-    return ms, plain_ms, err, flagged
+    if [removed, walked] != [work["removed"], work["walked"]]:
+        raise AssertionError(f"cluster_screen {case}: the kernel counts "
+                             f"{removed, walked}, the plain version {work}")
+    return ms, plain_ms, err, flagged, {"removed": removed,
+                                        "walked": walked}
+
+
+def check_screen_host(case, cid, src, dst, B, V, reps=20):
+    """The screen's main-path route (``cluster_screen_host``: host arrays,
+    one pinned upload, the C call with no valid column, one read-back)
+    against the plain version on the card: the flags and the kernel's
+    work count equal. Times the whole call on the host clock (median of
+    ``reps``, in ms). Returns (ms, plain_ms, err, flagged, work)."""
+    import numpy as np
+    import torch
+    from jepsen_tpu_torch.ops import scc_kernels as sk
+    dev = torch.device("cuda")
+    got = sk.cluster_screen_host(cid, src, dst, B, V, dev)
+    removed, walked = sk.cluster_screen.work.tolist()
+    cols = [torch.from_numpy(np.asarray(x, np.int32)).cuda()
+            for x in (cid, src, dst)]
+    valid = torch.ones(len(cid), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    work = {}
+    t0 = time.perf_counter()
+    ref = sk.cluster_screen_torch(*cols, valid, B, V, work=work)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ref = ref.cpu().numpy()
+    err = float(np.abs(got.astype(np.int32) - ref.astype(np.int32)).max())
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sk.cluster_screen_host(cid, src, dst, B, V, dev)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(ts)
+    flagged = int(got.sum())
+    emit({"phase": "cluster_screen_host", "case": case, "B": B, "V": V,
+          "edges": len(cid), "flagged": flagged, "equal": err == 0.0,
+          "ms": ms, "plain_ms": plain_ms, "work_removed": removed,
+          "work_walked": walked, "plain_work": work})
+    if err != 0.0:
+        raise AssertionError(f"cluster_screen_host {case} differs from "
+                             f"plain")
+    if [removed, walked] != [work["removed"], work["walked"]]:
+        raise AssertionError(f"cluster_screen_host {case}: the kernel "
+                             f"counts {removed, walked}, the plain version "
+                             f"{work}")
+    return ms, plain_ms, err, flagged, {"removed": removed,
+                                        "walked": walked}
+
+
+def screen_split(cid, src, dst, B, V, reps=20):
+    """One ``batch_cluster_screen`` call's phases on the card, from host
+    arrays (the whole call is timed by :func:`check_screen_host`): the
+    upload (pack into pinned memory, copy, synchronise), the C call's host
+    time, the device time of its sort and
+    offsets (the count-and-scan and scatter launches) and of the peel by
+    the profiler, and the read-back. Host phases are medians of
+    ``reps`` calls, in ms."""
+    import torch
+    from jepsen_tpu_torch.ops import scc_kernels as sk
+    dev = torch.device("cuda")
+
+    def upload():
+        return sk.pinned_upload((cid, src, dst), dev)
+
+    def med(fn):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    up_ms = med(lambda: (upload(), torch.cuda.synchronize()))
+    on = upload()
+    call_ms = med(lambda: sk._screen_launch(on[0], on[1], on[2], None, B,
+                                            V))
+    out = sk._screen_launch(on[0], on[1], on[2], None, B, V)
+    read_ms = med(lambda: out.cpu())
+    kerns = device_kernels(
+        lambda: sk._screen_launch(on[0], on[1], on[2], None, B, V),
+        "screen_count")
+    sort_us = sum(us for k, us in kerns if k.startswith(
+        ("screen_count", "screen_scan", "screen_scatter")))
+    screen_us = sum(us for k, us in kerns if k.startswith("screen_peel"))
+    return {"upload_ms": up_ms, "c_call_host_ms": call_ms,
+            "sort_offsets_device_ms": sort_us / 1e3,
+            "kernel_device_ms": screen_us / 1e3, "read_back_ms": read_ms,
+            "device_kernels_us": kerns}
 
 
 def without_builder(result: dict) -> dict:
@@ -586,7 +657,7 @@ def elle_main_path(case, history, want_types, name, smi):
     kerns = device_kernels(
         lambda: list_append.check(history, accelerator="gpu"))
     screen_ms = sum(us for k, us in kerns
-                    if k.startswith("cluster_screen")) / 1e3
+                    if k.startswith("screen_")) / 1e3
     n_txns = got["txn-count"]
     emit({"phase": "elle_main_path", "case": case, "txns": n_txns,
           "edges": got["edge-count"], "valid": got["valid?"],
@@ -611,65 +682,103 @@ def elle_phases(name, smi) -> list:
     import jepsen_tpu_torch.elle as elle
     from jepsen_tpu_torch.convert import graph_from_numpy
     from jepsen_tpu_torch.elle import columnar, rw_register
-    from jepsen_tpu_torch.histories import elle_history, rw_register_history
+    from jepsen_tpu_torch.histories import (chain_clusters, elle_history,
+                                            random_trim_graph,
+                                            rw_register_history)
+    from jepsen_tpu_torch.ops import elle_compare as ec
     h_valid = elle_history(ELLE_TXNS)
     h_pairs = elle_history(ELLE_TXNS, crossed_pairs=ELLE_PAIRS)
     h_wide = elle_history(ELLE_TXNS, crossed_pairs=ELLE_PAIRS, wide=True)
 
-    # 8a. the trim against its plain version
-    rng = np.random.default_rng(SEED)
-    rs, rd = rng.integers(0, 1 << 16, (2, 1 << 18))
-    fwd = rng.random(1 << 18) >= 0.01
+    # 8a. the trim against its plain version; the last graph is past
+    # TRIM_DEVICE_MIN_EDGES, where the "auto" mode sends a graph to the
+    # device
     chain_n = 5000
+    trims = {}
     for case, (n, src, dst) in (
             ("valid_50k_dep", dep_edges(h_valid)),
             ("pairs_50k_dep", dep_edges(h_pairs)),
-            ("random_64k_256k", (1 << 16, np.where(fwd, np.minimum(rs, rd),
-                                                   np.maximum(rs, rd)),
-                                 np.where(fwd, np.maximum(rs, rd),
-                                          np.minimum(rs, rd)))),
+            ("random_64k_256k", random_trim_graph(16, 18, SEED)),
             ("chain_5000_capped", (chain_n, np.arange(chain_n - 1),
-                                   np.arange(1, chain_n)))):
+                                   np.arange(1, chain_n))),
+            ("random_512k_1m", random_trim_graph(19, 20, SEED))):
         s, d, valid, nb = trim_inputs(n, src, dst)
-        check_trim(case, s, d, valid, nb)
+        if case == "random_512k_1m" and \
+                int(valid.sum()) < elle.TRIM_DEVICE_MIN_EDGES:
+            raise AssertionError("the large trim case is below "
+                                 "TRIM_DEVICE_MIN_EDGES")
+        trims[case] = check_trim(case, s, d, valid, nb)
 
-    # 8b. the screen against its plain version: random clusters, and the
-    # wide-window history's own (recorded from one check)
-    for V, B in ((8, 512), (64, 128), (256, 64), (1024, 16)):
+    # 8b. the screen against its plain version, through the public
+    # wrapper (card columns and a valid column) and through the main
+    # path's route (host arrays, no valid column): random clusters, and
+    # the wide-window history's own (recorded from one check). B = 5000
+    # is past the sort's kBins = 4096 clusters counted in shared memory,
+    # so its count and scatter take the global-memory branch.
+    for V, B in ((8, 512), (8, 5000), (64, 128), (256, 64), (1024, 16)):
         for cyclic in (False, True):
             cols = screen_clusters(B, V, SEED + V, cyclic)
-            _, _, _, flagged = check_screen(
-                f"random_v{V}_{'cyclic' if cyclic else 'acyclic'}",
-                *cols, B, V)
-            if flagged != (B // 2 if cyclic else 0):
-                raise AssertionError(f"screen V={V}: {flagged} flagged")
+            case = (f"random_v{V}_b{B}_"
+                    f"{'cyclic' if cyclic else 'acyclic'}")
+            _, _, _, flagged, _ = check_screen(case, *cols, B, V)
+            _, _, _, flagged_host, _ = check_screen_host(
+                case, *chain_clusters(B, V, SEED + V, cyclic), B, V)
+            if flagged != flagged_host or \
+                    flagged != (B // 2 if cyclic else 0):
+                raise AssertionError(f"screen V={V} B={B}: {flagged} and "
+                                     f"{flagged_host} flagged")
     from jepsen_tpu_torch.elle import list_append
-    with recorded() as rec:
+    with ec.recorded() as rec:
         list_append.check(h_wide, accelerator="gpu")
-    wide_calls = rec.calls["cluster_screen"]
+    wide_calls = rec.calls["cluster_screen_host"]
     # the 50 clusters of about 900 nodes, chunked by SCREEN_MAX_ELEMS into
     # 32 + 18 at V = 1024
     if len(wide_calls) != -(-ELLE_PAIRS // 32) \
-            or any(c[5] != 1024 for c in wide_calls):
+            or any(c[4] != 1024 for c in wide_calls):
         raise AssertionError(f"wide-window screen calls: "
-                             f"{[c[4:] for c in wide_calls]}")
-    screen = {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "bytes": 0.0,
-              "ops": 0.0, "clusters": 0}
-    for i, (cid, src, dst, valid, B, V) in enumerate(wide_calls):
-        ms, pms, err, flagged = check_screen(f"wide_window_chunk{i}", cid,
-                                             src, dst, valid, B, V)
-        n_real = int(cid[valid].max()) + 1
-        if flagged != n_real:
-            raise AssertionError(f"wide-window chunk {i}: {flagged} of "
-                                 f"{n_real} clusters flagged")
-        n_edges = int(valid.sum())
+                             f"{[c[3:5] for c in wide_calls]}")
+    screen = {"ms": 0.0, "tensor_ms": 0.0, "plain_ms": 0.0, "err": 0.0,
+              "bytes": 0.0, "ops": 0.0, "bytes_ref": 0.0, "ops_ref": 0.0,
+              "clusters": 0, "removed": 0, "walked": 0, "split": []}
+    for i, (cid, src, dst, B, V, _) in enumerate(wide_calls):
+        case = f"wide_window_chunk{i}"
+        cols = [torch.from_numpy(np.asarray(x, np.int32)).cuda()
+                for x in (cid, src, dst)]
+        valid = torch.ones(len(cid), dtype=torch.bool, device="cuda")
+        t_ms, _, t_err, t_flagged, t_work = check_screen(case, *cols, valid,
+                                                         B, V)
+        ms, pms, err, flagged, work = check_screen_host(case, cid, src, dst,
+                                                        B, V)
+        if flagged != B or t_flagged != B or t_work != work:
+            raise AssertionError(f"wide-window chunk {i}: {flagged} and "
+                                 f"{t_flagged} of {B} clusters flagged, "
+                                 f"work {work} and {t_work}")
+        split = screen_split(cid, src, dst, B, V)
+        split = {"call_ms": ms, **split}
+        emit({"phase": "cluster_screen_split", "case": case,
+              "B": B, "V": V, "edges": len(cid), **split})
+        n_edges = len(cid)
+        # the nodes the edges touch, each (cluster, local id) once
+        nodes = len(np.unique(np.concatenate([
+            np.asarray(cid, np.int64) * V + np.asarray(x, np.int64)
+            for x in (src, dst)])))
         screen["ms"] += ms
+        screen["tensor_ms"] += t_ms
         screen["plain_ms"] += pms
-        screen["err"] = max(screen["err"], err)
-        # edges in (cid, src, dst int32 and the valid byte), a flag out
-        screen["bytes"] += 13.0 * n_edges + n_real
-        screen["ops"] += float(n_edges + n_real * V)
-        screen["clusters"] += n_real
+        screen["err"] = max(screen["err"], err, t_err)
+        # the main path's route: edges in (cid, src, dst int32; no valid
+        # column), a flag out; an operation an edge, a node and a row
+        # entry the peel walks
+        screen["bytes"] += 12.0 * n_edges + B
+        screen["ops"] += float(n_edges + nodes + work["walked"])
+        # the reference's work: a valid byte an edge, and B x V nodes
+        screen["bytes_ref"] += 13.0 * n_edges + B
+        screen["ops_ref"] += float(n_edges + B * V)
+        screen["clusters"] += B
+        screen["removed"] += work["removed"]
+        screen["walked"] += work["walked"]
+        screen["split"].append({k: v for k, v in split.items()
+                                if k != "device_kernels_us"})
 
     # 8c. the main path: the valid, anomalous and wide-window histories
     elle_main_path("valid_50k", h_valid, [], name, smi)
@@ -689,7 +798,7 @@ def elle_phases(name, smi) -> list:
     oracle = elle.check_cycles(graph_cpu, accelerator="cpu")
     cpu_s = time.perf_counter() - t0
     reset_launches()
-    with recorded() as rec:
+    with ec.recorded() as rec:
         t0 = time.perf_counter()
         got = elle.check_cycles(graph, accelerator="gpu")
         torch.cuda.synchronize()
@@ -700,8 +809,8 @@ def elle_phases(name, smi) -> list:
         raise AssertionError(f"global path: {sorted(got)} vs "
                              f"{sorted(oracle)}, launches {lc_global}")
     (ts, td, tv, tn, _), = rec.calls["scc_trim"]
-    t_ms, t_pms, t_steps, t_err = check_trim("global_path_input", ts, td,
-                                             tv, tn)
+    t_ms, t_pms, t_steps, t_err, t_work = check_trim("global_path_input", ts,
+                                                     td, tv, tn)
     emit({"phase": "elle_global_path", "txns": graph.n,
           "edges": graph.edge_count(), "anomaly_types": sorted(got),
           "equals_cpu_oracle": True, "launches": lc_global,
@@ -732,10 +841,16 @@ def elle_phases(name, smi) -> list:
                 "operations" if t_ops >= t_bytes else "bytes")
 
     n_edges = int(tv.sum())
+    # the trim's needs: the edges in (src, dst int32 and the valid byte),
+    # the mask out; an operation an edge, a node and a row entry walked
     t_bytes = 9.0 * n_edges + tn
-    t_ops = float(n_edges + tn) * t_steps
+    t_ops = float(n_edges + tn + t_work["walked"])
+    # the reference's work: every edge and node in every step
+    t_ops_ref = float(n_edges + tn) * t_steps
     s_bound, t_bound = (bound(screen["ops"], screen["bytes"]),
                         bound(t_ops, t_bytes))
+    s_ref, t_ref = (bound(screen["ops_ref"], screen["bytes_ref"]),
+                    bound(t_ops_ref, t_bytes))
     return [
         {"name": "cluster_screen", "route": "cuda",
          "source": "jepsen_tpu_torch/ops/csrc/cluster_screen.cu",
@@ -744,8 +859,15 @@ def elle_phases(name, smi) -> list:
          "max_abs_err": screen["err"], "equal": screen["err"] == 0.0,
          "ms": screen["ms"], "plain_ms": screen["plain_ms"],
          "bound_ms": s_bound[0], "bound_by": s_bound[1], "library_ms": None,
-         "bound_operations": "int32_ops", "clusters": screen["clusters"],
-         "bytes": screen["bytes"], "int32_ops": screen["ops"],
+         "bound_operations": "int32_ops",
+         "bound_ms_reference_work": s_ref[0],
+         "bound_by_reference_work": s_ref[1],
+         "ms_route": "cluster_screen_host, host clock, whole call",
+         "tensor_wrapper_ms": screen["tensor_ms"],
+         "clusters": screen["clusters"], "bytes": screen["bytes"],
+         "int32_ops": screen["ops"], "work_removed": screen["removed"],
+         "work_walked": screen["walked"],
+         "split_per_call": screen["split"],
          "shape": "wide_window_50k: the check's screen calls, summed"},
         {"name": "scc_trim", "route": "cuda",
          "source": "jepsen_tpu_torch/ops/csrc/scc_trim.cu",
@@ -753,9 +875,14 @@ def elle_phases(name, smi) -> list:
          "launches": lc_global["scc_trim"], "max_abs_err": t_err,
          "equal": t_err == 0.0, "ms": t_ms, "plain_ms": t_pms,
          "bound_ms": t_bound[0], "bound_by": t_bound[1], "library_ms": None,
-         "bound_operations": "int32_ops", "steps": t_steps,
-         "nodes": tn, "edges": n_edges, "bytes": t_bytes,
-         "int32_ops": t_ops,
+         "bound_operations": "int32_ops",
+         "bound_ms_reference_work": t_ref[0],
+         "bound_by_reference_work": t_ref[1],
+         "steps": t_steps, "nodes": tn, "edges": n_edges, "bytes": t_bytes,
+         "int32_ops": t_ops, "int32_ops_reference_work": t_ops_ref,
+         "work_items": t_work["items"], "work_walked": t_work["walked"],
+         "us_per_step": t_ms * 1e3 / max(1, t_steps),
+         "other_cases_ms": {k: v[0] for k, v in trims.items()},
          "shape": "global path: pairs_at_end_50k's dependency edges"}]
 
 

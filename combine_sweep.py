@@ -3,6 +3,8 @@
 
     python3 combine_sweep.py              # the combine
     python3 combine_sweep.py --product    # the chunk product
+    python3 combine_sweep.py --trim       # the Elle trim's peel
+    python3 combine_sweep.py --screen     # the Elle screen's peel
 
 The combine: builds ``jepsen_tpu_torch/ops/csrc/chunk_combine.cu`` with
 each pair of fan-in (``kFanIn``: 2, 4, 8) and CTA target (``kCtasPerSm``:
@@ -15,6 +17,22 @@ count a CTA (``kThreads``: 32 to 512) and column words a warp
 (``kWordsPerWarp``: 1, 2, 4), and runs each on the headline inputs and on
 dense ones of the same shape (every slot pending at every step, every op
 a write: the densest closure rows).
+
+The trim: builds ``scc_trim.cu`` as it is; with its peel in one CTA for
+every graph (``kOneCtaMaxNodes`` and ``kOneCtaMaxEdges`` past any size);
+on the grid for every graph (both 0), never handing over to one CTA
+(``kGridMinItems = 1``) or handing over below 1024 nodes a step; handing
+over below 4096; with CTAs of 512 threads (``kThreads``); and with 2
+atomics in flight a thread (``kBatch``). It runs each on the Elle
+phases' trim inputs (``ops/elle_compare.py`` ``recorded_inputs``: the
+global path's, the capped 5,000-node chain, the graphs of 2^16 nodes and
+2^18 edges and of 2^19 nodes and 2^20 edges). The screen: builds
+``cluster_screen.cu`` with ``kPeelWarps`` 1, 2, 4, 8 and 32 and runs
+each on the wide window's two calls and 16 chain clusters of V = 1024.
+Each variant's results (the trim's mask and steps, the screen's flags)
+must equal the plain version's; a variant that does not launch prints
+its error. Each case also gives its launches' device microseconds from
+``torch.profiler``.
 
 Each prints one JSON line per variant: bit equality with the plain
 version, CUDA-event milliseconds per call (the C entry called directly,
@@ -141,11 +159,88 @@ def sweep_product(hd, tmp):
         yield row
 
 
+def sweep_elle(kernel, tmp):
+    """The trim's peel placements or the screen's peel warps, each on the
+    Elle phases' inputs against the plain version."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from jepsen_tpu_torch.ops import elle_compare as ec
+    from jepsen_tpu_torch.ops import scc_kernels as sk
+    cases = {case: args for case, (k, args) in ec.recorded_inputs().items()
+             if k == kernel}
+    if kernel == "scc_trim":
+        consts = ("kOneCtaMaxNodes = 1 << 17;", "kOneCtaMaxEdges = 1 << 17;",
+                  "kGridMinItems = 1024;", "kThreads = 1024;", "kBatch = 4;")
+        variants = [("1 << 17", "1 << 17", 1024, 1024, 4),
+                    ("1 << 30", "1 << 30", 1024, 1024, 4),
+                    (0, 0, 1, 1024, 4), (0, 0, 1024, 1024, 4),
+                    ("1 << 17", "1 << 17", 4096, 1024, 4),
+                    ("1 << 17", "1 << 17", 1024, 512, 4),
+                    ("1 << 17", "1 << 17", 1024, 1024, 2)]
+    else:
+        consts = ("kPeelWarps = 4;",)
+        variants = [(w,) for w in (1, 2, 4, 8, 32)]
+    inputs, refs = {}, {}
+    for case, args in cases.items():
+        if kernel == "scc_trim":
+            src, dst, valid, n = args
+            cols = [torch.from_numpy(np.asarray(x)).cuda()
+                    for x in (src.astype(np.int32), dst.astype(np.int32),
+                              valid.astype(bool))]
+            mask, steps = sk.scc_trim_torch(*cols, n, 512)
+            refs[case] = (mask.to(torch.uint8), int(steps))
+            inputs[case] = (*cols, n)
+        else:
+            cid, src, dst, B, V = args
+            cols = [torch.from_numpy(np.asarray(x, np.int32)).cuda()
+                    for x in (cid, src, dst)]
+            valid = torch.ones(len(cid), dtype=torch.bool, device="cuda")
+            refs[case] = (sk.cluster_screen_torch(*cols, valid, B, V)
+                          .to(torch.uint8), None)
+            inputs[case] = (*cols, B, V)
+    yield {"kernel": kernel, "cases": list(inputs)}
+    fns = build_variants(kernel, consts, variants, tmp)
+    caller = ec.trim_caller if kernel == "scc_trim" else ec.screen_caller
+    for values, fn in fns.items():
+        row = dict(zip((c.split(" =")[0] for c in consts), values))
+        for case, args in inputs.items():
+            try:
+                call, result = caller(fn, False, *args)
+                call()
+                torch.cuda.synchronize()
+                got = result()
+            except RuntimeError as err:
+                row[case] = {"error": str(err)}
+                continue
+            equal = bool(torch.equal(got[0], refs[case][0])) and (
+                kernel != "scc_trim" or got[1] == refs[case][1])
+            if not equal:
+                raise AssertionError(f"{kernel} {values} {case} differs "
+                                     f"from the plain version")
+            row[case] = {"equal": equal, "ms": ec.timed(call, 10),
+                         "work": got[-1],
+                         "kernels_us": [(k, round(us, 3)) for k, us in
+                                        cs.device_kernels(call)]}
+        yield row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("combine_sweep: no CUDA device", file=sys.stderr)
         return 1
+    if "--trim" in sys.argv[1:] or "--screen" in sys.argv[1:]:
+        import chip_smoke as cs
+        kernel = "scc_trim" if "--trim" in sys.argv[1:] else \
+            "cluster_screen"
+        print(json.dumps({"card": cs.nvidia_smi("name,power.limit")}),
+              flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            for row in sweep_elle(kernel, tmp):
+                print(json.dumps(row), flush=True)
+        return 0
     import chip_smoke as cs
     from jepsen_tpu_torch.checker.linear_encode import encode_register_ops
     from jepsen_tpu_torch.histories import register_history

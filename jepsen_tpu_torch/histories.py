@@ -1,6 +1,7 @@
 """Seeded synthetic histories for smoke runs and tests: single-register
 histories for the linearizability check, list-append and rw-register txn
-histories for the Elle checks."""
+histories for the Elle checks, and seeded graphs and clusters for the
+Elle kernels alone."""
 from __future__ import annotations
 
 import numpy as np
@@ -159,3 +160,40 @@ def rw_register_history(n_txns: int, n_keys: int = 20, crossed_pairs: int = 0,
                       (11, [["w", kb, 1], ["r", ka, None]],
                        [["w", kb, 1], ["r", ka, 1]])))
     return _txn_history(_place_pairs(main, pairs, wide=True))
+
+
+def random_trim_graph(log_n: int, log_e: int, seed: int):
+    """A seeded graph for the trim: (n, src, dst) with n = 2^log_n nodes
+    and 2^log_e edges between random ends, 1 % of them pointing from the
+    larger id to the smaller (cycles), the rest the other way."""
+    rng = np.random.default_rng(seed)
+    rs, rd = rng.integers(0, 1 << log_n, (2, 1 << log_e))
+    fwd = rng.random(1 << log_e) >= 0.01
+    return (1 << log_n, np.where(fwd, np.minimum(rs, rd), np.maximum(rs, rd)),
+            np.where(fwd, np.maximum(rs, rd), np.minimum(rs, rd)))
+
+
+def chain_clusters(n_clusters: int, n_local: int, seed: int, cyclic: bool):
+    """Seeded clusters for the screen: (cid, src, dst) int32, each cluster
+    the chain 0 -> 1 -> ... -> V-1 (a Kahn peel's longest) plus 3V random
+    forward edges; with ``cyclic``, one backward edge from V-1 in every
+    other cluster. Rows in random order."""
+    B, V = n_clusters, n_local
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, V, (B, 3 * V))
+    b = rng.integers(0, V, (B, 3 * V))
+    lo, hi = np.minimum(a, b), np.maximum(a, b)
+    chain_s = np.broadcast_to(np.arange(V - 1), (B, V - 1))
+    src = np.concatenate([lo, chain_s], axis=1)
+    dst = np.concatenate([hi, chain_s + 1], axis=1)
+    cid = np.broadcast_to(np.arange(B)[:, None], src.shape)
+    keep = src != dst
+    cid, src, dst = cid[keep], src[keep], dst[keep]
+    if cyclic:
+        back = np.arange(0, B, 2)
+        cid = np.concatenate([cid, back])
+        src = np.concatenate([src, np.full(len(back), V - 1)])
+        dst = np.concatenate([dst, rng.integers(0, V - 1, len(back))])
+    perm = rng.permutation(len(cid))
+    return tuple(np.ascontiguousarray(x[perm]).astype(np.int32)
+                 for x in (cid, src, dst))

@@ -36,7 +36,7 @@ SIGNATURES = {
     "chunk_combine": ("jt_chunk_combine",
                       [_P, _P, _P, _P, _I, _I, _I, _P]),
     "cluster_screen": ("jt_cluster_screen",
-                       [_P, _P, _P, _P, _P, _I, _I, _P]),
+                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "frontier_dense": ("jt_frontier_dense",
                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "frontier_sparse": ("jt_frontier_sparse",

@@ -31,12 +31,16 @@ from pathlib import Path
 NAMES = ("frontier_dense", "frontier_sparse")
 
 
-def build(roots: dict, out_dir: Path) -> dict:
-    """{(label, name): C entry} of both kernels from each root's csrc."""
+def build(roots: dict, out_dir: Path, names=NAMES,
+          signatures: dict | None = None) -> dict:
+    """{(label, name): C entry} of the kernels ``names`` from each root's
+    csrc, all compiled at once. ``signatures`` may give a (label, name)
+    another (entry name, argtypes) than ``_build.SIGNATURES``: an earlier
+    build's C signature."""
     from jepsen_tpu_torch.ops import _build
     jobs = []
     for label, root in roots.items():
-        for name in NAMES:
+        for name in names:
             src = Path(root) / "jepsen_tpu_torch" / "ops" / "csrc" / \
                 f"{name}.cu"
             lib = out_dir / f"lib{name}_{label}.so"
@@ -49,7 +53,8 @@ def build(roots: dict, out_dir: Path) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {label} {name}:\n{log}")
-        fn_name, argtypes = _build.SIGNATURES[name]
+        fn_name, argtypes = (signatures or {}).get(
+            (label, name), _build.SIGNATURES[name])
         fn = getattr(ctypes.CDLL(str(lib)), fn_name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         entries[label, name] = fn

@@ -100,10 +100,10 @@ def batch_cluster_screen(cid: np.ndarray, src_l: np.ndarray,
 
     This is the device half of the φ-interval Elle path (see
     jepsen_tpu_torch.elle.check_cycles): the host localizes all possible
-    cycle nodes into small clusters, and one kernel launch per chunk
+    cycle nodes into small clusters, and one kernel call per chunk
     settles every cluster's has-a-cycle question. Transfers are edge
-    lists, not matrices. Runs on ``device`` (the CUDA device by
-    default)."""
+    lists, not matrices: on the card one upload, one C call and one
+    read-back. Runs on ``device`` (the CUDA device by default)."""
     if n_clusters == 0:
         return np.zeros(0, dtype=bool)
     if len(cid) == 0:
@@ -126,12 +126,10 @@ def batch_cluster_screen(cid: np.ndarray, src_l: np.ndarray,
 
     _check_ids("batch_cluster_screen", n_clusters, cid)
     _check_ids("batch_cluster_screen", vb, src_l, dst_l)
-    dev = resolve_device(device)
-    bb = _bucket(n_clusters, floor=8)
-    (cid_p, src_p, dst_p), valid = _padded((cid, src_l, dst_l), len(cid))
-    t = [torch.from_numpy(x).to(dev) for x in (cid_p, src_p, dst_p, valid)]
-    flags = scc_kernels.cluster_screen(*t, bb, vb)
-    return flags[:n_clusters].cpu().numpy()
+    # the reference pads the edges and clusters to buckets for its
+    # compiled shapes; the kernel takes any count, so nothing is padded
+    return scc_kernels.cluster_screen_host(cid, src_l, dst_l, n_clusters,
+                                           vb, resolve_device(device))
 
 
 # copied from jepsen_tpu/ops/scc.py:296-349

@@ -11,10 +11,13 @@ hand-written Hopper kernels in ``csrc/``, and their plain torch versions.
 
 Both match the reference bit for bit: their results are booleans (and the
 trim's step count). A wrapper takes its plain version only for tensors
-that lie on the CPU; for CUDA tensors it launches its kernel once, or
-raises. Each wrapper counts its kernel launches in ``.launches``.
+that lie on the CPU; for CUDA tensors it makes one C call, which enqueues
+its kernel's launches, or raises. Each wrapper counts those C calls in
+``.launches`` and keeps the kernel's own count of its work in ``.work``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -28,8 +31,19 @@ SCREEN_MAX_V = 1024
 
 
 def _edges_on(device, *cols, dtype=torch.int32):
-    return [torch.as_tensor(c).to(device=device, dtype=dtype).contiguous()
-            for c in cols]
+    return [c if isinstance(c, torch.Tensor) and c.device == device
+            and c.dtype == dtype and c.is_contiguous()
+            else torch.as_tensor(c).to(device=device, dtype=dtype)
+            .contiguous() for c in cols]
+
+
+def _on(dev):
+    """The device context for a C call on ``dev``: none when ``dev`` is
+    already the current device (entering one costs a host round of
+    device queries in every call)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _check_edges(src, dst, valid, what: str) -> None:
@@ -54,7 +68,11 @@ def scc_trim(src, dst, valid, n_nodes: int, max_iters: int = 512):
     ``max_iters`` steps ran: keep a node when an active edge enters it and
     one leaves it; an edge is active when valid and both ends are), and
     the steps it ran. Node ids must lie in ``[0, n_nodes)``. On the card
-    one cooperative launch of ``csrc/scc_trim.cu`` runs every step."""
+    one C call of ``csrc/scc_trim.cu`` builds the rows and peels level by
+    level from a worklist, and ``scc_trim.work`` becomes its [2]
+    int32 tensor on the card: the worklist items processed (the removed
+    nodes) and the row entries walked (their valid in- plus
+    out-degrees), as :func:`scc_trim_torch` counts them."""
     if src.device.type == "cpu":
         return scc_trim_torch(src, dst, valid, n_nodes, max_iters)
     if src.device.type != "cuda":
@@ -66,27 +84,38 @@ def scc_trim(src, dst, valid, n_nodes: int, max_iters: int = 512):
     if n_nodes < 1 or max_iters < 0:
         raise ValueError(f"scc_trim: n_nodes={n_nodes}, "
                          f"max_iters={max_iters}")
+    E = src.numel()
     active = torch.empty((n_nodes,), dtype=torch.uint8, device=dev)
-    stamps = torch.zeros((2 * n_nodes,), dtype=torch.int32, device=dev)
-    flags = torch.zeros((8,), dtype=torch.int32, device=dev)
+    # the records [4n], the degree words [2n], control words [8], the
+    # row entries [2E], the queue [n]
+    scratch = torch.empty((7 * n_nodes + 2 * E + 8,), dtype=torch.int32,
+                          device=dev)
+    flags = torch.empty((8,), dtype=torch.int32, device=dev)
     from jepsen_tpu_torch.ops import _build
     lib = _build.library("scc_trim")
-    with torch.cuda.device(dev):
+    with _on(dev):
         rc = lib.jt_scc_trim(_ptr(src), _ptr(dst), _ptr(valid),
-                             _ptr(active), _ptr(stamps), _ptr(flags),
-                             src.numel(), n_nodes, max_iters, _stream(dev))
+                             _ptr(active), _ptr(scratch), _ptr(flags), E,
+                             n_nodes, max_iters, _stream(dev))
     _check_launch(rc, "scc_trim")
     scc_trim.launches += 1
+    scc_trim.work = flags[4:6]
     return active.view(torch.bool), flags[3]
 
 
 scc_trim.launches = 0
+scc_trim.work = None
 
 
-def scc_trim_torch(src, dst, valid, n_nodes: int, max_iters: int = 512):
+def scc_trim_torch(src, dst, valid, n_nodes: int, max_iters: int = 512,
+                   work: dict | None = None):
     """Plain torch version of :func:`scc_trim`: the loop of
     jepsen_tpu/ops/scc.py:48-66 (``_trim_cpu``'s peel, with the
-    reference kernel's step count) over tensors on ``src``'s device."""
+    reference kernel's step count) over tensors on ``src``'s device.
+
+    With a ``work`` dict, fills in what the kernel's worklist processes
+    for the same result: ``items``, the removed nodes, and ``walked``,
+    their valid in- plus out-degrees (a self-loop counts in both)."""
     dev = src.device
     s = torch.as_tensor(src, device=dev).long()
     d = torch.as_tensor(dst, device=dev).long()
@@ -103,12 +132,45 @@ def scc_trim_torch(src, dst, valid, n_nodes: int, max_iters: int = 512):
         changed = bool((new != active).any())
         active = new
         steps += 1
+    if work is not None:
+        degree = (torch.bincount(s[ok], minlength=n_nodes)
+                  + torch.bincount(d[ok], minlength=n_nodes))
+        work["items"] = int((~active).sum())
+        work["walked"] = int(degree[~active].sum())
     return active, torch.tensor(steps, dtype=torch.int32, device=dev)
 
 
 # ---------------------------------------------------------------------------
 # cluster screen
 # ---------------------------------------------------------------------------
+
+def _screen_launch(cid, src_l, dst_l, valid, n_clusters: int,
+                   n_local: int):
+    """One C call of ``csrc/cluster_screen.cu`` on int32 CUDA columns in
+    any order (``valid`` a bool column or None for all valid): uint8
+    [n_clusters] on the card. Sets ``cluster_screen.work``."""
+    if not 1 <= n_local <= SCREEN_MAX_V or n_clusters < 1:
+        raise ValueError(f"cluster_screen: V={n_local} outside the kernel "
+                         f"(1 <= V <= {SCREEN_MAX_V}), B={n_clusters}")
+    dev = cid.device
+    E = cid.numel()
+    out = torch.empty((n_clusters,), dtype=torch.uint8, device=dev)
+    # the work [2], the offsets [B + 1], the cursors [B], the sorted
+    # edges [E]
+    scratch = torch.empty((2 * n_clusters + E + 3,), dtype=torch.int32,
+                          device=dev)
+    from jepsen_tpu_torch.ops import _build
+    lib = _build.library("cluster_screen")
+    with _on(dev):
+        rc = lib.jt_cluster_screen(
+            _ptr(cid), _ptr(src_l), _ptr(dst_l),
+            None if valid is None else _ptr(valid), _ptr(out),
+            _ptr(scratch), E, n_clusters, n_local, _stream(dev))
+    _check_launch(rc, "cluster_screen")
+    cluster_screen.launches += 1
+    cluster_screen.work = scratch[:2]
+    return out
+
 
 def cluster_screen(cid, src_l, dst_l, valid, n_clusters: int,
                    n_local: int):
@@ -118,16 +180,16 @@ def cluster_screen(cid, src_l, dst_l, valid, n_clusters: int,
     e joins cluster ``cid[e]`` as ``src_l[e] -> dst_l[e]``, in the
     cluster's local node ids ``[0, n_local)``, when ``valid[e]``
     (jepsen_tpu/ops/scc.py ``_screen_kernel``). Ids must lie in range. On
-    the card one launch of ``csrc/cluster_screen.cu`` settles every
-    cluster, one CTA each; the edges need not be sorted by cluster."""
+    the card one C call of ``csrc/cluster_screen.cu`` sorts the edges by
+    cluster and settles every cluster, one CTA each; the edges need not
+    be sorted. ``cluster_screen.work`` becomes its [2] int32 tensor on the
+    card: the nodes its peel removed over all clusters and the distinct
+    edges their rows held, as :func:`cluster_screen_torch` counts them."""
     if cid.device.type == "cpu":
         return cluster_screen_torch(cid, src_l, dst_l, valid, n_clusters,
                                     n_local)
     if cid.device.type != "cuda":
         raise ValueError(f"cluster_screen: unsupported device {cid.device}")
-    if not 1 <= n_local <= SCREEN_MAX_V or n_clusters < 1:
-        raise ValueError(f"cluster_screen: V={n_local} outside the kernel "
-                         f"(1 <= V <= {SCREEN_MAX_V}), B={n_clusters}")
     dev = cid.device
     cid, src_l, dst_l = _edges_on(dev, cid, src_l, dst_l)
     valid = _edges_on(dev, valid, dtype=torch.bool)[0]
@@ -135,36 +197,58 @@ def cluster_screen(cid, src_l, dst_l, valid, n_clusters: int,
     if cid.shape != src_l.shape:
         raise ValueError("cluster_screen: cid and the edges differ in "
                          "length")
-    # each CTA reads its cluster's edge range [offs[b], offs[b + 1])
-    cid_s, order = torch.sort(cid, stable=True)
-    src_s, dst_s = src_l[order].contiguous(), dst_l[order].contiguous()
-    valid_s = valid[order].contiguous()
-    offs = torch.searchsorted(
-        cid_s, torch.arange(n_clusters + 1, dtype=torch.int32, device=dev)
-    ).to(torch.int32)
-    out = torch.empty((n_clusters,), dtype=torch.uint8, device=dev)
-    from jepsen_tpu_torch.ops import _build
-    lib = _build.library("cluster_screen")
-    with torch.cuda.device(dev):
-        rc = lib.jt_cluster_screen(_ptr(src_s), _ptr(dst_s), _ptr(valid_s),
-                                   _ptr(offs), _ptr(out), n_clusters,
-                                   n_local, _stream(dev))
-    _check_launch(rc, "cluster_screen")
-    cluster_screen.launches += 1
-    return out.view(torch.bool)
+    return _screen_launch(cid, src_l, dst_l, valid, n_clusters,
+                          n_local).view(torch.bool)
 
 
 cluster_screen.launches = 0
+cluster_screen.work = None
+
+
+def cluster_screen_host(cid, src_l, dst_l, n_clusters: int, n_local: int,
+                        device) -> np.ndarray:
+    """:func:`cluster_screen` on host int arrays whose every edge is valid,
+    run on ``device``: bool numpy [n_clusters]. On the card the columns go
+    up in one pinned buffer, one C call settles every cluster, and the
+    flags come back in one read."""
+    dev = torch.device(device)
+    E = len(cid)
+    if dev.type == "cpu":
+        cols = [torch.from_numpy(np.asarray(x, np.int32))
+                for x in (cid, src_l, dst_l)]
+        return cluster_screen_torch(*cols, torch.ones(E, dtype=torch.bool),
+                                    n_clusters, n_local).numpy()
+    if dev.type != "cuda":
+        raise ValueError(f"cluster_screen: unsupported device {dev}")
+    on = pinned_upload((cid, src_l, dst_l), dev)
+    out = _screen_launch(on[0], on[1], on[2], None, n_clusters, n_local)
+    return out.cpu().numpy().astype(bool)
+
+
+def pinned_upload(cols, dev) -> torch.Tensor:
+    """Host int columns of one length packed into one pinned int32
+    buffer and copied to ``dev`` in one transfer: int32 [len(cols), E]
+    on ``dev`` (the copy is enqueued, not waited for)."""
+    host = torch.empty((len(cols), len(cols[0])), dtype=torch.int32,
+                       pin_memory=True)
+    for row, x in zip(host.numpy(), cols):
+        row[:] = x
+    return host.to(dev, non_blocking=True)
 
 
 def cluster_screen_torch(cid, src_l, dst_l, valid, n_clusters: int,
-                         n_local: int):
+                         n_local: int, work: dict | None = None):
     """Plain torch version of :func:`cluster_screen`: what
     jepsen_tpu/ops/scc.py:220-236 computes, over tensors on ``cid``'s
     device. The edges scatter into a [B, V, V] float32 adjacency, which is
     squared ceil(log2 V) times (R := R or R.R > 0, exact: entries are 0/1
     and sums at most V); a cluster has a cycle iff its closure has a
-    nonzero diagonal."""
+    nonzero diagonal.
+
+    With a ``work`` dict, fills in what the kernel's Kahn peel removes for
+    the same result, read off the closure: ``removed``, the nodes no cycle
+    reaches (a node stays iff it lies on a cycle or a node on one reaches
+    it), and ``walked``, the distinct edges leaving them."""
     dev = cid.device
     B, V = n_clusters, n_local
     adj = torch.zeros((B, V, V), dtype=torch.float32, device=dev)
@@ -176,4 +260,9 @@ def cluster_screen_torch(cid, src_l, dst_l, valid, n_clusters: int,
     n_steps = max(1, int(np.ceil(np.log2(max(2, V)))))
     for _ in range(n_steps):
         r = torch.maximum(r, (torch.bmm(r, r) > 0).float())
-    return (torch.diagonal(r, dim1=1, dim2=2) > 0).any(dim=1)
+    on_cycle = torch.diagonal(r, dim1=1, dim2=2) > 0
+    if work is not None:
+        kept = on_cycle | ((on_cycle.float()[:, :, None] * r).sum(1) > 0)
+        work["removed"] = int((~kept).sum())
+        work["walked"] = int(((adj > 0) & ~kept[:, :, None]).sum())
+    return on_cycle.any(dim=1)
