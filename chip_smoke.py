@@ -364,7 +364,8 @@ def reset_launches():
     from jepsen_tpu_torch.ops import matrix_kernels as mk
     from jepsen_tpu_torch.ops import scc_kernels as sk
     for fn in (mk.chunk_product, mk.combine_product, fk.frontier_dense,
-               fk.frontier_sparse, sk.cluster_screen, sk.scc_trim):
+               fk.frontier_sparse, fk.frontier_dense_batch,
+               fk.frontier_sparse_batch, sk.cluster_screen, sk.scc_trim):
         fn.launches = 0
 
 
@@ -376,6 +377,8 @@ def read_launches() -> dict:
             "combine_product": mk.combine_product.launches,
             "frontier_dense": fk.frontier_dense.launches,
             "frontier_sparse": fk.frontier_sparse.launches,
+            "frontier_dense_batch": fk.frontier_dense_batch.launches,
+            "frontier_sparse_batch": fk.frontier_sparse_batch.launches,
             "cluster_screen": sk.cluster_screen.launches,
             "scc_trim": sk.scc_trim.launches}
 
@@ -884,6 +887,400 @@ def elle_phases(name, smi) -> list:
          "us_per_step": t_ms * 1e3 / max(1, t_steps),
          "other_cases_ms": {k: v[0] for k, v in trims.items()},
          "shape": "global path: pairs_at_end_50k's dependency edges"}]
+
+
+# BASELINE config 3 (bench.py:438-440): keys of 1k ops, 5 processes and 5
+# values (S = 5, V = 8, MV = 256), key k's history from seed 1000 + k; the
+# invalid copy corrupts 2 reads in each of 8 keys. The sparse copy draws
+# its values from 10^9 at 1.3k ops a key: past the dense table's 512
+# states (1k ops give about 450), so the batch takes the sparse list.
+IND_KEYS, IND_OPS, IND_BIG = 64, 1000, 1024
+IND_BAD = tuple(range(3, 64, 8))
+IND_SPARSE_KEYS, IND_SPARSE_OPS, IND_SPARSE_BAD = 16, 1300, (1, 6, 11, 13)
+
+
+def sub_batches(n_keys: int) -> int:
+    """The matrix dispatches ``matrix_check_batch`` makes for a batch of
+    ``n_keys`` keys."""
+    from jepsen_tpu_torch.ops import jitlin
+    sub = (jitlin.MATRIX_SUB_KEYS if n_keys > jitlin.MATRIX_SUB_KEYS
+           else jitlin.MATRIX_PIPELINE_KEYS)
+    return 1 if n_keys <= sub else -(-n_keys // sub)
+
+
+def same_map(what, got, want) -> None:
+    """Raises unless two independent result maps agree on ``valid?``,
+    ``failures``, ``count`` and every key's ``valid?``."""
+    keys = sorted(want["results"])
+    if (got["valid?"], got["failures"], got["count"], sorted(got["results"])
+            ) != (want["valid?"], want["failures"], want["count"], keys) \
+            or any(got["results"][k]["valid?"] != want["results"][k]["valid?"]
+                   for k in keys):
+        raise AssertionError(f"{what}: the result map differs from the "
+                             f"oracle: {got['failures']} vs "
+                             f"{want['failures']}")
+
+
+def independent_split(h, lin, check_med, reps=5) -> dict:
+    """Median host seconds of an independent check's parts, each ending
+    in a sync: the split by key, the encode, the matrix screen (its
+    sub-batches' prepass, grids, enqueue and one read-back in
+    ``matrix_sub_batches``) and the key-batched scan of the keys it
+    leaves undecided; ``merge_and_rest`` is what the check's median
+    ``check_med`` leaves."""
+    import torch
+    from jepsen_tpu_torch import independent, parallel
+    from jepsen_tpu_torch.ops import jitlin
+    parts = {k: [] for k in ("split", "encode", "matrix", "scan")}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        _, subs = independent.split_history(h)
+        t1 = time.perf_counter()
+        sts = [lin._encoding(sub)[0] for sub in subs.values()]
+        t2 = time.perf_counter()
+        n_states = max(len(st.intern) for st in sts)
+        screen = jitlin.matrix_check_batch(sts, num_states=n_states)
+        t3 = time.perf_counter()
+        undecided = [sts[i] for i, r in enumerate(screen)
+                     if not r[0] or r[2]]
+        if undecided:
+            parallel._scan_batch(undecided, lin.capacity,
+                                 jitlin.JitLinKernel(), n_states)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[k].append(dt)
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    med["merge_and_rest"] = check_med - sum(med.values())
+    med["matrix_sub_batches"] = jitlin.last_phase_seconds()
+    return med
+
+
+def timed(fn, n):
+    """(host seconds of each of ``n`` calls, each ending in a sync, the
+    last call's value)."""
+    import torch
+    times, out = [], None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, out
+
+
+def batched_scan_row(kind, streams, n_states, K, launches, singles_reps=5):
+    """The key-batched frontier entry ``kind`` on ``streams`` as the
+    independent path hands them to it (the batch's S, its V from
+    ``n_states``), against its plain version (every output and each key's
+    path counts) and against the single-history kernel key by key; its
+    kernels-line row."""
+    import torch
+    from jepsen_tpu_torch.ops import frontier_kernels as fk
+    from jepsen_tpu_torch.ops.jitlin import _bucket
+    S = max(1, max(s.n_slots for s in streams))
+    V = _bucket(n_states, floor=16)
+    batch = fk.batch_events(streams, S, "cuda")
+    dense = kind == "frontier_dense_batch"
+    if dense:
+        call = lambda: fk.frontier_dense_batch(batch, V)  # noqa: E731
+        plain = lambda w: fk.frontier_dense_batch_torch(  # noqa: E731
+            batch, V, work=w)
+        unit = "returns"
+    else:
+        call = lambda: fk.frontier_sparse_batch(batch, K)  # noqa: E731
+        plain = lambda w: fk.frontier_sparse_batch_torch(  # noqa: E731
+            batch, K, work=w)
+        unit = "passes"
+    got = call()
+    paths = getattr(fk, kind).paths.tolist()
+    work = []
+    t0 = time.perf_counter()
+    ref = plain(work)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = frontier_err(got, ref)
+    want_paths = [[w.get(f"warp_{unit}", 0), w.get(unit, 0)] for w in work]
+    if err != 0.0 or paths != want_paths:
+        raise AssertionError(f"{kind} differs from its plain version: err "
+                             f"{err}, paths {paths} vs {want_paths}")
+    rows = [[int(x[b]) for x in got] for b in range(len(streams))]
+    # each key alone through the single-history kernel
+    evs = [card_events(s) for s in streams]
+    if dense:
+        starts = [fk.init_table(S, V, 0, "cuda") for _ in streams]
+        single = lambda i: fk.frontier_dense(  # noqa: E731
+            *evs[i], starts[i])
+    else:
+        starts = [fk.init_frontier(K, 0, "cuda") for _ in streams]
+        single = lambda i: fk.frontier_sparse(  # noqa: E731
+            *evs[i], *starts[i], S)
+    singles = [[int(x) for x in single(i)[:4]] for i in range(len(streams))]
+    if singles != rows:
+        raise AssertionError(f"{kind}: the batch's rows {rows} differ from "
+                             f"the single kernel's {singles}")
+    ms = cuda_ms(call, 20)
+    singles_ms = cuda_ms(lambda: [single(i) for i in range(len(streams))],
+                         singles_reps)
+    prof = device_kernels(call, kind.removesuffix("_batch") + "_kernel")
+    # the bound, summed over the keys as the single scans' is counted:
+    # bytes = the events (20 bytes each), the offsets and the [B, 6]
+    # results; operations = the dense closure's and kill's word
+    # operations up to each key's death, or the sparse passes' candidates
+    # plus n log2 n compares
+    n_events = sum(len(s) for s in streams)
+    nbytes = 20 * n_events + 4 * (len(streams) + 1) + 24 * len(streams)
+    if dense:
+        ops = sum(dense_scan_ops(s, r[1], V) for s, r in zip(streams, rows))
+    else:
+        ops = float(sum(w.get("compares", 0) + w.get("candidates", 0)
+                        for w in work))
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+    total = sum(p[1] for p in paths)
+    src = "frontier_dense.cu" if dense else "frontier_sparse.cu"
+    return {"name": kind, "route": "cuda",
+            "source": f"jepsen_tpu_torch/ops/csrc/{src}",
+            "replaces": ("jepsen_tpu/ops/jitlin.py:249" if dense
+                         else "jepsen_tpu/ops/jitlin.py:116"),
+            "vmapped_at": ("jepsen_tpu/ops/jitlin.py:2012" if dense
+                           else "jepsen_tpu/ops/jitlin.py:2023"),
+            "launches": launches, "max_abs_err": err, "equal": True,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "bound_operations": "int32_word_ops",
+            "launches_independent": launches, "keys": len(streams),
+            "S": S, "V": V if dense else None, "K": None if dense else K,
+            "events": n_events, "rows": rows, unit: total,
+            f"warp_{unit}": sum(p[0] for p in paths),
+            ("us_per_return_key_sum" if dense else "us_per_pass_key_sum"):
+                ms * 1e3 / max(1, total),
+            "single_launches_in_turn_ms": singles_ms,
+            "batched_over_singles": ms / singles_ms,
+            "device_ms": sum(us for n, us in prof
+                             if n.startswith(kind.removesuffix("_batch")))
+            / 1e3, "device_kernels_us": prof,
+            "word_ops": ops, "bytes": nbytes}
+
+
+def independent_phases(name, smi):
+    """BASELINE config 3 on the card through
+    ``independent.checker(linearizable(accelerator="gpu"))``: 64 keys
+    valid and with 8 keys corrupted, 16 fresh-value keys (the sparse
+    list), 1,024 keys (eight matrix sub-batches of 128), and the native
+    lane against the Python twin. Returns the two batched entries'
+    kernels-line rows and each kernel's launches in one valid 64-key
+    check."""
+    import numpy as np
+    import torch
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.linear_cpu import check_stream
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.histories import (corrupt_keys,
+                                            independent_register_history)
+    from jepsen_tpu_torch.native import check_stream_native
+    from jepsen_tpu_torch.ops import jitlin
+    from jepsen_tpu_torch.parallel import batch_check
+
+    lin = linearizable(accelerator="gpu")
+    chk = independent.checker(lin)
+    oracle = independent.checker(linearizable(accelerator="cpu"))
+
+    def streams_of(h):
+        keys, subs = independent.split_history(h)
+        return keys, [lin._encoding(subs[independent._freeze_key(k)])[0]
+                      for k in keys]
+
+    # 9a. the main path: 64 keys, valid
+    h = independent_register_history(IND_KEYS, IND_OPS)
+    t0 = time.perf_counter()
+    want = oracle.check({}, h, {})
+    oracle_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    got = chk.check({}, h, {})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    same_map("independent_main_path", got, want)
+    algs = {r["algorithm"] for r in got["results"].values()}
+    if got["valid?"] is not True or algs != {"jitlin-gpu"}:
+        raise AssertionError(f"independent_main_path: {got['valid?']}, {algs}")
+    n_sub = sub_batches(IND_KEYS)
+    if (launches["chunk_product"], launches["combine_product"]) != (
+            n_sub, n_sub) \
+            or any(launches[k] for k in launches if k.startswith("frontier")):
+        raise AssertionError(f"independent_main_path launches: {launches}")
+    check_s, _ = timed(lambda: chk.check({}, h, {}), 5)
+    med = statistics.median(check_s)
+    keys, streams = streams_of(h)
+    med_split = independent_split(h, lin, med)
+    busy = device_kernels(lambda: chk.check({}, h, {}), "chunk_product")
+    busy_ms = sum(us for _, us in busy) / 1e3
+    by_kernel = {}
+    for kname, us in busy:
+        by_kernel[kname] = by_kernel.get(kname, 0.0) + us
+    emit({"phase": "independent_main_path", "keys": IND_KEYS,
+          "ops_per_key": IND_OPS, "ops": IND_KEYS * IND_OPS,
+          "events": sum(len(s) for s in streams),
+          "S": max(s.n_slots for s in streams),
+          "states": max(len(s.intern) for s in streams),
+          "valid": got["valid?"], "count": got["count"],
+          "launches_per_check": launches, "first_check_s": first_s,
+          "check_s": check_s, "median_check_s": med,
+          "ops_per_sec": IND_KEYS * IND_OPS / med,
+          "median_split_s": med_split,
+          "device_busy_ms": busy_ms,
+          "device_busy_share": busy_ms / 1e3 / med,
+          "device_us_by_kernel": sorted(by_kernel.items(),
+                                        key=lambda kv: -kv[1])[:8],
+          "cpu_oracle_check_s": oracle_s, "card": name, "power": smi})
+
+    # 9b. 8 of the 64 keys corrupted: the screen leaves them undecided,
+    # and one key-batched dense launch settles them
+    hb = corrupt_keys(h, IND_BAD, n=2, seed=0)
+    want_b = oracle.check({}, hb, {})
+    reset_launches()
+    got_b = chk.check({}, hb, {})
+    torch.cuda.synchronize()
+    launches_b = read_launches()
+    same_map("independent_invalid", got_b, want_b)
+    if got_b["failures"] != sorted(str(k) for k in IND_BAD):
+        raise AssertionError(f"independent_invalid: {got_b['failures']}")
+    if launches_b["frontier_dense_batch"] != 1 \
+            or launches_b["chunk_product"] != n_sub \
+            or any(launches_b[k] for k in ("frontier_dense", "frontier_sparse",
+                                           "frontier_sparse_batch")):
+        raise AssertionError(f"independent_invalid launches: {launches_b}")
+    check_b, _ = timed(lambda: chk.check({}, hb, {}), 5)
+    split_b = independent_split(hb, lin, statistics.median(check_b))
+    busy_b = device_kernels(lambda: chk.check({}, hb, {}),
+                            "frontier_dense_kernel")
+    keys_b, streams_b = streams_of(hb)
+    n_states = max(len(s.intern) for s in streams_b)
+    screen = jitlin.matrix_check_batch(streams_b, num_states=n_states)
+    undecided = [i for i, r in enumerate(screen) if not r[0] or r[2]]
+    if sorted(str(keys_b[i]) for i in undecided) != got_b["failures"]:
+        raise AssertionError(f"independent_invalid: the screen left "
+                             f"{undecided} undecided")
+    bad_streams = [streams_b[i] for i in undecided]
+    dense_row = batched_scan_row("frontier_dense_batch", bad_streams,
+                                 n_states, None,
+                                 launches_b["frontier_dense_batch"])
+    for i, row in zip(undecided, dense_row["rows"]):
+        res = got_b["results"][str(keys_b[i])]
+        if row[0] != 0 or res["configs-max"] != row[3]:
+            raise AssertionError(f"key {keys_b[i]}: batch row {row}, map "
+                                 f"{res}")
+    emit({"phase": "independent_invalid", "keys": IND_KEYS,
+          "bad_keys": list(IND_BAD), "failures": got_b["failures"],
+          "launches_per_check": launches_b, "check_s": check_b,
+          "median_check_s": statistics.median(check_b),
+          "median_split_s": split_b,
+          "device_busy_ms": sum(us for _, us in busy_b) / 1e3,
+          "frontier_device_ms": sum(us for n, us in busy_b
+                                    if n.startswith("frontier")) / 1e3,
+          "batched_rows": dense_row["rows"],
+          "batched_launch_ms": dense_row["ms"],
+          "single_launches_in_turn_ms":
+              dense_row["single_launches_in_turn_ms"],
+          "card": name, "power": smi})
+
+    # 9c. fresh-value keys: past 512 states, one key-batched sparse launch
+    hs = independent_register_history(IND_SPARSE_KEYS, IND_SPARSE_OPS,
+                                      n_values=FRESH_VALUES)
+    sparse_row = None
+    for copy, hh in (("valid", hs), ("corrupted", corrupt_keys(
+            hs, IND_SPARSE_BAD, n=2, seed=0))):
+        want_s = oracle.check({}, hh, {})
+        reset_launches()
+        t0 = time.perf_counter()
+        got_s = chk.check({}, hh, {})
+        torch.cuda.synchronize()
+        check_s_s = time.perf_counter() - t0
+        lc = read_launches()
+        same_map(f"independent_sparse {copy}", got_s, want_s)
+        if lc["frontier_sparse_batch"] != 1 or any(
+                lc[k] for k in lc if k != "frontier_sparse_batch"):
+            raise AssertionError(f"independent_sparse {copy}: {lc}")
+        if got_s["failures"] != (sorted(str(k) for k in IND_SPARSE_BAD)
+                                 if copy == "corrupted" else []):
+            raise AssertionError(f"independent_sparse {copy}: "
+                                 f"{got_s['failures']}")
+        _, sts = streams_of(hh)
+        row = batched_scan_row("frontier_sparse_batch", sts,
+                               max(len(s.intern) for s in sts), 256,
+                               lc["frontier_sparse_batch"], singles_reps=2)
+        if copy == "valid":
+            sparse_row = row
+        emit({"phase": "independent_sparse", "copy": copy,
+              "keys": IND_SPARSE_KEYS, "ops_per_key": IND_SPARSE_OPS,
+              "states": max(len(s.intern) for s in sts),
+              "failures": got_s["failures"], "launches": lc,
+              "check_s": check_s_s, "batched_rows": row["rows"],
+              "batched_launch_ms": row["ms"],
+              "single_launches_in_turn_ms":
+                  row["single_launches_in_turn_ms"],
+              "passes": row["passes"], "warp_passes": row["warp_passes"],
+              "card": name, "power": smi})
+
+    # 9d. 1,024 keys (bench.py's scaling point): eight matrix sub-batches
+    # of 128, against the native lane
+    hk = independent_register_history(IND_BIG, IND_OPS)
+    t0 = time.perf_counter()
+    _, streams_k = streams_of(hk)
+    prep_s = time.perf_counter() - t0
+    reset_launches()
+    gpu_s, gpu = timed(lambda: batch_check(streams_k), 3)
+    lk = read_launches()
+    sub_k = jitlin.last_phase_seconds()
+    cpu_s, cpu = timed(lambda: batch_check(streams_k, accelerator="cpu"), 2)
+    if [r[0] for r in gpu] != [r[0] for r in cpu] or not all(
+            r[0] for r in gpu):
+        raise AssertionError("independent_1024: the card's verdicts differ "
+                             "from the native lane's")
+    if lk["chunk_product"] != 3 * sub_batches(IND_BIG) \
+            or sub_k["sub_batches"] != sub_batches(IND_BIG):
+        raise AssertionError(f"independent_1024: {lk}, {sub_k}")
+    t0 = time.perf_counter()
+    full = chk.check({}, hk, {})
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    if full["valid?"] is not True or full["count"] != IND_BIG:
+        raise AssertionError("independent_1024: the check failed")
+    emit({"phase": "independent_1024", "keys": IND_BIG,
+          "ops": IND_BIG * IND_OPS, "split_and_encode_s": prep_s,
+          "gpu_batch_check_s": gpu_s,
+          "median_gpu_batch_check_s": statistics.median(gpu_s),
+          "gpu_ops_per_sec": IND_BIG * IND_OPS / statistics.median(gpu_s),
+          "native_lane_s": cpu_s,
+          "native_lane_ops_per_sec": IND_BIG * IND_OPS / min(cpu_s),
+          "matrix_sub_batch_phases_s": sub_k,
+          "launches_per_batch_check": {k: v / 3 for k, v in lk.items()},
+          "full_check_s": full_s,
+          "full_check_ops_per_sec": IND_BIG * IND_OPS / full_s,
+          "card": name, "power": smi})
+
+    # 9e. the native lane against the Python twin, key by key
+    rates = {}
+    for copy, hh in (("valid", h), ("corrupted", hb)):
+        _, sts = streams_of(hh)
+        t0 = time.perf_counter()
+        nat = [check_stream_native(s) for s in sts]
+        nat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        twin = [check_stream(s) for s in sts]
+        twin_s = time.perf_counter() - t0
+        if [(r.valid, r.failed_event, r.configs_max) for r in nat] != [
+                (r.valid, r.failed_event, r.configs_max) for r in twin]:
+            raise AssertionError(f"native_lane {copy}: verdicts differ")
+        rates[copy] = {"native_s": nat_s, "twin_s": twin_s,
+                       "native_ops_per_sec": IND_KEYS * IND_OPS / nat_s,
+                       "twin_ops_per_sec": IND_KEYS * IND_OPS / twin_s,
+                       "invalid_keys": sum(r.valid is False for r in nat)}
+    emit({"phase": "native_lane", "keys": IND_KEYS, "ops_per_key": IND_OPS,
+          "one_thread": rates, "card": name, "power": smi})
+    return [dense_row, sparse_row], launches
 
 
 def nvidia_smi(query: str) -> str:
@@ -1396,6 +1793,12 @@ def main() -> int:
     # 8. the Elle slice: list-append and rw-register checks through the
     # cluster screen and the trim
     kernels += elle_phases(name, smi)
+    # 9. the independent slice: BASELINE config 3 through the key-batched
+    # matrix screen and frontier launches, and the native lane
+    ind_rows, ind_launches = independent_phases(name, smi)
+    for row in kernels:
+        row["launches_independent"] = ind_launches.get(row["name"], 0)
+    kernels += ind_rows
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,

@@ -13,12 +13,19 @@ order:
   valid, or invalid with the event at which the frontier died; an
   overflowed frontier that died ("unknown") passes the history on.
   Streams with more than 32 slots (masks are uint32) skip it.
+* ``native-c`` — the C++ search (jepsen_tpu_torch/native, algorithm
+  ``jitlin-native``), on the host regime only (``accelerator="cpu"``, or
+  ``"auto"`` below AUTO_TPU_THRESHOLD events), for an initial state of
+  id 0. Its capacity (-1) and slot (-2) limits pass the history on.
 * ``cpu`` — the exact CPU twin (linear_cpu.check_stream), which settles
-  everything the device rungs did not, with the failing op. After a
+  everything the other rungs did not, with the failing op. After a
   device rung ran, its algorithm reads ``jitlin-cpu(fallback)``.
 
 ``accelerator`` is "gpu" (the device rung whenever in regime), "cpu" or
-"auto" (the device rung from AUTO_TPU_THRESHOLD events up).
+"auto" (the device rung from AUTO_TPU_THRESHOLD events up). The native
+rung does not run after a device rung, and returns no final
+configurations: an invalid verdict re-runs ``check_stream`` for them, as
+every invalid verdict from a rung without them does.
 """
 from __future__ import annotations
 
@@ -51,7 +58,8 @@ ACCELERATORS = ("gpu", "cpu", "auto")
 
 class LinearizableChecker(Checker):
     def __init__(self, model: Model | None = None,
-                 accelerator: str = "auto", device=None):
+                 accelerator: str = "auto", device=None,
+                 capacity: int = FRONTIER_CAPACITY):
         self.model = model if model is not None else CASRegister()
         if not isinstance(self.model, CASRegister):
             raise TypeError("the torch checker handles CASRegister models "
@@ -62,20 +70,26 @@ class LinearizableChecker(Checker):
         self.accelerator = accelerator
         # None = the CUDA device; resolved when the device rung runs
         self.device = device
+        self.capacity = capacity
 
-    def check(self, test, history, opts):
-        accelerator = opts.get("accelerator", self.accelerator)
+    # copied from jepsen_tpu/checker/linearizable.py:78-100 (the
+    # CASRegister branch, without the history IR)
+    def _encoding(self, history):
+        """(stream, step_py, spec) of ``history``: a non-None initial
+        register value interns FIRST so its id is the initial state."""
         intern = Intern()
-        # a non-None initial register value interns FIRST so its id is
-        # the initial state
         if self.model.value is not None:
             intern.id(self.model.value)
         stream = encode_register_ops(history, intern=intern)
         init_id = (0 if self.model.value is None
                    else stream.intern.id(self.model.value))
-        res = self._search_stream(stream, cas_register_spec(init_id),
-                                  accelerator)
-        return self._finish(res, history, stream, init_id)
+        return stream, cas_register_step_py, cas_register_spec(init_id)
+
+    def check(self, test, history, opts):
+        accelerator = opts.get("accelerator", self.accelerator)
+        stream, _, spec = self._encoding(history)
+        res = self._search_stream(stream, spec, accelerator)
+        return self._finish(res, history, stream, spec.init_state)
 
     def _search_stream(self, stream, spec, accelerator) -> LinearResult:
         from jepsen_tpu_torch.ops.frontier_kernels import SPARSE_MAX_SLOTS
@@ -105,7 +119,7 @@ class LinearizableChecker(Checker):
                                       init_state=spec.init_state,
                                       device=self.device)
                 alive, died, overflow, peak = kernel.check(
-                    stream, capacity=FRONTIER_CAPACITY)
+                    stream, capacity=self.capacity)
                 valid = verdict(alive, overflow)
                 if valid != "unknown":
                     return LinearResult(
@@ -113,6 +127,13 @@ class LinearizableChecker(Checker):
                         failed_op_index=(int(stream.op_index[died])
                                          if died >= 0 else -1),
                         configs_max=peak, algorithm="torch-frontier")
+        elif spec.init_state == 0:
+            # copied from jepsen_tpu/checker/linearizable.py:513-525: the
+            # native rung, host regime only, for the init id it hardcodes
+            from jepsen_tpu_torch.native import check_stream_native
+            res = check_stream_native(stream)
+            if res is not None and res.valid != "unknown":
+                return res
         res = check_stream(stream, step=cas_register_step_py,
                            init_state=spec.init_state)
         if attempted:

@@ -69,6 +69,52 @@ def corrupt_reads(history: list[dict], n: int = 2, seed: int = 0,
     return out
 
 
+def independent_register_history(n_keys: int, n_ops: int = 1000,
+                                 n_procs: int = 5, n_values: int = 5,
+                                 seed: int = 1000) -> list[dict]:
+    """A lifted history of ``n_keys`` independent registers (values
+    [k, v]), BASELINE config 3 in bench.py's shape (``bench.py:438-440``:
+    1k ops a key, 5 processes, 5 values, key k's history from seed
+    1000 + k): key k's ops are ``register_history(n_ops, n_procs,
+    seed + k, n_values)`` on processes k * n_procs .. k * n_procs +
+    n_procs - 1 (a group of threads a key, as the reference's
+    ConcurrentGenerator gives it), and the keys' ops interleave in a
+    seeded random order that keeps each key's own order."""
+    keyed = [register_history(n_ops, n_procs=n_procs, seed=seed + k,
+                              n_values=n_values) for k in range(n_keys)]
+    order = np.random.default_rng(seed).permutation(
+        np.repeat(np.arange(n_keys), [len(h) for h in keyed]))
+    at = [0] * n_keys
+    out = []
+    for k in order.tolist():
+        op = keyed[k][at[k]]
+        at[k] += 1
+        out.append({**op, "process": k * n_procs + op["process"],
+                    "value": [k, op["value"]]})
+    return out
+
+
+def corrupt_keys(history: list[dict], keys, n: int = 2, seed: int = 0,
+                 value=999) -> list[dict]:
+    """A copy of a lifted ``history`` in which each key of ``keys`` has
+    ``n`` ok reads answering ``value``: :func:`corrupt_reads` on the
+    key's own sub-history, with seed ``seed + k`` for an int key k (else
+    ``seed``)."""
+    out = [dict(op) for op in history]
+    for k in keys:
+        at = [i for i, op in enumerate(out)
+              if isinstance(op.get("value"), list)
+              and len(op["value"]) == 2 and op["value"][0] == k]
+        sub = [{**out[i], "value": out[i]["value"][1]} for i in at]
+        bad = corrupt_reads(sub, n=n,
+                            seed=seed + k if isinstance(k, int) else seed,
+                            value=value)
+        for i, op, op2 in zip(at, sub, bad):
+            if op2["value"] != op["value"]:
+                out[i]["value"] = [k, op2["value"]]
+    return out
+
+
 def _txn_history(txns) -> list[dict]:
     """Runs (process, invoke micro-ops, ok micro-ops) txns one after the
     other: an invoke and its ok each, with times 2i and 2i + 1."""

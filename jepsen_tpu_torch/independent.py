@@ -1,0 +1,201 @@
+"""Independent multi-key checking (jepsen.independent): a lifted history's
+values are [key, value] tuples, and the checker splits the history by
+key and checks each key's sub-history on its own (jepsen_tpu/
+independent.py:221-480).
+
+When the inner checker is a register ``LinearizableChecker`` (alone, or
+the one such checker in a ``Compose``) and the device is wanted, every
+key is encoded and the whole batch runs through ``parallel.batch_check``:
+the key-batched matrix screen on the card, then one key-batched frontier
+launch for the keys it leaves undecided; a key whose frontier overflowed
+and died goes to the exact Python twin. Otherwise, and under
+``accelerator="cpu"``, each key goes through the inner checker on
+threads (``bounded_pmap``).
+
+Not ported: the per-key anomaly forensics (``_explain_key``) and the
+multi-host localization, the history-IR split, and the key-lifting
+generators. An error in the batched lane propagates; the reference
+catches it and checks key by key instead.
+"""
+from __future__ import annotations
+
+from jepsen_tpu_torch.checker import (
+    Checker, Compose, check_safe, merge_valid,
+)
+from jepsen_tpu_torch.utils import bounded_pmap
+
+# the batched lane's backend names, by batch_check's route (the
+# reference's device route is "jitlin-tpu")
+BACKENDS = {"cpu": "jitlin-cpu(routed)", "device": "jitlin-gpu"}
+
+
+# copied from jepsen_tpu/independent.py:29-37
+def tuple_value(k, v) -> list:
+    """An independent [key, value] pair (independent.clj:21-29). Plain
+    lists so histories stay JSON-serializable."""
+    return [k, v]
+
+
+def is_tuple_value(v) -> bool:
+    return isinstance(v, (list, tuple)) and len(v) == 2
+
+
+# copied from jepsen_tpu/independent.py:221-250
+def history_keys(history: list[dict]) -> list:
+    """All keys in a lifted history (independent.clj:238-248)."""
+    seen = {}
+    for op in history:
+        v = op.get("value")
+        if is_tuple_value(v):
+            seen.setdefault(_freeze_key(v[0]), v[0])
+    return list(seen.values())
+
+
+def _freeze_key(k):
+    return tuple(k) if isinstance(k, list) else k
+
+
+def subhistory(k, history: list[dict]) -> list[dict]:
+    """The sub-history for key k, with inner values unwrapped
+    (independent.clj:250-262)."""
+    fk = _freeze_key(k)
+    out = []
+    for op in history:
+        v = op.get("value")
+        if is_tuple_value(v) and _freeze_key(v[0]) == fk:
+            out.append({**op, "value": v[1]})
+    return out
+
+
+def split_history(history: list[dict]) -> tuple[list, dict]:
+    """(``history_keys(history)``, {frozen key: ``subhistory(k,
+    history)``}) in one pass over the history, not one a key."""
+    keys, subs = [], {}
+    for op in history:
+        v = op.get("value")
+        if not is_tuple_value(v):
+            continue
+        fk = _freeze_key(v[0])
+        sub = subs.get(fk)
+        if sub is None:
+            keys.append(v[0])
+            sub = subs[fk] = []
+        sub.append({**op, "value": v[1]})
+    return keys, subs
+
+
+class IndependentChecker(Checker):
+    """Lifts a checker over keys (independent.clj:264-315): splits the
+    history, checks each key, merges validity and reports failures by
+    key (jepsen_tpu/independent.py:247-480)."""
+
+    def __init__(self, checker: Checker):
+        self.checker = checker
+
+    def name(self):
+        return f"independent({self.checker.name()})"
+
+    @staticmethod
+    def _key_opts(opts, k):
+        """Per-key opts: sub-checkers write under independent/<k> like
+        the reference (independent.clj:287-292)."""
+        d = opts.get("subdirectory")
+        return {**opts,
+                "subdirectory": "/".join(
+                    filter(None, [d, "independent", str(k)])),
+                "history-key": k}
+
+    def check(self, test, history, opts):
+        keys, subs = split_history(history)
+        if not keys:
+            return {"valid?": True, "results": {}, "count": 0}
+        results = self._try_batched(test, subs, opts)
+        if results is None:
+            pairs = list(subs.items())
+            rs = bounded_pmap(
+                lambda kv: check_safe(self.checker, test, kv[1],
+                                      self._key_opts(opts, kv[0])), pairs)
+            results = {k: r for (k, _), r in zip(pairs, rs)}
+        valid = merge_valid(r.get("valid?") for r in results.values())
+        failures = sorted((str(k) for k, r in results.items()
+                           if r.get("valid?") is not True), key=str)
+        return {
+            "valid?": valid,
+            "count": len(results),
+            "failures": failures,
+            "results": {str(k): r for k, r in results.items()},
+        }
+
+    def _try_batched(self, test, subs, opts):
+        """The batched lane's {frozen key: result}, or None when it does
+        not apply: the inner checker is not a LinearizableChecker (or a
+        Compose holding exactly one), the accelerator is "cpu", or a key
+        has more than the sparse frontier's 32 slots (the single check
+        skips its frontier rung there too)."""
+        from jepsen_tpu_torch.checker.linear_cpu import check_stream
+        from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
+        from jepsen_tpu_torch.ops.frontier_kernels import SPARSE_MAX_SLOTS
+        from jepsen_tpu_torch.ops.jitlin import JitLinKernel, verdict
+        from jepsen_tpu_torch.parallel import batch_check, last_route
+
+        # see through a Compose holding exactly one LinearizableChecker:
+        # it takes the batched lane, the rest run per key, and the per-key
+        # results merge as Compose would merge them
+        chk, lin_name, others = self.checker, None, {}
+        if isinstance(chk, Compose):
+            lins = [(nm, c) for nm, c in chk.checkers.items()
+                    if isinstance(c, LinearizableChecker)]
+            if len(lins) != 1:
+                return None
+            lin_name, chk = lins[0]
+            others = {nm: c for nm, c in self.checker.checkers.items()
+                      if nm != lin_name}
+        if not isinstance(chk, LinearizableChecker):
+            return None
+        accelerator = opts.get("accelerator", chk.accelerator)
+        if accelerator == "cpu":
+            return None
+        fkeys = list(subs)
+        # each key encoded by the checker's own encoding, so the initial
+        # register value interns to the kernel's initial state
+        encs = [chk._encoding(subs[fk]) for fk in fkeys]
+        streams = [e[0] for e in encs]
+        if any(s.n_slots > SPARSE_MAX_SLOTS for s in streams):
+            return None
+        step_py, spec = encs[0][1], encs[0][2]
+        kernel = JitLinKernel(step_ids=spec.step_ids,
+                              init_state=spec.init_state, device=chk.device)
+        outcomes = batch_check(streams, capacity=chk.capacity, kernel=kernel,
+                               accelerator=accelerator)
+        backend = BACKENDS[last_route()]
+        results = {}
+        for fk, stream, (alive, died, ovf, peak) in zip(fkeys, streams,
+                                                         outcomes):
+            v = verdict(alive, ovf)
+            if v == "unknown":
+                res = check_stream(stream, step=step_py,
+                                   init_state=spec.init_state)
+                results[fk] = {"valid?": res.valid,
+                               "algorithm": "jitlin-cpu(fallback)"}
+            else:
+                results[fk] = {"valid?": v, "algorithm": backend,
+                               "configs-max": peak}
+        if lin_name is None:
+            return results
+        pairs = list(subs.items())
+        other_rs = bounded_pmap(
+            lambda kv: {nm: check_safe(c, test, kv[1],
+                                       self._key_opts(opts, kv[0]))
+                        for nm, c in others.items()}, pairs)
+        merged = {}
+        for (fk, _), extra in zip(pairs, other_rs):
+            sub = {lin_name: results[fk], **extra}
+            merged[fk] = {
+                "valid?": merge_valid(r.get("valid?") for r in sub.values()),
+                **sub,
+            }
+        return merged
+
+
+def checker(inner: Checker) -> Checker:
+    return IndependentChecker(inner)

@@ -44,6 +44,13 @@ SIGNATURES = {
                          _P]),
     "scc_trim": ("jt_scc_trim", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
+# the key-batched entries of the frontier scans, beside their first
+BATCH_SIGNATURES = {
+    "frontier_dense": ("jt_frontier_dense_batch",
+                       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "frontier_sparse": ("jt_frontier_sparse_batch",
+                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+}
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -101,10 +108,13 @@ def build_all() -> dict:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         for src in srcs:
             lib = ctypes.CDLL(str(_lib_path(src)))
-            fn_name, argtypes = SIGNATURES[src.stem]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for table in (SIGNATURES, BATCH_SIGNATURES):
+                if src.stem not in table:
+                    continue
+                fn_name, argtypes = table[src.stem]
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _LIBS[src.stem] = lib
         build_seconds += time.perf_counter() - t0
         return dict(_LIBS)

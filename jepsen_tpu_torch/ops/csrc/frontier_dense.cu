@@ -25,7 +25,20 @@
 // dependent steps a return takes.
 //
 // Design. One CTA per history, the event loop inside it, so a check is one
-// launch. The transition is the CAS register's, a __device__ copy of
+// launch, and a batch of keys is one launch too: one CTA a key (grid = B),
+// each reading its key's events [off[b], off[b + 1]) of one upload and
+// writing its own row of results, with `died` the index in the key's own
+// stream (the reference vmaps the scan over keys, jitlin.py:2012). A batch
+// builds each key's initial table, (mask 0, init_state) alone, in the
+// kernel and writes no final table; the single-history entry is the same
+// kernel at B = 1 with the table given and written back (the resume form).
+// A key whose table empties ends its CTA's loop alone: every branch that
+// stops a loop is uniform over the CTA (the warp path's warp 0 leaves its
+// loop while the other warps wait at the barrier after it; the CTA path's
+// `alive` comes from __syncthreads_or), so no thread leaves before a
+// barrier its other warps still reach. The warp path's CTAs use little
+// shared memory (the events' stage and the nibble tables, about 16 KB), so
+// several keys share an SM. The transition is the CAS register's, a __device__ copy of
 // `_cas_step_ids` (jepsen_tpu_torch/models). The closure runs level by
 // level: a row's level is popcount(r & pm), and the rows of level p read
 // only rows r ^ 2^t of level p - 1, already final; a path of the closure
@@ -285,13 +298,27 @@ frontier_dense_kernel(const int* __restrict__ kind,
                       const int* __restrict__ slot,
                       const int* __restrict__ fv, const int* __restrict__ av,
                       const int* __restrict__ bv,
-                      const uint8_t* __restrict__ table0,  // [M, V] 0/1
-                      uint8_t* __restrict__ table_out,     // [M, V] 0/1
-                      // alive, died, inexact, peak, returns closed on
-                      // the warp path, returns closed
+                      // [B + 1] key b's events are [off[b], off[b + 1]);
+                      // null: one key, events [0, E)
+                      const int* __restrict__ off,
+                      // [M, V] 0/1; null: (mask 0, init_state) alone
+                      const uint8_t* __restrict__ table0,
+                      uint8_t* __restrict__ table_out,  // [M, V] 0/1 or null
+                      // [B][6] alive, died, inexact, peak, returns closed
+                      // on the warp path, returns closed
                       int* __restrict__ out,
-                      int E, int S, int V) {
+                      int E, int S, int V, int init_state) {
   extern __shared__ uint32_t smem[];
+  if (off != nullptr) {
+    const int e0 = off[blockIdx.x];
+    E = off[blockIdx.x + 1] - e0;
+    kind += e0;
+    slot += e0;
+    fv += e0;
+    av += e0;
+    bv += e0;
+  }
+  out += 6 * blockIdx.x;
   const int M = 1 << S;
   const int W = (V + 31) >> 5;  // words a row
   const int tid = threadIdx.x, lane = tid & 31;
@@ -307,8 +334,13 @@ frontier_dense_kernel(const int* __restrict__ kind,
   for (int e = tid; e < M * W; e += kThreads) {
     const int r = e / W, j = e - (e / W) * W;
     uint32_t w = 0u;
-    for (int q = 0; q < 32 && j * 32 + q < V; ++q)
-      w |= (table0[(size_t)r * V + j * 32 + q] != 0) ? 1u << q : 0u;
+    if (table0 == nullptr) {
+      // row 0 is word-row 0: the initial state's word
+      if (e == (init_state >> 5)) w = 1u << (init_state & 31);
+    } else {
+      for (int q = 0; q < 32 && j * 32 + q < V; ++q)
+        w |= (table0[(size_t)r * V + j * 32 + q] != 0) ? 1u << q : 0u;
+    }
     T[e] = w;
   }
   if (!kWarp)
@@ -410,9 +442,11 @@ frontier_dense_kernel(const int* __restrict__ kind,
     }
     __syncthreads();
   }
-  for (int e = tid; e < M * V; e += kThreads) {
-    const int r = e / V, v = e - (e / V) * V;
-    table_out[e] = (uint8_t)((T[r * W + (v >> 5)] >> (v & 31)) & 1u);
+  if (table_out != nullptr) {
+    for (int e = tid; e < M * V; e += kThreads) {
+      const int r = e / V, v = e - (e / V) * V;
+      table_out[e] = (uint8_t)((T[r * W + (v >> 5)] >> (v & 31)) & 1u);
+    }
   }
   if (tid == 0) {  // thread 0 is lane 0 of the warp that ran the warp path
     out[0] = alive ? 1 : 0;
@@ -424,13 +458,15 @@ frontier_dense_kernel(const int* __restrict__ kind,
   }
 }
 
-}  // namespace
-
-extern "C" int jt_frontier_dense(void* kind, void* slot, void* f, void* a,
-                                 void* b, void* table0, void* table_out,
-                                 void* out, int E, int S, int V,
-                                 void* stream) {
-  if (S < 1 || S > kMaxSlots || V < 1) return (int)cudaErrorInvalidValue;
+// Launches the scan of B keys (off given) or of one history (off null,
+// its E events), one CTA a key.
+int launch(const void* kind, const void* slot, const void* f, const void* a,
+           const void* b, const void* off, const void* table0,
+           void* table_out, void* out, int B, int E, int S, int V,
+           int init_state, void* stream) {
+  if (S < 1 || S > kMaxSlots || V < 1 || B < 1 || init_state < 0 ||
+      init_state >= V)
+    return (int)cudaErrorInvalidValue;
   const size_t M = (size_t)1 << S, words = M * ((V + 31) / 32);
   // the warp path: one-word rows, kWarpCost bounding rows a lane x nibbles
   const int nib = V <= 16 ? 4 : 8;
@@ -443,8 +479,8 @@ extern "C" int jt_frontier_dense(void* kind, void* slot, void* f, void* a,
   if (!rows)
     smem += kBinomN * kBinomN * sizeof(int) + M * sizeof(uint16_t);
   void (*kernel)(const int*, const int*, const int*, const int*, const int*,
-                 const uint8_t*, uint8_t*, int*, int, int, int) =
-      frontier_dense_kernel<0, 0>;
+                 const int*, const uint8_t*, uint8_t*, int*, int, int, int,
+                 int) = frontier_dense_kernel<0, 0>;
   if (nib == 4) {
     kernel = rows == 1   ? frontier_dense_kernel<1, 4>
              : rows == 2 ? frontier_dense_kernel<2, 4>
@@ -458,9 +494,31 @@ extern "C" int jt_frontier_dense(void* kind, void* slot, void* f, void* a,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)kind, (const int*)slot, (const int*)f, (const int*)a,
-      (const int*)b, (const uint8_t*)table0, (uint8_t*)table_out, (int*)out,
-      E, S, V);
+      (const int*)b, (const int*)off, (const uint8_t*)table0,
+      (uint8_t*)table_out, (int*)out, E, S, V, init_state);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One history from the table table0, the final table into table_out, its
+// results into out[0, 6).
+extern "C" int jt_frontier_dense(void* kind, void* slot, void* f, void* a,
+                                 void* b, void* table0, void* table_out,
+                                 void* out, int E, int S, int V,
+                                 void* stream) {
+  return launch(kind, slot, f, a, b, nullptr, table0, table_out, out, 1, E,
+                S, V, 0, stream);
+}
+
+// B keys, key k's events [off[k], off[k + 1]) of the columns, each from
+// (mask 0, init_state) alone; key k's results into out[6k, 6k + 6).
+extern "C" int jt_frontier_dense_batch(void* kind, void* slot, void* f,
+                                       void* a, void* b, void* off, void* out,
+                                       int B, int S, int V, int init_state,
+                                       void* stream) {
+  return launch(kind, slot, f, a, b, off, nullptr, nullptr, out, B, 0, S, V,
+                init_state, stream);
 }

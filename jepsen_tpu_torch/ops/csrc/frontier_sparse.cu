@@ -28,7 +28,16 @@
 // a pass and a return take, and in a CTA every barrier adds to that chain.
 //
 // Design. One CTA per history, the event loop inside it, so a check is one
-// launch. A pair is one 64-bit key, mask << 32 | (state ^ 2^31), which
+// launch, and a batch of keys is one launch too: one CTA a key (grid = B),
+// each reading its key's events [off[b], off[b + 1]) of one upload and
+// writing its own row of results, with `died` the index in the key's own
+// stream (the reference vmaps the scan over keys, jitlin.py:2023). A batch
+// builds each key's initial list, (0, init_state) then sentinels, in the
+// kernel and writes no final list; the single-history entry is the same
+// kernel at B = 1 with the list given and written back (the resume form).
+// A key whose list empties ends its CTA alone: warp 0 then hands the CTA
+// the end command at the named barrier every thread of the CTA waits on,
+// so all of them leave together. A pair is one 64-bit key, mask << 32 | (state ^ 2^31), which
 // orders as the reference's two-key sort and makes the sentinel pair the
 // largest key. After the first closure pass the list in shared memory is
 // sorted and distinct, valid keys first, and `len` entries long (sentinels
@@ -445,15 +454,29 @@ frontier_sparse_kernel(const int* __restrict__ kind,
                        const int* __restrict__ slot,
                        const int* __restrict__ fv, const int* __restrict__ av,
                        const int* __restrict__ bv,
+                       // [B + 1] key b's events are [off[b], off[b + 1]);
+                       // null: one key, events [0, E)
+                       const int* __restrict__ off,
+                       // [K] each; null: (0, init_state) then sentinels
                        const uint32_t* __restrict__ mask0,
                        const int* __restrict__ state0,
-                       uint32_t* __restrict__ mask_out,
-                       int* __restrict__ state_out,
-                       // alive, died, overflow, peak, closure passes on
-                       // the warp path, closure passes
+                       uint32_t* __restrict__ mask_out,  // [K] or null
+                       int* __restrict__ state_out,      // [K] or null
+                       // [B][6] alive, died, overflow, peak, closure
+                       // passes on the warp path, closure passes
                        int* __restrict__ out,
-                       int E, int S, int K, int cap) {
+                       int E, int S, int K, int cap, int init_state) {
   extern __shared__ u64 smem64[];
+  if (off != nullptr) {
+    const int e0 = off[blockIdx.x];
+    E = off[blockIdx.x + 1] - e0;
+    kind += e0;
+    slot += e0;
+    fv += e0;
+    av += e0;
+    bv += e0;
+  }
+  out += 6 * blockIdx.x;
   __shared__ PassArgs A;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   u64* F = smem64;                      // [K] the list
@@ -463,7 +486,10 @@ frontier_sparse_kernel(const int* __restrict__ kind,
   int* scratch = cur + 3 * kMaxSlots;   // [kWarps + 1]
 
   // the list as given (the first closure pass sorts and dedups it)
-  for (int i = tid; i < K; i += kThreads) F[i] = pack(mask0[i], state0[i]);
+  for (int i = tid; i < K; i += kThreads)
+    F[i] = mask0 != nullptr ? pack(mask0[i], state0[i])
+           : i == 0         ? pack(0u, init_state)
+                            : kSentinel;
   for (int i = tid; i < 3 * kMaxSlots; i += kThreads) cur[i] = 0;
   __syncthreads();
 
@@ -580,9 +606,11 @@ frontier_sparse_kernel(const int* __restrict__ kind,
     if (A.cmd == kCmdEnd) break;
     cta_pass(F, C, cur, &A, scratch, K);
   }
-  for (int i = tid; i < K; i += kThreads) {
-    mask_out[i] = key_mask(F[i]);
-    state_out[i] = key_state(F[i]);
+  if (mask_out != nullptr) {
+    for (int i = tid; i < K; i += kThreads) {
+      mask_out[i] = key_mask(F[i]);
+      state_out[i] = key_state(F[i]);
+    }
   }
   if (tid == 0) {
     out[0] = alive ? 1 : 0;
@@ -594,13 +622,13 @@ frontier_sparse_kernel(const int* __restrict__ kind,
   }
 }
 
-}  // namespace
-
-extern "C" int jt_frontier_sparse(void* kind, void* slot, void* f, void* a,
-                                  void* b, void* mask0, void* state0,
-                                  void* mask_out, void* state_out, void* out,
-                                  int E, int S, int K, void* stream) {
-  if (S < 1 || S > kMaxSlots || K < 1 || K * (S + 1) > (1 << 14))
+// Launches the scan of B keys (off given) or of one history (off null,
+// its E events), one CTA a key.
+int launch(const void* kind, const void* slot, const void* f, const void* a,
+           const void* b, const void* off, const void* mask0,
+           const void* state0, void* mask_out, void* state_out, void* out,
+           int B, int E, int S, int K, int init_state, void* stream) {
+  if (S < 1 || S > kMaxSlots || K < 1 || K * (S + 1) > (1 << 14) || B < 1)
     return (int)cudaErrorInvalidValue;
   int cap = 2 * kWarpCand;  // the warp path's staging and sorted order
   while (cap < K * (S + 1)) cap <<= 1;
@@ -611,9 +639,32 @@ extern "C" int jt_frontier_sparse(void* kind, void* slot, void* f, void* a,
       frontier_sparse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  frontier_sparse_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
+  frontier_sparse_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)kind, (const int*)slot, (const int*)f, (const int*)a,
-      (const int*)b, (const uint32_t*)mask0, (const int*)state0,
-      (uint32_t*)mask_out, (int*)state_out, (int*)out, E, S, K, cap);
+      (const int*)b, (const int*)off, (const uint32_t*)mask0,
+      (const int*)state0, (uint32_t*)mask_out, (int*)state_out, (int*)out, E,
+      S, K, cap, init_state);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One history from the list (mask0, state0), the final list into
+// (mask_out, state_out), its results into out[0, 6).
+extern "C" int jt_frontier_sparse(void* kind, void* slot, void* f, void* a,
+                                  void* b, void* mask0, void* state0,
+                                  void* mask_out, void* state_out, void* out,
+                                  int E, int S, int K, void* stream) {
+  return launch(kind, slot, f, a, b, nullptr, mask0, state0, mask_out,
+                state_out, out, 1, E, S, K, 0, stream);
+}
+
+// B keys, key k's events [off[k], off[k + 1]) of the columns, each from
+// (0, init_state) then sentinels; key k's results into out[6k, 6k + 6).
+extern "C" int jt_frontier_sparse_batch(void* kind, void* slot, void* f,
+                                        void* a, void* b, void* off,
+                                        void* out, int B, int S, int K,
+                                        int init_state, void* stream) {
+  return launch(kind, slot, f, a, b, off, nullptr, nullptr, nullptr, nullptr,
+                out, B, 0, S, K, init_state, stream);
 }

@@ -25,8 +25,17 @@ launches its kernel once for the whole history, or raises. Each wrapper
 counts its kernel launches in ``.launches``. The kernels carry a copy of
 the CAS-register transition, so on CUDA a wrapper raises for any other
 ``step_ids``.
+
+:func:`frontier_dense_batch` and :func:`frontier_sparse_batch` scan B
+keys' histories in one launch of the same kernels (one CTA a key), each
+from the initial frontier, as the reference's vmapped scans do
+(jitlin.py:2012, :2023): the events of all keys arrive in one upload
+(:func:`batch_events`), and each key's (alive, died, overflow, peak)
+comes back in a row of its own.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -435,3 +444,187 @@ def _sparse_closure(keys, pend, cur, slot_bits, K, S, step_ids, work,
         if not grew:
             break
     return keys, count, overflow
+
+
+# ---------------------------------------------------------------------------
+# key batches
+# ---------------------------------------------------------------------------
+
+class EventBatch(NamedTuple):
+    """The events of B keys in one tensor: ``ev`` [5, N] int32 (kind,
+    slot, f, a, b; key after key) and ``off`` [B + 1] int32 (key b's
+    events are ``ev[:, off[b]:off[b + 1]]``), checked against ``S``
+    slots on the host before the upload (:func:`batch_events`)."""
+    ev: torch.Tensor
+    off: torch.Tensor
+    S: int
+
+
+def batch_events(streams, S: int, device) -> EventBatch:
+    """The event columns of ``streams`` (each with kind, slot, f, a, b)
+    key after key, with their offsets, checked once against ``S`` slots
+    on the host arrays and put on ``device`` in one copy (from pinned
+    memory on the card)."""
+    if not streams:
+        raise ValueError("batch_events: no streams")
+    lens = [len(s.kind) for s in streams]
+    off = np.zeros(len(streams) + 1, np.int64)
+    off[1:] = np.cumsum(lens)
+    N = int(off[-1])
+    if N >= 1 << 31:
+        raise ValueError(f"batch_events: {N} events overflow int32 offsets")
+    buf = np.empty(5 * N + len(off), np.int32)
+    cols = buf[:5 * N].reshape(5, N)
+    for j, name in enumerate(("kind", "slot", "f", "a", "b")):
+        if N:
+            cols[j] = np.concatenate([np.asarray(getattr(s, name))
+                                      for s in streams])
+    kind, slot = cols[0], cols[1]
+    if (((kind < 0) | (kind > EV_NOOP)).any()
+            or ((kind != EV_NOOP) & ((slot < 0) | (slot >= S))).any()):
+        raise ValueError(f"batch_events: an event kind or slot out of "
+                         f"range (S={S})")
+    buf[5 * N:] = off
+    t = torch.from_numpy(buf)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        t = t.pin_memory().to(dev, non_blocking=True)
+    else:
+        t = t.to(dev)
+    return EventBatch(t[:5 * N].view(5, N), t[5 * N:], S)
+
+
+def _batch_launch(name: str, batch: EventBatch, cap: int, init_state: int,
+                  step_ids):
+    """Launches ``name``'s key-batched entry on ``batch`` (on the card);
+    returns its [B, 6] int32 results there."""
+    _check_cas(step_ids, name)
+    dev = batch.ev.device
+    B = batch.off.numel() - 1
+    out = torch.empty((B, 6), dtype=torch.int32, device=dev)
+    from jepsen_tpu_torch.ops import _build
+    entry = getattr(_build.library(name), f"jt_{name}_batch")
+    ev = batch.ev
+    with torch.cuda.device(dev):
+        rc = entry(*(_ptr(ev[j]) for j in range(5)), _ptr(batch.off),
+                   _ptr(out), B, batch.S, cap, init_state, _stream(dev))
+    _check_launch(rc, f"{name}_batch")
+    return out
+
+
+def frontier_dense_batch(batch: EventBatch, V: int, init_state: int = 0,
+                         step_ids=None):
+    """Dense-table frontier scans of the B keys of ``batch``, each from
+    (mask 0, ``init_state``) alone in a [2^S, V] table (S = batch.S).
+
+    Returns (alive, died, inexact, peak), [B] tensors bool, int32, bool
+    and int32 on the batch's device: each key's result of
+    :func:`frontier_dense`, ``died`` an index in the key's own stream. On
+    the card one launch of ``csrc/frontier_dense.cu``'s batched entry
+    scans every key (one CTA a key), and ``frontier_dense_batch.paths``
+    becomes its [B, 2] int32 tensor there: each key's returns closed on
+    the warp path, and in all."""
+    S = batch.S
+    if batch.ev.device.type == "cpu":
+        return frontier_dense_batch_torch(batch, V, init_state, step_ids)
+    if batch.ev.device.type != "cuda":
+        raise ValueError(f"frontier_dense_batch: unsupported device "
+                         f"{batch.ev.device}")
+    if not 1 <= S <= DENSE_MAX_SLOTS or not 1 <= V <= DENSE_MAX_V \
+            or not 0 <= init_state < V:
+        raise ValueError(f"frontier_dense_batch: S={S}, V={V}, init state "
+                         f"{init_state} outside the kernel (1 <= S <= "
+                         f"{DENSE_MAX_SLOTS}, V <= {DENSE_MAX_V})")
+    out = _batch_launch("frontier_dense", batch, V, init_state, step_ids)
+    frontier_dense_batch.launches += 1
+    frontier_dense_batch.paths = out[:, 4:]
+    return out[:, 0] != 0, out[:, 1], out[:, 2] != 0, out[:, 3]
+
+
+frontier_dense_batch.launches = 0
+frontier_dense_batch.paths = None
+
+
+def frontier_sparse_batch(batch: EventBatch, K: int, init_state: int = 0,
+                          step_ids=None):
+    """Capacity-K sparse frontier scans of the B keys of ``batch``, each
+    from (0, ``init_state``) then K - 1 sentinel pairs, with S =
+    batch.S slots.
+
+    Returns (alive, died, overflow, peak), [B] tensors bool, int32, bool
+    and int32 on the batch's device: each key's result of
+    :func:`frontier_sparse`. On the card one launch of
+    ``csrc/frontier_sparse.cu``'s batched entry scans every key (one CTA
+    a key), and ``frontier_sparse_batch.paths`` becomes its [B, 2] int32
+    tensor there: each key's closure passes on the warp path, and in
+    all."""
+    S = batch.S
+    if not 1 <= S <= SPARSE_MAX_SLOTS:
+        raise ValueError(f"frontier_sparse_batch: S={S} outside 1 <= S <= "
+                         f"{SPARSE_MAX_SLOTS} (masks are uint32)")
+    if batch.ev.device.type == "cpu":
+        return frontier_sparse_batch_torch(batch, K, init_state, step_ids)
+    if batch.ev.device.type != "cuda":
+        raise ValueError(f"frontier_sparse_batch: unsupported device "
+                         f"{batch.ev.device}")
+    if not 1 <= K or K * (S + 1) > SPARSE_MAX_CANDIDATES:
+        raise ValueError(f"frontier_sparse_batch: K={K} with S={S} outside "
+                         f"the kernel (K * (S + 1) <= "
+                         f"{SPARSE_MAX_CANDIDATES})")
+    out = _batch_launch("frontier_sparse", batch, K, init_state, step_ids)
+    frontier_sparse_batch.launches += 1
+    frontier_sparse_batch.paths = out[:, 4:]
+    return out[:, 0] != 0, out[:, 1], out[:, 2] != 0, out[:, 3]
+
+
+frontier_sparse_batch.launches = 0
+frontier_sparse_batch.paths = None
+
+
+def _stack_keys(results):
+    """[(alive, died, flag, peak)] 0-d tensors -> four [B] tensors."""
+    return tuple(torch.stack([r[i] for r in results]) for i in range(4))
+
+
+def _key_events(batch: EventBatch, b: int, off: list):
+    return batch.ev[:, off[b]:off[b + 1]]
+
+
+def frontier_dense_batch_torch(batch: EventBatch, V: int,
+                               init_state: int = 0, step_ids=None,
+                               work: list | None = None):
+    """Plain torch version of :func:`frontier_dense_batch`: the plain
+    single scan, :func:`frontier_dense_torch`, key by key. With a
+    ``work`` list it appends each key's work dict there."""
+    off = batch.off.tolist()
+    dev = batch.ev.device
+    results = []
+    for b in range(len(off) - 1):
+        w = {}
+        r = frontier_dense_torch(*_key_events(batch, b, off),
+                                 init_table(batch.S, V, init_state, dev),
+                                 step_ids, work=w)
+        results.append(r[:4])
+        if work is not None:
+            work.append(w)
+    return _stack_keys(results)
+
+
+def frontier_sparse_batch_torch(batch: EventBatch, K: int,
+                                init_state: int = 0, step_ids=None,
+                                work: list | None = None):
+    """Plain torch version of :func:`frontier_sparse_batch`: the plain
+    single scan, :func:`frontier_sparse_torch`, key by key. With a
+    ``work`` list it appends each key's work dict there."""
+    off = batch.off.tolist()
+    dev = batch.ev.device
+    results = []
+    for b in range(len(off) - 1):
+        w = {}
+        r = frontier_sparse_torch(*_key_events(batch, b, off),
+                                  *init_frontier(K, init_state, dev),
+                                  batch.S, step_ids, work=w)
+        results.append(r[:4])
+        if work is not None:
+            work.append(w)
+    return _stack_keys(results)

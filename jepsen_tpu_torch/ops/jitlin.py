@@ -29,6 +29,7 @@ events with the dense-table or the sparse-frontier kernel
 from __future__ import annotations
 
 import threading
+import time
 import types
 
 import numpy as np
@@ -265,8 +266,9 @@ def _build_matrix_kernel(S: int, V: int, step_ids, init_state: int,
             return _scan_total(pend, op_ids, uops, slots, valid, tot0)
         mt_tab, oob_tab = math.uop_tables(uops)
         mtT = mt_tab.transpose(1, 2).contiguous()
+        # _matrix_grids checked the ids and slots on the host
         P = matrix_kernels.chunk_product(pend, op_ids, mtT, slots, valid,
-                                         S, V)
+                                         S, V, checked=True)
         # the oob -> inexact reduction runs on the small id grids
         # outside the kernel
         inexact = (oob_tab[op_ids.long()] & pend
@@ -308,6 +310,11 @@ MATRIX_MAX_STATES = 16
 MATRIX_MIN_RETURNS = 2000
 # per-step [G, MV, MV] intermediates: cap G * MV^2
 MATRIX_MAX_ELEMS = 1 << 28
+# copied from jepsen_tpu/ops/jitlin.py:959-964, without the environment
+# override: keys per dispatch of a batch above MATRIX_SUB_KEYS keys, and
+# of a batch of MATRIX_PIPELINE_KEYS + 1 to MATRIX_SUB_KEYS keys
+MATRIX_SUB_KEYS = 128
+MATRIX_PIPELINE_KEYS = 32
 
 
 def matrix_ok(S: int, num_states: int | None, n_returns: int) -> bool:
@@ -380,12 +387,24 @@ def matrix_check_resume(stream, tot0=None, step_ids=None,
                             resume=True, tot0=tot0)
 
 
+# copied from jepsen_tpu/ops/jitlin.py:1226-1330, without the mesh branch,
+# the rate model and the routing overrides
 def matrix_check_batch(streams, step_ids=None, init_state: int = 0,
                        num_states: int | None = None, device=None):
-    """Batched transfer-matrix check over independent per-key histories
-    in ONE dispatch: all keys' chunk products advance together, then
-    each key's chunks chain separately. Returns [(alive, -1, inexact,
-    0)] per stream. Callers gate the regime (matrix_ok)."""
+    """Batched transfer-matrix check over independent per-key histories:
+    all keys' chunk products advance together, then each key's chunks
+    chain separately. Returns [(alive, -1, inexact, 0)] per stream.
+    Callers gate the regime (matrix_ok).
+
+    A batch of more than MATRIX_SUB_KEYS keys runs in sub-batches of
+    MATRIX_SUB_KEYS keys, one of MATRIX_PIPELINE_KEYS + 1 to
+    MATRIX_SUB_KEYS keys in sub-batches of MATRIX_PIPELINE_KEYS, each
+    planned at the batch's one (S, R_max, V) and the last padded with
+    empty keys, so every sub-batch has one shape. Sub-batch k + 1's host
+    prepass, grids and upload run while sub-batch k runs on the card:
+    nothing reads back until every sub-batch is enqueued, and the
+    results come back in one copy, in submission order. The host and
+    dispatch seconds go to ``last_phase_seconds()``."""
     if step_ids is None:
         step_ids = cas_register_spec().step_ids
     if num_states is None:
@@ -399,13 +418,58 @@ def matrix_check_batch(streams, step_ids=None, init_state: int = 0,
     if R_max == 0:
         return [(True, -1, False, 0)] * B
     dev = resolve_device(device)
-    preps = [_returns_prepass(kinds[i], slots_np[i], np.asarray(s.f),
-                              np.asarray(s.a), np.asarray(s.b))
-             for i, s in enumerate(streams)]
-    alive, inexact = _matrix_dispatch(preps, S, R_max, V, step_ids,
-                                      init_state, dev)
-    alive, inexact = alive.cpu().numpy(), inexact.cpu().numpy()
-    return [(bool(alive[b]), -1, bool(inexact[b]), 0) for b in range(B)]
+
+    def prep(i):
+        s = streams[i]
+        return _returns_prepass(kinds[i], slots_np[i], np.asarray(s.f),
+                                np.asarray(s.a), np.asarray(s.b))
+
+    sub = MATRIX_SUB_KEYS if B > MATRIX_SUB_KEYS else MATRIX_PIPELINE_KEYS
+    if B <= sub:
+        sub = B
+    C, T = _matrix_plan(sub, S, R_max, V)
+    run = _matrix_cache(S, V, step_ids, init_state, T, C, sub, dev)
+    phases = {"prepass": 0.0, "grids": 0.0, "dispatch": 0.0,
+              "sub_batches": 0}
+    outs = []
+    for lo in range(0, B, sub):
+        t0 = time.perf_counter()
+        preps = [prep(i) for i in range(lo, min(lo + sub, B))]
+        # a short tail is padded with empty keys (R = 0: the identity,
+        # trivially alive and exact) to the one shape
+        preps += [_EMPTY_PREP] * (sub - len(preps))
+        t1 = time.perf_counter()
+        grids, uops = _matrix_grids(preps, S, V, sub, C, T, dev)
+        t2 = time.perf_counter()
+        outs.append(run(grids[0], grids[1], uops, grids[2], grids[3]))
+        t3 = time.perf_counter()
+        phases["prepass"] += t1 - t0
+        phases["grids"] += t2 - t1
+        phases["dispatch"] += t3 - t2
+        phases["sub_batches"] += 1
+    t0 = time.perf_counter()
+    both = torch.stack([torch.cat([a for a, _ in outs]),
+                        torch.cat([x for _, x in outs])]).cpu().numpy()
+    phases["fetch"] = time.perf_counter() - t0
+    _PHASE.value = phases
+    return [(bool(both[0, b]), -1, bool(both[1, b]), 0) for b in range(B)]
+
+
+_PHASE = threading.local()
+
+
+def last_phase_seconds() -> dict:
+    """The calling thread's last ``matrix_check_batch`` split: host
+    seconds of the prepass, the grids (with their upload) and the
+    dispatches (enqueue only), the seconds of the one read-back at the
+    end (the card's remaining work), and the sub-batch count."""
+    return dict(getattr(_PHASE, "value", {}))
+
+
+# copied from jepsen_tpu/ops/jitlin.py:1473-1476: an empty key (R = 0):
+# its chunks are all invalid, so its product is the identity
+_EMPTY_PREP = (np.zeros(0, np.int32), np.zeros((0, 1), bool),
+               np.zeros((0, 1, 3), np.int64), 1)
 
 
 # copied from jepsen_tpu/ops/jitlin.py:1361-1405, without the mesh branch
@@ -463,16 +527,32 @@ def _matrix_grids(preps, S, V, B, C, T, device):
     uops = np.concatenate(
         [uops, np.zeros((ub - len(uops), 3), uops.dtype)]).astype(np.int32)
 
+    slots_all = np.stack(slots).astype(np.int32)
+    # the chunk-product kernel indexes with the ids and slots unchecked,
+    # and its wrapper leaves the check to this host copy
+    if (slots_all < 0).any() or (slots_all >= S).any():
+        raise ValueError(f"_matrix_grids: a returning slot out of range "
+                         f"(S={S})")
+
     def as_tg(x):
         # [B, C*T, ...] → [B, C, T, ...] → [T, B, C, ...] → [T, B*C, ...]
         x = np.asarray(x).reshape((B, C, T) + x.shape[2:])
         x = np.moveaxis(x, 2, 0)
         x = np.ascontiguousarray(x.reshape((T, B * C) + x.shape[3:]))
-        return torch.from_numpy(x).to(device)
+        return _upload(x, device)
 
-    grids = [as_tg(np.stack(pends)), as_tg(ids),
-             as_tg(np.stack(slots).astype(np.int32)), as_tg(np.stack(vals))]
-    return grids, torch.from_numpy(uops).to(device)
+    grids = [as_tg(np.stack(pends)), as_tg(ids), as_tg(slots_all),
+             as_tg(np.stack(vals))]
+    return grids, _upload(uops, device)
+
+
+def _upload(x: np.ndarray, device) -> torch.Tensor:
+    """``x`` on ``device``; to the card from pinned memory, without
+    waiting for the stream's earlier work."""
+    t = torch.from_numpy(x)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def _matrix_dispatch(preps, S, R_max, V, step_ids, init_state, device,
@@ -582,3 +662,13 @@ class JitLinKernel:
                 *events, mask0, state0, S, step_ids=self.step_ids)
         alive, died, overflow, peak = (x.item() for x in out[:4])
         return bool(alive), int(died), bool(overflow), int(peak)
+
+    def check_batch(self, streams, capacity: int = 256):
+        """Independent per-key histories on the card
+        (jepsen_tpu/ops/jitlin.py:2033): ``parallel.batch_check``'s
+        matrix screen, then one key-batched frontier launch for the keys
+        it leaves undecided. Returns [(alive, died, overflow, peak)] per
+        stream."""
+        from jepsen_tpu_torch.parallel import batch_check
+        return batch_check(streams, capacity=capacity, kernel=self,
+                           accelerator="gpu")

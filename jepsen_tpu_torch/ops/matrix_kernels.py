@@ -49,7 +49,8 @@ def _stream(device) -> ctypes.c_void_p:
 # chunk product
 # ---------------------------------------------------------------------------
 
-def chunk_product(pend, ids, mtT, slots, valid, S: int, V: int):
+def chunk_product(pend, ids, mtT, slots, valid, S: int, V: int,
+                  checked: bool = False):
     """Per-chunk composed operator product over T returns.
 
     pend [T,G,S] (0/1), ids [T,G,S] int (indices into mtT), mtT [U,V,V]
@@ -58,7 +59,10 @@ def chunk_product(pend, ids, mtT, slots, valid, S: int, V: int):
     layout of jepsen_tpu/ops/pallas_matrix.py ``_build``. On the card each
     return's closure is computed row by row in level order on one
     bit-packed matrix in shared memory, with no matrix products
-    (``csrc/chunk_product.cu``)."""
+    (``csrc/chunk_product.cu``). ``checked``: the caller has checked the
+    op ids and slots on the host before the upload, so the wrapper reads
+    nothing back from the card (the matrix path's grids,
+    ``jitlin._matrix_grids``)."""
     if pend.device.type == "cpu":
         return chunk_product_torch(pend, ids, mtT, slots, valid, S, V)
     if pend.device.type != "cuda":
@@ -85,7 +89,7 @@ def chunk_product(pend, ids, mtT, slots, valid, S: int, V: int):
         if x.device != dev:
             raise ValueError("chunk_product: inputs on different devices")
     # the kernel indexes with these unchecked
-    if bool((((ids < 0) | (ids >= U)).any()
+    if not checked and bool((((ids < 0) | (ids >= U)).any()
              | ((valid > 0) & ((slots < 0) | (slots >= S))).any()).item()):
         raise ValueError("chunk_product: an op id or slot out of range")
     operands = chunk_operands(pend, ids, mtT, slots, valid, S, V)

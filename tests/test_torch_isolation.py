@@ -43,7 +43,10 @@ def test_port_sources_exist():
     assert {"jitlin.py", "matrix_kernels.py", "frontier_kernels.py",
             "linearizable.py", "chip_smoke.py", "scc.py", "scc_kernels.py",
             "txn.py", "columnar.py", "list_append.py",
-            "rw_register.py"} <= names
+            "rw_register.py", "independent.py", "parallel.py",
+            "utils.py"} <= names
+    assert (ROOT / "jepsen_tpu_torch/native/__init__.py") in _sources()
+    assert (ROOT / "jepsen_tpu_torch/native/wgl.cpp").exists()
     assert (ROOT / "jepsen_tpu_torch/elle/__init__.py") in _sources()
     assert sorted(p.name for p in
                   (ROOT / "jepsen_tpu_torch/ops/csrc").glob("*.cu")) == [
@@ -90,6 +93,27 @@ assert out["anomaly-types"] == ["G1c", "realtime-cycle"], out
 out = rw_register.check(rw_register_history(300, crossed_pairs=0),
                         accelerator="gpu", device="cpu")
 assert out["valid?"] is True, out
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+print("LEAKED", leaked)
+"""
+    out = _leaked_modules(code)
+    assert "LEAKED []" in out, out
+
+
+def test_independent_cpu_check_loads_neither_jax_nor_reference():
+    code = """
+import sys
+from jepsen_tpu_torch import independent
+from jepsen_tpu_torch.checker.linearizable import linearizable
+from jepsen_tpu_torch.histories import (corrupt_keys,
+                                        independent_register_history)
+from jepsen_tpu_torch.parallel import batch_check
+h = corrupt_keys(independent_register_history(4, 60, n_procs=3), [2])
+for acc in ("gpu", "cpu"):
+    out = independent.checker(linearizable(accelerator=acc,
+                                           device="cpu")).check({}, h, {})
+    assert out["failures"] == ["2"], out
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("LEAKED", leaked)

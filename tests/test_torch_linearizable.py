@@ -59,8 +59,8 @@ def test_checker_matches_jax(case, accelerator, small_matrix_regime):
         # which settles them with the failing event
         assert got["algorithm"] == ("torch-matrix" if got["valid?"]
                                     else "torch-frontier")
-    else:   # cpu, and auto below AUTO_TPU_THRESHOLD events
-        assert got["algorithm"] == "jitlin-cpu"
+    else:   # cpu, and auto below AUTO_TPU_THRESHOLD events: the native rung
+        assert got["algorithm"] == ref["algorithm"] == "jitlin-native"
 
 
 @pytest.mark.parametrize("case", sorted(HISTORIES))
