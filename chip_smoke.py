@@ -33,7 +33,19 @@ just before it and read just after:
   wrapper and through the main path's host route, also on 5,000
   clusters, past the sort's shared-memory bins), each with its own count
   of its work held equal to the plain version's; one wide-window screen
-  call is split into its upload, sort and offsets, peel and read-back.
+  call is split into its upload, sort and offsets, peel and read-back;
+* BASELINE config 3, ``independent.checker(linearizable(accelerator=
+  "gpu"))``: 64 keys of 1k ops valid and with 8 keys corrupted (one
+  key-batched dense launch), 16 fresh-value keys (one key-batched sparse
+  launch), 1,024 keys, and the native lane against the Python twin;
+* BASELINE config 4, ``set_full(accelerator="gpu")`` on bench.py's
+  20,000-element history with a read every 50 adds (400 reads): valid,
+  with planted loss and staleness (``linearizable=True``: invalid), and
+  that copy with its times moved past 10^11 ns, each equal to the port's
+  ``"cpu"`` walk key for key, with one launch of the set-classify kernel
+  a check. The kernel is first held bit-equal to its plain version on
+  seeded packed words at 1 x 1, 7 x 33, 400 x 20,000 and 2,048 x 262,144
+  (reads x elements), and on the main path's own inputs.
 
 Prints one JSON line per phase, then a ``kernels`` line, the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -363,9 +375,11 @@ def reset_launches():
     from jepsen_tpu_torch.ops import frontier_kernels as fk
     from jepsen_tpu_torch.ops import matrix_kernels as mk
     from jepsen_tpu_torch.ops import scc_kernels as sk
+    from jepsen_tpu_torch.ops import setscan
     for fn in (mk.chunk_product, mk.combine_product, fk.frontier_dense,
                fk.frontier_sparse, fk.frontier_dense_batch,
-               fk.frontier_sparse_batch, sk.cluster_screen, sk.scc_trim):
+               fk.frontier_sparse_batch, sk.cluster_screen, sk.scc_trim,
+               setscan.set_classify):
         fn.launches = 0
 
 
@@ -373,6 +387,7 @@ def read_launches() -> dict:
     from jepsen_tpu_torch.ops import frontier_kernels as fk
     from jepsen_tpu_torch.ops import matrix_kernels as mk
     from jepsen_tpu_torch.ops import scc_kernels as sk
+    from jepsen_tpu_torch.ops import setscan
     return {"chunk_product": mk.chunk_product.launches,
             "combine_product": mk.combine_product.launches,
             "frontier_dense": fk.frontier_dense.launches,
@@ -380,7 +395,8 @@ def read_launches() -> dict:
             "frontier_dense_batch": fk.frontier_dense_batch.launches,
             "frontier_sparse_batch": fk.frontier_sparse_batch.launches,
             "cluster_screen": sk.cluster_screen.launches,
-            "scc_trim": sk.scc_trim.launches}
+            "scc_trim": sk.scc_trim.launches,
+            "set_classify": setscan.set_classify.launches}
 
 
 def device_kernels(fn, want: str = ""):
@@ -1283,6 +1299,201 @@ def independent_phases(name, smi):
     return [dense_row, sparse_row], launches
 
 
+# the set-full slice (BASELINE config 4, bench.py:493-513): 20,000
+# elements, a read of the whole set every 50 adds (400 reads); planted
+# faults for the invalid copy; the kernel alone also at (1, 1), (7, 33)
+# and a stress shape of 2,048 reads x 262,144 elements
+SET_ELS, SET_READ_EVERY, SET_LOST, SET_STALE = 20_000, 50, 20, 20
+SET_SHAPES = ((1, 1), (7, 33), (400, 20_000), (2048, 262_144))
+
+
+def set_inputs(words, t_read, invoke_t, ok_t, has_ok):
+    """Host classify inputs as card tensors, through the pinned buffer the
+    set-full path uploads, and the milliseconds of that upload (CUDA
+    events)."""
+    from jepsen_tpu_torch.ops import setscan
+    host, offs = setscan.pinned_inputs(words, t_read, invoke_t, ok_t, has_ok)
+    up_ms = cuda_ms(lambda: host.to("cuda", non_blocking=True), 5)
+    return (setscan.card_views(host.to("cuda"), offs, len(t_read)), up_ms)
+
+
+def check_set_classify(case, args, E, up_ms, plain_reps):
+    """The kernel against its plain version on the card, bit-equal, and
+    its times: through the wrapper, the C entry alone, the plain
+    version; the upload and the byte bound beside them."""
+    import ctypes
+    import torch
+    from jepsen_tpu_torch.ops import _build, setscan
+    words = args[0]
+    R, W = words.shape
+    n = setscan.set_classify.launches
+    got = setscan.set_classify(*args, E)
+    launches = setscan.set_classify.launches - n
+    want = setscan.classify_plain(*args, E)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(x, y) for x, y in zip(got, want))
+    stable = want[0] == setscan.STABLE
+    err = ((got[2] - want[2]).abs()[stable].max().item()
+           if bool(stable.any()) and torch.equal(got[0], want[0]) else 0.0)
+    if not equal:
+        raise AssertionError(f"set_classify {case} ({R} x {E}) differs from "
+                             f"plain (latency err {err})")
+    out = [torch.empty_like(x) for x in got]
+    lib = _build.library("set_classify")
+
+    def entry():
+        rc = lib.jt_set_classify(
+            *(ctypes.c_void_p(x.data_ptr()) for x in (*args, *out)), R, W,
+            E, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"set_classify launch failed: {rc}")
+    entry()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(out, want)):
+        raise AssertionError(f"set_classify {case}: the C entry differs")
+    nbytes = setscan.kernel_bytes(R, E)
+    row = {"R": R, "E": E, "words": R * W, "launches": launches,
+           "equal": equal, "max_abs_err": err,
+           "ms": cuda_ms(lambda: setscan.set_classify(*args, E), 20),
+           "entry_ms": cuda_ms(entry, 50), "upload_ms": up_ms,
+           "plain_ms": cuda_ms(lambda: setscan.classify_plain(*args, E),
+                               plain_reps),
+           "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3,
+           "codes": torch.bincount(want[0], minlength=3).tolist(),
+           "stale": int(want[1].sum())}
+    emit({"phase": "set_classify_kernel", "case": case, **row})
+    return row
+
+
+def set_full_phases(name, smi) -> dict:
+    """BASELINE config 4 on the card: the set-classify kernel against its
+    plain version at four shapes, then ``set_full(accelerator="gpu")`` on
+    config 4's history, valid, with planted loss and staleness
+    (``linearizable=True``: invalid), and that copy with its times moved
+    past 10^11 ns, each against the port's ``"cpu"`` walk. Returns the
+    kernels-line row and the launches of one valid check."""
+    import numpy as np
+    import torch
+    from jepsen_tpu_torch.checker import set_full
+    from jepsen_tpu_torch.histories import set_full_history
+    from jepsen_tpu_torch.history_ir import views
+    from jepsen_tpu_torch.ops import setscan
+
+    # 10a. the kernel alone: seeded random words (padding bits set too)
+    # and float64 times of nanosecond size, unsorted; a third of the
+    # elements without an add-ok, so the first pass runs
+    shapes = {}
+    for i, (R, E) in enumerate(SET_SHAPES):
+        rng = np.random.default_rng(100 + i)
+        W = setscan.n_words(E)
+        words = rng.integers(0, 1 << 32, (R, W), dtype=np.uint32)
+        words[:, :] &= rng.integers(0, 1 << 32, (R, W), dtype=np.uint32)
+        t_read = (10 ** 11 + rng.integers(0, 10 ** 9, R)).astype(np.float64)
+        invoke_t = (10 ** 11 + rng.integers(0, 10 ** 9, E)).astype(
+            np.float64)
+        ok_t = invoke_t + rng.integers(0, 10 ** 6, E)
+        has_ok = rng.random(E) < 0.67
+        args, up_ms = set_inputs(words.view(np.int32), t_read, invoke_t,
+                                 ok_t, has_ok)
+        shapes[f"{R}x{E}"] = check_set_classify(
+            f"random_{R}x{E}", args, E, up_ms, 2 if R * E > 1 << 26 else 5)
+
+    # 10b. the main path
+    variants = (
+        ("valid", False, set_full_history(SET_ELS, SET_READ_EVERY)),
+        ("planted", True, set_full_history(
+            SET_ELS, SET_READ_EVERY, n_lost=SET_LOST, n_stale=SET_STALE,
+            seed=4)),
+        ("planted_ns_past_1e11", True, set_full_history(
+            SET_ELS, SET_READ_EVERY, n_lost=SET_LOST, n_stale=SET_STALE,
+            seed=4, t0=10 ** 11)))
+    main_launches = None
+    for case, lin, h in variants:
+        t0 = time.perf_counter()
+        want = set_full(lin, "cpu").check({}, h, {})
+        walk_s = time.perf_counter() - t0
+        chk = set_full(lin, "gpu")
+        reset_launches()
+        t0 = time.perf_counter()
+        got = chk.check({}, h, {})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        lc = read_launches()
+        if got != want:
+            raise AssertionError(
+                f"set_full {case}: the map differs from the walk on "
+                f"{[k for k in want if got.get(k) != want[k]]}")
+        if lc["set_classify"] != 1 or any(
+                v for k, v in lc.items() if k != "set_classify"):
+            raise AssertionError(f"set_full {case} launches: {lc}")
+        expect = ((True, 0, 0) if case == "valid"
+                  else (False, SET_LOST, SET_STALE))
+        if (got["valid?"], got["lost-count"], got["stale-count"]) != expect:
+            raise AssertionError(f"set_full {case}: {got['valid?']}, "
+                                 f"{got['lost-count']} lost, "
+                                 f"{got['stale-count']} stale")
+        if main_launches is None:
+            main_launches = lc
+        # each timed check's own split: its encode timed inside it, the
+        # classify's pack (host clock) and upload, kernel and read-back
+        # (CUDA events)
+        check_s, enc_s, phases = [], [], []
+        columns = views.set_full_columns
+
+        def timed_columns(hist):
+            t0 = time.perf_counter()
+            out = columns(hist)
+            enc_s.append(time.perf_counter() - t0)
+            return out
+        views.set_full_columns = timed_columns
+        try:
+            for _ in range(5):
+                t0 = time.perf_counter()
+                chk.check({}, h, {})
+                check_s.append(time.perf_counter() - t0)
+                phases.append({"encode": enc_s[-1],
+                               **setscan.last_phase_seconds()})
+        finally:
+            views.set_full_columns = columns
+        for p, t in zip(phases, check_s):
+            p["result_map_and_rest"] = t - sum(p.values())
+        med = statistics.median(check_s)
+        split = {k: statistics.median(p[k] for p in phases)
+                 for k in phases[0]}
+        device_s = split["upload"] + split["kernel"] + split["readback"]
+        emit({"phase": "set_full_main_path", "case": case,
+              "linearizable": lin, "ops": len(h), "elements": SET_ELS,
+              "reads": SET_ELS // SET_READ_EVERY, "valid": got["valid?"],
+              "lost": got["lost-count"], "stale": got["stale-count"],
+              "launches": lc, "first_check_s": first_s, "check_s": check_s,
+              "median_check_s": med, "elements_per_sec": SET_ELS / med,
+              "median_split_s": split,
+              "encode_share": split["encode"] / med,
+              "device_busy_share": device_s / med,
+              "cpu_walk_s": walk_s, "card": name, "power": smi})
+
+    # the kernel at the main path's own inputs: config 4's valid history
+    # (every add acknowledged, so the first pass is skipped)
+    enc = views.set_full_columns(variants[0][2])
+    E = len(enc["els"])
+    args, up_ms = set_inputs(setscan.pack_member(enc["member"]),
+                             enc["read_t"], enc["invoke_t"], enc["ok_t"],
+                             enc["has_ok"])
+    main = check_set_classify("main_path_inputs", args, E, up_ms, 5)
+    main.update(launches=main_launches["set_classify"])
+    return {"name": "set_classify", "route": "cuda",
+            "source": "jepsen_tpu_torch/ops/csrc/set_classify.cu",
+            "replaces": "jepsen_tpu/ops/setscan.py:69",
+            "launches": main["launches"],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in (main, *shapes.values())),
+            "equal": True, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "entry_ms": main["entry_ms"],
+            "upload_ms": main["upload_ms"], "R": main["R"], "E": E,
+            "bytes": main["bytes"], "shapes": shapes}
+
+
 def nvidia_smi(query: str) -> str:
     """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
     return subprocess.run(
@@ -1799,6 +2010,11 @@ def main() -> int:
     for row in kernels:
         row["launches_independent"] = ind_launches.get(row["name"], 0)
     kernels += ind_rows
+    # 10. the set-full slice: BASELINE config 4 through the set-classify
+    # kernel
+    set_row = set_full_phases(name, smi)
+    set_row["launches_independent"] = ind_launches.get("set_classify", 0)
+    kernels.append(set_row)
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,

@@ -12,7 +12,7 @@ order:
   dense-table or sparse-frontier kernel) on the device. It settles
   valid, or invalid with the event at which the frontier died; an
   overflowed frontier that died ("unknown") passes the history on.
-  Streams with more than 32 slots (masks are uint32) skip it.
+  Streams with more than FRONTIER_MAX_SLOTS = 31 slots skip it.
 * ``native-c`` — the C++ search (jepsen_tpu_torch/native, algorithm
   ``jitlin-native``), on the host regime only (``accelerator="cpu"``, or
   ``"auto"`` below AUTO_TPU_THRESHOLD events), for an initial state of
@@ -55,6 +55,13 @@ FRONTIER_CAPACITY = 256
 
 ACCELERATORS = ("gpu", "cpu", "auto")
 
+# The most slots a stream may have to take the frontier rung. The sparse
+# frontier's masks are uint32 and mask 0xFFFFFFFF is its empty entry
+# (ops/frontier_kernels.py, csrc/frontier_sparse.cu), so a live
+# configuration with all 32 slots linearized would read as empty: a
+# 32-slot stream settles in the exact twin instead.
+FRONTIER_MAX_SLOTS = 31
+
 
 class LinearizableChecker(Checker):
     def __init__(self, model: Model | None = None,
@@ -92,7 +99,6 @@ class LinearizableChecker(Checker):
         return self._finish(res, history, stream, spec.init_state)
 
     def _search_stream(self, stream, spec, accelerator) -> LinearResult:
-        from jepsen_tpu_torch.ops.frontier_kernels import SPARSE_MAX_SLOTS
         from jepsen_tpu_torch.ops.jitlin import (
             JitLinKernel, matrix_check, matrix_ok, verdict)
 
@@ -111,8 +117,8 @@ class LinearizableChecker(Checker):
                 # :347-383 with explain off: only an exact True settles
                 if m is not None and not m[2] and m[0]:
                     return LinearResult(valid=True, algorithm="torch-matrix")
-            # the dense table takes S <= 12, so the uint32 masks bound both
-            if stream.n_slots <= SPARSE_MAX_SLOTS:
+            # the dense table takes S <= 12, so one bound gates both
+            if stream.n_slots <= FRONTIER_MAX_SLOTS:
                 attempted = True
                 # copied from jepsen_tpu/checker/linearizable.py:485-502
                 kernel = JitLinKernel(step_ids=spec.step_ids,

@@ -1,7 +1,7 @@
 """Seeded synthetic histories for smoke runs and tests: single-register
 histories for the linearizability check, list-append and rw-register txn
-histories for the Elle checks, and seeded graphs and clusters for the
-Elle kernels alone."""
+histories for the Elle checks, seeded graphs and clusters for the Elle
+kernels alone, and set-add/read histories for the set-full check."""
 from __future__ import annotations
 
 import numpy as np
@@ -243,3 +243,42 @@ def chain_clusters(n_clusters: int, n_local: int, seed: int, cyclic: bool):
     perm = rng.permutation(len(cid))
     return tuple(np.ascontiguousarray(x[perm]).astype(np.int32)
                  for x in (cid, src, dst))
+
+
+# bench.py:493-513's shape (BASELINE config 4), with planted faults
+def set_full_history(n_els: int = 20_000, read_every: int = 50,
+                     n_lost: int = 0, n_stale: int = 0, seed: int = 0,
+                     t0: int = 0) -> list[dict]:
+    """Adds of 0 .. n_els - 1 from 5 processes, each acknowledged, and a
+    read of the whole set by process 5 after every ``read_every`` adds;
+    each op takes one tick of time from ``t0`` on. ``n_lost`` seeded
+    elements vanish from every read after the first that saw them (lost);
+    ``n_stale`` others are missing from the first read after their add
+    only (stale: present again later)."""
+    rng = np.random.default_rng(seed)
+    picks = rng.choice(max(1, n_els - 2 * read_every), n_lost + n_stale,
+                       replace=False).tolist()
+    lost, stale = set(picks[:n_lost]), set(picks[n_lost:])
+    history: list[dict] = []
+    present: list[int] = []
+    seen: set = set()
+    t = t0
+    for v in range(n_els):
+        history.append({"type": "invoke", "process": v % 5, "f": "add",
+                        "value": v, "time": t})
+        history.append({"type": "ok", "process": v % 5, "f": "add",
+                        "value": v, "time": t + 1})
+        present.append(v)
+        t += 2
+        if (v + 1) % read_every == 0:
+            fresh = present[-read_every:]
+            drop = (lost & seen) | (stale & set(fresh))
+            value = ([x for x in present if x not in drop] if drop
+                     else list(present))
+            seen.update(fresh)
+            history.append({"type": "invoke", "process": 5, "f": "read",
+                            "value": None, "time": t})
+            history.append({"type": "ok", "process": 5, "f": "read",
+                            "value": value, "time": t + 1})
+            t += 2
+    return history

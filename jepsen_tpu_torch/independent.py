@@ -130,11 +130,11 @@ class IndependentChecker(Checker):
         """The batched lane's {frozen key: result}, or None when it does
         not apply: the inner checker is not a LinearizableChecker (or a
         Compose holding exactly one), the accelerator is "cpu", or a key
-        has more than the sparse frontier's 32 slots (the single check
-        skips its frontier rung there too)."""
+        has more than FRONTIER_MAX_SLOTS slots (the single check skips
+        its frontier rung there too)."""
         from jepsen_tpu_torch.checker.linear_cpu import check_stream
-        from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
-        from jepsen_tpu_torch.ops.frontier_kernels import SPARSE_MAX_SLOTS
+        from jepsen_tpu_torch.checker.linearizable import (
+            FRONTIER_MAX_SLOTS, LinearizableChecker)
         from jepsen_tpu_torch.ops.jitlin import JitLinKernel, verdict
         from jepsen_tpu_torch.parallel import batch_check, last_route
 
@@ -160,7 +160,7 @@ class IndependentChecker(Checker):
         # register value interns to the kernel's initial state
         encs = [chk._encoding(subs[fk]) for fk in fkeys]
         streams = [e[0] for e in encs]
-        if any(s.n_slots > SPARSE_MAX_SLOTS for s in streams):
+        if any(s.n_slots > FRONTIER_MAX_SLOTS for s in streams):
             return None
         step_py, spec = encs[0][1], encs[0][2]
         kernel = JitLinKernel(step_ids=spec.step_ids,

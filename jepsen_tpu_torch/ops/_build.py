@@ -43,6 +43,8 @@ SIGNATURES = {
                         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P]),
     "scc_trim": ("jt_scc_trim", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "set_classify": ("jt_set_classify",
+                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 # the key-batched entries of the frontier scans, beside their first
 BATCH_SIGNATURES = {

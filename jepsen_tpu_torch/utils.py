@@ -1,8 +1,9 @@
 """Host helpers shared by the checkers."""
 from __future__ import annotations
 
+import math
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Sequence
 
 
 # copied from jepsen_tpu/utils/__init__.py:196-203
@@ -14,3 +15,12 @@ def bounded_pmap(fn: Callable, coll: Iterable, bound: int | None = None) -> list
     bound = bound or min(32, len(coll))
     with ThreadPoolExecutor(max_workers=bound) as pool:
         return list(pool.map(fn, coll))
+
+
+# copied from jepsen_tpu/utils/__init__.py:436-441
+def quantile(sorted_xs: Sequence[float], q: float) -> float:
+    """Nearest-rank quantile over a pre-sorted sequence."""
+    if not sorted_xs:
+        return math.nan
+    i = min(len(sorted_xs) - 1, max(0, int(math.ceil(q * len(sorted_xs))) - 1))
+    return sorted_xs[i]

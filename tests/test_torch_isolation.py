@@ -44,14 +44,15 @@ def test_port_sources_exist():
             "linearizable.py", "chip_smoke.py", "scc.py", "scc_kernels.py",
             "txn.py", "columnar.py", "list_append.py",
             "rw_register.py", "independent.py", "parallel.py",
-            "utils.py"} <= names
+            "utils.py", "setscan.py", "views.py"} <= names
     assert (ROOT / "jepsen_tpu_torch/native/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/wgl.cpp").exists()
     assert (ROOT / "jepsen_tpu_torch/elle/__init__.py") in _sources()
     assert sorted(p.name for p in
                   (ROOT / "jepsen_tpu_torch/ops/csrc").glob("*.cu")) == [
         "chunk_combine.cu", "chunk_product.cu", "cluster_screen.cu",
-        "frontier_dense.cu", "frontier_sparse.cu", "scc_trim.cu"]
+        "frontier_dense.cu", "frontier_sparse.cu", "scc_trim.cu",
+        "set_classify.cu"]
 
 
 def _leaked_modules(code: str) -> str:
@@ -114,6 +115,23 @@ for acc in ("gpu", "cpu"):
     out = independent.checker(linearizable(accelerator=acc,
                                            device="cpu")).check({}, h, {})
     assert out["failures"] == ["2"], out
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+print("LEAKED", leaked)
+"""
+    out = _leaked_modules(code)
+    assert "LEAKED []" in out, out
+
+
+def test_set_full_cpu_check_loads_neither_jax_nor_reference():
+    code = """
+import sys
+from jepsen_tpu_torch.checker import set_full
+from jepsen_tpu_torch.histories import set_full_history
+h = set_full_history(300, 20, n_lost=2, n_stale=2, seed=1)
+out = set_full(True, "gpu", device="cpu").check({}, h, {})
+assert (out["lost-count"], out["stale-count"]) == (2, 2), out
+assert out == set_full(True, "cpu").check({}, h, {})
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("LEAKED", leaked)

@@ -114,3 +114,75 @@ def test_checker_rejects_unported_models_and_accelerators():
         LinearizableChecker(model=Model())
     with pytest.raises(ValueError):
         LinearizableChecker(accelerator="tpu")
+
+
+def _thirty_two_slots():
+    """A valid history whose stream has exactly 32 slots: process 100
+    writes 0, processes 0-30 each invoke ``cas [i, i+1]`` and crash, and
+    process 200 reads 31 (all 31 cas ops linearized in turn)."""
+    h = [{"type": "invoke", "process": 100, "f": "write", "value": 0},
+         {"type": "ok", "process": 100, "f": "write", "value": 0}]
+    h += [{"type": "invoke", "process": i, "f": "cas", "value": [i, i + 1]}
+          for i in range(31)]
+    h += [{"type": "info", "process": i, "f": "cas", "value": [i, i + 1]}
+          for i in range(31)]
+    h += [{"type": "invoke", "process": 200, "f": "read", "value": None},
+          {"type": "ok", "process": 200, "f": "read", "value": 31}]
+    return h
+
+
+def _thirty_two_slot_checks(device):
+    """The 32-slot history through the single-history checker and the
+    independent checker's batched lane on ``device``: both valid, both
+    past the frontier rung (FRONTIER_MAX_SLOTS) into the exact twin."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.linear_encode import encode_register_ops
+    from jepsen_tpu_torch.checker.linearizable import (FRONTIER_MAX_SLOTS,
+                                                       linearizable)
+
+    h = _thirty_two_slots()
+    assert encode_register_ops(h).n_slots == 32 > FRONTIER_MAX_SLOTS
+    got = linearizable(accelerator="gpu", device=device).check(
+        {}, h, {"explain": False})
+    assert got["valid?"] is True
+    assert got["algorithm"].startswith("jitlin-cpu")
+    lifted = [dict(op, value=independent.tuple_value("k", op["value"]))
+              for op in h]
+    lifted += [dict(op, value=independent.tuple_value("j", op["value"]))
+               for op in register_history(60, n_procs=3, seed=7,
+                                          n_values=4)]
+    out = independent.checker(linearizable(accelerator="gpu",
+                                           device=device)).check(
+        {}, lifted, {"explain": False})
+    assert (out["valid?"], out["failures"], out["count"]) == (True, [], 2)
+    assert out["results"]["k"]["algorithm"].startswith("jitlin-cpu")
+
+
+def test_thirty_two_slots_settle_valid_in_the_twin():
+    """The sparse frontier's empty entry is mask 0xFFFFFFFF, which a live
+    configuration with all 32 slots linearized also has; so a 32-slot
+    stream skips the frontier rung and the batched lane and settles in
+    the exact twin, valid, as ``jepsen_tpu``'s ``check_stream`` says.
+
+    The JAX package's own ``jitlin-tpu`` rung takes the stream and
+    returns False: the fault is in the reference (recorded here), and
+    the port does not copy it."""
+    from jepsen_tpu.checker.linear_cpu import check_stream as ref_check
+    from jepsen_tpu.checker.linear_encode import (
+        encode_register_ops as ref_encode)
+    from jepsen_tpu.checker.linearizable import linearizable as ref_lin
+
+    h = _thirty_two_slots()
+    assert ref_check(ref_encode(h)).valid is True
+    _thirty_two_slot_checks("cpu")
+    ref = ref_lin(accelerator="tpu").check({}, h, {"explain": False})
+    assert (ref["valid?"], ref["algorithm"]) == (False, "jitlin-tpu")
+
+
+@pytest.mark.cuda
+def test_thirty_two_slots_settle_valid_on_card():
+    """The same 32-slot history through both checks on the card."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _thirty_two_slot_checks("cuda")
