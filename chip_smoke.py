@@ -45,7 +45,25 @@ just before it and read just after:
   ``"cpu"`` walk key for key, with one launch of the set-classify kernel
   a check. The kernel is first held bit-equal to its plain version on
   seeded packed words at 1 x 1, 7 x 33, 400 x 20,000 and 2,048 x 262,144
-  (reads x elements), and on the main path's own inputs.
+  (reads x elements), and on the main path's own inputs;
+* the multi-register slice (the multi-key-acid workload, K = 3 keys x
+  V = 5 values, 216 states): ``independent.checker(compose({"linear":
+  linearizable(model=MultiRegister(), accelerator="gpu")}))`` on 1,000
+  keys of 20 txns on 10 processes each, valid and with 10 keys given an
+  impossible read, each key's verdict and failing op equal to the port's
+  ``accelerator="cpu"`` run, one frontier launch a key (dense table for
+  S <= 9, sparse list for S = 10; no matrix launch); a 10k-txn history
+  on 5 processes (the dense table's CTA path), its copy with two
+  impossible reads (the kernel's death event equal to the twin's) and
+  copies whose late writes crash to S = 10 (the sparse list); each
+  frontier kernel and batched entry with the multi-register transition
+  against its plain version on 1k-txn histories ((3, 5) dense CTA path,
+  (2, 3) dense warp path, (3, 5) sparse list; B = 8), path counts
+  included; and the (2, 3) shape (16 states) through ``torch-matrix``.
+  Each frontier row of the ``kernels`` line gains a ``multi_register``
+  entry (ms, launches on the 1,000-key check, bound).
+
+Earlier phases keep their shapes.
 
 Prints one JSON line per phase, then a ``kernels`` line, the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -330,13 +348,14 @@ def check_frontier(name, history, table, Ks, start):
                                  f"path, the plain version counts {work}")
 
 
-def dense_scan_ops(stream, died: int, V: int) -> float:
+def dense_scan_ops(stream, died: int, V: int, step_ops: int = 1) -> float:
     """32-bit word operations the dense kernel needs for ``stream`` up to
     the return ``died`` (-1: all): per return, the level-order closure ORs
     each row's W = ceil(V / 32) words once for each pending slot in its
     mask (npend * 2^(S-1) row-slot pairs over the 2^S rows) and the kill
     moves 2^(S-1) blocks; the out-of-range check steps every invoke over
-    the V states."""
+    the V states, ``step_ops`` operations a step (1 for the CAS register,
+    one a key for the multi-register map)."""
     import numpy as np
     from jepsen_tpu_torch.ops import jitlin
     kind = np.asarray(stream.kind)
@@ -349,7 +368,7 @@ def dense_scan_ops(stream, died: int, V: int) -> float:
     npend = r_pend[upto].sum(axis=1)
     half = 1 << (S - 1)
     return float(((npend + 1) * half * W).sum()
-                 + (kind == 0).sum() * V)
+                 + (kind == 0).sum() * V * step_ops)
 
 
 def quiescent_cut(stream) -> int:
@@ -1494,6 +1513,425 @@ def set_full_phases(name, smi) -> dict:
             "bytes": main["bytes"], "shapes": shapes}
 
 
+# the multi-register slice (the multi-key-acid workload,
+# jepsen_tpu/workloads/multi_key_acid.py; multi_key_acid.clj:40-41 and
+# :59): 1,000 keys of 20 txns, each key on its own 10 processes (2n, n = 5
+# nodes; 5 read, 5 write), K = 3 keys x V = 5 values (216 states); the
+# invalid copy gives 10 keys an impossible read. One 10k-txn history on 5
+# processes at the same width (the dense table's CTA path), its copy with
+# two impossible reads, and a copy whose last writes crash until S = 10
+# (the sparse list). The kernels alone on 1k-txn histories: the plain
+# versions loop over events in Python.
+ACID_GROUPS, ACID_PER_GROUP, ACID_PROCS = 1000, 20, 10
+ACID_BAD = tuple(range(7, 1000, 100))
+MR_SHAPE, MR_TXNS, MR_KERNEL_TXNS = (3, 5), 10_000, 1000
+
+
+def crash_late_writes(history, n: int = 5, spread: int = 50):
+    """A copy in which ``n`` of the last ``spread`` ok writes, evenly
+    spaced, crash (``info``): a crashed write holds its slot for good, so
+    the stream's slots grow by up to ``n``."""
+    w = [i for i, op in enumerate(history)
+         if op["type"] == "ok" and op["value"][0][0] == "w"]
+    pick = set(w[-spread::spread // n][:n])
+    return [dict(op, type="info") if i in pick else op
+            for i, op in enumerate(history)]
+
+
+def same_linear_maps(what, got, want) -> None:
+    """Raises unless two independent result maps of a composed
+    ``linear`` checker agree on ``valid?``, ``failures``, ``count`` and
+    every key's ``valid?`` and ``failed-op``."""
+    same_map(what, got, want)
+    for k, r in want["results"].items():
+        g = got["results"][k]["linear"]
+        if (g["valid?"], g.get("failed-op")) != (
+                r["linear"]["valid?"], r["linear"].get("failed-op")):
+            raise AssertionError(f"{what}: key {k}: {g} vs {r['linear']}")
+
+
+def multi_register_kernel_row(kind, name, stream, shape, K=None):
+    """One frontier kernel (``frontier_dense`` or ``frontier_sparse``)
+    with the multi-register transition on ``stream``, against its plain
+    version on the card (every output and the path counts), timed; its
+    bound counted from this run's work."""
+    import torch
+    from jepsen_tpu_torch.models import multi_register_spec
+    from jepsen_tpu_torch.ops import frontier_kernels as fk
+    from jepsen_tpu_torch.ops.jitlin import _bucket
+    step = multi_register_spec(*shape).step_ids
+    ev = card_events(stream)
+    S = max(1, stream.n_slots)
+    if kind == "frontier_dense":
+        V = _bucket(len(stream.intern), floor=16)
+        t0 = fk.init_table(S, V, 0, "cuda")
+        call = lambda: fk.frontier_dense(*ev, t0, step_ids=step)  # noqa: E731
+        plain = lambda w: fk.frontier_dense_torch(  # noqa: E731
+            *ev, t0, step_ids=step, work=w)
+        unit = "returns"
+    else:
+        V = None
+        m0, s0 = fk.init_frontier(K, 0, "cuda")
+        call = lambda: fk.frontier_sparse(  # noqa: E731
+            *ev, m0, s0, S, step_ids=step)
+        plain = lambda w: fk.frontier_sparse_torch(  # noqa: E731
+            *ev, m0, s0, S, step_ids=step, work=w)
+        unit = "passes"
+    got = call()
+    warp, total = getattr(fk, kind).paths.tolist()
+    work = {}
+    t0_s = time.perf_counter()
+    ref = plain(work)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0_s) * 1e3
+    err = frontier_err(got, ref)
+    if err != 0.0 or [warp, total] != [work.get(f"warp_{unit}", 0),
+                                       work.get(unit, 0)]:
+        raise AssertionError(f"{kind} {name}: multi-register kernel differs "
+                             f"from plain: err {err}, paths {[warp, total]} "
+                             f"vs {work}")
+    ms = cuda_ms(call, 5)
+    died = int(got[1])
+    if kind == "frontier_dense":
+        ops = dense_scan_ops(stream, died, V, step_ops=shape[0])
+        nbytes = 20 * len(stream) + 2 * (1 << S) * V + 24
+    else:
+        ops = float(work.get("compares", 0) + work.get("candidates", 0))
+        nbytes = 20 * len(stream) + 2 * K * 8 + 24
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+    return {"case": name, "shape": list(shape), "S": S, "V": V, "K": K,
+            "dense_warp_path": (fk.dense_warp_path(S, V)
+                                if V is not None else None),
+            "events": len(stream), "result": [int(x) for x in got[:4]],
+            "max_abs_err": err, "equal": True, "ms": ms,
+            "plain_ms": plain_ms, unit: total, f"warp_{unit}": warp,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
+def multi_register_batch_row(kind, streams, K):
+    """A key-batched frontier entry with the multi-register transition
+    on ``streams`` (B = len(streams)) against its plain version on the
+    card, timed."""
+    import torch
+    from jepsen_tpu_torch.models import multi_register_spec
+    from jepsen_tpu_torch.ops import frontier_kernels as fk
+    step = multi_register_spec(*MR_SHAPE).step_ids
+    S = max(1, max(s.n_slots for s in streams))
+    batch = fk.batch_events(streams, S, "cuda")
+    dense = kind == "frontier_dense_batch"
+    cap = 256 if dense else K
+    entry = fk.frontier_dense_batch if dense else fk.frontier_sparse_batch
+    plain_fn = (fk.frontier_dense_batch_torch if dense
+                else fk.frontier_sparse_batch_torch)
+    got = entry(batch, cap, 0, step)
+    paths = getattr(fk, kind).paths.tolist()
+    work = []
+    t0 = time.perf_counter()
+    ref = plain_fn(batch, cap, 0, step, work)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = frontier_err(got, ref)
+    unit = "returns" if dense else "passes"
+    want = [[w.get(f"warp_{unit}", 0), w.get(unit, 0)] for w in work]
+    if err != 0.0 or paths != want:
+        raise AssertionError(f"{kind}: multi-register batch differs from "
+                             f"plain: err {err}, paths {paths} vs {want}")
+    ms = cuda_ms(lambda: entry(batch, cap, 0, step), 10)
+    nbytes = 20 * sum(len(s) for s in streams) + 28 * len(streams) + 4
+    if dense:
+        ops = sum(dense_scan_ops(s, int(d), 256, step_ops=MR_SHAPE[0])
+                  for s, d in zip(streams, got[1].tolist()))
+    else:
+        ops = float(sum(w.get("compares", 0) + w.get("candidates", 0)
+                        for w in work))
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+    return {"keys": len(streams), "S": S, "V": 256 if dense else None,
+            "K": None if dense else K, "max_abs_err": err, "equal": True,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "rows": [[int(x[b]) for x in got] for b in range(len(streams))],
+            unit: sum(p[1] for p in paths)}
+
+
+def multi_register_phases(name, smi) -> dict:
+    """The multi-register slice on the card: the multi-key-acid checker
+    through ``independent.checker(compose({"linear":
+    linearizable(model=MultiRegister(), accelerator="gpu")}))`` (one
+    frontier launch a key, valid and with 10 corrupted keys, each map
+    equal to the port's ``accelerator="cpu"`` run), the 10k-txn history
+    and its corrupted and sparse copies, each frontier kernel and batched
+    entry with the multi-register transition against its plain version,
+    and the (2, 3) shape through ``torch-matrix``. Returns the
+    multi-register entries of the kernels line's frontier rows."""
+    import numpy as np
+    import torch
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker import compose
+    from jepsen_tpu_torch.checker.linear_cpu import (
+        check_stream, multi_register_step_py)
+    from jepsen_tpu_torch.checker.linear_encode import (
+        encode_multi_register_ops)
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.histories import (
+        corrupt_txn_keys, corrupt_txn_reads, multi_key_acid_history,
+        multi_register_history)
+    from jepsen_tpu_torch.models import MultiRegister, multi_register_spec
+    from jepsen_tpu_torch.ops.jitlin import JitLinKernel
+
+    step_py = multi_register_step_py(*MR_SHAPE)
+    spec = multi_register_spec(*MR_SHAPE)
+    lin = linearizable(MultiRegister(), accelerator="gpu")
+    chk = independent.checker(compose({"linear": lin}))
+    oracle = independent.checker(compose({"linear": linearizable(
+        MultiRegister(), accelerator="cpu")}))
+    kernel = JitLinKernel(step_ids=spec.step_ids)
+
+    def routes(h):
+        _, subs = independent.split_history(h)
+        sts = [encode_multi_register_ops(s) for s in subs.values()]
+        return sts, [kernel.route(s.n_slots, len(s.intern)) for s in sts]
+
+    def split(h, check_med, reps):
+        """Median host seconds of the check's parts, one after another:
+        the split by key, the encode, every key's frontier rung, and the
+        twin for the keys the rung leaves unknown or invalid (their
+        verdict, or the invalid ones' final configurations)."""
+        parts = {k: [] for k in ("split", "encode", "rung", "twin")}
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            _, subs = independent.split_history(h)
+            t1 = time.perf_counter()
+            sts = [lin._encoding(s)[0] for s in subs.values()]
+            t2 = time.perf_counter()
+            outs = [kernel.check(s) for s in sts]
+            t3 = time.perf_counter()
+            for s, o in zip(sts, outs):
+                if not o[0]:
+                    check_stream(s, step=step_py)
+            t4 = time.perf_counter()
+            for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                parts[k].append(dt)
+        med = {k: statistics.median(v) for k, v in parts.items()}
+        med["threads_and_rest"] = check_med - sum(med.values())
+        return med
+
+    # 11a. the main path: 1,000 multi-key-acid keys, valid
+    h = multi_key_acid_history(ACID_GROUPS, ACID_PER_GROUP, ACID_PROCS)
+    sts, rts = routes(h)
+    n_dense, n_sparse = rts.count("dense"), rts.count("sparse")
+    t0 = time.perf_counter()
+    want = oracle.check({}, h, {})
+    oracle_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    got = chk.check({}, h, {})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    same_linear_maps("multi_key_acid", got, want)
+    if got["valid?"] is not True:
+        raise AssertionError(f"multi_key_acid: {got['valid?']}")
+    if (launches["frontier_dense"], launches["frontier_sparse"]) != (
+            n_dense, n_sparse) or n_dense + n_sparse != ACID_GROUPS \
+            or any(v for k, v in launches.items()
+                   if k not in ("frontier_dense", "frontier_sparse")):
+        raise AssertionError(f"multi_key_acid launches {launches}, routes "
+                             f"{n_dense} dense, {n_sparse} sparse")
+    algs = {}
+    for r in got["results"].values():
+        a = r["linear"]["algorithm"]
+        algs[a] = algs.get(a, 0) + 1
+    check_s, _ = timed(lambda: chk.check({}, h, {}), 3)
+    med = statistics.median(check_s)
+    med_split = split(h, med, reps=1)
+    busy = device_kernels(lambda: chk.check({}, h, {}), "frontier")
+    busy_ms = sum(us for _, us in busy) / 1e3
+    by_kernel = {}
+    for kname, us in busy:
+        by_kernel[kname] = by_kernel.get(kname, 0.0) + us
+    emit({"phase": "multi_key_acid", "keys": ACID_GROUPS,
+          "txns_per_key": ACID_PER_GROUP, "procs_per_key": ACID_PROCS,
+          "shape": list(MR_SHAPE), "states": len(sts[0].intern),
+          "txns": ACID_GROUPS * ACID_PER_GROUP,
+          "events": sum(len(s) for s in sts),
+          "slots_by_key": {str(S): sum(s.n_slots == S for s in sts)
+                           for S in sorted({s.n_slots for s in sts})},
+          "routes": {"dense": n_dense, "sparse": n_sparse},
+          "algorithms": algs, "valid": got["valid?"],
+          "launches_per_check": launches, "first_check_s": first_s,
+          "check_s": check_s, "median_check_s": med,
+          "txns_per_sec": ACID_GROUPS * ACID_PER_GROUP / med,
+          "median_split_s": med_split, "device_busy_ms": busy_ms,
+          "device_busy_share": busy_ms / 1e3 / med,
+          "device_us_by_kernel": sorted(by_kernel.items(),
+                                        key=lambda kv: -kv[1])[:6],
+          "cpu_oracle_check_s": oracle_s, "card": name, "power": smi})
+
+    # 11b. 10 keys with an impossible read
+    hb = corrupt_txn_keys(h, ACID_BAD, n=1)
+    want_b = oracle.check({}, hb, {})
+    reset_launches()
+    t0 = time.perf_counter()
+    got_b = chk.check({}, hb, {})
+    torch.cuda.synchronize()
+    check_b = time.perf_counter() - t0
+    lb = read_launches()
+    same_linear_maps("multi_key_acid_invalid", got_b, want_b)
+    if got_b["failures"] != sorted(str(k) for k in ACID_BAD) \
+            or lb["frontier_dense"] + lb["frontier_sparse"] != ACID_GROUPS:
+        raise AssertionError(f"multi_key_acid_invalid: {got_b['failures']}"
+                             f", {lb}")
+    bad_algs = {}
+    for k in got_b["failures"]:
+        a = got_b["results"][k]["linear"]["algorithm"]
+        bad_algs[a] = bad_algs.get(a, 0) + 1
+    emit({"phase": "multi_key_acid_invalid", "bad_keys": list(ACID_BAD),
+          "failures": got_b["failures"], "failure_algorithms": bad_algs,
+          "launches": lb, "check_s": check_b,
+          "median_split_s": split(hb, check_b, reps=1),
+          "card": name, "power": smi})
+
+    # 11c. one 10k-txn history at the same width: the dense table's CTA
+    # path; two impossible reads; a copy whose last writes crash (S = 10:
+    # the sparse list)
+    h10 = multi_register_history(MR_TXNS, 5, *MR_SHAPE, seed=SEED)
+    copies = (("valid", h10), ("corrupted", corrupt_txn_reads(h10, 2)),
+              ("sparse", crash_late_writes(h10)),
+              ("sparse_corrupted", corrupt_txn_reads(crash_late_writes(h10),
+                                                     2, seed=1)))
+    long_rows = {}
+    for copy, hh in copies:
+        st = encode_multi_register_ops(hh)
+        t0 = time.perf_counter()
+        twin = check_stream(st, step=step_py)
+        twin_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = linearizable(MultiRegister(), accelerator="cpu").check(
+            {}, hh, {})
+        cpu_s = time.perf_counter() - t0
+        reset_launches()
+        times, res = timed(lambda: lin.check({}, hh, {}), 3)
+        lc = {k: v / 3 for k, v in read_launches().items()}
+        rung_s, rung = timed(lambda: kernel.check(st), 3)
+        route = kernel.route(st.n_slots, len(st.intern))
+        # the dense table's death is exact even when its out-of-range
+        # flag is set (only states past the map's 216 leave the table);
+        # an overflowed list's is not
+        if (res["valid?"], res.get("failed-op")) != (
+                cpu["valid?"], cpu.get("failed-op")) \
+                or res["valid?"] is not twin.valid \
+                or res["valid?"] is ("corrupted" in copy) \
+                or route != ("sparse" if copy.startswith("sparse")
+                             else "dense") \
+                or lc[f"frontier_{route}"] != 1 \
+                or (not rung[0] and (route == "dense" or not rung[2])
+                    and rung[1] != twin.failed_event):
+            raise AssertionError(f"multi_register {copy}: {res} vs {cpu}, "
+                                 f"twin {twin.valid} at "
+                                 f"{twin.failed_event}, rung {rung}, {lc}")
+        long_rows[copy] = st
+        emit({"phase": "multi_register_long", "copy": copy,
+              "txns": MR_TXNS, "procs": 5, "events": len(st),
+              "slots": st.n_slots, "route": route,
+              "algorithm": res["algorithm"], "valid": res["valid?"],
+              "configs_max": res["configs-max"], "rung_result": list(rung),
+              "twin_failed_event": twin.failed_event, "launches": lc,
+              "check_s": times, "median_check_s": statistics.median(times),
+              "median_rung_s": statistics.median(rung_s),
+              "twin_s": twin_s, "cpu_check_s": cpu_s,
+              "card": name, "power": smi})
+
+    # 11d. each kernel with the multi-register transition against its
+    # plain version, on 1k-txn histories: (3, 5) on the dense CTA path,
+    # (2, 3) on the dense warp path, (3, 5) on the sparse list; the
+    # batched entries at B = 8
+    h1 = multi_register_history(MR_KERNEL_TXNS, 5, *MR_SHAPE, seed=SEED + 1)
+    h23 = multi_register_history(MR_KERNEL_TXNS, 5, 2, 3, seed=SEED + 2)
+    rows = {
+        "dense_cta": multi_register_kernel_row(
+            "frontier_dense", "dense_cta_3x5",
+            encode_multi_register_ops(h1), MR_SHAPE),
+        "dense_cta_invalid": multi_register_kernel_row(
+            "frontier_dense", "dense_cta_3x5_invalid",
+            encode_multi_register_ops(corrupt_txn_reads(h1, 2)), MR_SHAPE),
+        "dense_warp": multi_register_kernel_row(
+            "frontier_dense", "dense_warp_2x3",
+            encode_multi_register_ops(h23, 2, 3), (2, 3)),
+        "sparse": multi_register_kernel_row(
+            "frontier_sparse", "sparse_3x5_s10",
+            encode_multi_register_ops(crash_late_writes(h1)), MR_SHAPE,
+            K=256),
+        "sparse_s5": multi_register_kernel_row(
+            "frontier_sparse", "sparse_3x5_s5",
+            encode_multi_register_ops(h1), MR_SHAPE, K=256),
+    }
+    if rows["dense_cta"]["dense_warp_path"] \
+            or not rows["dense_warp"]["dense_warp_path"] \
+            or rows["sparse"]["S"] < 10:
+        raise AssertionError(f"multi-register kernel paths: {rows}")
+    for key, row in rows.items():
+        emit({"phase": "multi_register_kernel", "kernel": key, **row,
+              "card": name, "power": smi})
+    # batches as batch_check would route them: 8 keys in the dense
+    # table's regime (S <= 9), and 8 keys with S up to 10 on the list
+    hb8 = corrupt_txn_keys(multi_key_acid_history(24, seed=SEED), (2, 5))
+    _, subs8 = independent.split_history(hb8)
+    sts8 = [encode_multi_register_ops(s) for s in subs8.values()]
+    batch_rows = {
+        "frontier_dense_batch": multi_register_batch_row(
+            "frontier_dense_batch", [s for s in sts8 if s.n_slots <= 9][:8],
+            None),
+        "frontier_sparse_batch": multi_register_batch_row(
+            "frontier_sparse_batch", sts8[:8], 256)}
+    for kind, row in batch_rows.items():
+        emit({"phase": "multi_register_batch", "kernel": kind, **row,
+              "card": name, "power": smi})
+
+    # 11e. the (2, 3) shape (16 states) through torch-matrix
+    hm = multi_register_history(2100, 3, 2, 3, seed=SEED + 3)
+    stm = encode_multi_register_ops(hm, 2, 3)
+    lin23 = linearizable(MultiRegister(), accelerator="gpu",
+                         multi_shape=(2, 3))
+    reset_launches()
+    got_m = lin23.check({}, hm, {})
+    torch.cuda.synchronize()
+    lm = read_launches()
+    twin_m = check_stream(stm, step=multi_register_step_py(2, 3))
+    if got_m["algorithm"] != "torch-matrix" or got_m["valid?"] is not \
+            twin_m.valid or min(lm["chunk_product"],
+                                lm["combine_product"]) < 1 \
+            or int((np.asarray(stm.kind) == 1).sum()) < 2000:
+        raise AssertionError(f"multi_register (2, 3) matrix: {got_m}, {lm}")
+    m_s, _ = timed(lambda: lin23.check({}, hm, {}), 3)
+    emit({"phase": "multi_register_matrix_2x3", "txns": 2100,
+          "returns": int((np.asarray(stm.kind) == 1).sum()),
+          "slots": stm.n_slots, "states": len(stm.intern),
+          "algorithm": got_m["algorithm"], "valid": got_m["valid?"],
+          "launches": lm, "median_check_s": statistics.median(m_s),
+          "card": name, "power": smi})
+
+    st_main = long_rows["valid"]
+    return {
+        "frontier_dense": {
+            **rows["dense_cta"], "launches": launches["frontier_dense"],
+            "warp_2x3": rows["dense_warp"],
+            "cta_3x5_invalid": rows["dense_cta_invalid"],
+            "main_path": "multi_key_acid (1,000 keys, one launch a key)",
+            "long_history_events": len(st_main)},
+        "frontier_sparse": {
+            **rows["sparse"], "launches": launches["frontier_sparse"],
+            "s5": rows["sparse_s5"],
+            "main_path": "multi_key_acid (1,000 keys, one launch a key)"},
+        "frontier_dense_batch": {**batch_rows["frontier_dense_batch"],
+                                 "launches": 0},
+        "frontier_sparse_batch": {**batch_rows["frontier_sparse_batch"],
+                                  "launches": 0},
+    }
+
+
 def nvidia_smi(query: str) -> str:
     """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
     return subprocess.run(
@@ -2015,6 +2453,13 @@ def main() -> int:
     set_row = set_full_phases(name, smi)
     set_row["launches_independent"] = ind_launches.get("set_classify", 0)
     kernels.append(set_row)
+    # 11. the multi-register slice: multi-key-acid through both frontier
+    # kernels with the multi-register transition; each frontier row gains
+    # its multi-register entry
+    mr = multi_register_phases(name, smi)
+    for row in kernels:
+        if row["name"] in mr:
+            row["multi_register"] = mr[row["name"]]
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,

@@ -1,13 +1,20 @@
-"""The exact CPU twin of the transfer-matrix path: breadth-first
-just-in-time linearization over the int-encoded EventStream. It is the
-checker's terminal rung and the tests' oracle."""
+"""The CPU linearizability searches:
+
+* :func:`check_stream` — the exact CPU twin of the transfer-matrix path:
+  breadth-first just-in-time linearization over the int-encoded
+  EventStream. It is the checker's terminal rung and the tests' oracle.
+* :func:`wgl` — the Wing-Gong-Lowe depth-first search over op dicts and
+  object models, for the models with no int encoding (and for
+  ``algorithm="wgl"``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable
 
 from jepsen_tpu_torch.checker.linear_encode import EV_INVOKE, EV_NOOP, EventStream
-from jepsen_tpu_torch.models import CAS_F_CAS, CAS_F_READ, CAS_F_WRITE
+from jepsen_tpu_torch.models import (
+    CAS_F_CAS, CAS_F_READ, CAS_F_WRITE, Model, is_inconsistent,
+)
 
 
 # copied from jepsen_tpu/checker/linear_cpu.py:24-34
@@ -22,6 +29,29 @@ def cas_register_step_py(state: int, f: int, a: int, b: int) -> tuple[int, bool]
             return b, True
         return state, False
     return state, False
+
+
+# copied from jepsen_tpu/checker/linear_cpu.py:37-58
+def multi_register_step_py(n_keys: int, n_values: int):
+    """Pure-python twin of models.multi_register_spec().step_ids (same
+    base-digit state/txn encodings; see that spec for the layout)."""
+    V, K = n_values, n_keys
+    SB, AB = V + 1, 2 * V + 2
+
+    def step(state: int, f: int, a: int, b: int) -> tuple[int, bool]:
+        acts = a
+        for k in range(K):
+            act = acts % AB
+            acts //= AB
+            digit = (state // (SB ** k)) % SB
+            if 2 <= act < 2 + V:          # read value act-2
+                if digit != act - 1:
+                    return state, False
+            elif act >= 2 + V:            # write value act-(2+V)
+                state += (act - (1 + V) - digit) * (SB ** k)
+        return state, True
+
+    return step
 
 
 # copied from jepsen_tpu/checker/linear_cpu.py:63-75
@@ -170,3 +200,158 @@ def check_stream(
     bitmask, state) pairs; closure is computed lazily before each return
     event. One-shot absorb over a :class:`FrontierSession`."""
     return FrontierSession(step=step, init_state=init_state).absorb(stream)
+
+
+# copied from jepsen_tpu/checker/linear_cpu.py:326-477
+class _Node:
+    __slots__ = ("kind", "op_id", "op", "match", "prev", "next")
+
+    def __init__(self, kind, op_id, op):
+        self.kind = kind      # 0 invoke, 1 return
+        self.op_id = op_id
+        self.op = op
+        self.match = None
+        self.prev = None
+        self.next = None
+
+
+def _unlink(n: _Node):
+    n.prev.next = n.next
+    n.next.prev = n.prev
+
+
+def _relink(n: _Node):
+    n.prev.next = n
+    n.next.prev = n
+
+
+def _preprocess(history: list[dict]):
+    """Completes invocation values from returns, drops fail pairs and
+    crashed reads. Returns [(inv_op, completed?)] per live op in invocation
+    order plus their return positions (None = crashed)."""
+    open_inv: dict = {}
+    drop = set()
+    completed_value: dict[int, Any] = {}
+    returns: dict[int, int] = {}
+    for i, op in enumerate(history):
+        p, typ = op.get("process"), op.get("type")
+        if not isinstance(p, int) or p < 0:
+            drop.add(i)
+            continue
+        if typ == "invoke":
+            open_inv[p] = i
+        elif typ == "fail":
+            j = open_inv.pop(p, None)
+            if j is not None:
+                drop.add(j)
+            drop.add(i)
+        elif typ == "ok":
+            j = open_inv.pop(p, None)
+            if j is not None:
+                returns[j] = i
+                if op.get("value") is not None:
+                    completed_value[j] = op.get("value")
+        elif typ == "info":
+            j = open_inv.pop(p, None)
+            drop.add(i)
+            if j is not None and history[j].get("f") == "read":
+                drop.add(j)
+    for p, j in open_inv.items():
+        if history[j].get("f") == "read":
+            drop.add(j)
+    live = []
+    for i, op in enumerate(history):
+        if i in drop or op.get("type") != "invoke":
+            continue
+        o = dict(op)
+        if i in completed_value:
+            o["value"] = completed_value[i]
+        live.append((i, o, returns.get(i)))
+    return live
+
+
+def wgl(history: list[dict], model: Model, max_steps: int = 50_000_000) -> LinearResult:
+    """Wing & Gong DFS with Lowe's (linearized-bitset, state) memoization
+    (knossos.wgl equivalent). Crashed mutations may linearize at any later
+    point or never."""
+    live = _preprocess(history)
+    n = len(live)
+    if n == 0:
+        return LinearResult(valid=True, algorithm="wgl-cpu")
+
+    head = _Node(-1, -1, None)
+    tail = _Node(-2, -1, None)
+    head.next = tail
+    tail.prev = head
+
+    def insert_before(node, ref):
+        node.prev = ref.prev
+        node.next = ref
+        ref.prev.next = node
+        ref.prev = node
+
+    # interleave invoke/return nodes in history order; crashed returns at end
+    events: list[tuple[int, _Node]] = []
+    ok_ops = set()
+    for op_id, (hist_i, op, ret_i) in enumerate(live):
+        inv = _Node(0, op_id, op)
+        events.append((hist_i, inv))
+        if ret_i is not None:
+            ret = _Node(1, op_id, op)
+            inv.match = ret
+            ret.match = inv
+            events.append((ret_i, ret))
+            ok_ops.add(op_id)
+    events.sort(key=lambda t: t[0])
+    for _, node in events:
+        insert_before(node, tail)
+
+    ok_remaining = len(ok_ops)
+    linearized_mask = 0
+    seen: set[tuple[int, Model]] = set()
+    stack: list[tuple[_Node, Model]] = []
+    entry = head.next
+    steps = 0
+    max_lin = 0
+    while True:
+        steps += 1
+        if steps > max_steps:
+            return LinearResult(valid="unknown", algorithm="wgl-cpu",
+                                configs_max=len(seen))
+        if ok_remaining == 0:
+            return LinearResult(valid=True, algorithm="wgl-cpu",
+                                configs_max=len(seen))
+        if entry.kind == 0:  # invoke: candidate for linearization
+            m2 = entry.op and model.step(entry.op)
+            if not is_inconsistent(m2):
+                new_mask = linearized_mask | (1 << entry.op_id)
+                key = (new_mask, m2)
+                if key not in seen:
+                    seen.add(key)
+                    stack.append((entry, model))
+                    _unlink(entry)
+                    if entry.match is not None:
+                        _unlink(entry.match)
+                        ok_remaining -= 1
+                    model = m2
+                    linearized_mask = new_mask
+                    max_lin = max(max_lin, bin(new_mask).count("1"))
+                    entry = head.next
+                    continue
+            entry = entry.next
+        else:
+            # return entry of an unlinearized op (kind 1) or tail (kind -2):
+            # no way forward; backtrack
+            if not stack:
+                # report how far we got: first un-linearizable return
+                fail_op = entry.op_id if entry.kind == 1 else -1
+                hist_i = live[fail_op][0] if fail_op >= 0 else -1
+                return LinearResult(valid=False, failed_op_index=hist_i,
+                                    algorithm="wgl-cpu", configs_max=len(seen))
+            inv, model = stack.pop()
+            linearized_mask &= ~(1 << inv.op_id)
+            if inv.match is not None:
+                _relink(inv.match)
+                ok_remaining += 1
+            _relink(inv)
+            entry = inv.next

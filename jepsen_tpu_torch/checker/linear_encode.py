@@ -155,6 +155,66 @@ def encode_register_ops(history, intern: Intern | None = None,
     )
 
 
+# copied from jepsen_tpu/history_ir/views.py:175-231
+class _DenseIntern:
+    """Stands in for Intern when states are arithmetic encodings rather
+    than interned values: only the state-count surface is needed."""
+
+    def __init__(self, n: int):
+        self._n = n
+
+    def __len__(self):
+        return self._n
+
+
+def encode_multi_register_ops(history, n_keys: int = 3, n_values: int = 5):
+    """Encodes a multi-register txn history (the multi-key-acid workload,
+    yugabyte/multi_key_acid.clj) for models.multi_register_spec: one op
+    f="txn" whose value is [[f, k, v], ...] packs into base-(2V+2)
+    per-key action digits of ``a`` (see the spec for the layout).
+
+    The packed encoding holds one action per key, which covers the
+    workload's generators exactly (they draw random nonempty *subsets*
+    of the key range, so a txn never touches a key twice); a history
+    with repeated keys in one txn raises ValueError and the checker
+    falls back to the object-model search."""
+    V, K = n_values, n_keys
+    AB = 2 * V + 2
+
+    def encode_args(op):
+        if op.get("f") != "txn":
+            raise ValueError(f"multi-register op must be txn, got "
+                             f"{op.get('f')!r}")
+        acts = [0] * K
+        for f, k, v in op.get("value") or ():
+            if not isinstance(k, int) or not (0 <= k < K):
+                raise ValueError(f"key {k!r} outside [0, {K})")
+            if acts[k] != 0:
+                raise ValueError(f"txn touches key {k} twice")
+            if f == "r":
+                if v is None:
+                    acts[k] = 1
+                elif isinstance(v, int) and 0 <= v < V:
+                    acts[k] = 2 + v
+                else:
+                    raise ValueError(f"read value {v!r} outside [0, {V})")
+            elif f == "w":
+                if not (isinstance(v, int) and 0 <= v < V):
+                    raise ValueError(f"write value {v!r} outside [0, {V})")
+                acts[k] = 2 + V + v
+            else:
+                raise ValueError(f"unknown micro-op {f!r}")
+        a = 0
+        for k in reversed(range(K)):
+            a = a * AB + acts[k]
+        return 0, a, 0
+
+    stream = encode_register_ops(history, encode_args=encode_args)
+    # interned-state count for kernel selection: the whole map space
+    stream.intern = _DenseIntern((V + 1) ** K)
+    return stream
+
+
 # copied from jepsen_tpu/history_ir/sidecar.py:119-135
 def stream_from_columns(cols: dict) -> EventStream:
     """Rebuilds an EventStream from the ``lin_*`` column dict the JAX

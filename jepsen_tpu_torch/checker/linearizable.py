@@ -1,8 +1,13 @@
-"""Linearizability checker for CASRegister histories.
+"""Linearizability checker for every model of jepsen_tpu_torch.models.
 
 Reference surface: jepsen.checker/linearizable (checker.clj:185-216) as
-ported by jepsen_tpu/checker/linearizable.py. Three rungs, tried in
-order:
+ported by jepsen_tpu/checker/linearizable.py. ``algorithm`` is "wgl"
+(the object-model search ``linear_cpu.wgl``), "jitlin" (the int-encoded
+search below) or "auto" (= "jitlin"). The models with an int encoding,
+``CASRegister`` and ``MultiRegister`` (within its packed encoding, shape
+``multi_shape``), take the int-encoded rungs; every other model, and a
+multi-register history outside the packed encoding, runs ``wgl``. The
+rungs, tried in order:
 
 * ``torch-matrix`` — the block-composed transfer-matrix check
   (ops/jitlin.matrix_check) on the device, for histories in its regime.
@@ -11,15 +16,18 @@ order:
   frontier scan of the whole history (ops/jitlin.JitLinKernel, the
   dense-table or sparse-frontier kernel) on the device. It settles
   valid, or invalid with the event at which the frontier died; an
-  overflowed frontier that died ("unknown") passes the history on.
-  Streams with more than FRONTIER_MAX_SLOTS = 31 slots skip it.
+  overflowed (or, for the dense table, inexact) frontier that died
+  ("unknown") passes the history on. Streams with more than
+  FRONTIER_MAX_SLOTS = 31 slots skip it.
 * ``native-c`` — the C++ search (jepsen_tpu_torch/native, algorithm
   ``jitlin-native``), on the host regime only (``accelerator="cpu"``, or
-  ``"auto"`` below AUTO_TPU_THRESHOLD events), for an initial state of
-  id 0. Its capacity (-1) and slot (-2) limits pass the history on.
-* ``cpu`` — the exact CPU twin (linear_cpu.check_stream), which settles
-  everything the other rungs did not, with the failing op. After a
-  device rung ran, its algorithm reads ``jitlin-cpu(fallback)``.
+  ``"auto"`` below AUTO_TPU_THRESHOLD events), for the CAS register from
+  an initial state of id 0. Its capacity (-1) and slot (-2) limits pass
+  the history on.
+* ``cpu`` — the exact CPU twin (linear_cpu.check_stream with the
+  encoding's step), which settles everything the other rungs did not,
+  with the failing op. After a device rung ran, its algorithm reads
+  ``jitlin-cpu(fallback)``.
 
 ``accelerator`` is "gpu" (the device rung whenever in regime), "cpu" or
 "auto" (the device rung from AUTO_TPU_THRESHOLD events up). The native
@@ -35,11 +43,16 @@ import numpy as np
 
 from jepsen_tpu_torch.checker import Checker
 from jepsen_tpu_torch.checker.linear_cpu import (
-    LinearResult, cas_register_step_py, check_stream,
+    LinearResult, cas_register_step_py, check_stream, multi_register_step_py,
+    wgl,
 )
-from jepsen_tpu_torch.checker.linear_encode import EV_RETURN, encode_register_ops
+from jepsen_tpu_torch.checker.linear_encode import (
+    EV_RETURN, encode_multi_register_ops, encode_register_ops,
+)
 from jepsen_tpu_torch.history import Intern
-from jepsen_tpu_torch.models import CASRegister, Model, cas_register_spec
+from jepsen_tpu_torch.models import (
+    CASRegister, Model, MultiRegister, cas_register_spec, multi_register_spec,
+)
 
 # Histories below this many events run on CPU under accelerator="auto"
 # (jepsen_tpu/checker/linearizable.py:36).
@@ -54,6 +67,7 @@ MAX_REPORT_EVENTS = 200_000
 FRONTIER_CAPACITY = 256
 
 ACCELERATORS = ("gpu", "cpu", "auto")
+ALGORITHMS = ("auto", "jitlin", "wgl")
 
 # The most slots a stream may have to take the frontier rung. The sparse
 # frontier's masks are uint32 and mask 0xFFFFFFFF is its empty entry
@@ -64,41 +78,65 @@ FRONTIER_MAX_SLOTS = 31
 
 
 class LinearizableChecker(Checker):
-    def __init__(self, model: Model | None = None,
+    def __init__(self, model: Model | None = None, algorithm: str = "auto",
                  accelerator: str = "auto", device=None,
-                 capacity: int = FRONTIER_CAPACITY):
+                 capacity: int = FRONTIER_CAPACITY,
+                 multi_shape: tuple = (3, 5)):
         self.model = model if model is not None else CASRegister()
-        if not isinstance(self.model, CASRegister):
-            raise TypeError("the torch checker handles CASRegister models "
-                            f"only, not {type(self.model).__name__}")
+        if algorithm not in ALGORITHMS:
+            raise ValueError(f"algorithm {algorithm!r} not in {ALGORITHMS}")
         if accelerator not in ACCELERATORS:
             raise ValueError(f"accelerator {accelerator!r} not in "
                              f"{ACCELERATORS}")
+        self.algorithm = algorithm
         self.accelerator = accelerator
         # None = the CUDA device; resolved when the device rung runs
         self.device = device
         self.capacity = capacity
+        # (n_keys, n_values) of the MultiRegister int encoding: the
+        # multi-key-acid workload's shape (multi_key_acid.clj key-range,
+        # rand-val)
+        self.multi_shape = multi_shape
 
-    # copied from jepsen_tpu/checker/linearizable.py:78-100 (the
-    # CASRegister branch, without the history IR)
+    # copied from jepsen_tpu/checker/linearizable.py:74-117, without the
+    # history IR
     def _encoding(self, history):
-        """(stream, step_py, spec) of ``history``: a non-None initial
+        """(stream, step_py, spec) when the model has an int encoding,
+        else None (the object-model wgl search). A non-None initial
         register value interns FIRST so its id is the initial state."""
-        intern = Intern()
-        if self.model.value is not None:
-            intern.id(self.model.value)
-        stream = encode_register_ops(history, intern=intern)
-        init_id = (0 if self.model.value is None
-                   else stream.intern.id(self.model.value))
-        return stream, cas_register_step_py, cas_register_spec(init_id)
+        if isinstance(self.model, CASRegister):
+            intern = Intern()
+            if self.model.value is not None:
+                intern.id(self.model.value)
+            stream = encode_register_ops(history, intern=intern)
+            init_id = (0 if self.model.value is None
+                       else stream.intern.id(self.model.value))
+            return stream, cas_register_step_py, cas_register_spec(init_id)
+        if isinstance(self.model, MultiRegister):
+            k, v = self.multi_shape
+            try:
+                stream = encode_multi_register_ops(history, k, v)
+            except ValueError:
+                return None  # outside the packed encoding: wgl
+            return (stream, multi_register_step_py(k, v),
+                    multi_register_spec(k, v))
+        return None
 
     def check(self, test, history, opts):
+        algorithm = opts.get("algorithm", self.algorithm)
         accelerator = opts.get("accelerator", self.accelerator)
-        stream, _, spec = self._encoding(history)
-        res = self._search_stream(stream, spec, accelerator)
-        return self._finish(res, history, stream, spec.init_state)
+        if algorithm not in ALGORITHMS:
+            raise ValueError(f"algorithm {algorithm!r} not in {ALGORITHMS}")
+        # copied from jepsen_tpu/checker/linearizable.py:149-165
+        enc = None if algorithm == "wgl" else self._encoding(history)
+        if enc is None:
+            return self._finish(wgl(history, self.model), history)
+        stream, step_py, spec = enc
+        res = self._search_stream(stream, step_py, spec, accelerator)
+        return self._finish(res, history, stream, step_py, spec.init_state)
 
-    def _search_stream(self, stream, spec, accelerator) -> LinearResult:
+    def _search_stream(self, stream, step_py, spec,
+                       accelerator) -> LinearResult:
         from jepsen_tpu_torch.ops.jitlin import (
             JitLinKernel, matrix_check, matrix_ok, verdict)
 
@@ -133,23 +171,23 @@ class LinearizableChecker(Checker):
                         failed_op_index=(int(stream.op_index[died])
                                          if died >= 0 else -1),
                         configs_max=peak, algorithm="torch-frontier")
-        elif spec.init_state == 0:
+        elif isinstance(self.model, CASRegister) and spec.init_state == 0:
             # copied from jepsen_tpu/checker/linearizable.py:513-525: the
-            # native rung, host regime only, for the init id it hardcodes
+            # native rung, host regime only, for the model and init id it
+            # hardcodes
             from jepsen_tpu_torch.native import check_stream_native
             res = check_stream_native(stream)
             if res is not None and res.valid != "unknown":
                 return res
-        res = check_stream(stream, step=cas_register_step_py,
-                           init_state=spec.init_state)
+        res = check_stream(stream, step=step_py, init_state=spec.init_state)
         if attempted:
             res.algorithm = "jitlin-cpu(fallback)"
         return res
 
     # copied from jepsen_tpu/checker/linearizable.py:675-713 without the
     # plot, trace and explain artifacts
-    def _finish(self, res: LinearResult, history, stream,
-                init_state: int) -> dict:
+    def _finish(self, res: LinearResult, history, stream=None,
+                step_py=None, init_state: int = 0) -> dict:
         out: dict[str, Any] = {
             "valid?": res.valid,
             "algorithm": res.algorithm,
@@ -160,8 +198,9 @@ class LinearizableChecker(Checker):
             lo = max(0, i - 5)
             out["failed-op"] = history[i] if i < len(history) else None
             out["context"] = history[lo: i + 1][-10:]
-            if res.final_configs is None and len(stream) <= MAX_REPORT_EVENTS:
-                res2 = check_stream(stream, step=cas_register_step_py,
+            if res.final_configs is None and stream is not None \
+                    and len(stream) <= MAX_REPORT_EVENTS:
+                res2 = check_stream(stream, step=step_py,
                                     init_state=init_state)
                 if res2.valid is False:
                     res.final_configs = res2.final_configs

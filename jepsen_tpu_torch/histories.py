@@ -1,7 +1,8 @@
 """Seeded synthetic histories for smoke runs and tests: single-register
-histories for the linearizability check, list-append and rw-register txn
-histories for the Elle checks, seeded graphs and clusters for the Elle
-kernels alone, and set-add/read histories for the set-full check."""
+and multi-register (multi-key-acid) histories for the linearizability
+check, list-append and rw-register txn histories for the Elle checks,
+seeded graphs and clusters for the Elle kernels alone, and set-add/read
+histories for the set-full check."""
 from __future__ import annotations
 
 import numpy as np
@@ -109,6 +110,169 @@ def corrupt_keys(history: list[dict], keys, n: int = 2, seed: int = 0,
         bad = corrupt_reads(sub, n=n,
                             seed=seed + k if isinstance(k, int) else seed,
                             value=value)
+        for i, op, op2 in zip(at, sub, bad):
+            if op2["value"] != op["value"]:
+                out[i]["value"] = [k, op2["value"]]
+    return out
+
+
+def multi_register_history(n_txns: int, n_procs: int = 5, n_keys: int = 3,
+                           n_values: int = 5, seed: int = 7,
+                           crash_every: int = 0,
+                           n_readers: int | None = None) -> list[dict]:
+    """A valid multi-register txn history (f "txn") with real concurrency:
+    each txn reads or writes a random nonempty subset of the ``n_keys``
+    keys, as the multi-key-acid workload's r and w do
+    (jepsen_tpu/workloads/multi_key_acid.py:31-42). A read
+    ``[["r", k, None], ...]`` is answered with the register map's values
+    at its completion, a write ``[["w", k, v], ...]`` (v below
+    ``n_values``) takes effect at its completion. With ``n_readers``,
+    worker i reads when i < n_readers and writes otherwise (the
+    workload's ``gen.reserve``); else each txn reads or writes by a coin.
+    With ``crash_every``, every ``crash_every``-th write crashes: its
+    completion is ``info``, it takes effect or not by a coin, and its
+    worker goes on as a fresh process, as Jepsen replaces a crashed
+    process; each crashed write holds its slot for good."""
+    rng = np.random.default_rng(seed)
+    regs: dict = {}
+    history: list[dict] = []
+    pending: dict[int, dict] = {}
+    procs = list(range(n_procs))  # worker i's current process
+    next_proc = n_procs
+    invoked = writes = 0
+    while invoked < n_txns or pending:
+        free = [i for i, p in enumerate(procs) if p not in pending]
+        if invoked < n_txns and free and (not pending or rng.random() < 0.6):
+            i = free[int(rng.integers(len(free)))]
+            keys = sorted(rng.permutation(n_keys)[
+                :int(rng.integers(1, n_keys + 1))].tolist())
+            read = (rng.random() < 0.5 if n_readers is None
+                    else i < n_readers)
+            value = ([["r", k, None] for k in keys] if read
+                     else [["w", k, int(rng.integers(n_values))]
+                           for k in keys])
+            op = {"type": "invoke", "process": procs[i], "f": "txn",
+                  "value": value}
+            history.append(op)
+            pending[procs[i]] = op
+            invoked += 1
+            continue
+        p = list(pending)[int(rng.integers(len(pending)))]
+        mops = pending.pop(p)["value"]
+        if mops[0][0] == "r":
+            history.append({"type": "ok", "process": p, "f": "txn",
+                            "value": [["r", k, regs.get(k)]
+                                      for _, k, _ in mops]})
+            continue
+        writes += 1
+        crash = bool(crash_every) and writes % crash_every == 0
+        if not crash or rng.random() < 0.5:
+            for _, k, v in mops:
+                regs[k] = v
+        history.append({"type": "info" if crash else "ok", "process": p,
+                        "f": "txn", "value": mops})
+        if crash:
+            procs[procs.index(p)] = next_proc
+            next_proc += 1
+    return history
+
+
+def multi_key_acid_history(n_groups: int, per_group: int = 20,
+                           n_procs: int = 10, seed: int = 2000,
+                           n_keys: int = 3, n_values: int = 5) -> list[dict]:
+    """The multi-key-acid workload's lifted history
+    (jepsen_tpu/workloads/multi_key_acid.py:45-60): one independent key a
+    group, each group ``per_group`` txns on its own ``n_procs`` = 2n
+    processes (multi_key_acid.clj:59), the first half reading and the
+    rest writing (``gen.reserve``), over ``n_keys`` x ``n_values``
+    (multi_key_acid.clj:40-41). Group g's txns are
+    ``multi_register_history(per_group, n_procs, n_keys, n_values, seed +
+    g, n_readers=n_procs // 2)`` on processes g * n_procs .. g * n_procs +
+    n_procs - 1, their values lifted as [g, txn], and the groups'
+    ops interleave in a seeded random order that keeps each group's own
+    order."""
+    groups = [multi_register_history(per_group, n_procs, n_keys, n_values,
+                                     seed + g, n_readers=n_procs // 2)
+              for g in range(n_groups)]
+    order = np.random.default_rng(seed).permutation(
+        np.repeat(np.arange(n_groups), [len(h) for h in groups]))
+    at = [0] * n_groups
+    out = []
+    for g in order.tolist():
+        op = groups[g][at[g]]
+        at[g] += 1
+        out.append({**op, "process": g * n_procs + op["process"],
+                    "value": [g, op["value"]]})
+    return out
+
+
+def corrupt_txn_reads(history: list[dict], n: int = 2, seed: int = 0,
+                      n_values: int = 5) -> list[dict]:
+    """A copy of a multi-register ``history`` in which ``n`` seeded ok
+    read txns each read one key as a value below ``n_values`` that no
+    write could have left there, so the history is invalid and stays
+    within the packed encoding. For read R of key k the values a
+    linearization can show are those of the writes to k invoked before R
+    completed and not followed, for certain, by another write to k that
+    completed before R was invoked (a crashed write may take effect at
+    any later point); a read whose keys all could show every value is
+    left alone."""
+    out = [dict(op) for op in history]
+    done: dict = {}
+    opened: dict = {}
+    for i, op in enumerate(out):
+        p = op.get("process")
+        if op.get("type") == "invoke":
+            opened[p] = i
+        elif p in opened:
+            done[opened.pop(p)] = (i, op.get("type"))
+    inf = float("inf")
+    writes: dict = {}   # key -> [(invoke, end, value)]
+    reads = []          # (invoke, ok)
+    for i, (j, typ) in sorted(done.items()):
+        mops = out[j]["value"] or []
+        if typ == "ok" and mops and mops[0][0] == "r":
+            reads.append((i, j))
+        elif typ in ("ok", "info"):
+            for f, k, v in mops:
+                if f == "w":
+                    writes.setdefault(k, []).append(
+                        (i, j if typ == "ok" else inf, v))
+    rng = np.random.default_rng(seed)
+    left = n
+    for r in rng.permutation(len(reads)).tolist():
+        if left == 0:
+            break
+        r0, r1 = reads[r]
+        mops = [list(m) for m in out[r1]["value"]]
+        for m in mops:
+            ws = writes.get(m[1], [])
+            # the latest invoke of a write to k certainly before R
+            last = max((w0 for w0, w1, _ in ws if w1 < r0), default=-1)
+            seen = {v for w0, w1, v in ws if w0 < r1 and w1 >= last}
+            free = [v for v in range(n_values) if v not in seen]
+            if free:
+                m[2] = free[int(rng.integers(len(free)))]
+                out[r1]["value"] = mops
+                left -= 1
+                break
+    return out
+
+
+def corrupt_txn_keys(history: list[dict], keys, n: int = 1, seed: int = 0,
+                     n_values: int = 5) -> list[dict]:
+    """A copy of a lifted multi-register ``history`` in which each key of
+    ``keys`` has ``n`` impossible reads: :func:`corrupt_txn_reads` on the
+    key's own sub-history, with seed ``seed + k`` for an int key k."""
+    out = [dict(op) for op in history]
+    for k in keys:
+        at = [i for i, op in enumerate(out)
+              if isinstance(op.get("value"), list)
+              and len(op["value"]) == 2 and op["value"][0] == k]
+        sub = [{**out[i], "value": out[i]["value"][1]} for i in at]
+        bad = corrupt_txn_reads(sub, n=n,
+                                seed=seed + k if isinstance(k, int) else seed,
+                                n_values=n_values)
         for i, op, op2 in zip(at, sub, bad):
             if op2["value"] != op["value"]:
                 out[i]["value"] = [k, op2["value"]]

@@ -3,14 +3,16 @@ values are [key, value] tuples, and the checker splits the history by
 key and checks each key's sub-history on its own (jepsen_tpu/
 independent.py:221-480).
 
-When the inner checker is a register ``LinearizableChecker`` (alone, or
-the one such checker in a ``Compose``) and the device is wanted, every
-key is encoded and the whole batch runs through ``parallel.batch_check``:
-the key-batched matrix screen on the card, then one key-batched frontier
-launch for the keys it leaves undecided; a key whose frontier overflowed
-and died goes to the exact Python twin. Otherwise, and under
-``accelerator="cpu"``, each key goes through the inner checker on
-threads (``bounded_pmap``).
+When the inner checker is a ``LinearizableChecker`` of the CAS register
+(alone, or the one such checker in a ``Compose``), the device is wanted
+and the algorithm is not "wgl", every key is encoded and the whole batch
+runs through ``parallel.batch_check``: the key-batched matrix screen on
+the card, then one key-batched frontier launch for the keys it leaves
+undecided; a key whose frontier overflowed and died goes to the exact
+Python twin. Otherwise (another model, ``algorithm="wgl"`` or
+``accelerator="cpu"``), each key goes through the inner checker on
+threads (``bounded_pmap``): a multi-register key takes its own frontier
+launch, as in the reference.
 
 Not ported: the per-key anomaly forensics (``_explain_key``) and the
 multi-host localization, the history-IR split, and the key-lifting
@@ -129,12 +131,14 @@ class IndependentChecker(Checker):
     def _try_batched(self, test, subs, opts):
         """The batched lane's {frozen key: result}, or None when it does
         not apply: the inner checker is not a LinearizableChecker (or a
-        Compose holding exactly one), the accelerator is "cpu", or a key
-        has more than FRONTIER_MAX_SLOTS slots (the single check skips
-        its frontier rung there too)."""
+        Compose holding exactly one) of the CAS register, the accelerator
+        is "cpu", the algorithm is "wgl", or a key has more than
+        FRONTIER_MAX_SLOTS slots (the single check skips its frontier
+        rung there too)."""
         from jepsen_tpu_torch.checker.linear_cpu import check_stream
         from jepsen_tpu_torch.checker.linearizable import (
             FRONTIER_MAX_SLOTS, LinearizableChecker)
+        from jepsen_tpu_torch.models import CASRegister
         from jepsen_tpu_torch.ops.jitlin import JitLinKernel, verdict
         from jepsen_tpu_torch.parallel import batch_check, last_route
 
@@ -150,10 +154,14 @@ class IndependentChecker(Checker):
             lin_name, chk = lins[0]
             others = {nm: c for nm, c in self.checker.checkers.items()
                       if nm != lin_name}
-        if not isinstance(chk, LinearizableChecker):
+        # copied from jepsen_tpu/independent.py:368-379: the lane batches
+        # the CAS register alone, and an explicit "wgl" stands it aside
+        if not isinstance(chk, LinearizableChecker) \
+                or not isinstance(chk.model, CASRegister):
             return None
         accelerator = opts.get("accelerator", chk.accelerator)
-        if accelerator == "cpu":
+        if accelerator == "cpu" \
+                or opts.get("algorithm", chk.algorithm) == "wgl":
             return None
         fkeys = list(subs)
         # each key encoded by the checker's own encoding, so the initial

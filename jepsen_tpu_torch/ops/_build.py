@@ -1,10 +1,11 @@
 """Builds the Hopper kernels in ``csrc/`` and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, named by a hash of its source
-and flags, under ``jepsen_tpu_torch/_build/``. All sources compile in
-parallel (one ``nvcc`` each, all started together) at first use; a
-library already built from the same source is reused. A build failure
+shared library with a plain C interface, named by a hash of its source,
+the headers beside it (``csrc/*.cuh``) and the flags, under
+``jepsen_tpu_torch/_build/``. All sources compile in parallel (one
+``nvcc`` each, all started together) at first use; a library already
+built from the same source is reused. A build failure
 raises with the compiler's output.
 
 Every C entry takes its pointers and the CUDA stream as ``void*``,
@@ -37,21 +38,26 @@ SIGNATURES = {
                       [_P, _P, _P, _P, _I, _I, _I, _P]),
     "cluster_screen": ("jt_cluster_screen",
                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    # ... E, S, V or K, then the transition: model, keys, values
     "frontier_dense": ("jt_frontier_dense",
-                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _P]),
     "frontier_sparse": ("jt_frontier_sparse",
                         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _P]),
+                         _I, _I, _I, _P]),
     "scc_trim": ("jt_scc_trim", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "set_classify": ("jt_set_classify",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
-# the key-batched entries of the frontier scans, beside their first
+# the key-batched entries of the frontier scans, beside their first:
+# ... B, S, V or K, init_state, then the transition as above
 BATCH_SIGNATURES = {
     "frontier_dense": ("jt_frontier_dense_batch",
-                       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _P]),
     "frontier_sparse": ("jt_frontier_sparse_batch",
-                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _P]),
 }
 
 _LOCK = threading.Lock()
@@ -74,7 +80,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the headers in csrc/ are part of every source they may be included in
+    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers
+                       + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 

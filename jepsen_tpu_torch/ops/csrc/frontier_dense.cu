@@ -38,8 +38,15 @@
 // `alive` comes from __syncthreads_or), so no thread leaves before a
 // barrier its other warps still reach. The warp path's CTAs use little
 // shared memory (the events' stage and the nibble tables, about 16 KB), so
-// several keys share an SM. The transition is the CAS register's, a __device__ copy of
-// `_cas_step_ids` (jepsen_tpu_torch/models). The closure runs level by
+// several keys share an SM. The transition is the launch's model
+// (frontier_model.cuh): the CAS register's or the multi-register map's,
+// whose (keys, values) and digit powers come with the launch; the kernel
+// is instantiated for each (kModel). Every transition the kernel takes
+// goes through next_state, so one step serves both paths' tables and the
+// out-of-range flag; a multi-register
+// table is bucketed past the (V + 1)^K map states (216 to 256 at 3 x 5),
+// and the flag, like the reference's, also covers the states past them,
+// which no history reaches. The closure runs level by
 // level: a row's level is popcount(r & pm), and the rows of level p read
 // only rows r ^ 2^t of level p - 1, already final; a path of the closure
 // adds at most npend bits, so this is the reference's fixpoint. The kill
@@ -66,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "frontier_model.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -78,23 +87,13 @@ constexpr int kWarpCost = 16;
 constexpr int kInvoke = 0, kReturn = 1;
 constexpr unsigned kFull = 0xffffffffu;
 
-// copied from jepsen_tpu_torch/models/__init__.py _cas_step_ids: read v ok
-// iff v == state or v == 0 (None); write v -> v; cas (a, b) ok iff
-// state == a, -> b; any other f never applies
-__device__ __forceinline__ int cas_step(int state, int f, int a, int b,
-                                        bool* ok) {
-  const bool is_read = f == 0, is_write = f == 1, is_cas = f == 2;
-  const bool k = (is_read && (a == 0 || a == state)) || is_write ||
-                 (is_cas && state == a);
-  *ok = k;
-  return is_write ? a : ((is_cas && k) ? b : state);
-}
-
 // nxt[v] of an invoke's op: its next state, -1 where the op does not apply
 // or the state leaves [0, V)
-__device__ __forceinline__ int next_state(int v, int f, int a, int b, int V) {
+template <int kModel>
+__device__ __forceinline__ int next_state(const Model& m, int v, int f, int a,
+                                          int b, int V) {
   bool ok;
-  const int st = cas_step(v, f, a, b, &ok);
+  const int st = model_step<kModel>(m, v, f, a, b, &ok);
   return (ok && st >= 0 && st < V) ? st : -1;
 }
 
@@ -169,11 +168,12 @@ __device__ __forceinline__ void stage_events(
 // wait on each other; the round takes no branch on the data. The kill moves
 // registers or shuffles; __reduce_add_sync counts the population and
 // __any_sync tells emptiness. Returns with x written back to T.
-template <int kRows, int kNib>
+template <int kRows, int kNib, int kModel>
 __device__ __forceinline__ void warp_scan_rows(const int* kind, const int* slot,
                                const int* fv, const int* av, const int* bv,
                                uint32_t* T, uint32_t* nib, int* ev, int E,
-                               int S, int V, int lane, bool* alive_out,
+                               int S, int V, const Model& m, int lane,
+                               bool* alive_out,
                                int* died_out, int* peak_out,
                                int* returns_out) {
   // the slots a table of 32 * kRows rows can have: S itself past 32 rows
@@ -201,7 +201,7 @@ __device__ __forceinline__ void warp_scan_rows(const int* kind, const int* slot,
       // and the 4 nibble values n = 4 (lane % 4) .. + 3
       const int j = lane >> 2;
       auto image = [&](int v) -> uint32_t {
-        const int st = v < V ? next_state(v, f, a, b, V) : -1;
+        const int st = v < V ? next_state<kModel>(m, v, f, a, b, V) : -1;
         return st >= 0 ? 1u << st : 0u;
       };
       const uint32_t w0 = image(4 * j), w1 = image(4 * j + 1),
@@ -291,8 +291,8 @@ __device__ __forceinline__ void warp_scan_rows(const int* kind, const int* slot,
 }
 
 // kRows > 0: the warp path with kRows rows a lane and rows of kNib
-// nibbles; kRows == 0: the CTA path.
-template <int kRows, int kNib>
+// nibbles; kRows == 0: the CTA path. kModel: the transition.
+template <int kRows, int kNib, int kModel>
 __global__ void __launch_bounds__(kThreads, 1)
 frontier_dense_kernel(const int* __restrict__ kind,
                       const int* __restrict__ slot,
@@ -307,7 +307,8 @@ frontier_dense_kernel(const int* __restrict__ kind,
                       // [B][6] alive, died, inexact, peak, returns closed
                       // on the warp path, returns closed
                       int* __restrict__ out,
-                      int E, int S, int V, int init_state) {
+                      int E, int S, int V, int init_state,
+                      const Model model) {
   extern __shared__ uint32_t smem[];
   if (off != nullptr) {
     const int e0 = off[blockIdx.x];
@@ -361,7 +362,7 @@ frontier_dense_kernel(const int* __restrict__ kind,
     const int f = fv[e], a = av[e], b = bv[e];
     for (int v = 0; v < V && !oob; ++v) {
       bool ok;
-      const int st = cas_step(v, f, a, b, &ok);
+      const int st = model_step<kModel>(model, v, f, a, b, &ok);
       oob = ok && (st < 0 || st >= V);
     }
   }
@@ -372,9 +373,9 @@ frontier_dense_kernel(const int* __restrict__ kind,
   if (kWarp) {
     // warp 0 runs the event loop; the others wait at the barrier below
     if (tid < 32)
-      warp_scan_rows<(kWarp ? kRows : 1), kNib>(kind, slot, fv, av, bv, T, nib,
-                                               ev, E, S, V, lane, &alive,
-                                               &died, &peak, &returns);
+      warp_scan_rows<(kWarp ? kRows : 1), kNib, kModel>(
+          kind, slot, fv, av, bv, T, nib, ev, E, S, V, model, lane, &alive,
+          &died, &peak, &returns);
     __syncthreads();
   } else {
     int pm = 0, par = 0;
@@ -389,7 +390,7 @@ frontier_dense_kernel(const int* __restrict__ kind,
           const int f = ev[2 * kEvChunk + k], a = ev[3 * kEvChunk + k],
                     b = ev[4 * kEvChunk + k];
           for (int v = tid; v < V; v += kThreads)
-            nxt[s * V + v] = next_state(v, f, a, b, V);
+            nxt[s * V + v] = next_state<kModel>(model, v, f, a, b, V);
           pm |= 1 << s;
           continue;
         }
@@ -458,14 +459,34 @@ frontier_dense_kernel(const int* __restrict__ kind,
   }
 }
 
+typedef void (*DenseKernel)(const int*, const int*, const int*, const int*,
+                            const int*, const int*, const uint8_t*, uint8_t*,
+                            int*, int, int, int, int, const Model);
+
+// The instantiation for model kModel, rows rows a lane (0: the CTA path)
+// and rows of nib nibbles.
+template <int kModel>
+DenseKernel pick_kernel(int rows, int nib) {
+  if (nib == 4) {
+    return rows == 1   ? frontier_dense_kernel<1, 4, kModel>
+           : rows == 2 ? frontier_dense_kernel<2, 4, kModel>
+           : rows == 4 ? frontier_dense_kernel<4, 4, kModel>
+                       : frontier_dense_kernel<0, 0, kModel>;
+  }
+  return rows == 1   ? frontier_dense_kernel<1, 8, kModel>
+         : rows == 2 ? frontier_dense_kernel<2, 8, kModel>
+                     : frontier_dense_kernel<0, 0, kModel>;
+}
+
 // Launches the scan of B keys (off given) or of one history (off null,
 // its E events), one CTA a key.
 int launch(const void* kind, const void* slot, const void* f, const void* a,
            const void* b, const void* off, const void* table0,
            void* table_out, void* out, int B, int E, int S, int V,
-           int init_state, void* stream) {
+           int init_state, int code, int nk, int nv, void* stream) {
+  Model model;
   if (S < 1 || S > kMaxSlots || V < 1 || B < 1 || init_state < 0 ||
-      init_state >= V)
+      init_state >= V || !make_model(code, nk, nv, &model))
     return (int)cudaErrorInvalidValue;
   const size_t M = (size_t)1 << S, words = M * ((V + 31) / 32);
   // the warp path: one-word rows, kWarpCost bounding rows a lane x nibbles
@@ -478,39 +499,30 @@ int launch(const void* kind, const void* slot, const void* f, const void* a,
       sizeof(int);
   if (!rows)
     smem += kBinomN * kBinomN * sizeof(int) + M * sizeof(uint16_t);
-  void (*kernel)(const int*, const int*, const int*, const int*, const int*,
-                 const int*, const uint8_t*, uint8_t*, int*, int, int, int,
-                 int) = frontier_dense_kernel<0, 0>;
-  if (nib == 4) {
-    kernel = rows == 1   ? frontier_dense_kernel<1, 4>
-             : rows == 2 ? frontier_dense_kernel<2, 4>
-             : rows == 4 ? frontier_dense_kernel<4, 4>
-                         : kernel;
-  } else {
-    kernel = rows == 1   ? frontier_dense_kernel<1, 8>
-             : rows == 2 ? frontier_dense_kernel<2, 8>
-                         : kernel;
-  }
+  const DenseKernel kernel = code == kMultiRegister
+                                 ? pick_kernel<kMultiRegister>(rows, nib)
+                                 : pick_kernel<kCas>(rows, nib);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)kind, (const int*)slot, (const int*)f, (const int*)a,
       (const int*)b, (const int*)off, (const uint8_t*)table0,
-      (uint8_t*)table_out, (int*)out, E, S, V, init_state);
+      (uint8_t*)table_out, (int*)out, E, S, V, init_state, model);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // One history from the table table0, the final table into table_out, its
-// results into out[0, 6).
+// results into out[0, 6); the transition is the model (code, nk, nv) of
+// frontier_model.cuh.
 extern "C" int jt_frontier_dense(void* kind, void* slot, void* f, void* a,
                                  void* b, void* table0, void* table_out,
-                                 void* out, int E, int S, int V,
-                                 void* stream) {
+                                 void* out, int E, int S, int V, int code,
+                                 int nk, int nv, void* stream) {
   return launch(kind, slot, f, a, b, nullptr, table0, table_out, out, 1, E,
-                S, V, 0, stream);
+                S, V, 0, code, nk, nv, stream);
 }
 
 // B keys, key k's events [off[k], off[k + 1]) of the columns, each from
@@ -518,7 +530,8 @@ extern "C" int jt_frontier_dense(void* kind, void* slot, void* f, void* a,
 extern "C" int jt_frontier_dense_batch(void* kind, void* slot, void* f,
                                        void* a, void* b, void* off, void* out,
                                        int B, int S, int V, int init_state,
+                                       int code, int nk, int nv,
                                        void* stream) {
   return launch(kind, slot, f, a, b, off, nullptr, nullptr, out, B, 0, S, V,
-                init_state, stream);
+                init_state, code, nk, nv, stream);
 }

@@ -66,16 +66,25 @@
 // - The kill is warp 0's alone at any length: clearing one bit in the masks
 //   that hold it keeps their order and distinctness, so it is a stable
 //   compaction in place, 32 keys a ballot.
-// The transition is a __device__ copy of the CAS register's
-// `_cas_step_ids`. For it the expansions of a sorted, distinct list by one
-// slot are themselves sorted once adjacent duplicates go (adding bit t keeps
-// the order of masks that lack it; within a mask a read keeps the states'
+// The transition is the launch's model (frontier_model.cuh): the CAS
+// register's or the multi-register map's, whose (keys, values) and digit
+// powers come with the launch; the kernel is instantiated for each
+// (kModel), and `expand` alone steps it. For the CAS
+// register the expansions of a sorted, distinct list by one slot are
+// themselves sorted once adjacent duplicates go (adding bit t keeps the
+// order of masks that lack it; within a mask a read keeps the states'
 // order, a write sends all to `a`, a CAS passes one state), so the CTA
-// path's sort could become a merge of 1 + npend runs; other models (ROADMAP
-// item 5) lose that property and would need a sort within each mask group.
-// After the frontier empties nothing changes any more, so the loop stops.
+// path's sort could become a merge of 1 + npend runs. A multi-register
+// write loses that property: it sends s to s - d SB^k + w SB^k, which at
+// K = 2, SB = 6 takes states 5 and 6 to 17 and 12 under "write key 1 :=
+// 2". Neither path relies on it: the warp path ranks every candidate
+// against every other, and the CTA path sorts them all, so the pass is the
+// same for any model. After the frontier empties nothing changes any more,
+// so the loop stops.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "frontier_model.cuh"
 
 namespace {
 
@@ -104,26 +113,17 @@ __device__ __forceinline__ int key_state(u64 k) {
   return (int)((uint32_t)k ^ 0x80000000u);
 }
 
-// copied from jepsen_tpu_torch/models/__init__.py _cas_step_ids: read v ok
-// iff v == state or v == 0 (None); write v -> v; cas (a, b) ok iff
-// state == a, -> b; any other f never applies
-__device__ __forceinline__ int cas_step(int state, int f, int a, int b,
-                                        bool* ok) {
-  const bool is_read = f == 0, is_write = f == 1, is_cas = f == 2;
-  const bool k = (is_read && (a == 0 || a == state)) || is_write ||
-                 (is_cas && state == a);
-  *ok = k;
-  return is_write ? a : ((is_cas && k) ? b : state);
-}
-
-// The expansion of key by slot t under the op (f, a, b), or kSentinel when
-// there is none: an invalid or sentinel key, t already in its mask, an op
-// that does not apply, or an expansion that equals the sentinel.
-__device__ __forceinline__ u64 expand(u64 key, int t, int f, int a, int b) {
+// The expansion of key by slot t under the op (f, a, b) of the model md,
+// or kSentinel when there is none: an invalid or sentinel key, t already
+// in its mask, an op that does not apply, or an expansion that equals the
+// sentinel.
+template <int kModel>
+__device__ __forceinline__ u64 expand(const Model& md, u64 key, int t, int f,
+                                      int a, int b) {
   const uint32_t m = key_mask(key), bit = 1u << t;
   if (m == kSentinelMask || (m & bit)) return kSentinel;
   bool ok;
-  const int st = cas_step(key_state(key), f, a, b, &ok);
+  const int st = model_step<kModel>(md, key_state(key), f, a, b, &ok);
   return ok ? pack(m | bit, st) : kSentinel;
 }
 
@@ -259,8 +259,9 @@ struct PassArgs {
 // One closure pass by the whole CTA: the n_in entries of F and their
 // expansions into C (placed by a block prefix count), sorted, and the
 // first K distinct back into F.
+template <int kModel>
 __device__ void cta_pass(u64* F, u64* C, const int* cur, PassArgs* A,
-                         int* scratch, int K) {
+                         int* scratch, int K, const Model& md) {
   const int tid = threadIdx.x;
   const int n_in = A->n_in, np1 = A->npend + 1;
   const int items = n_in * np1;
@@ -273,7 +274,8 @@ __device__ void cta_pass(u64* F, u64* C, const int* cur, PassArgs* A,
     const u64 key = F[ki];
     if (ti == 0 || key == kSentinel) return key;
     const int t = A->pslot[ti - 1];
-    return expand(key, t, cur[t], cur[kMaxSlots + t], cur[2 * kMaxSlots + t]);
+    return expand<kModel>(md, key, t, cur[t], cur[kMaxSlots + t],
+                  cur[2 * kMaxSlots + t]);
   };
   int mine = 0;
   for (int i = lo; i < hi; ++i) mine += cand(i) != kSentinel;
@@ -324,10 +326,12 @@ __device__ void cta_pass(u64* F, u64* C, const int* cur, PassArgs* A,
 // One closure pass by warp 0, when the list (len <= 64) has at most
 // kWarpCand candidates. Returns false, with nothing changed, when it has
 // more. C[0, 64) stages the candidates, C[64, 128) their sorted order.
+template <int kModel>
 __device__ __forceinline__ bool warp_pass(u64* F, u64* C, const int* cur,
                                           uint32_t pm, int len, int K,
-                                          int lane, int* len_out,
-                                          int* count_out, bool* ovf_out) {
+                                          const Model& md, int lane,
+                                          int* len_out, int* count_out,
+                                          bool* ovf_out) {
   const unsigned lt = lanes_below(lane);
   const bool two_keys = len > 32;
   const u64 k0 = lane < len ? F[lane] : kSentinel;
@@ -339,13 +343,13 @@ __device__ __forceinline__ bool warp_pass(u64* F, u64* C, const int* cur,
   for (uint32_t rem = pm; rem; rem &= rem - 1) {
     const int t = __ffs(rem) - 1;
     const int f = cur[t], a = cur[kMaxSlots + t], b = cur[2 * kMaxSlots + t];
-    const u64 c0 = expand(k0, t, f, a, b);
+    const u64 c0 = expand<kModel>(md, k0, t, f, a, b);
     const unsigned b0 = __ballot_sync(kFull, c0 != kSentinel);
     const int p0 = n + __popc(b0 & lt);
     if (c0 != kSentinel && p0 < kWarpCand) C[p0] = c0;
     n += __popc(b0);
     if (two_keys) {
-      const u64 c1 = expand(k1, t, f, a, b);
+      const u64 c1 = expand<kModel>(md, k1, t, f, a, b);
       const unsigned b1 = __ballot_sync(kFull, c1 != kSentinel);
       const int p1 = n + __popc(b1 & lt);
       if (c1 != kSentinel && p1 < kWarpCand) C[p1] = c1;
@@ -449,6 +453,7 @@ __device__ __forceinline__ int warp_kill(u64* F, int len, int s, int lane) {
   return kept;
 }
 
+template <int kModel>
 __global__ void __launch_bounds__(kThreads, 1)
 frontier_sparse_kernel(const int* __restrict__ kind,
                        const int* __restrict__ slot,
@@ -465,7 +470,8 @@ frontier_sparse_kernel(const int* __restrict__ kind,
                        // [B][6] alive, died, overflow, peak, closure
                        // passes on the warp path, closure passes
                        int* __restrict__ out,
-                       int E, int S, int K, int cap, int init_state) {
+                       int E, int S, int K, int cap, int init_state,
+                       const Model model) {
   extern __shared__ u64 smem64[];
   if (off != nullptr) {
     const int e0 = off[blockIdx.x];
@@ -560,7 +566,8 @@ frontier_sparse_kernel(const int* __restrict__ kind,
           if (sorted && len <= kWarpList) {
             int len2, c2;
             bool ovf;
-            if (warp_pass(F, C, cur, pm, len, K, lane, &len2, &c2, &ovf)) {
+            if (warp_pass<kModel>(F, C, cur, pm, len, K, model, lane, &len2,
+                                  &c2, &ovf)) {
               ++warp_passes;
               ++passes;
               len = len2;
@@ -604,7 +611,7 @@ frontier_sparse_kernel(const int* __restrict__ kind,
     }
     named_barrier();  // warp 0's command and its list
     if (A.cmd == kCmdEnd) break;
-    cta_pass(F, C, cur, &A, scratch, K);
+    cta_pass<kModel>(F, C, cur, &A, scratch, K, model);
   }
   if (mask_out != nullptr) {
     for (int i = tid; i < K; i += kThreads) {
@@ -627,36 +634,43 @@ frontier_sparse_kernel(const int* __restrict__ kind,
 int launch(const void* kind, const void* slot, const void* f, const void* a,
            const void* b, const void* off, const void* mask0,
            const void* state0, void* mask_out, void* state_out, void* out,
-           int B, int E, int S, int K, int init_state, void* stream) {
-  if (S < 1 || S > kMaxSlots || K < 1 || K * (S + 1) > (1 << 14) || B < 1)
+           int B, int E, int S, int K, int init_state, int code, int nk,
+           int nv, void* stream) {
+  Model model;
+  if (S < 1 || S > kMaxSlots || K < 1 || K * (S + 1) > (1 << 14) || B < 1 ||
+      !make_model(code, nk, nv, &model))
     return (int)cudaErrorInvalidValue;
   int cap = 2 * kWarpCand;  // the warp path's staging and sorted order
   while (cap < K * (S + 1)) cap <<= 1;
   const size_t smem = ((size_t)K + cap) * sizeof(u64) +
                       (5 * kEvChunk + 3 * kMaxSlots + kWarps + 1) *
                           sizeof(int);
+  const auto kernel = code == kMultiRegister
+                          ? frontier_sparse_kernel<kMultiRegister>
+                          : frontier_sparse_kernel<kCas>;
   cudaError_t err = cudaFuncSetAttribute(
-      frontier_sparse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  frontier_sparse_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)kind, (const int*)slot, (const int*)f, (const int*)a,
       (const int*)b, (const int*)off, (const uint32_t*)mask0,
       (const int*)state0, (uint32_t*)mask_out, (int*)state_out, (int*)out, E,
-      S, K, cap, init_state);
+      S, K, cap, init_state, model);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // One history from the list (mask0, state0), the final list into
-// (mask_out, state_out), its results into out[0, 6).
+// (mask_out, state_out), its results into out[0, 6); the transition is the
+// model (code, nk, nv) of frontier_model.cuh.
 extern "C" int jt_frontier_sparse(void* kind, void* slot, void* f, void* a,
                                   void* b, void* mask0, void* state0,
                                   void* mask_out, void* state_out, void* out,
-                                  int E, int S, int K, void* stream) {
+                                  int E, int S, int K, int code, int nk,
+                                  int nv, void* stream) {
   return launch(kind, slot, f, a, b, nullptr, mask0, state0, mask_out,
-                state_out, out, 1, E, S, K, 0, stream);
+                state_out, out, 1, E, S, K, 0, code, nk, nv, stream);
 }
 
 // B keys, key k's events [off[k], off[k + 1]) of the columns, each from
@@ -664,7 +678,8 @@ extern "C" int jt_frontier_sparse(void* kind, void* slot, void* f, void* a,
 extern "C" int jt_frontier_sparse_batch(void* kind, void* slot, void* f,
                                         void* a, void* b, void* off,
                                         void* out, int B, int S, int K,
-                                        int init_state, void* stream) {
+                                        int init_state, int code, int nk,
+                                        int nv, void* stream) {
   return launch(kind, slot, f, a, b, off, nullptr, nullptr, nullptr, nullptr,
-                out, B, 0, S, K, init_state, stream);
+                out, B, 0, S, K, init_state, code, nk, nv, stream);
 }

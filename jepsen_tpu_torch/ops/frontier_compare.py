@@ -17,6 +17,9 @@ or list); then each build is timed by CUDA events over back-to-back
 calls, in the order other, this, this, other, and one JSON line gives
 both builds' two timings, this build's work on its warp path and in all
 (``out[4:6]``, which an earlier build may leave at 0) and the results.
+The cases step the CAS register; a build from before the kernels took a
+model (no ``csrc/frontier_model.cuh``) is called through its own C
+signature, without the model's three ints.
 The last line is the card's name and power limit as ``nvidia-smi``
 prints them. Exits 1 without a CUDA device.
 """
@@ -29,6 +32,23 @@ import sys
 from pathlib import Path
 
 NAMES = ("frontier_dense", "frontier_sparse")
+# the CAS register's (model, keys, values), the last ints of a build's
+# entry that takes a model
+CAS_MODEL = (0, 0, 0)
+
+
+def model_free_signatures(root) -> dict:
+    """{(label "other", name): signature} for a checkout whose frontier
+    entries take no model (no csrc/frontier_model.cuh), else {}."""
+    from jepsen_tpu_torch.ops import _build
+    csrc = Path(root) / "jepsen_tpu_torch" / "ops" / "csrc"
+    if (csrc / "frontier_model.cuh").exists():
+        return {}
+    out = {}
+    for name in NAMES:
+        fn_name, argtypes = _build.SIGNATURES[name]
+        out["other", name] = (fn_name, argtypes[:-4] + argtypes[-1:])
+    return out
 
 
 def build(roots: dict, out_dir: Path, names=NAMES,
@@ -124,11 +144,15 @@ def run_case(entries, kernel, history, shape, reps: int) -> dict:
         info = {"S": S, "K": shape}
     res = {}
 
+    from jepsen_tpu_torch.ops import _build
+    n_args = len(_build.SIGNATURES[kernel][1])
+
     def call(label):
         out = torch.zeros(8, dtype=torch.int32, device="cuda")
-        rc = entries[label, kernel](
-            *(x.data_ptr() for x in ev + args + outs + [out]), *tail,
-            stream)
+        fn = entries[label, kernel]
+        model = CAS_MODEL if len(fn.argtypes) == n_args else ()
+        rc = fn(*(x.data_ptr() for x in ev + args + outs + [out]), *tail,
+                *model, stream)
         if rc != 0:
             raise RuntimeError(f"{label} {kernel}: CUDA error {rc}")
         res[label] = (out, [x.clone() for x in outs])
@@ -172,7 +196,8 @@ def main(argv) -> int:
     out_dir = _build.BUILD_DIR / "compare"
     out_dir.mkdir(parents=True, exist_ok=True)
     entries = build({"other": argv[0],
-                     "this": Path(__file__).resolve().parents[2]}, out_dir)
+                     "this": Path(__file__).resolve().parents[2]}, out_dir,
+                    signatures=model_free_signatures(argv[0]))
     for case, kernel, make, shape in cases():
         row = run_case(entries, kernel, make(), shape, reps=5)
         print(json.dumps({"case": case, **row}), flush=True)

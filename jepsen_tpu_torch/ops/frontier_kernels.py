@@ -22,9 +22,10 @@ Both return the reference's ``run.resume`` results, the verdict and the
 final frontier, and match it bit for bit. A wrapper takes its plain
 version only for tensors that lie on the CPU; for CUDA tensors it
 launches its kernel once for the whole history, or raises. Each wrapper
-counts its kernel launches in ``.launches``. The kernels carry a copy of
-the CAS-register transition, so on CUDA a wrapper raises for any other
-``step_ids``.
+counts its kernel launches in ``.launches``. The kernels carry copies of
+two transitions, the CAS register's and the multi-register map's, and
+take the one a ``step_ids``'s ``kernel_model`` names (models.
+kernel_model): on CUDA a wrapper raises for a ``step_ids`` without one.
 
 :func:`frontier_dense_batch` and :func:`frontier_sparse_batch` scan B
 keys' histories in one launch of the same kernels (one CTA a key), each
@@ -35,12 +36,13 @@ comes back in a row of its own.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from jepsen_tpu_torch.models import _cas_step_ids
+from jepsen_tpu_torch.models import _cas_step_ids, kernel_model
 from jepsen_tpu_torch.ops.matrix_kernels import _check_launch, _ptr, _stream
 
 EV_INVOKE, EV_RETURN, EV_NOOP = 0, 1, 2
@@ -98,10 +100,25 @@ def _check_events(ev, S: int, what: str) -> None:
                          f"(S={S})")
 
 
-def _check_cas(step_ids, what: str) -> None:
-    if step_ids is not None and step_ids is not _cas_step_ids:
-        raise ValueError(f"{what}: the kernel computes the CAS-register "
-                         "transition only")
+def _model_args(step_ids, what: str) -> tuple:
+    """The kernels' (model, keys, values) for ``step_ids`` (None: the CAS
+    register); raises for a transition they have no copy of. A shape the
+    kernels do not take fails its launch (csrc/frontier_model.cuh)."""
+    model = kernel_model(_cas_step_ids if step_ids is None else step_ids)
+    if model is None:
+        raise ValueError(f"{what}: the kernels have no copy of this "
+                         "step_ids's transition (no kernel_model)")
+    return model
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_launch(fn) -> None:
+    """One more launch on ``fn.launches``; checks on threads launch
+    concurrently."""
+    with _COUNT_LOCK:
+        fn.launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -134,7 +151,7 @@ def frontier_dense(kind, slot, f, a, b, table0, step_ids=None):
     if table0.device.type != "cuda":
         raise ValueError(f"frontier_dense: unsupported device "
                          f"{table0.device}")
-    _check_cas(step_ids, "frontier_dense")
+    model = _model_args(step_ids, "frontier_dense")
     M, V = table0.shape
     S = M.bit_length() - 1
     if M != 1 << S or not 1 <= S <= DENSE_MAX_SLOTS \
@@ -153,10 +170,10 @@ def frontier_dense(kind, slot, f, a, b, table0, step_ids=None):
     lib = _build.library("frontier_dense")
     with torch.cuda.device(dev):
         rc = lib.jt_frontier_dense(*(_ptr(x) for x in ev), _ptr(t_in),
-                                   _ptr(t_out), _ptr(out), E, S, V,
+                                   _ptr(t_out), _ptr(out), E, S, V, *model,
                                    _stream(dev))
     _check_launch(rc, "frontier_dense")
-    frontier_dense.launches += 1
+    _count_launch(frontier_dense)
     frontier_dense.paths = out[4:]
     return (out[0] != 0, out[1], out[2] != 0, out[3], t_out.to(torch.bool))
 
@@ -300,7 +317,7 @@ def frontier_sparse(kind, slot, f, a, b, mask0, state0, n_slots: int,
     if mask0.device.type != "cuda":
         raise ValueError(f"frontier_sparse: unsupported device "
                          f"{mask0.device}")
-    _check_cas(step_ids, "frontier_sparse")
+    model = _model_args(step_ids, "frontier_sparse")
     if not 1 <= K or K * (S + 1) > SPARSE_MAX_CANDIDATES \
             or tuple(state0.shape) != (K,):
         raise ValueError(f"frontier_sparse: K={K} with S={S} outside the "
@@ -321,9 +338,10 @@ def frontier_sparse(kind, slot, f, a, b, mask0, state0, n_slots: int,
     with torch.cuda.device(dev):
         rc = lib.jt_frontier_sparse(*(_ptr(x) for x in ev), _ptr(m_in),
                                     _ptr(s_in), _ptr(m_out), _ptr(s_out),
-                                    _ptr(out), E, S, K, _stream(dev))
+                                    _ptr(out), E, S, K, *model,
+                                    _stream(dev))
     _check_launch(rc, "frontier_sparse")
-    frontier_sparse.launches += 1
+    _count_launch(frontier_sparse)
     frontier_sparse.paths = out[4:]
     return out[0] != 0, out[1], out[2] != 0, out[3], m_out, s_out
 
@@ -498,7 +516,7 @@ def _batch_launch(name: str, batch: EventBatch, cap: int, init_state: int,
                   step_ids):
     """Launches ``name``'s key-batched entry on ``batch`` (on the card);
     returns its [B, 6] int32 results there."""
-    _check_cas(step_ids, name)
+    model = _model_args(step_ids, name)
     dev = batch.ev.device
     B = batch.off.numel() - 1
     out = torch.empty((B, 6), dtype=torch.int32, device=dev)
@@ -507,7 +525,8 @@ def _batch_launch(name: str, batch: EventBatch, cap: int, init_state: int,
     ev = batch.ev
     with torch.cuda.device(dev):
         rc = entry(*(_ptr(ev[j]) for j in range(5)), _ptr(batch.off),
-                   _ptr(out), B, batch.S, cap, init_state, _stream(dev))
+                   _ptr(out), B, batch.S, cap, init_state, *model,
+                   _stream(dev))
     _check_launch(rc, f"{name}_batch")
     return out
 
@@ -536,7 +555,7 @@ def frontier_dense_batch(batch: EventBatch, V: int, init_state: int = 0,
                          f"{init_state} outside the kernel (1 <= S <= "
                          f"{DENSE_MAX_SLOTS}, V <= {DENSE_MAX_V})")
     out = _batch_launch("frontier_dense", batch, V, init_state, step_ids)
-    frontier_dense_batch.launches += 1
+    _count_launch(frontier_dense_batch)
     frontier_dense_batch.paths = out[:, 4:]
     return out[:, 0] != 0, out[:, 1], out[:, 2] != 0, out[:, 3]
 
@@ -572,7 +591,7 @@ def frontier_sparse_batch(batch: EventBatch, K: int, init_state: int = 0,
                          f"the kernel (K * (S + 1) <= "
                          f"{SPARSE_MAX_CANDIDATES})")
     out = _batch_launch("frontier_sparse", batch, K, init_state, step_ids)
-    frontier_sparse_batch.launches += 1
+    _count_launch(frontier_sparse_batch)
     frontier_sparse_batch.paths = out[:, 4:]
     return out[:, 0] != 0, out[:, 1], out[:, 2] != 0, out[:, 3]
 

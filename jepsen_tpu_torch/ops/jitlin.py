@@ -576,7 +576,10 @@ _MATRIX_CACHE: dict = {}
 
 
 def _matrix_cache(S, V, step_ids, init_state, T, C, B, device):
-    key = (S, V, id(step_ids), init_state, T, C, B, str(device))
+    # keyed by the step itself, not its id: the key holds it, so a step
+    # built after another was freed never takes that one's kernel (the
+    # specs build one step per shape, so the cache holds one a shape)
+    key = (S, V, step_ids, init_state, T, C, B, str(device))
     fn = _MATRIX_CACHE.get(key)
     if fn is None:
         fn = _build_matrix_kernel(S, V, step_ids, init_state, T, C, B,

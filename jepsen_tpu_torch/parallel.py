@@ -7,12 +7,13 @@ the key-batched transfer-matrix screen (``jitlin.matrix_check_batch``)
 runs first when the batch is in its regime; the keys it leaves
 undecided (not alive, or inexact) go to one key-batched frontier launch
 (``frontier_dense_batch`` or ``frontier_sparse_batch``, one CTA a key),
-whose results replace the screen's. The CPU lane searches key by key
-with the native C++ search, then the Python twin for what it does not
-take.
+whose results replace the screen's. The CPU lane searches the CAS
+register key by key with the native C++ search, then the Python twin for
+what it does not take; a batch of another spec keeps the device lane.
 """
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Sequence
 
@@ -22,11 +23,13 @@ import torch
 from jepsen_tpu_torch.checker.linearizable import (
     ACCELERATORS, AUTO_TPU_THRESHOLD)
 from jepsen_tpu_torch.device import resolve_device
-from jepsen_tpu_torch.models import _cas_step_ids
+from jepsen_tpu_torch.models import KERNEL_CAS, kernel_model
 from jepsen_tpu_torch.ops import frontier_kernels, jitlin
 from jepsen_tpu_torch.ops.jitlin import (
     EV_RETURN, JitLinKernel, _bucket, _dense_ok, matrix_check_batch)
 from jepsen_tpu_torch.utils import bounded_pmap
+
+logger = logging.getLogger("jepsen_tpu_torch.parallel")
 
 # How the calling thread's most recent batch_check settled: "device" or
 # "cpu" (jepsen_tpu/parallel/__init__.py:440-448).
@@ -49,7 +52,9 @@ def batch_check(streams: Sequence, capacity: int = 256, step_ids=None,
     bounded-thread-parallel over keys) or "auto": the CPU lane for a
     batch of fewer than AUTO_TPU_THRESHOLD events in all, the card
     otherwise (the reference's "auto" asks its measured cost model
-    instead). Verdicts do not depend on the lane; ``last_route()``
+    instead). The CPU lane takes the CAS register only: a batch of
+    another spec keeps the device lane, with a warning when "cpu" was
+    asked for. Verdicts do not depend on the lane; ``last_route()``
     records which one ran. ``kernel`` gives the spec and the device
     (default: the CAS register from ``init_state`` on ``device``)."""
     if accelerator not in ACCELERATORS:
@@ -62,8 +67,10 @@ def batch_check(streams: Sequence, capacity: int = 256, step_ids=None,
     total_events = sum(len(s.kind) for s in streams)
     if accelerator == "cpu" or (accelerator == "auto"
                                 and total_events < AUTO_TPU_THRESHOLD):
-        _ROUTE.value = "cpu"
-        return _cpu_batch(streams, kernel)
+        cpu = _cpu_batch(streams, kernel, force=accelerator == "cpu")
+        if cpu is not None:
+            _ROUTE.value = "cpu"
+            return cpu
     _ROUTE.value = "device"
     # the dense table's V is the batch's largest interned-state count
     # (every key is scanned at the batch's S and V, as the reference's
@@ -101,17 +108,23 @@ def batch_check(streams: Sequence, capacity: int = 256, step_ids=None,
 
 # copied from jepsen_tpu/parallel/__init__.py:572-619, without the cost
 # model
-def _cpu_batch(streams, kernel):
+def _cpu_batch(streams, kernel, force: bool = False):
     """The exact host lane: the native C++ search key by key (ctypes
     releases the GIL, so bounded_pmap runs keys in parallel), the Python
     twin where it declines (more than 63 slots, its capacity, or an
-    initial state other than id 0)."""
+    initial state other than id 0). None when the kernel's spec is not
+    the CAS register: the device lane runs instead, with a warning when
+    the caller ``force``d the CPU lane."""
     from jepsen_tpu_torch.checker.linear_cpu import check_stream
     from jepsen_tpu_torch.native import check_stream_native
 
-    if kernel.step_ids is not _cas_step_ids:
-        raise ValueError("batch_check: the CPU lane searches the CAS "
-                         "register only")
+    model = kernel_model(kernel.step_ids)
+    if model is None or model[0] != KERNEL_CAS:
+        if force:
+            logger.warning("accelerator=cpu requested but the spec %r has "
+                           "no host twin in batch_check; using the device "
+                           "lane", model)
+        return None
     init_state = kernel.init_state
 
     def one(stream):

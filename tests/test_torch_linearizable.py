@@ -107,13 +107,24 @@ def test_initial_value_interns_first(small_matrix_regime):
 
 
 def test_checker_rejects_unported_models_and_accelerators():
+    """Every model is ported: a model without a transition (the bare
+    ``Model``) is taken and its search raises, as the reference's does;
+    an accelerator or algorithm the port does not have is refused."""
+    from jepsen_tpu.checker.linearizable import linearizable as ref_lin
+    from jepsen_tpu.models import Model as RefModel
     from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
     from jepsen_tpu_torch.models import Model
 
-    with pytest.raises(TypeError):
-        LinearizableChecker(model=Model())
+    h = register_history(10, n_procs=2, seed=1)
+    chk = LinearizableChecker(model=Model())
+    with pytest.raises(NotImplementedError):
+        chk.check({}, h, {})
+    with pytest.raises(NotImplementedError):
+        ref_lin(RefModel()).check({}, h, {"explain": False})
     with pytest.raises(ValueError):
         LinearizableChecker(accelerator="tpu")
+    with pytest.raises(ValueError):
+        LinearizableChecker(algorithm="linear")
 
 
 def _thirty_two_slots():
