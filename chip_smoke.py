@@ -1527,17 +1527,6 @@ ACID_BAD = tuple(range(7, 1000, 100))
 MR_SHAPE, MR_TXNS, MR_KERNEL_TXNS = (3, 5), 10_000, 1000
 
 
-def crash_late_writes(history, n: int = 5, spread: int = 50):
-    """A copy in which ``n`` of the last ``spread`` ok writes, evenly
-    spaced, crash (``info``): a crashed write holds its slot for good, so
-    the stream's slots grow by up to ``n``."""
-    w = [i for i, op in enumerate(history)
-         if op["type"] == "ok" and op["value"][0][0] == "w"]
-    pick = set(w[-spread::spread // n][:n])
-    return [dict(op, type="info") if i in pick else op
-            for i, op in enumerate(history)]
-
-
 def same_linear_maps(what, got, want) -> None:
     """Raises unless two independent result maps of a composed
     ``linear`` checker agree on ``valid?``, ``failures``, ``count`` and
@@ -1550,11 +1539,53 @@ def same_linear_maps(what, got, want) -> None:
             raise AssertionError(f"{what}: key {k}: {g} vs {r['linear']}")
 
 
-def multi_register_kernel_row(kind, name, stream, shape, K=None):
+def c_entry_split(kind, stream, dims, model) -> dict:
+    """This checkout's C entry of ``kind`` (``frontier_dense`` or
+    ``frontier_sparse``) on ``stream`` at the table (S, V) or the list K
+    ``dims``, with the multi-register ``model`` (keys, values) or the CAS
+    register (None), timed by ``ops.frontier_compare.run_case``: its ms,
+    its fixed part (the same call on an empty event stream), on the
+    dense table the invokes alone, its work on the warp path and in all,
+    and the us a unit of work (return or pass) past the fixed part. Each
+    time is the mean of two timings of 5 back-to-back calls."""
+    from jepsen_tpu_torch.ops import _build
+    from jepsen_tpu_torch.ops.frontier_compare import run_case
+    fn = getattr(_build.library(kind), _build.SIGNATURES[kind][0])
+    row = run_case({("this", kind): fn}, kind, stream, dims, model, reps=5)
+    unit, per = (("returns", "us_per_return") if kind == "frontier_dense"
+                 else ("passes", "us_per_pass"))
+    out = {f"{k}ms": sum(row[f"this_{k}ms"]) / 2
+           for k in ("", "fixed_", "invokes_") if f"this_{k}ms" in row}
+    out["c_entry_ms"] = out.pop("ms")
+    out.update({unit: row["work"], f"warp_{unit}": row["warp_work"],
+                per: (out["c_entry_ms"] - out["fixed_ms"]) * 1e3
+                / max(1, row["work"]), "result": row["result"]})
+    return out
+
+
+def cas_same_shape(kind, case, S, width):
+    """The CAS instantiation of ``kind`` on ``ops.frontier_compare``'s
+    register-history case ``case`` at the table (S, V = width) or the
+    list (S, K = width) of a multi-register row, split at its C entry by
+    ``c_entry_split``: the path's own cost without the multi-register
+    step."""
+    from jepsen_tpu_torch.ops.frontier_compare import cases
+    st = next(make() for c, k, make, _, model in cases()
+              if (c, k) == (case, kind) and model is None)
+    dims = (S, width) if kind == "frontier_dense" else width
+    return {"case": case, "S": S, "width": width, "events": len(st),
+            **c_entry_split(kind, st, dims, None)}
+
+
+def multi_register_kernel_row(kind, name, stream, shape, K=None,
+                              cas_case=None):
     """One frontier kernel (``frontier_dense`` or ``frontier_sparse``)
     with the multi-register transition on ``stream``, against its plain
     version on the card (every output and the path counts), timed; its
-    bound counted from this run's work."""
+    bound counted from this run's work. ``ms`` is the wrapper's; the C
+    entry's time splits into its fixed part and the rest a unit of work
+    (``c_entry_split``), beside the CAS instantiation's at the same shape
+    (``cas_same_shape`` of ``cas_case``)."""
     import torch
     from jepsen_tpu_torch.models import multi_register_spec
     from jepsen_tpu_torch.ops import frontier_kernels as fk
@@ -1591,7 +1622,12 @@ def multi_register_kernel_row(kind, name, stream, shape, K=None):
                              f"from plain: err {err}, paths {[warp, total]} "
                              f"vs {work}")
     ms = cuda_ms(call, 5)
+    split = c_entry_split(kind, stream, (S, V) if V is not None else K, shape)
+    if split.pop("result") != [int(x) for x in got[:4]]:
+        raise AssertionError(f"{kind} {name}: the C entry differs from the "
+                             f"wrapper")
     died = int(got[1])
+    cas = cas_same_shape(kind, cas_case, S, V or K) if cas_case else None
     if kind == "frontier_dense":
         ops = dense_scan_ops(stream, died, V, step_ops=shape[0])
         nbytes = 20 * len(stream) + 2 * (1 << S) * V + 24
@@ -1604,6 +1640,7 @@ def multi_register_kernel_row(kind, name, stream, shape, K=None):
                                 if V is not None else None),
             "events": len(stream), "result": [int(x) for x in got[:4]],
             "max_abs_err": err, "equal": True, "ms": ms,
+            "c_entry": split, "cas_same_shape": cas,
             "plain_ms": plain_ms, unit: total, f"warp_{unit}": warp,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1676,8 +1713,8 @@ def multi_register_phases(name, smi) -> dict:
         encode_multi_register_ops)
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.histories import (
-        corrupt_txn_keys, corrupt_txn_reads, multi_key_acid_history,
-        multi_register_history)
+        corrupt_txn_keys, corrupt_txn_reads, crash_late_writes,
+        multi_key_acid_history, multi_register_history)
     from jepsen_tpu_torch.models import MultiRegister, multi_register_spec
     from jepsen_tpu_torch.ops.jitlin import JitLinKernel
 
@@ -1853,20 +1890,22 @@ def multi_register_phases(name, smi) -> dict:
     rows = {
         "dense_cta": multi_register_kernel_row(
             "frontier_dense", "dense_cta_3x5",
-            encode_multi_register_ops(h1), MR_SHAPE),
+            encode_multi_register_ops(h1), MR_SHAPE, cas_case="cas_s5_v256"),
         "dense_cta_invalid": multi_register_kernel_row(
             "frontier_dense", "dense_cta_3x5_invalid",
             encode_multi_register_ops(corrupt_txn_reads(h1, 2)), MR_SHAPE),
         "dense_warp": multi_register_kernel_row(
             "frontier_dense", "dense_warp_2x3",
-            encode_multi_register_ops(h23, 2, 3), (2, 3)),
+            encode_multi_register_ops(h23, 2, 3), (2, 3),
+            cas_case="cas_s5_v16"),
         "sparse": multi_register_kernel_row(
             "frontier_sparse", "sparse_3x5_s10",
             encode_multi_register_ops(crash_late_writes(h1)), MR_SHAPE,
-            K=256),
+            K=256, cas_case="cas_s10_k256"),
         "sparse_s5": multi_register_kernel_row(
             "frontier_sparse", "sparse_3x5_s5",
-            encode_multi_register_ops(h1), MR_SHAPE, K=256),
+            encode_multi_register_ops(h1), MR_SHAPE, K=256,
+            cas_case="cas_s5_k256"),
     }
     if rows["dense_cta"]["dense_warp_path"] \
             or not rows["dense_warp"]["dense_warp_path"] \

@@ -279,6 +279,19 @@ def corrupt_txn_keys(history: list[dict], keys, n: int = 1, seed: int = 0,
     return out
 
 
+def crash_late_writes(history: list[dict], n: int = 5,
+                      spread: int = 50) -> list[dict]:
+    """A copy of a multi-register ``history`` in which ``n`` of the last
+    ``spread`` ok writes, evenly spaced, crash (``info``): a crashed
+    write holds its slot for good, so the stream's slots grow by up to
+    ``n``."""
+    w = [i for i, op in enumerate(history)
+         if op["type"] == "ok" and op["value"][0][0] == "w"]
+    pick = set(w[-spread::spread // n][:n])
+    return [dict(op, type="info") if i in pick else op
+            for i, op in enumerate(history)]
+
+
 def _txn_history(txns) -> list[dict]:
     """Runs (process, invoke micro-ops, ok micro-ops) txns one after the
     other: an invoke and its ok each, with times 2i and 2i + 1."""

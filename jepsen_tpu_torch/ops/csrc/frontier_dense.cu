@@ -40,13 +40,16 @@
 // shared memory (the events' stage and the nibble tables, about 16 KB), so
 // several keys share an SM. The transition is the launch's model
 // (frontier_model.cuh): the CAS register's or the multi-register map's,
-// whose (keys, values) and digit powers come with the launch; the kernel
-// is instantiated for each (kModel). Every transition the kernel takes
-// goes through next_state, so one step serves both paths' tables and the
-// out-of-range flag; a multi-register
+// whose (keys, values), digit powers and their reciprocals come with the
+// launch; the kernel is instantiated for each (kModel). Every transition
+// the kernel takes goes through the model's step (model_steps), so one
+// step serves both paths' tables and the out-of-range flag (the warp
+// path steps a lane's 4 states of an invoke together); a multi-register
 // table is bucketed past the (V + 1)^K map states (216 to 256 at 3 x 5),
 // and the flag, like the reference's, also covers the states past them,
-// which no history reaches. The closure runs level by
+// which no history reaches: a step keeps the map's states in the map, so
+// the flag steps those padding states alone (first_leaving_state) and is
+// still the reference's, bit for bit. The closure runs level by
 // level: a row's level is popcount(r & pm), and the rows of level p read
 // only rows r ^ 2^t of level p - 1, already final; a path of the closure
 // adds at most npend bits, so this is the reference's fixpoint. The kill
@@ -172,7 +175,7 @@ template <int kRows, int kNib, int kModel>
 __device__ __forceinline__ void warp_scan_rows(const int* kind, const int* slot,
                                const int* fv, const int* av, const int* bv,
                                uint32_t* T, uint32_t* nib, int* ev, int E,
-                               int S, int V, const Model& m, int lane,
+                               int S, int V, const Model& md, int lane,
                                bool* alive_out,
                                int* died_out, int* peak_out,
                                int* returns_out) {
@@ -198,19 +201,25 @@ __device__ __forceinline__ void warp_scan_rows(const int* kind, const int* slot,
       const int f = ev[2 * kEvChunk + k], a = ev[3 * kEvChunk + k],
                 b = ev[4 * kEvChunk + k];
       // lane takes nibble j = lane / 4 (states 4j .. 4j + 3; none past V)
-      // and the 4 nibble values n = 4 (lane % 4) .. + 3
+      // and the 4 nibble values n = 4 (lane % 4) .. + 3; the 4 states
+      // step together (one decode of the op, 4 chains interleaved)
       const int j = lane >> 2;
-      auto image = [&](int v) -> uint32_t {
-        const int st = v < V ? next_state<kModel>(m, v, f, a, b, V) : -1;
-        return st >= 0 ? 1u << st : 0u;
-      };
-      const uint32_t w0 = image(4 * j), w1 = image(4 * j + 1),
-                     w2 = image(4 * j + 2), w3 = image(4 * j + 3);
+      const int v4[4] = {4 * j, 4 * j + 1, 4 * j + 2, 4 * j + 3};
+      int st[4];
+      bool ok[4];
+      model_steps<kModel, 4>(md, v4, f, a, b, st, ok);
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = v4[i] < V && ok[i] && st[i] >= 0 && st[i] < V ? 1u << st[i]
+                                                             : 0u;
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
         const int n = 4 * (lane & 3) + m;
-        nib[s * 128 + j * 16 + n] = ((n & 1) ? w0 : 0u) | ((n & 2) ? w1 : 0u) |
-                                    ((n & 4) ? w2 : 0u) | ((n & 8) ? w3 : 0u);
+        nib[s * 128 + j * 16 + n] = ((n & 1) ? w[0] : 0u) |
+                                    ((n & 2) ? w[1] : 0u) |
+                                    ((n & 4) ? w[2] : 0u) |
+                                    ((n & 8) ? w[3] : 0u);
       }
       pm |= 1 << s;
       continue;
@@ -355,12 +364,14 @@ frontier_dense_kernel(const int* __restrict__ kind,
     }
     if (tid < 2) cnt[tid] = 0;
   }
-  // inexact: an invoke's transition leaves [0, V) for some state
+  // inexact: an invoke's transition leaves [0, V) for some state; only
+  // the states from first_leaving_state on can (frontier_model.cuh)
   bool oob = false;
+  const int v_leave = first_leaving_state<kModel>(model, V);
   for (int e = tid; e < E; e += kThreads) {
     if (kind[e] != kInvoke) continue;
     const int f = fv[e], a = av[e], b = bv[e];
-    for (int v = 0; v < V && !oob; ++v) {
+    for (int v = v_leave; v < V && !oob; ++v) {
       bool ok;
       const int st = model_step<kModel>(model, v, f, a, b, &ok);
       oob = ok && (st < 0 || st >= V);

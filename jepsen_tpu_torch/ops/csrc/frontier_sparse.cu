@@ -58,8 +58,10 @@
 // - CTA path (a longer list or more candidates, and the first pass after a
 //   given list, which may be unsorted or hold duplicates; the reference
 //   counts that raw list before the pass): all threads gather the list's
-//   keys and expansions, placed by one block prefix count, sort the
-//   candidates that exist (rounded up to a power of two, at least 64; a
+//   keys and the expansions a sorted list does not already hold (a held
+//   one adds no distinct key, and near a closure's end most are held),
+//   placed by one block prefix count, sort them (rounded up to a power
+//   of two, at least 64; a
 //   bitonic sort whose steps within 64 keys run in registers, one warp a
 //   block, so only the steps across blocks take a barrier each) and keep
 //   the first K distinct by a second block prefix count.
@@ -69,7 +71,8 @@
 // The transition is the launch's model (frontier_model.cuh): the CAS
 // register's or the multi-register map's, whose (keys, values) and digit
 // powers come with the launch; the kernel is instantiated for each
-// (kModel), and `expand` alone steps it. For the CAS
+// (kModel), and `expand` (a CTA pass's candidate) and `expand2` (a warp
+// pass's two keys a lane, stepped together) alone step it. For the CAS
 // register the expansions of a sorted, distinct list by one slot are
 // themselves sorted once adjacent duplicates go (adding bit t keeps the
 // order of masks that lack it; within a mask a read keeps the states'
@@ -125,6 +128,23 @@ __device__ __forceinline__ u64 expand(const Model& md, u64 key, int t, int f,
   bool ok;
   const int st = model_step<kModel>(md, key_state(key), f, a, b, &ok);
   return ok ? pack(m | bit, st) : kSentinel;
+}
+
+// The expansions of two keys by slot t, their steps taken together (one
+// decode of the op, two chains interleaved).
+template <int kModel>
+__device__ __forceinline__ void expand2(const Model& md, u64 k0, u64 k1,
+                                        int t, int f, int a, int b, u64* c0,
+                                        u64* c1) {
+  const int st[2] = {key_state(k0), key_state(k1)};
+  int nx[2];
+  bool ok[2];
+  model_steps<kModel, 2>(md, st, f, a, b, nx, ok);
+  const uint32_t bit = 1u << t, m0 = key_mask(k0), m1 = key_mask(k1);
+  *c0 = m0 != kSentinelMask && !(m0 & bit) && ok[0] ? pack(m0 | bit, nx[0])
+                                                     : kSentinel;
+  *c1 = m1 != kSentinelMask && !(m1 & bit) && ok[1] ? pack(m1 | bit, nx[1])
+                                                     : kSentinel;
 }
 
 // Whether key is among the sorted keys F[0, len).
@@ -277,19 +297,30 @@ __device__ void cta_pass(u64* F, u64* C, const int* cur, PassArgs* A,
     return expand<kModel>(md, key, t, cur[t], cur[kMaxSlots + t],
                   cur[2 * kMaxSlots + t]);
   };
+  // An expansion that a sorted list already holds adds nothing to the
+  // pass's distinct keys (the list's own keys are candidates), so it is
+  // not sorted: bit i - lo of keep marks the candidates that are (per <=
+  // 64: items <= K (S + 1) <= 2^14). A sorted list's pass that keeps no
+  // expansion changes nothing (A->len and A->count stay as warp 0 set
+  // them).
+  unsigned long long keep = 0;
   int mine = 0;
-  for (int i = lo; i < hi; ++i) mine += cand(i) != kSentinel;
-  int n;
-  int pos = block_scan(mine, scratch, &n);
-  // a sorted list's pass whose expansions all lie in the list changes
-  // nothing (A->len and A->count stay as warp 0 set them)
-  bool fresh = A->given;
+  bool fresh = false;
   for (int i = lo; i < hi; ++i) {
     const u64 c = cand(i);
-    if (c == kSentinel) continue;
-    C[pos++] = c;
-    if (i % np1 != 0) fresh = fresh || !in_sorted(F, n_in, c);
+    const bool expansion = i % np1 != 0;
+    if (c == kSentinel ||
+        (expansion && !A->given && in_sorted(F, n_in, c)))
+      continue;
+    keep |= 1ull << (i - lo);
+    ++mine;
+    fresh = fresh || expansion;
   }
+  fresh = fresh || A->given;
+  int n;
+  int pos = block_scan(mine, scratch, &n);
+  for (int i = lo; i < hi; ++i)
+    if ((keep >> (i - lo)) & 1ull) C[pos++] = cand(i);
   int n2 = kWarpCand;
   while (n2 < n) n2 <<= 1;
   for (int i = n + tid; i < n2; i += kThreads) C[i] = kSentinel;
@@ -343,13 +374,13 @@ __device__ __forceinline__ bool warp_pass(u64* F, u64* C, const int* cur,
   for (uint32_t rem = pm; rem; rem &= rem - 1) {
     const int t = __ffs(rem) - 1;
     const int f = cur[t], a = cur[kMaxSlots + t], b = cur[2 * kMaxSlots + t];
-    const u64 c0 = expand<kModel>(md, k0, t, f, a, b);
+    u64 c0, c1;
+    expand2<kModel>(md, k0, k1, t, f, a, b, &c0, &c1);
     const unsigned b0 = __ballot_sync(kFull, c0 != kSentinel);
     const int p0 = n + __popc(b0 & lt);
     if (c0 != kSentinel && p0 < kWarpCand) C[p0] = c0;
     n += __popc(b0);
     if (two_keys) {
-      const u64 c1 = expand<kModel>(md, k1, t, f, a, b);
       const unsigned b1 = __ballot_sync(kFull, c1 != kSentinel);
       const int p1 = n + __popc(b1 & lt);
       if (c1 != kSentinel && p1 < kWarpCand) C[p1] = c1;

@@ -8,18 +8,27 @@ earlier commit unpacked by ``git archive`` into a directory that
 ``.gitignore`` lists). ``frontier_dense.cu`` and ``frontier_sparse.cu``
 are built from both checkouts' ``jepsen_tpu_torch/ops/csrc`` with
 ``_build.NVCC_FLAGS`` (four ``nvcc``, all started together, into
-``jepsen_tpu_torch/_build/compare``), and each C entry is called directly on the shapes
-of ``chip_smoke.py``'s main paths (the corrupted headline's dense table,
-the 10k-op fresh-value history's sparse list) and on its frontier cases
-that take each kernel's CTA path. For each case both builds' results
-must agree bit for bit (alive, died, the flag, peak and the final table
-or list); then each build is timed by CUDA events over back-to-back
-calls, in the order other, this, this, other, and one JSON line gives
-both builds' two timings, this build's work on its warp path and in all
-(``out[4:6]``, which an earlier build may leave at 0) and the results.
-The cases step the CAS register; a build from before the kernels took a
-model (no ``csrc/frontier_model.cuh``) is called through its own C
-signature, without the model's three ints.
+``jepsen_tpu_torch/_build/compare``), and each C entry is called directly
+on the cases of :func:`cases`: the shapes of ``chip_smoke.py``'s main
+paths and of its frontier cases that take each kernel's CTA path, with
+the CAS register; the multi-register model's paths (the dense CTA path
+at (3, 5), the dense warp path at (2, 3), the sparse list at S = 5 and
+at S = 10) and keys of the 1,000-key multi-key-acid check at S = 7 to 10;
+and the CAS register at each of those (S, V) or (S, K), the path's own
+cost without the multi-register step. For each case both builds'
+results must agree bit for bit (alive, died, the flag, peak and the
+final table or list); then each build is timed by CUDA events over
+back-to-back calls, in the order other, this, this, other, and one JSON
+line gives both builds' two timings, this build's work on its warp path
+and in all (``out[4:6]``, which an earlier build may leave at 0) and the
+results. Each timing is split into the launch's fixed part (the same
+call on an empty event stream: set-up and write-back) and, for the dense
+table, the stream's invokes alone (the next-state tables and the
+out-of-range flag; no return closes). A build from before the kernels
+took a model (no ``csrc/frontier_model.cuh``) is called through its own
+C signature, without the model's three ints, and skips the
+multi-register cases. One ``sass`` line a build gives each kernel
+instantiation's instruction count (``cuobjdump -sass``).
 The last line is the card's name and power limit as ``nvidia-smi``
 prints them. Exits 1 without a CUDA device.
 """
@@ -27,14 +36,15 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
 
 NAMES = ("frontier_dense", "frontier_sparse")
-# the CAS register's (model, keys, values), the last ints of a build's
-# entry that takes a model
-CAS_MODEL = (0, 0, 0)
+# the kernels' model codes (models.KERNEL_CAS, KERNEL_MULTI_REGISTER)
+CAS, MULTI_REGISTER = 0, 1
 
 
 def model_free_signatures(root) -> dict:
@@ -56,7 +66,7 @@ def build(roots: dict, out_dir: Path, names=NAMES,
     """{(label, name): C entry} of the kernels ``names`` from each root's
     csrc, all compiled at once. ``signatures`` may give a (label, name)
     another (entry name, argtypes) than ``_build.SIGNATURES``: an earlier
-    build's C signature."""
+    build's C signature. Each entry's library path is its ``lib_path``."""
     from jepsen_tpu_torch.ops import _build
     jobs = []
     for label, root in roots.items():
@@ -77,111 +87,231 @@ def build(roots: dict, out_dir: Path, names=NAMES,
             (label, name), _build.SIGNATURES[name])
         fn = getattr(ctypes.CDLL(str(lib)), fn_name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fn.lib_path = lib
+        fn.ptxas = [ln.strip() for ln in log.splitlines()
+                    if re.search(r"Compiling entry|Used \d+ registers|"
+                                 r"spill", ln)]
         entries[label, name] = fn
     return entries
 
 
+def sass_counts(lib: Path) -> dict:
+    """{kernel function: SASS instruction count} of a built library, by
+    ``cuobjdump -sass`` (found beside ``nvcc``); {} without it."""
+    from jepsen_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build._nvcc()).parent / "cuobjdump")
+    try:
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return {}
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[fn] += 1
+    return counts
+
+
+def _acid_key(S: int):
+    """The first key of ``multi_key_acid_history(1000)`` whose stream has
+    S slots, encoded: key g's sub-history is group g's txns
+    (histories.multi_key_acid_history)."""
+    from jepsen_tpu_torch.checker.linear_encode import (
+        encode_multi_register_ops)
+    from jepsen_tpu_torch.histories import multi_register_history
+    for g in range(1000):
+        st = encode_multi_register_ops(multi_register_history(
+            20, 10, 3, 5, seed=2000 + g, n_readers=5))
+        if st.n_slots == S:
+            return st
+    raise ValueError(f"no multi-key-acid key with {S} slots")
+
+
 def cases():
-    """(case, kernel, history maker, dense table (S, V) or sparse K):
-    chip_smoke.py's main-path shapes, then its frontier cases that take
-    the CTA paths, and S = 7 at V = 32, the dense CTA path's smallest
-    table."""
-    from jepsen_tpu_torch.histories import corrupt_reads, register_history
+    """(case, kernel, stream maker, dense table (S or None for the
+    stream's, V) or sparse K, model (keys, values) or None for the CAS
+    register): chip_smoke.py's main-path shapes, then its frontier cases
+    that take the CTA paths, and S = 7 at V = 32, the dense CTA path's
+    smallest table; the multi-register rows of chip_smoke.py's phase 11
+    and keys of its 1,000-key check; the CAS register at those shapes."""
+    from jepsen_tpu_torch.checker.linear_encode import (
+        encode_multi_register_ops, encode_register_ops)
+    from jepsen_tpu_torch.histories import (
+        corrupt_reads, crash_late_writes, multi_register_history,
+        register_history)
+
+    def reg(*args):
+        return lambda: encode_register_ops(register_history(*args))
+
+    def mr(n, seed, shape=(3, 5), crash=False):
+        def make():
+            h = multi_register_history(n, 5, *shape, seed=seed)
+            return encode_multi_register_ops(
+                crash_late_writes(h) if crash else h, *shape)
+        return make
+
+    def crashed_reg(n, procs, seed, values, every):
+        # every ``every``-th write or cas completion crashes
+        def make():
+            out, k = [], 0
+            for op in register_history(n, procs, seed, values):
+                op = dict(op)
+                if op["type"] == "ok" and op["f"] != "read":
+                    k += 1
+                    if k % every == 0:
+                        op["type"] = "info"
+                out.append(op)
+            return encode_register_ops(out)
+        return make
+
     return [
-        ("corrupted_headline", "frontier_dense", lambda: corrupt_reads(
-            register_history(10_000, 5, 42, 5), n=2, seed=0), (5, 16)),
-        ("valid_headline", "frontier_dense",
-         lambda: register_history(10_000, 5, 42, 5), (5, 16)),
-        ("s12", "frontier_dense", lambda: register_history(800, 12, 105, 4),
-         (12, 16)),
-        ("v256_s3", "frontier_dense",
-         lambda: register_history(1000, 3, 106, 300), (3, 512)),
-        ("s6_v512", "frontier_dense",
-         lambda: register_history(1000, 6, 108, 300), (6, 512)),
-        ("s7_v512", "frontier_dense",
-         lambda: register_history(1000, 7, 109, 300), (7, 512)),
-        ("s7_v16", "frontier_dense",
-         lambda: register_history(1000, 7, 111, 5), (7, 16)),
-        ("s7_v32", "frontier_dense",
-         lambda: register_history(1000, 7, 112, 20), (7, 32)),
-        ("fresh_values_10k", "frontier_sparse",
-         lambda: register_history(10_000, 5, 42, 10 ** 9), 256),
-        ("s12", "frontier_sparse", lambda: register_history(800, 12, 105, 4),
-         256),
-        ("s12", "frontier_sparse", lambda: register_history(800, 12, 105, 4),
-         16),
-        ("corrupted_s5", "frontier_sparse", lambda: corrupt_reads(
-            register_history(1000, 5, 102, 5), n=2, seed=1), 256),
-        ("fresh_values", "frontier_sparse",
-         lambda: register_history(1000, 5, 107, 10 ** 9), 4),
+        ("corrupted_headline", "frontier_dense", lambda: encode_register_ops(
+            corrupt_reads(register_history(10_000, 5, 42, 5), n=2, seed=0)),
+         (5, 16), None),
+        ("valid_headline", "frontier_dense", reg(10_000, 5, 42, 5), (5, 16),
+         None),
+        ("s12", "frontier_dense", reg(800, 12, 105, 4), (12, 16), None),
+        ("v256_s3", "frontier_dense", reg(1000, 3, 106, 300), (3, 512),
+         None),
+        ("s6_v512", "frontier_dense", reg(1000, 6, 108, 300), (6, 512),
+         None),
+        ("s7_v512", "frontier_dense", reg(1000, 7, 109, 300), (7, 512),
+         None),
+        ("s7_v16", "frontier_dense", reg(1000, 7, 111, 5), (7, 16), None),
+        ("s7_v32", "frontier_dense", reg(1000, 7, 112, 20), (7, 32), None),
+        ("fresh_values_10k", "frontier_sparse", reg(10_000, 5, 42, 10 ** 9),
+         256, None),
+        ("s12", "frontier_sparse", reg(800, 12, 105, 4), 256, None),
+        ("s12", "frontier_sparse", reg(800, 12, 105, 4), 16, None),
+        ("corrupted_s5", "frontier_sparse", lambda: encode_register_ops(
+            corrupt_reads(register_history(1000, 5, 102, 5), n=2, seed=1)),
+         256, None),
+        ("fresh_values", "frontier_sparse", reg(1000, 5, 107, 10 ** 9), 4,
+         None),
+        # the multi-register model: chip_smoke.py phase 11's kernel rows
+        # (1k txns, seed 43: the dense CTA path at (3, 5), S = 5; the
+        # sparse list at S = 5 and, with late writes crashed, at S = 10)
+        # and the dense warp path at (2, 3)
+        ("mr_dense_cta_3x5", "frontier_dense", mr(1000, 43),
+         (None, 256), (3, 5)),
+        ("mr_dense_warp_2x3", "frontier_dense", mr(1000, 44, (2, 3)),
+         (None, 16), (2, 3)),
+        ("mr_sparse_s5", "frontier_sparse", mr(1000, 43), 256, (3, 5)),
+        ("mr_sparse_s10", "frontier_sparse", mr(1000, 43, crash=True), 256,
+         (3, 5)),
+        # keys of the 1,000-key multi-key-acid check, as its rung launches
+        # them: S <= 9 on the dense table (V = 256), S = 10 on the list
+        ("mr_acid_s7", "frontier_dense", lambda: _acid_key(7), (None, 256),
+         (3, 5)),
+        ("mr_acid_s8", "frontier_dense", lambda: _acid_key(8), (None, 256),
+         (3, 5)),
+        ("mr_acid_s9", "frontier_dense", lambda: _acid_key(9), (None, 256),
+         (3, 5)),
+        ("mr_acid_s10", "frontier_sparse", lambda: _acid_key(10), 256,
+         (3, 5)),
+        # the CAS register at the multi-register rows' shapes and paths:
+        # the path's own cost
+        ("cas_s5_v256", "frontier_dense", reg(1000, 5, 121, 200), (5, 256),
+         None),
+        ("cas_s9_v256", "frontier_dense", reg(200, 9, 122, 200), (9, 256),
+         None),
+        ("cas_s5_v16", "frontier_dense", reg(1000, 5, 123, 5), (5, 16),
+         None),
+        ("cas_s5_k256", "frontier_sparse", reg(1000, 5, 124, 200), 256,
+         None),
+        ("cas_s10_k256", "frontier_sparse", crashed_reg(1000, 5, 125, 200, 70),
+         256, None),
     ]
 
 
-def run_case(entries, kernel, history, shape, reps: int) -> dict:
+def run_case(entries, kernel, st, shape, model, reps: int) -> dict:
     import numpy as np
     import torch
-    from jepsen_tpu_torch.checker.linear_encode import encode_register_ops
+    from jepsen_tpu_torch.ops import _build
     from jepsen_tpu_torch.ops import frontier_kernels as fk
     from jepsen_tpu_torch.ops.jitlin import _bucket
-    st = encode_register_ops(history)
-    ev = [torch.as_tensor(np.asarray(x), dtype=torch.int32, device="cuda")
-          for x in (st.kind, st.slot, st.f, st.a, st.b)]
+    cols = [np.asarray(x, dtype=np.int32)
+            for x in (st.kind, st.slot, st.f, st.a, st.b)]
+    ev = [torch.as_tensor(x, device="cuda") for x in cols]
+    inv = cols[0] == fk.EV_INVOKE
+    ev_inv = [torch.as_tensor(np.ascontiguousarray(x[inv]), device="cuda")
+              for x in cols]
     E, S = ev[0].numel(), max(1, st.n_slots)
     stream = torch.cuda.current_stream().cuda_stream
-    if kernel == "frontier_dense":
+    dense = kernel == "frontier_dense"
+    if dense:
         St, V = shape
+        St = St or S
         V = max(V, _bucket(len(st.intern), floor=16))
-        t_in = fk.init_table(St, V, 0, "cuda").to(torch.uint8)
-        outs = [torch.empty_like(t_in)]
-        args = [t_in]
-        tail = (E, St, V)
-        info = {"S": St, "V": V}
+        args = [fk.init_table(St, V, 0, "cuda").to(torch.uint8)]
+        dims = (St, V)
+        info = {"S": St, "V": V, "warp_path": fk.dense_warp_path(St, V)}
     else:
-        m0, s0 = fk.init_frontier(shape, 0, "cuda")
-        outs = [torch.empty_like(m0), torch.empty_like(s0)]
-        args = [m0, s0]
-        tail = (E, S, shape)
+        args = list(fk.init_frontier(shape, 0, "cuda"))
+        dims = (S, shape)
         info = {"S": S, "K": shape}
-    res = {}
-
-    from jepsen_tpu_torch.ops import _build
+    code = (MULTI_REGISTER, *model) if model else (CAS, 0, 0)
     n_args = len(_build.SIGNATURES[kernel][1])
+    labels = [k for k in ("other", "this") if (k, kernel) in entries and (
+        not model or len(entries[k, kernel].argtypes) == n_args)]
+    # each build's outputs: the final frontier and out[8], allocated once,
+    # so that a timed call is the C entry's launch alone
+    bufs = {k: ([torch.empty_like(x) for x in args],
+                torch.zeros(8, dtype=torch.int32, device="cuda"))
+            for k in labels}
 
-    def call(label):
-        out = torch.zeros(8, dtype=torch.int32, device="cuda")
+    def call(label, cols=ev, n=E):
         fn = entries[label, kernel]
-        model = CAS_MODEL if len(fn.argtypes) == n_args else ()
-        rc = fn(*(x.data_ptr() for x in ev + args + outs + [out]), *tail,
-                *model, stream)
+        fr, out = bufs[label]
+        tail = code if len(fn.argtypes) == n_args else ()
+        rc = fn(*(x.data_ptr() for x in cols + args + fr + [out]), n,
+                *dims, *tail, stream)
         if rc != 0:
             raise RuntimeError(f"{label} {kernel}: CUDA error {rc}")
-        res[label] = (out, [x.clone() for x in outs])
 
-    for label in ("other", "this"):
+    for label in labels:
         call(label)
     torch.cuda.synchronize()
-    (o_out, o_fr), (t_out, t_fr) = res["other"], res["this"]
-    equal = (torch.equal(o_out[:4], t_out[:4])
-             and all(torch.equal(x, y) for x, y in zip(o_fr, t_fr)))
-    if not equal:
-        raise AssertionError(f"{kernel} {info}: the builds differ: "
-                             f"{o_out.tolist()} {t_out.tolist()}")
-    times = {"other": [], "this": []}
-    for label in ("other", "this", "this", "other"):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        call(label)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            call(label)
-        end.record()
-        torch.cuda.synchronize()
-        times[label].append(start.elapsed_time(end) / reps)
-    return {"kernel": kernel, **info, "events": E,
-            "result": t_out[:4].tolist(), "warp_work": int(t_out[4]),
-            "work": int(t_out[5]), "other_ms": times["other"],
-            "this_ms": times["this"]}
+    t_out = bufs["this"][1]
+    if "other" in bufs:
+        (o_fr, o_out), (t_fr, _) = bufs["other"], bufs["this"]
+        equal = (torch.equal(o_out[:4], t_out[:4])
+                 and all(torch.equal(x, y) for x, y in zip(o_fr, t_fr)))
+        if not equal:
+            raise AssertionError(f"{kernel} {info}: the builds differ: "
+                                 f"{o_out.tolist()} {t_out.tolist()}")
+    row = {"kernel": kernel, "model": list(model) if model else "cas",
+           **info, "events": E, "result": t_out[:4].tolist(),
+           "warp_work": int(t_out[4]), "work": int(t_out[5])}
+
+    def timing(*how):
+        times = {k: [] for k in labels}
+        for label in ("other", "this", "this", "other"):
+            if label not in times:
+                continue
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            call(label, *how)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(reps):
+                call(label, *how)
+            end.record()
+            torch.cuda.synchronize()
+            times[label].append(start.elapsed_time(end) / reps)
+        return times
+
+    for name, how in (("", ()), ("fixed_", (ev, 0)),
+                      *((("invokes_", (ev_inv, int(inv.sum()))),)
+                        if dense else ())):
+        for label, t in timing(*how).items():
+            row[f"{label}_{name}ms"] = t
+    return row
 
 
 def main(argv) -> int:
@@ -198,8 +328,14 @@ def main(argv) -> int:
     entries = build({"other": argv[0],
                      "this": Path(__file__).resolve().parents[2]}, out_dir,
                     signatures=model_free_signatures(argv[0]))
-    for case, kernel, make, shape in cases():
-        row = run_case(entries, kernel, make(), shape, reps=5)
+    for (label, name), fn in sorted(entries.items()):
+        print(json.dumps({"sass": label, "library": name,
+                          "instructions": sass_counts(fn.lib_path),
+                          "ptxas": fn.ptxas}), flush=True)
+    for case, kernel, make, shape, model in cases():
+        st = make()
+        reps = 5 if len(st.kind) > 1000 else 20
+        row = run_case(entries, kernel, st, shape, model, reps=reps)
         print(json.dumps({"case": case, **row}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -16,7 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from jepsen_tpu_torch.histories import corrupt_reads, register_history
+from jepsen_tpu_torch.histories import (
+    corrupt_reads, corrupt_txn_reads, crash_late_writes,
+    multi_register_history, register_history,
+)
 
 SENT_MASK, SENT_STATE = 0xFFFFFFFF, 0x7FFFFFFF
 
@@ -903,7 +906,18 @@ def test_sparse_kernel_matches_plain_on_card(cuda_device, case, K):
                                                  work["passes"]]
 
 
-# the kernels' paths by shape: (table S, V, history, warp path?)
+def _mr_events(history, shape=(3, 5)):
+    """The multi-register stream of ``history`` at ``shape``: (events, S)."""
+    from jepsen_tpu_torch.checker.linear_encode import (
+        encode_multi_register_ops)
+    st = encode_multi_register_ops(history, *shape)
+    return ([np.asarray(x, np.int32) for x in
+             (st.kind, st.slot, st.f, st.a, st.b)], st.n_slots)
+
+
+# the kernels' paths by shape: (table S, V, history, warp path?), and for
+# the multi-register model (table S, V, (events, S), warp path?, (keys,
+# values))
 DENSE_PATH_CASES = {
     "warp_s5_v16": lambda: (5, 16, register_history(
         400, n_procs=5, seed=20, n_values=5), True),
@@ -924,6 +938,29 @@ DENSE_PATH_CASES = {
         400, n_procs=5, seed=30, n_values=5), True),
     "cta_s6_v512_across_chunk": lambda: (6, 512, register_history(
         400, n_procs=6, seed=31, n_values=300), False),
+    # the multi-register model on each path: (2, 3) fills 16 states (one
+    # nibble table of rows a lane: S = 5 and 7), and 32 with 16 padding
+    # states that the out-of-range flag steps; (3, 5) takes 216 of 256
+    "mr_warp_2x3_s5": lambda: (5, 16, _mr_events(multi_register_history(
+        300, 5, 2, 3, seed=40), (2, 3)), True, (2, 3)),
+    "mr_warp_2x3_s7": lambda: (7, 16, _mr_events(multi_register_history(
+        200, 7, 2, 3, seed=41), (2, 3)), True, (2, 3)),
+    "mr_warp_2x3_s6_v32": lambda: (6, 32, _mr_events(multi_register_history(
+        200, 6, 2, 3, seed=42), (2, 3)), True, (2, 3)),
+    "mr_cta_2x3_s7_v32": lambda: (7, 32, _mr_events(multi_register_history(
+        200, 7, 2, 3, seed=43), (2, 3)), False, (2, 3)),
+    "mr_cta_3x5_s5": lambda: (5, 256, _mr_events(corrupt_txn_reads(
+        multi_register_history(300, 5, seed=44), 2, seed=1)), False,
+        (3, 5)),
+    "mr_cta_3x5_s9": lambda: (9, 256, _mr_events(multi_register_history(
+        120, 9, seed=45)), False, (3, 5)),
+    "mr_cta_3x5_v512": lambda: (6, 512, _mr_events(multi_register_history(
+        200, 6, seed=46)), False, (3, 5)),
+    "mr_warp_2x3_s5_across_chunk": lambda: (5, 16, _mr_events(
+        multi_register_history(400, 5, 2, 3, seed=47), (2, 3)), True,
+        (2, 3)),
+    "mr_cta_3x5_s5_across_chunk": lambda: (5, 256, _mr_events(
+        multi_register_history(400, 5, seed=48)), False, (3, 5)),
 }
 
 
@@ -933,18 +970,22 @@ def test_dense_kernel_paths_match_plain_on_card(cuda_device, case):
     """Each dense path bit-equal to the plain version: the warp path
     (one-word rows, V <= 32, with rows a lane x nibbles a row <= 16: 1, 2
     and 4 rows a lane, 4 and 8 nibbles) and the CTA path (V > 32, or more
-    rows)."""
+    rows), with the CAS register and with the multi-register model."""
+    from jepsen_tpu_torch.models import multi_register_spec
     from jepsen_tpu_torch.ops import frontier_kernels as fk
-    S, V, h, warp = DENSE_PATH_CASES[case]()
+    S, V, h, warp, *shape = DENSE_PATH_CASES[case]()
     assert fk.dense_warp_path(S, V) is warp
-    ev = _events_of(h)[0]
+    step = multi_register_spec(*shape[0]).step_ids if shape else None
+    ev = h[0] if shape else _events_of(h)[0]
+    if shape:
+        assert h[1] <= S
     if case.endswith("_across_chunk"):
         ev = _invokes_across_chunk(ev)
     ev = [torch.from_numpy(x).to(cuda_device) for x in ev]
     t0 = torch.from_numpy(_init_table(S, V)).to(cuda_device)
-    got = fk.frontier_dense(*ev, t0)
+    got = fk.frontier_dense(*ev, t0, step_ids=step)
     work = {}
-    ref = fk.frontier_dense_torch(*ev, t0, work=work)
+    ref = fk.frontier_dense_torch(*ev, t0, step_ids=step, work=work)
     for x, y in zip(got, ref):
         assert torch.equal(x, y)
     # the path the kernel took, by its own count
@@ -967,6 +1008,15 @@ SPARSE_PATH_CASES = {
     # invokes at events 511 and 512, across the staged chunks
     "warp_across_chunk": lambda: (_across_chunk_case(register_history(
         400, n_procs=5, seed=32, n_values=10 ** 9)), 256, False),
+    # the multi-register model: lists of more than 64 pairs at S = 5, the
+    # K = 256 overflow at S = 10, invokes across the chunks
+    "mr_list_over_64": lambda: (_mr_events(multi_register_history(
+        200, 5, seed=50)), 256, False, (3, 5)),
+    "mr_overflow_s10_k256": lambda: (_mr_events(crash_late_writes(
+        multi_register_history(300, 5, seed=51))), 256, False, (3, 5)),
+    "mr_across_chunk": lambda: ((lambda ev: (_invokes_across_chunk(ev[0]),
+                                             ev[1]))(_mr_events(
+        multi_register_history(400, 5, seed=52))), 256, False, (3, 5)),
 }
 
 
@@ -975,20 +1025,26 @@ SPARSE_PATH_CASES = {
 def test_sparse_kernel_paths_match_plain_on_card(cuda_device, case):
     """Each sparse path bit-equal to the plain version: a history that
     stays on the warp path, one whose passes exceed 64 candidates, the
-    K = 4 overflow and an unsorted given list with duplicates."""
+    K = 4 overflow and an unsorted given list with duplicates; with the
+    multi-register model, lists over 64 pairs and the K = 256 overflow
+    at S = 10."""
+    from jepsen_tpu_torch.models import multi_register_spec
     from jepsen_tpu_torch.ops import frontier_kernels as fk
-    (ev, S), K, unsorted = SPARSE_PATH_CASES[case]()
+    (ev, S), K, unsorted, *shape = SPARSE_PATH_CASES[case]()
+    step = multi_register_spec(*shape[0]).step_ids if shape else None
     m0, s0 = _unsorted_start(K, K) if unsorted else _init_frontier(K)
     work = {}
     ref = fk.frontier_sparse_torch(*(torch.from_numpy(x) for x in ev),
                                    *(torch.from_numpy(x.astype(np.int64))
                                      .to(torch.uint32) if x.dtype == np.uint32
                                      else torch.from_numpy(x)
-                                     for x in (m0, s0)), S, work=work)
+                                     for x in (m0, s0)), S, step_ids=step,
+                                   work=work)
     ev = [torch.from_numpy(x).to(cuda_device) for x in ev]
     got = fk.frontier_sparse(
         *ev, torch.from_numpy(m0.astype(np.int64)).to(cuda_device)
-        .to(torch.uint32), torch.from_numpy(s0).to(cuda_device), S)
+        .to(torch.uint32), torch.from_numpy(s0).to(cuda_device), S,
+        step_ids=step)
     for x, y in zip(got, ref):
         assert torch.equal(x.cpu().to(torch.int64), y.to(torch.int64))
     # the path each pass took, by the kernel's own count
@@ -996,7 +1052,9 @@ def test_sparse_kernel_paths_match_plain_on_card(cuda_device, case):
                                                  work["passes"]]
     if case == "warp_fresh_values":
         assert work["warp_passes"] > 0.8 * work["passes"]
-    if case == "cta_s12":
+    if case in ("cta_s12", "mr_list_over_64"):
         assert work["warp_passes"] < work["passes"]
+    if case == "mr_overflow_s10_k256":
+        assert S >= 10 and bool(ref[2])
     if case == "overflow_k4":
         assert bool(ref[2])
