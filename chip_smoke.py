@@ -45,7 +45,9 @@ just before it and read just after:
   ``"cpu"`` walk key for key, with one launch of the set-classify kernel
   a check. The kernel is first held bit-equal to its plain version on
   seeded packed words at 1 x 1, 7 x 33, 400 x 20,000 and 2,048 x 262,144
-  (reads x elements), and on the main path's own inputs;
+  (reads x elements), at 400 x 20,000 with the read times drawn from 8
+  values, at a tall, narrow 4,096 x 96, and on the main path's own
+  inputs, as they are and with the reads listed last first;
 * the multi-register slice (the multi-key-acid workload, K = 3 keys x
   V = 5 values, 216 states): ``independent.checker(compose({"linear":
   linearizable(model=MultiRegister(), accelerator="gpu")}))`` on 1,000
@@ -1328,23 +1330,23 @@ SET_SHAPES = ((1, 1), (7, 33), (400, 20_000), (2048, 262_144))
 
 def set_inputs(words, t_read, invoke_t, ok_t, has_ok):
     """Host classify inputs as card tensors, through the pinned buffer the
-    set-full path uploads, and the milliseconds of that upload (CUDA
-    events)."""
+    set-full path uploads: ((words, t_read, invoke_t, ok_t, has_ok), the
+    rows' order by read time, the milliseconds of that upload (CUDA
+    events))."""
     from jepsen_tpu_torch.ops import setscan
     host, offs = setscan.pinned_inputs(words, t_read, invoke_t, ok_t, has_ok)
     up_ms = cuda_ms(lambda: host.to("cuda", non_blocking=True), 5)
-    return (setscan.card_views(host.to("cuda"), offs, len(t_read)), up_ms)
+    return (*setscan.card_views(host.to("cuda"), offs, len(t_read)), up_ms)
 
 
-def check_set_classify(case, args, E, up_ms, plain_reps):
+def check_set_classify(case, args, order, up_ms, E, plain_reps):
     """The kernel against its plain version on the card, bit-equal, and
-    its times: through the wrapper, the C entry alone, the plain
-    version; the upload and the byte bound beside them."""
-    import ctypes
+    its times: through the wrapper (which sorts the rows on the card),
+    the C entry alone (given the uploaded order), the plain version; the
+    upload and the byte bound beside them."""
     import torch
     from jepsen_tpu_torch.ops import _build, setscan
-    words = args[0]
-    R, W = words.shape
+    R, W = args[0].shape
     n = setscan.set_classify.launches
     got = setscan.set_classify(*args, E)
     launches = setscan.set_classify.launches - n
@@ -1360,10 +1362,14 @@ def check_set_classify(case, args, E, up_ms, plain_reps):
     out = [torch.empty_like(x) for x in got]
     lib = _build.library("set_classify")
 
+    words, t_read, invoke_t, ok_t, has_ok = args
+    # the C entry's arguments, made once: a timed call is its launch alone
+    entry_args = (*(x.data_ptr() for x in (
+        words, t_read, order, invoke_t, ok_t, has_ok, *out)), R, W, E,
+        torch.cuda.current_stream().cuda_stream)
+
     def entry():
-        rc = lib.jt_set_classify(
-            *(ctypes.c_void_p(x.data_ptr()) for x in (*args, *out)), R, W,
-            E, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        rc = lib.jt_set_classify(*entry_args)
         if rc != 0:
             raise RuntimeError(f"set_classify launch failed: {rc}")
     entry()
@@ -1386,36 +1392,34 @@ def check_set_classify(case, args, E, up_ms, plain_reps):
 
 def set_full_phases(name, smi) -> dict:
     """BASELINE config 4 on the card: the set-classify kernel against its
-    plain version at four shapes, then ``set_full(accelerator="gpu")`` on
-    config 4's history, valid, with planted loss and staleness
-    (``linearizable=True``: invalid), and that copy with its times moved
-    past 10^11 ns, each against the port's ``"cpu"`` walk. Returns the
-    kernels-line row and the launches of one valid check."""
-    import numpy as np
+    plain version at four shapes, with tied read times and at a tall,
+    narrow shape, then ``set_full(accelerator="gpu")`` on config 4's
+    history, valid, with planted loss and staleness (``linearizable=
+    True``: invalid), and that copy with its times moved past 10^11 ns,
+    each against the port's ``"cpu"`` walk; last the kernel on the main
+    path's inputs, as they are and with the reads last first. Returns
+    the kernels-line row and the launches of one valid check."""
     import torch
     from jepsen_tpu_torch.checker import set_full
     from jepsen_tpu_torch.histories import set_full_history
     from jepsen_tpu_torch.history_ir import views
     from jepsen_tpu_torch.ops import setscan
+    from jepsen_tpu_torch.ops.set_compare import config4_inputs, random_inputs
 
     # 10a. the kernel alone: seeded random words (padding bits set too)
     # and float64 times of nanosecond size, unsorted; a third of the
-    # elements without an add-ok, so the first pass runs
+    # elements without an add-ok, so the ascending scan runs; then the
+    # read times drawn from 8 values (ties), and a tall, narrow shape
+    # (3 words: a tile of one word, its 4,096 rows split over 512 threads)
     shapes = {}
-    for i, (R, E) in enumerate(SET_SHAPES):
-        rng = np.random.default_rng(100 + i)
-        W = setscan.n_words(E)
-        words = rng.integers(0, 1 << 32, (R, W), dtype=np.uint32)
-        words[:, :] &= rng.integers(0, 1 << 32, (R, W), dtype=np.uint32)
-        t_read = (10 ** 11 + rng.integers(0, 10 ** 9, R)).astype(np.float64)
-        invoke_t = (10 ** 11 + rng.integers(0, 10 ** 9, E)).astype(
-            np.float64)
-        ok_t = invoke_t + rng.integers(0, 10 ** 6, E)
-        has_ok = rng.random(E) < 0.67
-        args, up_ms = set_inputs(words.view(np.int32), t_read, invoke_t,
-                                 ok_t, has_ok)
-        shapes[f"{R}x{E}"] = check_set_classify(
-            f"random_{R}x{E}", args, E, up_ms, 2 if R * E > 1 << 26 else 5)
+    for case, R, E, inputs in (
+            *((f"random_{R}x{E}", R, E, random_inputs(R, E, 100 + i))
+              for i, (R, E) in enumerate(SET_SHAPES)),
+            ("tied_400x20000", 400, 20_000,
+             random_inputs(400, 20_000, 104, ties=8)),
+            ("tall_4096x96", 4096, 96, random_inputs(4096, 96, 105))):
+        shapes[case] = check_set_classify(
+            case, *set_inputs(*inputs), E, 2 if R * E > 1 << 26 else 5)
 
     # 10b. the main path
     variants = (
@@ -1492,14 +1496,18 @@ def set_full_phases(name, smi) -> dict:
               "cpu_walk_s": walk_s, "card": name, "power": smi})
 
     # the kernel at the main path's own inputs: config 4's valid history
-    # (every add acknowledged, so the first pass is skipped)
+    # (every add acknowledged, so no ascending scan)
     enc = views.set_full_columns(variants[0][2])
     E = len(enc["els"])
-    args, up_ms = set_inputs(setscan.pack_member(enc["member"]),
-                             enc["read_t"], enc["invoke_t"], enc["ok_t"],
-                             enc["has_ok"])
-    main = check_set_classify("main_path_inputs", args, E, up_ms, 5)
+    args, order, up_ms = set_inputs(setscan.pack_member(enc["member"]),
+                                    enc["read_t"], enc["invoke_t"],
+                                    enc["ok_t"], enc["has_ok"])
+    main = check_set_classify("main_path_inputs", args, order, up_ms, E, 5)
     main.update(launches=main_launches["set_classify"])
+    # the same inputs with the reads listed last first
+    shapes["main_path_reversed"] = check_set_classify(
+        "main_path_reversed", *set_inputs(*config4_inputs(reverse=True)), E,
+        5)
     return {"name": "set_classify", "route": "cuda",
             "source": "jepsen_tpu_torch/ops/csrc/set_classify.cu",
             "replaces": "jepsen_tpu/ops/setscan.py:69",

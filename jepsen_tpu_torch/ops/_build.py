@@ -46,8 +46,9 @@ SIGNATURES = {
                         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _P]),
     "scc_trim": ("jt_scc_trim", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    # words, t_read, order, invoke_t, ok_t, has_ok, code, stale, latency
     "set_classify": ("jt_set_classify",
-                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 # the key-batched entries of the frontier scans, beside their first:
 # ... B, S, V or K, init_state, then the transition as above

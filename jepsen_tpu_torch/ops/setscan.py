@@ -10,8 +10,12 @@ its visibility latency are masked min/max reductions over the matrix's
 rows, for all elements at once.
 
 Times are float64: the reference's float32 cannot tell two nanosecond
-times about 8 us apart near 100 s. The wrapper takes the plain version
-only for tensors on the CPU; for CUDA tensors it makes one C call, which
+times about 8 us apart near 100 s. The kernel walks the rows in time
+order, so each call also gives it ``order``, the rows' indices sorted
+stably by read time (:func:`read_order`): the host entry sorts with
+numpy and uploads the order with the other columns; the tensor wrapper
+sorts on the tensors' device. The wrapper takes the plain version only
+for tensors on the CPU; for CUDA tensors it makes one C call, which
 enqueues one launch, or raises. Shapes are not bucketed: the kernel
 needs no compile cache.
 """
@@ -69,6 +73,16 @@ def kernel_bytes(n_reads: int, n_elements: int) -> int:
     return 4 * n_reads * n_words(n_elements) + 8 * n_reads + 30 * n_elements
 
 
+def read_order(t_read):
+    """The rows' indices sorted stably by read time (tied rows keep their
+    order), int32: numpy in, numpy out; a tensor in, a tensor on its
+    device out."""
+    if isinstance(t_read, torch.Tensor):
+        return torch.argsort(t_read, stable=True).to(torch.int32)
+    return np.argsort(np.asarray(t_read, np.float64),
+                      kind="stable").astype(np.int32)
+
+
 def _check_inputs(words, t_read, invoke_t, ok_t, has_ok, n_elements: int):
     R = words.shape[0] if words.ndim == 2 else -1
     if not (words.ndim == 2 and R >= 1
@@ -84,13 +98,18 @@ def _check_inputs(words, t_read, invoke_t, ok_t, has_ok, n_elements: int):
             f"{tuple(has_ok.shape)}")
 
 
-def _launch(words, t_read, invoke_t, ok_t, has_ok, n_elements: int):
+def _launch(words, t_read, invoke_t, ok_t, has_ok, n_elements: int,
+            order=None):
     """One C call on CUDA tensors: uint8 [13 E] on the card holding
-    latency f64 [E], code int32 [E] and stale uint8 [E], in that order."""
+    latency f64 [E], code int32 [E] and stale uint8 [E], in that order.
+    ``order`` is :func:`read_order` of ``t_read``, made here when not
+    given."""
     dev = words.device
-    cols = (words, t_read, invoke_t, ok_t, has_ok)
-    want = (torch.int32, torch.float64, torch.float64, torch.float64,
-            torch.uint8)
+    if order is None:
+        order = read_order(t_read)
+    cols = (words, t_read, order, invoke_t, ok_t, has_ok)
+    want = (torch.int32, torch.float64, torch.int32, torch.float64,
+            torch.float64, torch.uint8)
     for x, dt in zip(cols, want):
         if x.device != dev or x.dtype != dt or not x.is_contiguous():
             raise ValueError(f"set_classify: columns must be contiguous "
@@ -126,7 +145,8 @@ def set_classify(words, t_read, invoke_t, ok_t, has_ok, n_elements: int):
     f64 [E]), what jepsen_tpu/ops/setscan.py:72-104 computes: code 0
     stable, 1 lost, 2 never-read; latency is meaningful where code is
     stable. Times must be finite. On the card one C call of
-    ``csrc/set_classify.cu``, counted in ``set_classify.launches``."""
+    ``csrc/set_classify.cu``, counted in ``set_classify.launches``,
+    after :func:`read_order` sorts the rows on the card."""
     _check_inputs(words, t_read, invoke_t, ok_t, has_ok, n_elements)
     if words.device.type == "cpu":
         return classify_plain(words, t_read, invoke_t, ok_t, has_ok,
@@ -183,12 +203,13 @@ def classify_plain(words, t_read, invoke_t, ok_t, has_ok, n_elements: int,
 
 
 def pinned_inputs(words, t_read, invoke_t, ok_t, has_ok):
-    """Host classify inputs (``words`` packed) in one pinned uint8 buffer:
-    t_read, invoke_t and ok_t (float64, so each stays 8-byte aligned),
-    the words, has_ok. Returns (buffer, the [6] byte offsets)."""
+    """Host classify inputs (``words`` packed) and their :func:`read_order`
+    in one pinned uint8 buffer: t_read, invoke_t and ok_t (float64, so
+    each stays 8-byte aligned), the words, the order, has_ok. Returns
+    (buffer, the [7] byte offsets)."""
     cols = (np.asarray(t_read, np.float64), np.asarray(invoke_t, np.float64),
             np.asarray(ok_t, np.float64), np.asarray(words, np.int32),
-            np.asarray(has_ok, np.uint8))
+            read_order(t_read), np.asarray(has_ok, np.uint8))
     offs = np.concatenate([[0], np.cumsum([a.nbytes for a in cols])])
     host = torch.empty((int(offs[-1]),), dtype=torch.uint8, pin_memory=True)
     h = host.numpy()
@@ -199,12 +220,13 @@ def pinned_inputs(words, t_read, invoke_t, ok_t, has_ok):
 
 def card_views(buf, offs, n_reads: int):
     """The :func:`set_classify` inputs (words, t_read, invoke_t, ok_t,
-    has_ok) as views of a copy of a :func:`pinned_inputs` buffer."""
-    t_read, invoke_t, ok_t, words, has_ok = (
+    has_ok) and the rows' order, as views of a copy of a
+    :func:`pinned_inputs` buffer: (inputs, order)."""
+    t_read, invoke_t, ok_t, words, order, has_ok = (
         buf[lo:hi] for lo, hi in zip(offs[:-1], offs[1:]))
-    return (words.view(torch.int32).view(n_reads, -1),
-            t_read.view(torch.float64), invoke_t.view(torch.float64),
-            ok_t.view(torch.float64), has_ok)
+    return ((words.view(torch.int32).view(n_reads, -1),
+             t_read.view(torch.float64), invoke_t.view(torch.float64),
+             ok_t.view(torch.float64), has_ok), order.view(torch.int32))
 
 
 def classify_elements(member: np.ndarray, t_read: np.ndarray,
@@ -213,9 +235,10 @@ def classify_elements(member: np.ndarray, t_read: np.ndarray,
     """Host arrays in, numpy (code int32 [E], stale bool [E], latency f64
     [E]) out, for E = len(invoke_t) elements (``member`` may carry padding
     columns past E). On the card the packed matrix and the columns go up
-    in one pinned buffer, one kernel launch classifies every element,
-    and the three results come back in one copy; ``device="cpu"`` runs
-    the plain version. ``device`` None is the CUDA device."""
+    in one pinned buffer with the rows' order, one kernel launch
+    classifies every element, and the three results come back in one
+    copy; ``device="cpu"`` runs the plain version. ``device`` None is the
+    CUDA device."""
     from jepsen_tpu_torch.device import resolve_device
     dev = resolve_device(device)
     E = len(invoke_t)
@@ -238,9 +261,9 @@ def classify_elements(member: np.ndarray, t_read: np.ndarray,
     stream = torch.cuda.current_stream(dev)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record(stream)
-    args = card_views(host.to(dev, non_blocking=True), offs, R)
+    args, order = card_views(host.to(dev, non_blocking=True), offs, R)
     ev[1].record(stream)
-    out = _launch(*args, E)
+    out = _launch(*args, E, order=order)
     ev[2].record(stream)
     back = torch.empty((13 * E,), dtype=torch.uint8, pin_memory=True)
     back.copy_(out, non_blocking=True)
