@@ -11,9 +11,20 @@ just before it and read just after:
 
 * the 10k-op, 5-process, 5-value headline history: the ``torch-matrix``
   rung, through the chunk-product and combine kernels;
-* its corrupted copy: the matrix rung leaves it to the ``torch-frontier``
-  rung, which settles it on the dense-table kernel with the CPU twin's
-  failing op;
+* its corrupted copy with ``explain`` off: the matrix rung leaves it to
+  the ``torch-frontier`` rung, which settles it on the dense-table kernel
+  with the CPU twin's failing op;
+* the corrupted copy with ``explain`` on (the default): the matrix rung
+  localizes the first anomaly on the card (a second chunk-product
+  launch, the ``prefix_alive`` chain, the ``window_rescan`` of the first
+  dead chunk) and settles it at ``torch-matrix`` with the same failing
+  op; the witness shrink's rounds are rescans. Both forensics kernels are
+  first held bit-equal to their plain versions on seeded chunk products
+  (C = 256 at MV = 256, 512 and 1024, C = 16 at MV = 4096; a dead chunk
+  early, late and none), on seeded rescan inputs (S up to 8, V up to 16,
+  K up to 128), and on the corrupted headline's first dead chunk (found
+  by the plain versions alone) for K = 1, 4 and 128 candidates; both add
+  a row to the ``kernels`` line;
 * a 10k-op, 5-process history whose every write is a fresh value (more
   than 512 states, so the dense table is out of regime), valid and
   corrupted: the frontier rung on the sparse-frontier kernel;
@@ -393,6 +404,7 @@ def slice_stream(stream, lo: int, hi: int):
 
 
 def reset_launches():
+    from jepsen_tpu_torch.ops import forensics_kernels as fx
     from jepsen_tpu_torch.ops import frontier_kernels as fk
     from jepsen_tpu_torch.ops import matrix_kernels as mk
     from jepsen_tpu_torch.ops import scc_kernels as sk
@@ -400,11 +412,12 @@ def reset_launches():
     for fn in (mk.chunk_product, mk.combine_product, fk.frontier_dense,
                fk.frontier_sparse, fk.frontier_dense_batch,
                fk.frontier_sparse_batch, sk.cluster_screen, sk.scc_trim,
-               setscan.set_classify):
+               setscan.set_classify, fx.prefix_alive, fx.window_rescan):
         fn.launches = 0
 
 
 def read_launches() -> dict:
+    from jepsen_tpu_torch.ops import forensics_kernels as fx
     from jepsen_tpu_torch.ops import frontier_kernels as fk
     from jepsen_tpu_torch.ops import matrix_kernels as mk
     from jepsen_tpu_torch.ops import scc_kernels as sk
@@ -417,7 +430,9 @@ def read_launches() -> dict:
             "frontier_sparse_batch": fk.frontier_sparse_batch.launches,
             "cluster_screen": sk.cluster_screen.launches,
             "scc_trim": sk.scc_trim.launches,
-            "set_classify": setscan.set_classify.launches}
+            "set_classify": setscan.set_classify.launches,
+            "prefix_alive": fx.prefix_alive.launches,
+            "window_rescan": fx.window_rescan.launches}
 
 
 def device_kernels(fn, want: str = ""):
@@ -1979,6 +1994,407 @@ def multi_register_phases(name, smi) -> dict:
     }
 
 
+# the forensics slice: prefix_alive at the headline's MV = 256 and at
+# MV = 512 with C = 256 chunks, and at the scan route's MV = 1024 (C =
+# 256) and MV = 4096 (C = 16: its plan's element budget), each with a
+# dead chunk early, late and none; window_rescan on seeded inputs of
+# every S and V the matrix regime takes
+PREFIX_CASES = ((256, 256), (256, 512), (256, 1024), (16, 4096))
+RESCAN_CASES = ((4, 24, 3, 5, 16, 2), (5, 12, 5, 16, 16, 3),
+                (3, 8, 8, 2, 4, 4), (4, 8, 8, 16, 32, 8),
+                (128, 64, 5, 8, 64, 7))
+
+
+def card_products(C, MV, seed, kill_at):
+    """Seeded 0/1 chunk products on the card (bf16): every third chunk
+    the identity, the rest sparse (about two entries a row) keeping most
+    of the diagonal, and chunk ``kill_at`` all zero."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    eye = torch.eye(MV, dtype=torch.bool, device="cuda")
+    P = torch.empty((C, MV, MV), dtype=torch.bfloat16, device="cuda")
+    for c in range(C):
+        if c % 3 == 0:
+            P[c] = eye
+            continue
+        m = torch.rand((MV, MV), generator=g, device="cuda") < 2.0 / MV
+        keep = torch.rand((MV,), generator=g, device="cuda") < 0.8
+        P[c] = m | (eye & keep[:, None])
+    if kill_at is not None:
+        P[kill_at] = 0
+    return P
+
+
+def first_dead(alive) -> int:
+    """The first False of a bool tensor, -1 when there is none."""
+    a = alive.cpu().numpy()
+    return -1 if a.all() else int((~a).argmax())
+
+
+def check_prefix_alive(C, MV, kill_at, seed):
+    import torch
+    from jepsen_tpu_torch.ops import forensics_kernels as fx
+    P = card_products(C, MV, seed, kill_at)
+    v0 = torch.zeros((MV,), dtype=torch.bool, device="cuda")
+    v0[0] = True
+    got = fx.prefix_alive(P, v0)
+    want = fx.prefix_alive_torch(P, v0)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                              want[1]))
+    dead = first_dead(want[0])
+    row = {"phase": "prefix_alive_kernel", "C": C, "MV": MV,
+           "kill_at": kill_at, "first_dead": dead, "equal": equal,
+           "ms": cuda_ms(lambda: fx.prefix_alive(P, v0), 5),
+           "plain_ms": cuda_ms(lambda: fx.prefix_alive_torch(P, v0), 2)}
+    emit(row)
+    if not equal:
+        raise AssertionError(f"prefix_alive C={C} MV={MV} differs from "
+                             f"plain")
+    if dead != (-1 if kill_at is None else kill_at):
+        raise AssertionError(f"prefix_alive C={C} MV={MV}: dead at {dead}, "
+                             f"planted {kill_at}")
+
+
+def random_rescan_inputs(K, T, S, V, U, seed):
+    """Seeded window_rescan inputs on the card: sparse transitions (a
+    tenth of the ops oob), pending sets with the returning slot pending,
+    a fifth of the returns invalid, a start of a few configurations."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    MV = (1 << S) * V
+    pend = rng.random((K, T, S)) < 0.6
+    slots = rng.integers(0, S, T).astype(np.int32)
+    pend[:, np.arange(T), slots] = True
+    v = np.zeros(MV, bool)
+    v[rng.choice(MV, size=max(1, MV // 16), replace=False)] = True
+    v[rng.integers(V)] = True
+    return [torch.from_numpy(a).cuda() for a in (
+        pend, rng.random((K, T)) < 0.8,
+        rng.integers(0, U, (T, S)).astype(np.int32),
+        (rng.random((U, V, V)) < 1.5 / V).astype(np.float32),
+        rng.random(U) < 0.1, slots, v)]
+
+
+def check_window_rescan(case, args, reps=20):
+    """The rescan kernel against its plain version; returns the row."""
+    import torch
+    from jepsen_tpu_torch.ops import forensics_kernels as fx
+    got = fx.window_rescan(*args)
+    want = fx.window_rescan_torch(*args)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got[0], want[0])
+                 and torch.equal(got[1], want[1]))
+    K, T, S = args[0].shape
+    row = {"phase": "window_rescan_kernel", "case": case, "K": K, "T": T,
+           "S": S, "V": args[3].shape[1], "equal": equal,
+           "first": got[0][:8].tolist(),
+           "inexact_any": bool(got[1].any().item()),
+           "ms": cuda_ms(lambda: fx.window_rescan(*args), reps),
+           "plain_ms": cuda_ms(lambda: fx.window_rescan_torch(*args), 2)}
+    emit(row)
+    if not equal:
+        raise AssertionError(f"window_rescan {case} differs from plain")
+    return row
+
+
+def planted_chunk(stream):
+    """The corrupted headline's forensics inputs, derived on the card
+    with the plain versions alone: the chunk products
+    (``chunk_product_torch``), the frontier chain (``prefix_alive_torch``)
+    and the first dead chunk's grids, tables and entry frontier."""
+    import torch
+    from jepsen_tpu_torch.models import cas_register_spec
+    from jepsen_tpu_torch.ops import forensics_kernels as fx
+    from jepsen_tpu_torch.ops import jitlin
+    from jepsen_tpu_torch.ops import matrix_kernels as mk
+    V = jitlin._bucket(len(stream.intern), floor=8)
+    prep = jitlin._returns_prepass(stream.kind, stream.slot, stream.f,
+                                   stream.a, stream.b)
+    S, R = prep[3], prep[0].shape[0]
+    C, T = jitlin._matrix_plan(1, S, R, V)
+    grids, uops = jitlin._matrix_grids([prep], S, V, 1, C, T, "cuda")
+    mt, oob = jitlin._kernel_math(S, V, cas_register_spec().step_ids, 1,
+                                  "cuda").uop_tables(uops)
+    mtT = mt.transpose(1, 2).contiguous()
+    P = mk.chunk_product_torch(grids[0], grids[1], mtT, grids[2], grids[3],
+                               S, V)
+    MV = (1 << S) * V
+    v0 = torch.zeros((MV,), dtype=torch.bool, device="cuda")
+    v0[0] = True
+    alive, w = fx.prefix_alive_torch(P, v0)
+    c_star = first_dead(alive)
+    pend, ids, slots, valid = (g[:, c_star] for g in grids)
+    return dict(S=S, V=V, MV=MV, C=C, T=T, c_star=c_star, P=P, v0=v0,
+                pend=pend, ids=ids, slots=slots, valid=valid, mtT=mtT,
+                oob=oob, v_start=fx.unpack_bits(w[c_star], MV))
+
+
+def chunk_candidates(pc, K, seed):
+    """window_rescan's arguments for K candidates over the planted chunk:
+    the first keeps every op, the rest drop a fifth of the pending ops
+    and of the returns."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    T, S = pc["pend"].shape
+    pend = pc["pend"][None] & (torch.rand((K, T, S), generator=g,
+                                          device="cuda") < 0.8)
+    valid = pc["valid"][None] & (torch.rand((K, T), generator=g,
+                                            device="cuda") < 0.8)
+    pend[0], valid[0] = pc["pend"], pc["valid"]
+    return [pend.contiguous(), valid.contiguous(), pc["ids"].contiguous(),
+            pc["mtT"], pc["oob"], pc["slots"].contiguous(), pc["v_start"]]
+
+
+def rescan_ops(args, first) -> float:
+    """The rescan's integer operations on these inputs: per candidate,
+    the pending slots' oob test at every return, and at each valid
+    return up to its death the closure's images (2^(S-1) masks hold each
+    pending slot, V states an image) and the kill of the M masks."""
+    import numpy as np
+    pend, valid = (a.cpu().numpy() for a in args[:2])
+    K, T, S = pend.shape
+    V = args[3].shape[1]
+    upto = np.arange(T)[None, :] <= np.where(first.cpu().numpy() < 0, T,
+                                              first.cpu().numpy())[:, None]
+    live = valid & upto
+    npend = (pend & valid[..., None]).sum(axis=2)
+    return float(K * T * S + ((npend * (1 << (S - 1)) * V + (1 << S))
+                              * live).sum())
+
+
+def forensics_phase(chk, bad, bad_stream, twin_bad, cpu_bad, got_bad, name,
+                    smi) -> dict:
+    """The corrupted headline with ``explain`` on: settled at
+    ``torch-matrix`` with the twin's failing op, through one
+    ``prefix_alive`` and at least one ``window_rescan`` launch and no
+    frontier launch; then its split. Returns the launches."""
+    import torch
+    from jepsen_tpu_torch.checker.explain import explain_stream
+    from jepsen_tpu_torch.checker.linear_cpu import check_stream
+    from jepsen_tpu_torch.checker.linear_encode import encode_register_ops
+    from jepsen_tpu_torch.ops import forensics_kernels as fx
+    from jepsen_tpu_torch.ops import jitlin
+    reset_launches()
+    t0 = time.perf_counter()
+    got = chk.check({}, bad, {})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    if got["valid?"] is not False or got["algorithm"] != "torch-matrix" \
+            or got.get("failed-op") != cpu_bad.get("failed-op") \
+            or got.get("failed-op") != got_bad.get("failed-op") \
+            or got.get("final-configs") != cpu_bad.get("final-configs"):
+        raise AssertionError(f"forensics check: {got} vs {cpu_bad}")
+    ex = got.get("explain") or {}
+    if ex.get("backend") != "matrix-bisect" \
+            or ex.get("first-anomaly-op") != twin_bad.failed_op_index:
+        raise AssertionError(f"forensics explain: {ex}, twin op "
+                             f"{twin_bad.failed_op_index}")
+    if launches["prefix_alive"] != 1 or launches["window_rescan"] < 1 \
+            or launches["frontier_dense"] != 0 \
+            or launches["frontier_sparse"] != 0 \
+            or launches["chunk_product"] != 2 \
+            or launches["combine_product"] != 1:
+        raise AssertionError(f"forensics path's launches: {launches}")
+    # where the check's time goes: the encode, the matrix check, the
+    # localization (grids, products, prefix chain, rescan: host seconds,
+    # each ending in a read-back), the witness shrink on that
+    # localization, and the twin's re-run for final-configs
+    split = {k: [] for k in ("check", "encode", "matrix", "localize",
+                             "shrink", "twin")}
+    loc_parts, shrink = [], None
+    for _ in range(5):
+        for key, fn in (
+                ("check", lambda: chk.check({}, bad, {})),
+                ("encode", lambda: encode_register_ops(bad)),
+                ("matrix", lambda: jitlin.matrix_check(bad_stream)),
+                ("localize", lambda: jitlin.matrix_localize(bad_stream)),
+                ("shrink", lambda: explain_stream(bad_stream, loc=loc)),
+                ("twin", lambda: check_stream(bad_stream))):
+            n_rescan = fx.window_rescan.launches
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            split[key].append(time.perf_counter() - t0)
+            if key == "localize":
+                loc = out
+                loc_parts.append(jitlin.last_localize_seconds())
+            elif key == "shrink":
+                shrink = {"rounds": out["witness"]["rounds"],
+                          "candidates": out["witness"]["candidates"],
+                          "launches": fx.window_rescan.launches - n_rescan,
+                          "witness_ops": len(out["witness"]["op_indices"]),
+                          "window_op_count":
+                              out["witness"]["window_op_count"],
+                          "minimal": out["witness"]["minimal"]}
+    # the default knobs stop at 16 witness ops; shrinking this window to 1
+    # takes ddmin rounds, each one rescan launch of its candidates
+    n_rescan = fx.window_rescan.launches
+    t0 = time.perf_counter()
+    out = explain_stream(bad_stream, loc=loc, max_witness_ops=1)
+    torch.cuda.synchronize()
+    shrink_to_1 = {"s": time.perf_counter() - t0,
+                   "rounds": out["witness"]["rounds"],
+                   "candidates": out["witness"]["candidates"],
+                   "launches": fx.window_rescan.launches - n_rescan,
+                   "witness_ops": len(out["witness"]["op_indices"]),
+                   "minimal": out["witness"]["minimal"]}
+    if shrink_to_1["launches"] != shrink_to_1["rounds"] \
+            or shrink_to_1["rounds"] < 1:
+        raise AssertionError(f"the shrink's rounds: {shrink_to_1}")
+    by_name = {}
+    for kname, us in device_kernels(lambda: chk.check({}, bad, {}),
+                                    "window_rescan"):
+        by_name[kname] = by_name.get(kname, 0.0) + us
+    busy_ms = sum(by_name.values()) / 1e3
+    med = statistics.median(split["check"])
+    emit({"phase": "main_path_forensics", "ops": N_OPS,
+          "events": len(bad_stream), "algorithm": got["algorithm"],
+          "failed_op": got["failed-op"], "explain": ex,
+          "launches": launches, "first_check_s": first_s,
+          "check_s": split["check"], "median_check_s": med,
+          "median_split_s": {k: statistics.median(v)
+                             for k, v in split.items()},
+          "median_localize_split_s": {
+              k: statistics.median(p[k] for p in loc_parts)
+              for k in loc_parts[0]},
+          "localization": {"chunk": loc.chunk, "step": loc.step,
+                           "n_chunks": loc.n_chunks,
+                           "chunk_returns": loc.chunk_returns,
+                           "failed_event": loc.failed_event},
+          "shrink": shrink, "shrink_to_1_op": shrink_to_1,
+          "device_busy_ms": busy_ms,
+          "device_busy_share": busy_ms / 1e3 / med,
+          "device_us_by_kernel": sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:10],
+          "card": name, "power": smi})
+    return launches
+
+
+def prefix_entry_call(P, v0):
+    """A no-argument call of the prefix_alive C entry on the operands the
+    wrapper derives: the launches alone. Returns (alive, w)."""
+    import ctypes
+    import torch
+    from jepsen_tpu_torch.ops import _build
+    from jepsen_tpu_torch.ops import forensics_kernels as fx
+    C, MV, _ = P.shape
+    W = max(1, MV // 32)
+    Pb = P.to(torch.bfloat16).contiguous()
+    tensors = (Pb, fx.pack_bits(v0).contiguous(),
+               torch.empty((C,), dtype=torch.int32, device="cuda"),
+               torch.empty((C + 1, W), dtype=torch.int32, device="cuda"),
+               torch.empty((C * MV * W,), dtype=torch.int32, device="cuda"))
+    fn = _build.library("prefix_alive").jt_prefix_alive
+
+    def call():
+        rc = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors), C, MV,
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"prefix_alive launch failed: {rc}")
+        return tensors[2], tensors[3]
+    return call
+
+
+def rescan_entry_call(args):
+    """A no-argument call of the window_rescan C entry on the operands
+    the wrapper derives (``rescan_operands``): the launch alone. Returns
+    (first, inexact)."""
+    import ctypes
+    import torch
+    from jepsen_tpu_torch.ops import _build
+    from jepsen_tpu_torch.ops import forensics_kernels as fx
+    K, T, S = args[0].shape
+    V = args[3].shape[1]
+    tensors = (*fx.rescan_operands(*args),
+               torch.empty((K,), dtype=torch.int32, device="cuda"),
+               torch.empty((K,), dtype=torch.int32, device="cuda"))
+    fn = _build.library("window_rescan").jt_window_rescan
+
+    def call():
+        rc = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors), K, T, S,
+                V, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"window_rescan launch failed: {rc}")
+        return tensors[-2], tensors[-1]
+    return call
+
+
+def forensics_rows(pc, launches, scan_bound, named_ms) -> list:
+    """The kernels line's prefix_alive and window_rescan rows at the
+    corrupted headline's shapes (``planted_chunk``; the rescan at the
+    localization's K = 1), each against its plain version, with the C
+    entry alone on the wrapper's operands (``entry_ms``) and the
+    profiler's device time; the bounds count this run's data: the chunks up to
+    the first dead one (each entry read once and compared, each packed
+    word ANDed), and the rescan's inputs and its operations
+    (``rescan_ops``), integer operations at the float32 rate."""
+    import torch
+    from jepsen_tpu_torch.ops import forensics_kernels as fx
+    P, v0, MV, C = pc["P"], pc["v0"], pc["MV"], pc["C"]
+    W = max(1, MV // 32)
+    got = fx.prefix_alive(P, v0)
+    want = fx.prefix_alive_torch(P, v0)
+    err_pa = max(
+        (got[0].int() - want[0].int()).abs().max().item(),
+        (fx.unpack_bits(got[1], MV).int()
+         - fx.unpack_bits(want[1], MV).int()).abs().max().item())
+    pa_k = device_kernels(lambda: fx.prefix_alive(P, v0), "chain_kernel")
+    pa_entry = prefix_entry_call(P, v0)
+    if not (torch.equal(pa_entry()[0], want[0].to(torch.int32))
+            and torch.equal(pa_entry()[1], want[1])):
+        raise AssertionError("the prefix_alive entry differs from plain")
+    c1 = pc["c_star"] + 1
+    bnd_pa = scan_bound(c1 * (MV * MV + MV * W),
+                        c1 * MV * MV * 2 + MV + C + (C + 1) * W * 4)
+    args = chunk_candidates(pc, 1, 1)
+    got_r = fx.window_rescan(*args)
+    want_r = fx.window_rescan_torch(*args)
+    err_r = max((got_r[0] - want_r[0]).abs().max().item(),
+                (got_r[1].int() - want_r[1].int()).abs().max().item())
+    wr_k = device_kernels(lambda: fx.window_rescan(*args),
+                          "window_rescan_kernel")
+    wr_entry = rescan_entry_call(args)
+    if not torch.equal(wr_entry()[0], want_r[0]):
+        raise AssertionError("the window_rescan entry differs from plain")
+    ops_r = rescan_ops(args, want_r[0])
+    bytes_r = (sum(a.numel() * a.element_size() for a in args)
+               + 4 * 4 + 4)
+    rows = []
+    for kname, src, rep, err, ms, pms, bnd, extra in (
+            ("prefix_alive", "jepsen_tpu_torch/ops/csrc/prefix_alive.cu",
+             "jepsen_tpu/ops/jitlin.py:1623", err_pa,
+             cuda_ms(lambda: fx.prefix_alive(P, v0), 20),
+             cuda_ms(lambda: fx.prefix_alive_torch(P, v0), 3), bnd_pa,
+             {"C": C, "MV": MV, "first_dead": pc["c_star"],
+              "entry_ms": cuda_ms(pa_entry, 50),
+              "device_ms": sum(us for k, us in pa_k if k.startswith(
+                  ("pack_flat_kernel", "chain_kernel"))) / 1e3,
+              "device_kernels_us": pa_k, "bytes": c1 * MV * MV * 2}),
+            ("window_rescan", "jepsen_tpu_torch/ops/csrc/window_rescan.cu",
+             "jepsen_tpu/ops/jitlin.py:1640", err_r,
+             cuda_ms(lambda: fx.window_rescan(*args), 50),
+             cuda_ms(lambda: fx.window_rescan_torch(*args), 3),
+             scan_bound(ops_r, bytes_r),
+             {"K": 1, "T": pc["T"], "S": pc["S"], "V": pc["V"],
+              "first": got_r[0].tolist(),
+              "entry_ms": cuda_ms(wr_entry, 50),
+              "device_ms": named_ms(wr_k, "window_rescan_kernel"),
+              "device_kernels_us": wr_k, "int_ops": ops_r,
+              "bytes": bytes_r})):
+        rows.append({"name": kname, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": launches[kname],
+                     "max_abs_err": float(err), "equal": err == 0,
+                     "ms": ms, "plain_ms": pms, "bound_ms": bnd[0],
+                     "bound_by": bnd[1], "library_ms": None,
+                     "bound_operations": "int32_ops", **extra})
+        if err != 0:
+            raise AssertionError(f"{kname} differs at the main path's shape")
+    return rows
+
+
 def nvidia_smi(query: str) -> str:
     """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
     return subprocess.run(
@@ -2030,6 +2446,7 @@ def headline_inputs(stream):
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2096,11 +2513,40 @@ def main() -> int:
     # from the initial frontier and from an unsorted one
     for case, make, table, Ks, start in frontier_cases():
         check_frontier(case, make(), table, Ks, start)
-
-    # 5. the main path
+    # the forensics kernels: prefix_alive on seeded products with a dead
+    # chunk early, late and none; window_rescan on seeded inputs of every
+    # S and V the matrix regime takes, then on the corrupted headline's
+    # first dead chunk (derived with the plain versions alone) for K = 1,
+    # 4 and 128 candidates, the first keeping every op
+    for C_p, MV_p in PREFIX_CASES:
+        for kill in (None, 3, C_p - 3):
+            check_prefix_alive(C_p, MV_p, kill, MV_p + (kill or 0))
+    for case in RESCAN_CASES:
+        check_window_rescan(f"random_k{case[0]}_s{case[2]}_v{case[3]}",
+                            random_rescan_inputs(*case))
     history = register_history(N_OPS, n_procs=N_PROCS, seed=SEED,
                                n_values=N_VALUES)
     stream = encode_register_ops(history)
+    bad = corrupt_reads(history, n=2, seed=0)
+    bad_stream = encode_register_ops(bad)
+    twin_bad = check_stream(bad_stream)
+    pc = planted_chunk(bad_stream)
+    r_star = int(np.searchsorted(np.nonzero(bad_stream.kind == 1)[0],
+                                 twin_bad.failed_event))
+    if divmod(r_star, pc["T"])[0] != pc["c_star"]:
+        raise AssertionError(f"the plain chain's first dead chunk "
+                             f"{pc['c_star']} is not the twin's return "
+                             f"{r_star} (T = {pc['T']})")
+    t_star = r_star % pc["T"]
+    for K in (1, 4, 128):
+        row = check_window_rescan(f"headline_chunk_k{K}",
+                                  chunk_candidates(pc, K, K))
+        if row["first"][0] != t_star:
+            raise AssertionError(f"the rescan's first dead return "
+                                 f"{row['first'][0]} is not the twin's "
+                                 f"{t_star}")
+
+    # 5. the main path
     twin = check_stream(stream)
     if twin.valid is not True:
         raise AssertionError("the CPU twin rejects the headline history")
@@ -2154,15 +2600,15 @@ def main() -> int:
                                         key=lambda kv: -kv[1])[:8],
           "card": name, "power": smi})
 
-    # 5b. the main path, invalid: the corrupted headline settles on the
-    # frontier rung's dense table (S = 5, V = 16)
-    bad = corrupt_reads(history, n=2, seed=0)
-    bad_stream = encode_register_ops(bad)
+    # 5b. the main path, invalid, with explain off: the corrupted
+    # headline settles on the frontier rung's dense table (S = 5, V = 16),
+    # the reference's demote path
+    no_explain = {"explain": False}
     t0 = time.perf_counter()
-    cpu_bad = linearizable(accelerator="cpu").check({}, bad, {})
+    cpu_bad = linearizable(accelerator="cpu").check({}, bad, no_explain)
     cpu_bad_s = time.perf_counter() - t0
     reset_launches()
-    got_bad = chk.check({}, bad, {})
+    got_bad = chk.check({}, bad, no_explain)
     torch.cuda.synchronize()
     launches_bad = read_launches()
     if got_bad["valid?"] is not False \
@@ -2182,7 +2628,7 @@ def main() -> int:
     kernel = JitLinKernel()
     for _ in range(5):
         for key, fn in (
-                ("check", lambda: chk.check({}, bad, {})),
+                ("check", lambda: chk.check({}, bad, no_explain)),
                 ("encode", lambda: encode_register_ops(bad)),
                 ("matrix", lambda: matrix_check(bad_stream)),
                 ("rung", lambda: kernel.check(bad_stream)),
@@ -2193,8 +2639,8 @@ def main() -> int:
             split[key].append(time.perf_counter() - t0)
             if key == "rung":
                 rung = out
-    bad_busy_ms = sum(
-        us for _, us in device_kernels(lambda: chk.check({}, bad, {}))) / 1e3
+    bad_busy_ms = sum(us for _, us in device_kernels(
+        lambda: chk.check({}, bad, no_explain))) / 1e3
     bad_times, rung_times = split["check"], split["rung"]
     emit({"phase": "main_path_invalid", "ops": N_OPS,
           "events": len(bad_stream), "algorithm": got_bad["algorithm"],
@@ -2209,6 +2655,14 @@ def main() -> int:
           "device_busy_ms": bad_busy_ms, "device_busy_share":
           bad_busy_ms / 1e3 / statistics.median(bad_times),
           "cpu_check_s": cpu_bad_s, "card": name, "power": smi})
+
+    # 5b'. the main path, invalid, with explain on (the default): the
+    # matrix rung localizes the first anomaly on the card (a second
+    # chunk-product launch, the frontier chain, the guilty chunk's
+    # rescan) and settles the check; the witness shrink's rounds are
+    # rescans
+    forensics = forensics_phase(chk, bad, bad_stream, twin_bad, cpu_bad,
+                                got_bad, name, smi)
 
     # 5c. the sparse regime at full size: every write a fresh value
     fresh_runs = {}
@@ -2486,6 +2940,10 @@ def main() -> int:
                         "bound_operations": "int32_word_ops", **extra})
         if err != 0.0:
             raise AssertionError(f"{kname} differs at the main path's shape")
+    # 7b. the forensics kernels at the main path's shapes: prefix_alive
+    # on the corrupted headline's chunk products, window_rescan on its
+    # first dead chunk for the first shrink round's K = 4 candidates
+    kernels += forensics_rows(pc, forensics, scan_bound, named_ms)
     # 8. the Elle slice: list-append and rw-register checks through the
     # cluster screen and the trim
     kernels += elle_phases(name, smi)

@@ -11,7 +11,11 @@ rungs, tried in order:
 
 * ``torch-matrix`` — the block-composed transfer-matrix check
   (ops/jitlin.matrix_check) on the device, for histories in its regime.
-  An exact True settles valid; False or inexact passes the history on.
+  An exact True settles valid. With ``explain`` on (the default), an
+  exact False localizes the first anomaly on the device
+  (ops/jitlin.matrix_localize) and settles invalid with its event; with
+  it off, or when the localization declines, and on an inexact verdict,
+  the history passes on.
 * ``torch-frontier`` — the reference's ``jitlin-device`` rung: the
   frontier scan of the whole history (ops/jitlin.JitLinKernel, the
   dense-table or sparse-frontier kernel) on the device. It settles
@@ -34,14 +38,25 @@ rungs, tried in order:
 rung does not run after a device rung, and returns no final
 configurations: an invalid verdict re-runs ``check_stream`` for them, as
 every invalid verdict from a rung without them does.
+
+``explain`` (opts over the test map, default on; checker/explain.py)
+adds anomaly forensics to an invalid result of the int-encoded rungs:
+``out["explain"]`` holds the first anomaly's op, the size of a shrunk
+witness, the backend (``matrix-bisect`` or ``frontier-cpu``) and the
+bisection steps. The forensics never fail a check. Their localization
+runs on the checker's device, or on the CPU under ``accelerator="cpu"``.
+Not ported: the artifacts the reference writes beside them.
 """
 from __future__ import annotations
 
+import logging
 from typing import Any
 
 import numpy as np
 
 from jepsen_tpu_torch.checker import Checker
+from jepsen_tpu_torch.checker.explain import (
+    enabled, explain_stream, max_witness_ops, shrink_budget)
 from jepsen_tpu_torch.checker.linear_cpu import (
     LinearResult, cas_register_step_py, check_stream, multi_register_step_py,
     wgl,
@@ -53,6 +68,8 @@ from jepsen_tpu_torch.history import Intern
 from jepsen_tpu_torch.models import (
     CASRegister, Model, MultiRegister, cas_register_spec, multi_register_spec,
 )
+
+logger = logging.getLogger("jepsen_tpu_torch.checker.linearizable")
 
 # Histories below this many events run on CPU under accelerator="auto"
 # (jepsen_tpu/checker/linearizable.py:36).
@@ -128,17 +145,29 @@ class LinearizableChecker(Checker):
         if algorithm not in ALGORITHMS:
             raise ValueError(f"algorithm {algorithm!r} not in {ALGORITHMS}")
         # copied from jepsen_tpu/checker/linearizable.py:149-165
+        explain_on = enabled(test, opts)
         enc = None if algorithm == "wgl" else self._encoding(history)
         if enc is None:
             return self._finish(wgl(history, self.model), history)
         stream, step_py, spec = enc
-        res = self._search_stream(stream, step_py, spec, accelerator)
-        return self._finish(res, history, stream, step_py, spec.init_state)
+        extras: dict = {}
+        res = self._search_stream(stream, step_py, spec, accelerator,
+                                  explain=explain_on, extras=extras)
+        return self._finish(res, history, stream, step_py, spec.init_state,
+                            test=test, step_ids=spec.step_ids,
+                            explain_on=explain_on,
+                            explain_loc=extras.get("loc"),
+                            device=("cpu" if accelerator == "cpu"
+                                    else self.device))
 
-    def _search_stream(self, stream, step_py, spec,
-                       accelerator) -> LinearResult:
+    def _search_stream(self, stream, step_py, spec, accelerator,
+                       explain: bool = True,
+                       extras: dict | None = None) -> LinearResult:
+        """The rungs over an encoded stream. With ``explain``, a
+        localization that settles the matrix rung goes to
+        ``extras["loc"]`` for the witness shrink."""
         from jepsen_tpu_torch.ops.jitlin import (
-            JitLinKernel, matrix_check, matrix_ok, verdict)
+            JitLinKernel, matrix_check, matrix_localize, matrix_ok, verdict)
 
         device_regime = not (accelerator == "cpu" or (
             accelerator == "auto" and len(stream) < AUTO_TPU_THRESHOLD))
@@ -151,10 +180,26 @@ class LinearizableChecker(Checker):
                                  init_state=spec.init_state,
                                  num_states=len(stream.intern),
                                  device=self.device)
-                # copied settle rule of jepsen_tpu/checker/linearizable.py
-                # :347-383 with explain off: only an exact True settles
+                # copied from jepsen_tpu/checker/linearizable.py:347-383
+                # (matrix_settle): an exact True settles valid; an exact
+                # False settles invalid at its localized event when explain
+                # is on; inexact, explain off or a declined localization
+                # pass the history on. An error of the localization
+                # propagates (the reference demotes on it).
                 if m is not None and not m[2] and m[0]:
                     return LinearResult(valid=True, algorithm="torch-matrix")
+                if m is not None and not m[2] and explain:
+                    loc = matrix_localize(stream, step_ids=spec.step_ids,
+                                          init_state=spec.init_state,
+                                          num_states=len(stream.intern),
+                                          device=self.device)
+                    if loc is not None:
+                        if extras is not None:
+                            extras["loc"] = loc
+                        return LinearResult(
+                            valid=False, failed_event=loc.failed_event,
+                            failed_op_index=loc.failed_op_index,
+                            configs_max=0, algorithm="torch-matrix")
             # the dense table takes S <= 12, so one bound gates both
             if stream.n_slots <= FRONTIER_MAX_SLOTS:
                 attempted = True
@@ -185,9 +230,11 @@ class LinearizableChecker(Checker):
         return res
 
     # copied from jepsen_tpu/checker/linearizable.py:675-713 without the
-    # plot, trace and explain artifacts
+    # plot, the trace and the explain artifacts
     def _finish(self, res: LinearResult, history, stream=None,
-                step_py=None, init_state: int = 0) -> dict:
+                step_py=None, init_state: int = 0, test=None, step_ids=None,
+                explain_on: bool = False, explain_loc=None,
+                device=None) -> dict:
         out: dict[str, Any] = {
             "valid?": res.valid,
             "algorithm": res.algorithm,
@@ -206,7 +253,37 @@ class LinearizableChecker(Checker):
                     res.final_configs = res2.final_configs
             if res.final_configs is not None:
                 out["final-configs"] = res.final_configs
+            self._explain(out, res, test, stream, step_py, init_state,
+                          step_ids, explain_on, explain_loc, device)
         return out
+
+    # copied from jepsen_tpu/checker/linearizable.py:752-786 without
+    # write_artifacts
+    @staticmethod
+    def _explain(out, res, test, stream, step_py, init_state, step_ids,
+                 explain_on, explain_loc, device) -> None:
+        """Anomaly forensics for an INVALID verdict: localize and shrink a
+        minimal witness, and surface a summary in the result. Never fails
+        the check; ``explain: False`` turns it off."""
+        if not explain_on or stream is None:
+            return
+        try:
+            tmap = test if isinstance(test, dict) else {}
+            forensics = explain_stream(
+                stream, step_ids=step_ids, step_py=step_py,
+                init_state=init_state, loc=explain_loc, failure=res,
+                shrink_budget=shrink_budget(tmap),
+                max_witness_ops=max_witness_ops(tmap), device=device)
+            if forensics is None:
+                return
+            out["explain"] = {
+                "first-anomaly-op": forensics["first_anomaly"]["op_index"],
+                "witness-ops": len(forensics["witness"]["op_indices"]),
+                "backend": forensics["backend"],
+                "bisect-steps": forensics["bisect_steps"],
+            }
+        except Exception:  # noqa: BLE001 — forensics never mask a verdict
+            logger.exception("anomaly forensics failed")
 
 
 def linearizable(model=None, **kw) -> Checker:

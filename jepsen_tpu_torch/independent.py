@@ -14,17 +14,28 @@ Python twin. Otherwise (another model, ``algorithm="wgl"`` or
 threads (``bounded_pmap``): a multi-register key takes its own frontier
 launch, as in the reference.
 
-Not ported: the per-key anomaly forensics (``_explain_key``) and the
+With ``explain`` on (the default; ``checker/explain.py``), each invalid
+key of the batched lane gets the reference's per-key forensics
+(``_explain_key``): ``results[k]["explain"]`` names the first anomaly's
+op, the size of its witness and the backend. A key in the matrix regime
+localizes on the card; a shorter key reruns the exact Python twin, since
+the batched lane keeps no per-key failure.
+
+Not ported: the forensics' artifacts under ``independent/<k>``, the
 multi-host localization, the history-IR split, and the key-lifting
 generators. An error in the batched lane propagates; the reference
 catches it and checks key by key instead.
 """
 from __future__ import annotations
 
+import logging
+
 from jepsen_tpu_torch.checker import (
     Checker, Compose, check_safe, merge_valid,
 )
 from jepsen_tpu_torch.utils import bounded_pmap
+
+logger = logging.getLogger("jepsen_tpu_torch.independent")
 
 # the batched lane's backend names, by batch_check's route (the
 # reference's device route is "jitlin-tpu")
@@ -96,6 +107,32 @@ class IndependentChecker(Checker):
 
     def name(self):
         return f"independent({self.checker.name()})"
+
+    # copied from jepsen_tpu/independent.py:265-295 without the artifacts
+    @staticmethod
+    def _explain_key(test, stream, step_py, spec, failure, result: dict,
+                     device) -> None:
+        """Anomaly forensics for one invalid key of the batched lane:
+        localize and shrink over the key's own stream. Never fails the
+        batch."""
+        from jepsen_tpu_torch.checker import explain as explain_mod
+        try:
+            tmap = test if isinstance(test, dict) else {}
+            forensics = explain_mod.explain_stream(
+                stream, step_ids=spec.step_ids, step_py=step_py,
+                init_state=spec.init_state, failure=failure,
+                shrink_budget=explain_mod.shrink_budget(tmap),
+                max_witness_ops=explain_mod.max_witness_ops(tmap),
+                device=device)
+            if forensics is None:
+                return
+            result["explain"] = {
+                "first-anomaly-op": forensics["first_anomaly"]["op_index"],
+                "witness-ops": len(forensics["witness"]["op_indices"]),
+                "backend": forensics["backend"],
+            }
+        except Exception:  # noqa: BLE001 — forensics never mask a verdict
+            logger.exception("per-key anomaly forensics failed")
 
     @staticmethod
     def _key_opts(opts, k):
@@ -176,7 +213,11 @@ class IndependentChecker(Checker):
         outcomes = batch_check(streams, capacity=chk.capacity, kernel=kernel,
                                accelerator=accelerator)
         backend = BACKENDS[last_route()]
+        from jepsen_tpu_torch.checker.explain import enabled
+        explain_on = enabled(test, opts)
         results = {}
+        # copied from jepsen_tpu/independent.py:414-460, the single-host
+        # branch: the invalid keys' forensics, off the happy path
         for fk, stream, (alive, died, ovf, peak) in zip(fkeys, streams,
                                                          outcomes):
             v = verdict(alive, ovf)
@@ -185,9 +226,14 @@ class IndependentChecker(Checker):
                                    init_state=spec.init_state)
                 results[fk] = {"valid?": res.valid,
                                "algorithm": "jitlin-cpu(fallback)"}
+                v, failure = res.valid, res
             else:
                 results[fk] = {"valid?": v, "algorithm": backend,
                                "configs-max": peak}
+                failure = None
+            if v is False and explain_on:
+                self._explain_key(test, stream, step_py, spec, failure,
+                                  results[fk], chk.device)
         if lin_name is None:
             return results
         pairs = list(subs.items())

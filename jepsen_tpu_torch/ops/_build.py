@@ -45,10 +45,15 @@ SIGNATURES = {
     "frontier_sparse": ("jt_frontier_sparse",
                         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _P]),
+    # P, v0, alive, w, ws, C, MV
+    "prefix_alive": ("jt_prefix_alive", [_P, _P, _P, _P, _P, _I, _I, _P]),
     "scc_trim": ("jt_scc_trim", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     # words, t_read, order, invoke_t, ok_t, has_ok, code, stale, latency
     "set_classify": ("jt_set_classify",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    # pm, rs, ids, nxt, oob, v, first, inexact, K, T, S, V
+    "window_rescan": ("jt_window_rescan",
+                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 # the key-batched entries of the frontier scans, beside their first:
 # ... B, S, V or K, init_state, then the transition as above

@@ -25,6 +25,11 @@ bf16 with a > 0 threshold on the card, float32 on the CPU. Outside
 The frontier rung below it (:class:`JitLinKernel`) scans one history's
 events with the dense-table or the sparse-frontier kernel
 (``frontier_kernels``), chosen by ``_dense_ok``.
+
+:func:`matrix_localize` finds where an invalid matrix verdict died: the
+chunk products again (stage 1 alone), the frontier chained through them
+to the first dead chunk, and that chunk's returns rescanned on a frontier
+vector (``forensics_kernels``: ``prefix_alive``, ``window_rescan``).
 """
 from __future__ import annotations
 
@@ -236,7 +241,9 @@ def _build_matrix_kernel(S: int, V: int, step_ids, init_state: int,
     chunk's [MV, MV] product (``matrix_kernels.chunk_product``), stage 2
     chains each key's C products onto its carry ``tot0``
     (``matrix_kernels.combine_product``). Outside ``kernel_ok`` both
-    stages are the reference's scan route instead (``_scan_total``)."""
+    stages are the reference's scan route instead (``_scan_products``
+    and ``_kernel_math.make_combine``). ``run.products`` is stage 1 alone,
+    for the forensics (``matrix_localize``)."""
     B, C, T = n_keys, n_chunks, g_steps
     scan = not kernel_ok(S, V)
     # the scan route's products: bf16 on the card, as the reference's
@@ -247,9 +254,9 @@ def _build_matrix_kernel(S: int, V: int, step_ids, init_state: int,
     MV = math.MV
     route = "cuda" if device.type == "cuda" else "torch"
 
-    def _scan_total(pend, op_ids, uops, slots, valid, tot0):
-        """jepsen_tpu/ops/jitlin.py:644-663: a [G, MV, MV] batched step
-        per chunk row, then the tree combine. No Pallas kernel computes
+    def _scan_products(pend, op_ids, uops, slots, valid):
+        """jepsen_tpu/ops/jitlin.py:644-663 without the combine: a
+        [G, MV, MV] batched step per chunk row. No Pallas kernel computes
         this band in the reference, and here it is plain batched
         products."""
         mt_tab, oob_tab = math.uop_tables(uops)
@@ -258,12 +265,16 @@ def _build_matrix_kernel(S: int, V: int, step_ids, init_state: int,
                  torch.zeros((B * C,), dtype=torch.bool, device=device))
         for t in range(T):
             carry = step(carry, (pend[t], op_ids[t], slots[t], valid[t]))
-        _DISPATCH_INFO.value = {"products": "scan", "combine": "scan"}
-        return math.make_combine(B, C, init_state)(*carry, tot0)
+        return carry
 
-    def _dispatch_total(pend, op_ids, uops, slots, valid, tot0):
+    def products(pend, op_ids, uops, slots, valid):
+        """Every chunk's composed operator product and inexact flag, (P
+        [G, MV, MV], inexact [G]), without the combine: the chunk-product
+        kernel, or the scan route's batched products outside
+        ``kernel_ok``."""
         if scan:
-            return _scan_total(pend, op_ids, uops, slots, valid, tot0)
+            _DISPATCH_INFO.value = {"products": "scan"}
+            return _scan_products(pend, op_ids, uops, slots, valid)
         mt_tab, oob_tab = math.uop_tables(uops)
         mtT = mt_tab.transpose(1, 2).contiguous()
         # _matrix_grids checked the ids and slots on the host
@@ -273,6 +284,14 @@ def _build_matrix_kernel(S: int, V: int, step_ids, init_state: int,
         # outside the kernel
         inexact = (oob_tab[op_ids.long()] & pend
                    & valid[..., None]).any(dim=2).any(dim=0)
+        _DISPATCH_INFO.value = {"products": route}
+        return P, inexact
+
+    def _dispatch_total(pend, op_ids, uops, slots, valid, tot0):
+        P, inexact = products(pend, op_ids, uops, slots, valid)
+        if scan:
+            _DISPATCH_INFO.value = {"products": "scan", "combine": "scan"}
+            return math.make_combine(B, C, init_state)(P, inexact, tot0)
         total = matrix_kernels.combine_product(
             P.reshape(B, C, MV, MV), tot0.to(torch.bfloat16))
         _DISPATCH_INFO.value = {"products": route, "combine": route}
@@ -299,6 +318,7 @@ def _build_matrix_kernel(S: int, V: int, step_ids, init_state: int,
 
     run.resume = run_resume
     run.init_total = init_total
+    run.products = products
     return run
 
 
@@ -586,6 +606,217 @@ def _matrix_cache(S, V, step_ids, init_state, T, C, B, device):
                                   device)
         _MATRIX_CACHE[key] = fn
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Anomaly forensics: the first anomaly of an invalid matrix verdict
+# (jepsen_tpu/ops/jitlin.py:1578-1818; checker/explain.py drives these)
+# ---------------------------------------------------------------------------
+
+def _build_forensics_kernel(S: int, V: int, step_ids, T: int, C: int,
+                            device):
+    """The three device programs of jepsen_tpu/ops/jitlin.py:1584-1665
+    for one chunk layout, built on the same operators as the check, so a
+    localization cannot disagree with the verdict:
+
+    * ``products`` — the chunk products without the combine (the check's
+      stage 1, ``run.products``: the chunk-product kernel, or the scan
+      route's batched products outside ``kernel_ok``), with the inexact
+      flag a chunk;
+    * ``prefix_alive`` — the frontier through the chain of products from
+      ``v0`` (``forensics_kernels.prefix_alive``): alive [C] and the
+      packed frontier at every chunk's entry;
+    * ``vec_batch`` — each candidate's first dead return over one chunk
+      on a frontier vector (``forensics_kernels.window_rescan``).
+    """
+    from jepsen_tpu_torch.ops import forensics_kernels
+
+    run = _matrix_cache(S, V, step_ids, 0, T, C, 1, device)
+    math = _kernel_math(S, V, step_ids, 1, device)
+
+    def vec_batch(pend, valid, op_ids, uops, slots, v0):
+        """pend [K, T, S], valid [K, T] (numpy or tensors), op_ids [T, S],
+        uops [U, 3], slots [T], v0 [MV] -> (first [K] int32, inexact [K]
+        bool) on the device."""
+        mt, oob = math.uop_tables(_upload(np.asarray(uops, np.int32),
+                                          device))
+        return forensics_kernels.window_rescan(
+            _to_device(pend, device), _to_device(valid, device),
+            _to_device(op_ids, device), mt.transpose(1, 2).contiguous(), oob,
+            _to_device(slots, device), v0)
+
+    return types.SimpleNamespace(products=run.products,
+                                 prefix_alive=forensics_kernels.prefix_alive,
+                                 vec_batch=vec_batch)
+
+
+def _to_device(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return _upload(np.ascontiguousarray(x), device)
+
+
+_FORENSICS_CACHE: dict = {}
+
+
+def _forensics_cache(S, V, step_ids, T, C, device):
+    # keyed by the step itself, as _matrix_cache is
+    key = (S, V, step_ids, T, C, str(device))
+    fk = _FORENSICS_CACHE.get(key)
+    if fk is None:
+        fk = _build_forensics_kernel(S, V, step_ids, T, C, device)
+        _FORENSICS_CACHE[key] = fk
+    return fk
+
+
+# copied from jepsen_tpu/ops/jitlin.py:1682-1707
+class MatrixLocalization:
+    """A settled device-side localization: WHERE the transfer-matrix
+    frontier first died, plus the handles checker/explain.py needs to
+    delta-debug a minimal witness over the guilty window (the chunk's
+    host grids and the frontier vector at its entry, on the device)."""
+
+    def __init__(self, failed_return, failed_event, failed_op_index,
+                 bisect_steps, chunk, step, n_chunks, chunk_returns,
+                 kernel, uops, window_pend, window_ids, window_slots,
+                 window_valid, v_start, ret_idx):
+        self.failed_return = failed_return      # global return index
+        self.failed_event = failed_event        # stream event index
+        self.failed_op_index = failed_op_index  # history op index
+        self.bisect_steps = bisect_steps
+        self.chunk = chunk                      # guilty chunk c*
+        self.step = step                        # chunk-relative return t*
+        self.n_chunks = n_chunks
+        self.chunk_returns = chunk_returns      # T
+        self.kernel = kernel                    # forensics kernel ns
+        self.uops = uops
+        self.window_pend = window_pend          # [T, S] guilty chunk grids
+        self.window_ids = window_ids
+        self.window_slots = window_slots
+        self.window_valid = window_valid
+        self.v_start = v_start                  # [MV] frontier at entry
+        self.ret_idx = ret_idx                  # return -> event index map
+
+
+# copied from jepsen_tpu/ops/jitlin.py:1710-1798, on ``device``
+def matrix_localize(stream, tot0=None, step_ids=None, init_state: int = 0,
+                    num_states: int | None = None, n_slots: int | None = None,
+                    device=None):
+    """Localizes the first anomaly of an INVALID matrix verdict on the
+    device: re-derives the per-chunk operator products (one launch of the
+    same cost as the check's stage 1), chains the frontier through them
+    for the first dead chunk (``prefix_alive``), then finds the return
+    within it by a [MV]-vector rescan (``window_rescan``). The result's
+    ``failed_event`` is the exact CPU frontier's first rejection.
+
+    ``tot0`` carries a segmented chain's composed prior product
+    (``matrix_check_resume``'s total), so a failing segment localizes
+    without rescanning the chain; event and op indices are then relative
+    to THIS segment's stream.
+
+    Returns a :class:`MatrixLocalization`, or None when the stream has no
+    returns, is out of the plan's budget, is inexact (an oob transition
+    proves nothing), is alive, or when the rescan disagrees with the
+    chunk verdict (logged)."""
+    import logging
+
+    t0 = time.perf_counter()
+    if step_ids is None:
+        step_ids = cas_register_spec().step_ids
+    if num_states is None:
+        num_states = len(stream.intern)
+    V = _bucket(num_states, floor=8)
+    kind = np.asarray(stream.kind)
+    prep = _returns_prepass(kind, np.asarray(stream.slot),
+                            np.asarray(stream.f), np.asarray(stream.a),
+                            np.asarray(stream.b))
+    S = max(n_slots or 1, prep[3])
+    R = prep[0].shape[0]
+    if R == 0:
+        return None
+    MV = (1 << S) * V
+    if tot0 is not None and tot0.shape[-1] != MV:
+        raise ValueError(
+            f"carry dimension {tot0.shape[-1]} != {MV}: "
+            f"segments must share n_slots and num_states")
+    try:
+        C, T = _matrix_plan(1, S, R, V)
+    except ValueError:
+        return None  # out of element budget: the CPU frontier settles it
+    dev = resolve_device(device)
+    grids, uops = _matrix_grids([prep], S, V, 1, C, T, dev)
+    fk = _forensics_cache(S, V, step_ids, T, C, dev)
+    t1 = time.perf_counter()
+    P, inexact = fk.products(grids[0], grids[1], uops, grids[2], grids[3])
+    oob = bool(inexact.any().item())
+    t2 = time.perf_counter()
+    _LOCALIZE_PHASE.value = {"grids": t1 - t0, "products": t2 - t1}
+    if oob:
+        return None  # oob transition: localization would prove nothing
+    if tot0 is not None:
+        v0 = tot0.to(dev).reshape(-1, MV, MV)[0][:, init_state] > 0
+    else:
+        v0 = torch.zeros((MV,), dtype=torch.bool, device=dev)
+        v0[init_state] = True
+    alive, w = fk.prefix_alive(P, v0)
+    alive = alive.cpu().numpy()
+    t3 = time.perf_counter()
+    _LOCALIZE_PHASE.value["prefix"] = t3 - t2
+    if alive.all():
+        return None  # the (carried) history is alive: nothing to localize
+    c_star = int(np.argmax(~alive))
+    from jepsen_tpu_torch.ops.forensics_kernels import unpack_bits
+    v_start = unpack_bits(w[c_star], MV)
+    pend_c, ids_c, slots_c, valid_c = (g[:, c_star].cpu().numpy()
+                                       for g in grids)
+    uops_np = uops.cpu().numpy()
+    first, inexact2 = fk.vec_batch(pend_c[None], valid_c[None], ids_c,
+                                   uops_np, slots_c, v_start)
+    t_star = int(first[0].item())
+    _LOCALIZE_PHASE.value["rescan"] = time.perf_counter() - t3
+    if t_star < 0 or bool(inexact2.any().item()):
+        # the chunk verdict and its per-return rescan disagree — a bug
+        # or an oob escape; never report a guessed position
+        logging.getLogger("jepsen_tpu_torch.jitlin").warning(
+            "matrix localization inconsistency at chunk %d (first=%d); "
+            "declining", c_star, t_star)
+        return None
+    r_star = c_star * T + t_star
+    ret_idx = np.nonzero(kind == EV_RETURN)[0]
+    event = int(ret_idx[r_star])
+    op_index = int(np.asarray(stream.op_index)[event])
+    bisect_steps = max(1, int(np.ceil(np.log2(max(C, 2))))) + 1
+    return MatrixLocalization(
+        failed_return=r_star, failed_event=event, failed_op_index=op_index,
+        bisect_steps=bisect_steps, chunk=c_star, step=t_star, n_chunks=C,
+        chunk_returns=T, kernel=fk, uops=uops_np, window_pend=pend_c,
+        window_ids=ids_c, window_slots=slots_c, window_valid=valid_c,
+        v_start=v_start, ret_idx=ret_idx)
+
+
+_LOCALIZE_PHASE = threading.local()
+
+
+def last_localize_seconds() -> dict:
+    """The calling thread's last ``matrix_localize`` split, host seconds
+    each ending in a read-back: the prepass, grids and upload
+    (``grids``), the chunk products and their inexact flag
+    (``products``), the frontier chain and its alive flags (``prefix``),
+    and the guilty chunk's rescan (``rescan``); a localization that
+    declined early has fewer keys."""
+    return dict(getattr(_LOCALIZE_PHASE, "value", {}))
+
+
+# copied from jepsen_tpu/ops/jitlin.py:1801-1811
+def matrix_window_rescan(loc: MatrixLocalization, pend_batch, valid_batch):
+    """First dead return (chunk-relative; -1 = survives) for each
+    candidate's masked (pend, valid) grids over the localized chunk, as
+    ONE ``window_rescan`` launch — the witness shrinker's inner loop
+    (checker/explain.py). Returns a numpy int32 array."""
+    first, _ = loc.kernel.vec_batch(
+        np.ascontiguousarray(pend_batch), np.ascontiguousarray(valid_batch),
+        loc.window_ids, loc.uops, loc.window_slots, loc.v_start)
+    return first.cpu().numpy()
 
 
 # copied from jepsen_tpu/ops/jitlin.py:2040-2046

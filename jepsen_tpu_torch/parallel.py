@@ -36,6 +36,27 @@ logger = logging.getLogger("jepsen_tpu_torch.parallel")
 _ROUTE = threading.local()
 
 
+# copied from jepsen_tpu/parallel/__init__.py:77-94
+def coerce_flag(value, knob: str = "checker_sharded") -> bool | None:
+    """Tolerant bool knob coercion: None/'' unset; bools and 0/1 pass;
+    yes/no/true/false/on/off strings work; garbage warns and reads as
+    unset (the caller's default then applies)."""
+    if value is None or value == "":
+        return None
+    if isinstance(value, bool):
+        return value
+    if isinstance(value, (int, float)) and value in (0, 1):
+        return bool(value)
+    if isinstance(value, str):
+        s = value.strip().lower()
+        if s in ("1", "true", "yes", "on"):
+            return True
+        if s in ("0", "false", "no", "off"):
+            return False
+    logger.warning("ignoring malformed %s=%r (want a bool)", knob, value)
+    return None
+
+
 def last_route() -> str:
     """The lane the calling thread's most recent batch_check took."""
     return getattr(_ROUTE, "value", "device")

@@ -44,15 +44,16 @@ def test_port_sources_exist():
             "linearizable.py", "chip_smoke.py", "scc.py", "scc_kernels.py",
             "txn.py", "columnar.py", "list_append.py",
             "rw_register.py", "independent.py", "parallel.py",
-            "utils.py", "setscan.py", "views.py"} <= names
+            "utils.py", "setscan.py", "views.py", "explain.py",
+            "forensics_kernels.py"} <= names
     assert (ROOT / "jepsen_tpu_torch/native/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/wgl.cpp").exists()
     assert (ROOT / "jepsen_tpu_torch/elle/__init__.py") in _sources()
     assert sorted(p.name for p in
                   (ROOT / "jepsen_tpu_torch/ops/csrc").glob("*.cu")) == [
         "chunk_combine.cu", "chunk_product.cu", "cluster_screen.cu",
-        "frontier_dense.cu", "frontier_sparse.cu", "scc_trim.cu",
-        "set_classify.cu"]
+        "frontier_dense.cu", "frontier_sparse.cu", "prefix_alive.cu",
+        "scc_trim.cu", "set_classify.cu", "window_rescan.cu"]
 
 
 def _leaked_modules(code: str) -> str:
