@@ -19,12 +19,16 @@ just before it and read just after:
   launch, the ``prefix_alive`` chain, the ``window_rescan`` of the first
   dead chunk) and settles it at ``torch-matrix`` with the same failing
   op; the witness shrink's rounds are rescans. Both forensics kernels are
-  first held bit-equal to their plain versions on seeded chunk products
-  (C = 256 at MV = 256, 512 and 1024, C = 16 at MV = 4096; a dead chunk
-  early, late and none), on seeded rescan inputs (S up to 8, V up to 16,
-  K up to 128), and on the corrupted headline's first dead chunk (found
-  by the plain versions alone) for K = 1, 4 and 128 candidates; both add
-  a row to the ``kernels`` line;
+  first held bit-equal to their plain versions on the cases of
+  ``ops.forensics_compare``: seeded chunk products (C = 256 at MV = 256,
+  512 and 1024, C = 16 at MV = 4096; a dead chunk early, late and none,
+  and a dense frontier dying late, for each design of the chain: one
+  warp, a cluster's ring, a cluster reading global memory), seeded
+  rescan inputs (S up to 8, V up to 32, K up to 128: the warp path and
+  the shared-memory path), and the corrupted headline's first dead chunk
+  (found by the plain versions alone) for K = 1, 4 and 128 candidates;
+  both add a row to the ``kernels`` line, with the design that ran
+  (``path``);
 * a 10k-op, 5-process history whose every write is a fresh value (more
   than 512 states, so the dense table is out of regime), valid and
   corrupted: the frontier rung on the sparse-frontier kernel;
@@ -1994,47 +1998,18 @@ def multi_register_phases(name, smi) -> dict:
     }
 
 
-# the forensics slice: prefix_alive at the headline's MV = 256 and at
-# MV = 512 with C = 256 chunks, and at the scan route's MV = 1024 (C =
-# 256) and MV = 4096 (C = 16: its plan's element budget), each with a
-# dead chunk early, late and none; window_rescan on seeded inputs of
-# every S and V the matrix regime takes
-PREFIX_CASES = ((256, 256), (256, 512), (256, 1024), (16, 4096))
-RESCAN_CASES = ((4, 24, 3, 5, 16, 2), (5, 12, 5, 16, 16, 3),
-                (3, 8, 8, 2, 4, 4), (4, 8, 8, 16, 32, 8),
-                (128, 64, 5, 8, 64, 7))
+# the forensics slice's cases (``ops.forensics_compare``): prefix_alive
+# on seeded products of every chain design, with a dead chunk early, late
+# and none, and a dense frontier that dies late; window_rescan on seeded
+# inputs of every S and V the matrix regime takes, both of its paths
 
 
-def card_products(C, MV, seed, kill_at):
-    """Seeded 0/1 chunk products on the card (bf16): every third chunk
-    the identity, the rest sparse (about two entries a row) keeping most
-    of the diagonal, and chunk ``kill_at`` all zero."""
-    import torch
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    eye = torch.eye(MV, dtype=torch.bool, device="cuda")
-    P = torch.empty((C, MV, MV), dtype=torch.bfloat16, device="cuda")
-    for c in range(C):
-        if c % 3 == 0:
-            P[c] = eye
-            continue
-        m = torch.rand((MV, MV), generator=g, device="cuda") < 2.0 / MV
-        keep = torch.rand((MV,), generator=g, device="cuda") < 0.8
-        P[c] = m | (eye & keep[:, None])
-    if kill_at is not None:
-        P[kill_at] = 0
-    return P
-
-
-def first_dead(alive) -> int:
-    """The first False of a bool tensor, -1 when there is none."""
-    a = alive.cpu().numpy()
-    return -1 if a.all() else int((~a).argmax())
-
-
-def check_prefix_alive(C, MV, kill_at, seed):
+def check_prefix_alive(C, MV, kill_at, dense, seed):
     import torch
     from jepsen_tpu_torch.ops import forensics_kernels as fx
-    P = card_products(C, MV, seed, kill_at)
+    from jepsen_tpu_torch.ops.forensics_compare import (card_products,
+                                                        first_dead)
+    P = card_products(C, MV, seed, kill_at, dense)
     v0 = torch.zeros((MV,), dtype=torch.bool, device="cuda")
     v0[0] = True
     got = fx.prefix_alive(P, v0)
@@ -2044,7 +2019,8 @@ def check_prefix_alive(C, MV, kill_at, seed):
                                                               want[1]))
     dead = first_dead(want[0])
     row = {"phase": "prefix_alive_kernel", "C": C, "MV": MV,
-           "kill_at": kill_at, "first_dead": dead, "equal": equal,
+           "kill_at": kill_at, "dense": dense, "first_dead": dead,
+           "equal": equal, "path": fx.prefix_plan(C, MV),
            "ms": cuda_ms(lambda: fx.prefix_alive(P, v0), 5),
            "plain_ms": cuda_ms(lambda: fx.prefix_alive_torch(P, v0), 2)}
     emit(row)
@@ -2054,27 +2030,6 @@ def check_prefix_alive(C, MV, kill_at, seed):
     if dead != (-1 if kill_at is None else kill_at):
         raise AssertionError(f"prefix_alive C={C} MV={MV}: dead at {dead}, "
                              f"planted {kill_at}")
-
-
-def random_rescan_inputs(K, T, S, V, U, seed):
-    """Seeded window_rescan inputs on the card: sparse transitions (a
-    tenth of the ops oob), pending sets with the returning slot pending,
-    a fifth of the returns invalid, a start of a few configurations."""
-    import numpy as np
-    import torch
-    rng = np.random.default_rng(seed)
-    MV = (1 << S) * V
-    pend = rng.random((K, T, S)) < 0.6
-    slots = rng.integers(0, S, T).astype(np.int32)
-    pend[:, np.arange(T), slots] = True
-    v = np.zeros(MV, bool)
-    v[rng.choice(MV, size=max(1, MV // 16), replace=False)] = True
-    v[rng.integers(V)] = True
-    return [torch.from_numpy(a).cuda() for a in (
-        pend, rng.random((K, T)) < 0.8,
-        rng.integers(0, U, (T, S)).astype(np.int32),
-        (rng.random((U, V, V)) < 1.5 / V).astype(np.float32),
-        rng.random(U) < 0.1, slots, v)]
 
 
 def check_window_rescan(case, args, reps=20):
@@ -2089,6 +2044,7 @@ def check_window_rescan(case, args, reps=20):
     K, T, S = args[0].shape
     row = {"phase": "window_rescan_kernel", "case": case, "K": K, "T": T,
            "S": S, "V": args[3].shape[1], "equal": equal,
+           "path": rescan_path(S),
            "first": got[0][:8].tolist(),
            "inexact_any": bool(got[1].any().item()),
            "ms": cuda_ms(lambda: fx.window_rescan(*args), reps),
@@ -2099,52 +2055,11 @@ def check_window_rescan(case, args, reps=20):
     return row
 
 
-def planted_chunk(stream):
-    """The corrupted headline's forensics inputs, derived on the card
-    with the plain versions alone: the chunk products
-    (``chunk_product_torch``), the frontier chain (``prefix_alive_torch``)
-    and the first dead chunk's grids, tables and entry frontier."""
-    import torch
-    from jepsen_tpu_torch.models import cas_register_spec
+def rescan_path(S) -> str:
+    """The rescan kernel's path at S slots: a warp a candidate, or a CTA
+    a candidate with the sets in shared memory."""
     from jepsen_tpu_torch.ops import forensics_kernels as fx
-    from jepsen_tpu_torch.ops import jitlin
-    from jepsen_tpu_torch.ops import matrix_kernels as mk
-    V = jitlin._bucket(len(stream.intern), floor=8)
-    prep = jitlin._returns_prepass(stream.kind, stream.slot, stream.f,
-                                   stream.a, stream.b)
-    S, R = prep[3], prep[0].shape[0]
-    C, T = jitlin._matrix_plan(1, S, R, V)
-    grids, uops = jitlin._matrix_grids([prep], S, V, 1, C, T, "cuda")
-    mt, oob = jitlin._kernel_math(S, V, cas_register_spec().step_ids, 1,
-                                  "cuda").uop_tables(uops)
-    mtT = mt.transpose(1, 2).contiguous()
-    P = mk.chunk_product_torch(grids[0], grids[1], mtT, grids[2], grids[3],
-                               S, V)
-    MV = (1 << S) * V
-    v0 = torch.zeros((MV,), dtype=torch.bool, device="cuda")
-    v0[0] = True
-    alive, w = fx.prefix_alive_torch(P, v0)
-    c_star = first_dead(alive)
-    pend, ids, slots, valid = (g[:, c_star] for g in grids)
-    return dict(S=S, V=V, MV=MV, C=C, T=T, c_star=c_star, P=P, v0=v0,
-                pend=pend, ids=ids, slots=slots, valid=valid, mtT=mtT,
-                oob=oob, v_start=fx.unpack_bits(w[c_star], MV))
-
-
-def chunk_candidates(pc, K, seed):
-    """window_rescan's arguments for K candidates over the planted chunk:
-    the first keeps every op, the rest drop a fifth of the pending ops
-    and of the returns."""
-    import torch
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    T, S = pc["pend"].shape
-    pend = pc["pend"][None] & (torch.rand((K, T, S), generator=g,
-                                          device="cuda") < 0.8)
-    valid = pc["valid"][None] & (torch.rand((K, T), generator=g,
-                                            device="cuda") < 0.8)
-    pend[0], valid[0] = pc["pend"], pc["valid"]
-    return [pend.contiguous(), valid.contiguous(), pc["ids"].contiguous(),
-            pc["mtT"], pc["oob"], pc["slots"].contiguous(), pc["v_start"]]
+    return "warp" if S <= fx.RESCAN_WARP_MAX_SLOTS else "shared"
 
 
 def rescan_ops(args, first) -> float:
@@ -2273,55 +2188,6 @@ def forensics_phase(chk, bad, bad_stream, twin_bad, cpu_bad, got_bad, name,
     return launches
 
 
-def prefix_entry_call(P, v0):
-    """A no-argument call of the prefix_alive C entry on the operands the
-    wrapper derives: the launches alone. Returns (alive, w)."""
-    import ctypes
-    import torch
-    from jepsen_tpu_torch.ops import _build
-    from jepsen_tpu_torch.ops import forensics_kernels as fx
-    C, MV, _ = P.shape
-    W = max(1, MV // 32)
-    Pb = P.to(torch.bfloat16).contiguous()
-    tensors = (Pb, fx.pack_bits(v0).contiguous(),
-               torch.empty((C,), dtype=torch.int32, device="cuda"),
-               torch.empty((C + 1, W), dtype=torch.int32, device="cuda"),
-               torch.empty((C * MV * W,), dtype=torch.int32, device="cuda"))
-    fn = _build.library("prefix_alive").jt_prefix_alive
-
-    def call():
-        rc = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors), C, MV,
-                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        if rc != 0:
-            raise RuntimeError(f"prefix_alive launch failed: {rc}")
-        return tensors[2], tensors[3]
-    return call
-
-
-def rescan_entry_call(args):
-    """A no-argument call of the window_rescan C entry on the operands
-    the wrapper derives (``rescan_operands``): the launch alone. Returns
-    (first, inexact)."""
-    import ctypes
-    import torch
-    from jepsen_tpu_torch.ops import _build
-    from jepsen_tpu_torch.ops import forensics_kernels as fx
-    K, T, S = args[0].shape
-    V = args[3].shape[1]
-    tensors = (*fx.rescan_operands(*args),
-               torch.empty((K,), dtype=torch.int32, device="cuda"),
-               torch.empty((K,), dtype=torch.int32, device="cuda"))
-    fn = _build.library("window_rescan").jt_window_rescan
-
-    def call():
-        rc = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors), K, T, S,
-                V, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        if rc != 0:
-            raise RuntimeError(f"window_rescan launch failed: {rc}")
-        return tensors[-2], tensors[-1]
-    return call
-
-
 def forensics_rows(pc, launches, scan_bound, named_ms) -> list:
     """The kernels line's prefix_alive and window_rescan rows at the
     corrupted headline's shapes (``planted_chunk``; the rescan at the
@@ -2332,7 +2198,10 @@ def forensics_rows(pc, launches, scan_bound, named_ms) -> list:
     word ANDed), and the rescan's inputs and its operations
     (``rescan_ops``), integer operations at the float32 rate."""
     import torch
+    from jepsen_tpu_torch.ops import _build
     from jepsen_tpu_torch.ops import forensics_kernels as fx
+    from jepsen_tpu_torch.ops.forensics_compare import (
+        chunk_candidates, prefix_entry, rescan_caller)
     P, v0, MV, C = pc["P"], pc["v0"], pc["MV"], pc["C"]
     W = max(1, MV // 32)
     got = fx.prefix_alive(P, v0)
@@ -2342,9 +2211,12 @@ def forensics_rows(pc, launches, scan_bound, named_ms) -> list:
         (fx.unpack_bits(got[1], MV).int()
          - fx.unpack_bits(want[1], MV).int()).abs().max().item())
     pa_k = device_kernels(lambda: fx.prefix_alive(P, v0), "chain_kernel")
-    pa_entry = prefix_entry_call(P, v0)
-    if not (torch.equal(pa_entry()[0], want[0].to(torch.int32))
-            and torch.equal(pa_entry()[1], want[1])):
+    # the C entries alone, on the operands their wrappers derive
+    pa_entry, pa_out = prefix_entry(
+        _build.library("prefix_alive").jt_prefix_alive, P, v0)
+    pa_entry()
+    if not (torch.equal(pa_out[0], want[0].to(torch.int32))
+            and torch.equal(pa_out[1], want[1])):
         raise AssertionError("the prefix_alive entry differs from plain")
     c1 = pc["c_star"] + 1
     bnd_pa = scan_bound(c1 * (MV * MV + MV * W),
@@ -2356,8 +2228,11 @@ def forensics_rows(pc, launches, scan_bound, named_ms) -> list:
                 (got_r[1].int() - want_r[1].int()).abs().max().item())
     wr_k = device_kernels(lambda: fx.window_rescan(*args),
                           "window_rescan_kernel")
-    wr_entry = rescan_entry_call(args)
-    if not torch.equal(wr_entry()[0], want_r[0]):
+    wr_entry, _, wr_out = rescan_caller(
+        _build.library("window_rescan").jt_window_rescan, True, args)
+    wr_entry()
+    if not (torch.equal(wr_out[0], want_r[0])
+            and torch.equal(wr_out[1].bool(), want_r[1])):
         raise AssertionError("the window_rescan entry differs from plain")
     ops_r = rescan_ops(args, want_r[0])
     bytes_r = (sum(a.numel() * a.element_size() for a in args)
@@ -2369,9 +2244,10 @@ def forensics_rows(pc, launches, scan_bound, named_ms) -> list:
              cuda_ms(lambda: fx.prefix_alive(P, v0), 20),
              cuda_ms(lambda: fx.prefix_alive_torch(P, v0), 3), bnd_pa,
              {"C": C, "MV": MV, "first_dead": pc["c_star"],
-              "entry_ms": cuda_ms(pa_entry, 50),
+              "path": fx.prefix_plan(C, MV), "entry_ms": cuda_ms(pa_entry, 50),
               "device_ms": sum(us for k, us in pa_k if k.startswith(
-                  ("pack_flat_kernel", "chain_kernel"))) / 1e3,
+                  ("pack_kernel", "warp_chain_kernel", "chain_kernel")))
+              / 1e3,
               "device_kernels_us": pa_k, "bytes": c1 * MV * MV * 2}),
             ("window_rescan", "jepsen_tpu_torch/ops/csrc/window_rescan.cu",
              "jepsen_tpu/ops/jitlin.py:1640", err_r,
@@ -2379,7 +2255,7 @@ def forensics_rows(pc, launches, scan_bound, named_ms) -> list:
              cuda_ms(lambda: fx.window_rescan_torch(*args), 3),
              scan_bound(ops_r, bytes_r),
              {"K": 1, "T": pc["T"], "S": pc["S"], "V": pc["V"],
-              "first": got_r[0].tolist(),
+              "path": rescan_path(pc["S"]), "first": got_r[0].tolist(),
               "entry_ms": cuda_ms(wr_entry, 50),
               "device_ms": named_ms(wr_k, "window_rescan_kernel"),
               "device_kernels_us": wr_k, "int_ops": ops_r,
@@ -2518,9 +2394,11 @@ def main() -> int:
     # S and V the matrix regime takes, then on the corrupted headline's
     # first dead chunk (derived with the plain versions alone) for K = 1,
     # 4 and 128 candidates, the first keeping every op
-    for C_p, MV_p in PREFIX_CASES:
-        for kill in (None, 3, C_p - 3):
-            check_prefix_alive(C_p, MV_p, kill, MV_p + (kill or 0))
+    from jepsen_tpu_torch.ops.forensics_compare import (
+        PREFIX_CASES, RESCAN_CASES, chunk_candidates, planted_chunk,
+        random_rescan_inputs)
+    for C_p, MV_p, kill, dense in PREFIX_CASES:
+        check_prefix_alive(C_p, MV_p, kill, dense, MV_p + (kill or 0))
     for case in RESCAN_CASES:
         check_window_rescan(f"random_k{case[0]}_s{case[2]}_v{case[3]}",
                             random_rescan_inputs(*case))

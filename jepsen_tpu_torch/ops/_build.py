@@ -51,9 +51,9 @@ SIGNATURES = {
     # words, t_read, order, invoke_t, ok_t, has_ok, code, stale, latency
     "set_classify": ("jt_set_classify",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    # pm, rs, ids, nxt, oob, v, first, inexact, K, T, S, V
+    # pend, valid, ids, slots, nxt, oob, vw, first, inexact, K, T, S, V, U
     "window_rescan": ("jt_window_rescan",
-                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                      [_P] * 9 + [_I] * 5 + [_P]),
 }
 # the key-batched entries of the frontier scans, beside their first:
 # ... B, S, V or K, init_state, then the transition as above
@@ -64,6 +64,11 @@ BATCH_SIGNATURES = {
     "frontier_sparse": ("jt_frontier_sparse_batch",
                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _P]),
+}
+
+# the chain's launch plan beside the prefix's entry: C, MV, plan[6]
+PLAN_SIGNATURES = {
+    "prefix_alive": ("jt_prefix_alive_plan", [_I, _I, _P]),
 }
 
 _LOCK = threading.Lock()
@@ -125,7 +130,7 @@ def build_all() -> dict:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         for src in srcs:
             lib = ctypes.CDLL(str(_lib_path(src)))
-            for table in (SIGNATURES, BATCH_SIGNATURES):
+            for table in (SIGNATURES, BATCH_SIGNATURES, PLAN_SIGNATURES):
                 if src.stem not in table:
                     continue
                 fn_name, argtypes = table[src.stem]

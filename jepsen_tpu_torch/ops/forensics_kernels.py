@@ -11,13 +11,19 @@ witness shrink (``checker/explain.py``) drive:
   chunk's entry, bit-packed;
 * :func:`window_rescan` — one chunk's returns applied to a frontier
   vector for each of K candidates (``vec_batch``, jitlin.py:1640-1665):
-  the first dead return and the inexact flag a candidate.
+  the first dead return and the inexact flag a candidate. A caller that
+  rescans one chunk for several candidate batches (the witness shrink)
+  derives the chunk's operands once (:class:`RescanChunk`) and launches
+  with :func:`window_rescan_chunk`.
 
 Every value here is boolean, so kernel and plain version agree bit for
 bit. A wrapper takes its plain version only for tensors that lie on the
 CPU; for CUDA tensors it launches its kernel or raises, and it never
-falls back. Each wrapper counts its kernel launches in a plain int
-attribute (``prefix_alive.launches``, ``window_rescan.launches``).
+falls back. Each kernel's launches are counted in a plain int attribute
+(``prefix_alive.launches``, ``window_rescan.launches``). Neither wrapper
+reads anything back from the card: the rescan kernel marks an op id or
+slot out of range in ``first`` (:data:`RESCAN_BAD`), and
+:func:`read_first`, the readers' way to the host, raises on it.
 
 A packed frontier holds configuration i (= mask * V + state) as bit
 i % 32 of word i // 32, in int32 words (the bits of uint32 words); W =
@@ -34,13 +40,33 @@ from jepsen_tpu_torch.ops.matrix_kernels import (
 # masks x 16 states
 PREFIX_MAX_MV = 4096
 # window_rescan keeps a mask's states in one 32-bit word and a mask a
-# thread of a 256-thread CTA
+# thread of a 256-thread CTA; up to 5 slots (32 masks) a candidate is a
+# warp, a mask a lane (csrc/window_rescan.cu kWarpMaxSlots)
 RESCAN_MAX_SLOTS = 8
 RESCAN_MAX_V = 32
+RESCAN_WARP_MAX_SLOTS = 5
+# first[k] of a candidate that met an op id or a valid return's slot out
+# of range (csrc/window_rescan.cu kRescanBad)
+RESCAN_BAD = -2
 
 
 def _words(MV: int) -> int:
     return (MV + 31) // 32
+
+
+_POW2: dict = {}
+
+
+def _pow2(device) -> torch.Tensor:
+    """[32] int32: bit i's value as an int32 (2^31 as -2^31), so that the
+    int32 sum of a word's distinct bits is exact."""
+    key = str(device)
+    t = _POW2.get(key)
+    if t is None:
+        t = torch.tensor([1 << i for i in range(31)] + [-(1 << 31)],
+                         dtype=torch.int32, device=device)
+        _POW2[key] = t
+    return t
 
 
 def pack_bits(x: torch.Tensor) -> torch.Tensor:
@@ -48,14 +74,12 @@ def pack_bits(x: torch.Tensor) -> torch.Tensor:
     set when x[..., i] > 0."""
     MV = x.shape[-1]
     W = _words(MV)
-    b = (x > 0).to(torch.int64)
-    if W * 32 != MV:
+    b = (x > 0).to(torch.int32)
+    if MV > 32 and W * 32 != MV:
         b = torch.nn.functional.pad(b, (0, W * 32 - MV))
-    b = b.reshape(*x.shape[:-1], W, 32)
-    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
-    words = (b << shifts).sum(dim=-1)
-    return torch.where(words >= (1 << 31), words - (1 << 32),
-                       words).to(torch.int32)
+    n = min(MV, 32)
+    b = b.reshape(*x.shape[:-1], W, n)
+    return (b * _pow2(x.device)[:n]).sum(dim=-1, dtype=torch.int32)
 
 
 def unpack_bits(words: torch.Tensor, MV: int) -> torch.Tensor:
@@ -79,8 +103,9 @@ def prefix_alive(P, v0):
     later chunk applies on the left, as ``_kernel_math.make_step``
     composes. ``alive`` is the reference's ``prefix_alive`` verdict and
     w[c] its ``prefix[c - 1] @ v0 > 0`` (jitlin.py:1623-1636, 1769-1775).
-    On the card one launch packs the chunks over every SM and one CTA
-    chains the frontier (``csrc/prefix_alive.cu``)."""
+    On the card one launch packs each chunk transposed over every SM
+    and one CTA, or one thread-block cluster, chains the frontier
+    (``csrc/prefix_alive.cu``; :func:`prefix_plan` says which)."""
     if P.device.type == "cpu":
         return prefix_alive_torch(P, v0)
     if P.device.type != "cuda":
@@ -121,6 +146,29 @@ def prefix_alive(P, v0):
 prefix_alive.launches = 0
 
 
+def prefix_plan(C: int, MV: int, entry=None) -> dict:
+    """The chain's launch plan at (C, MV), from the C entry
+    ``jt_prefix_alive_plan`` (this checkout's build, or ``entry``):
+    ``design`` "warp" (one warp chains from a ring of shared-memory
+    stages that a second warp keeps filled), "ring" (a cluster's CTAs,
+    each its slice of the columns from such a ring) or "global" (a
+    cluster's CTAs read their slices from global memory), the CTAs a
+    cluster, the stages, threads a CTA and columns a thread, the partial
+    frontiers a CTA writes a step and its dynamic shared bytes."""
+    import ctypes
+    if entry is None:
+        from jepsen_tpu_torch.ops import _build
+        entry = _build.library("prefix_alive").jt_prefix_alive_plan
+    out = (ctypes.c_int32 * 6)()
+    rc = entry(C, MV, ctypes.cast(out, ctypes.c_void_p))
+    _check_launch(rc, "prefix_alive plan")
+    nc, stages, threads, cols, nslot, smem = out
+    design = "warp" if nslot == 0 else "ring" if stages else "global"
+    return {"design": design, "cluster": nc,
+            "stages": stages, "threads": threads, "cols_per_thread": cols,
+            "slots": nslot, "smem_bytes": smem}
+
+
 def prefix_alive_torch(P, v0):
     """Plain torch version of :func:`prefix_alive`: C float32
     matrix-vector products with a > 0 threshold after each (counts <=
@@ -149,85 +197,129 @@ def window_rescan(pend, valid, ids, mtT, oob, slots, v):
     -> (first [K] int32, inexact [K] bool): first[k] the first return
     after which no configuration reachable from v is alive (-1: none),
     inexact[k] whether a valid return has a pending op flagged in oob —
-    the reference's ``vec_batch`` (jitlin.py:1640-1665). On the card one
-    CTA a candidate steps the frontier as a state set a mask in shared
-    memory (``csrc/window_rescan.cu``)."""
-    if pend.device.type == "cpu":
-        return window_rescan_torch(pend, valid, ids, mtT, oob, slots, v)
-    if pend.device.type != "cuda":
-        raise ValueError(f"window_rescan: unsupported device {pend.device}")
-    if pend.dim() != 3:
-        raise ValueError(f"window_rescan: pend must be [K, T, S], got "
-                         f"{tuple(pend.shape)}")
-    K, T, S = pend.shape
-    U, V = mtT.shape[0], mtT.shape[1]
-    MV = (1 << S) * V
-    if not 1 <= S <= RESCAN_MAX_SLOTS or not 1 <= V <= RESCAN_MAX_V:
-        raise ValueError(f"window_rescan: S={S}, V={V} outside the kernel "
-                         f"(S <= {RESCAN_MAX_SLOTS}, V <= {RESCAN_MAX_V})")
-    if (tuple(valid.shape) != (K, T) or tuple(ids.shape) != (T, S)
-            or tuple(mtT.shape) != (U, V, V) or tuple(oob.shape) != (U,)
-            or tuple(slots.shape) != (T,) or tuple(v.shape) != (MV,)):
-        raise ValueError("window_rescan: inconsistent shapes "
-                         f"{tuple(pend.shape)} {tuple(valid.shape)} "
-                         f"{tuple(ids.shape)} {tuple(mtT.shape)} "
-                         f"{tuple(oob.shape)} {tuple(slots.shape)} "
-                         f"{tuple(v.shape)}")
-    dev = pend.device
-    for x in (valid, ids, mtT, oob, slots, v):
-        if x.device != dev:
-            raise ValueError("window_rescan: inputs on different devices")
-    if T == 0:
-        raise ValueError("window_rescan: a chunk of no returns")
-    first = torch.empty((K,), dtype=torch.int32, device=dev)
-    inexact = torch.empty((K,), dtype=torch.int32, device=dev)
-    if K == 0:
-        return first, inexact.to(torch.bool)
-    val = valid > 0
-    # the kernel indexes with these unchecked
-    if bool((((ids < 0) | (ids >= U)).any()
-             | (val & ((slots < 0) | (slots >= S))[None]).any()).item()):
-        raise ValueError("window_rescan: an op id or slot out of range")
-    operands = rescan_operands(pend, valid, ids, mtT, oob, slots, v)
-    from jepsen_tpu_torch.ops import _build
-    lib = _build.library("window_rescan")
-    with torch.cuda.device(dev):
-        rc = lib.jt_window_rescan(*(_ptr(x) for x in operands), _ptr(first),
-                                  _ptr(inexact), K, T, S, V, _stream(dev))
-    _check_launch(rc, "window_rescan")
-    window_rescan.launches += 1
-    return first, inexact.to(torch.bool)
+    the reference's ``vec_batch`` (jitlin.py:1640-1665). On the card the
+    chunk's operands are derived (:class:`RescanChunk`) and one launch
+    rescans every candidate (``csrc/window_rescan.cu``); an op id or a
+    valid return's slot out of range gives ``first`` = :data:`RESCAN_BAD`,
+    on which :func:`read_first` raises. On the CPU it raises here."""
+    return window_rescan_chunk(pend, valid,
+                               RescanChunk(ids, mtT, oob, slots, v))
 
 
 window_rescan.launches = 0
 
 
-def rescan_operands(pend, valid, ids, mtT, oob, slots, v):
-    """The rescan kernel's operands, in the order of the C entry
-    ``jt_window_rescan``, all int32 and contiguous: the pending bits of a
-    valid return [K, T] (0 for an invalid one), its returning slot [K, T]
-    (-1 for an invalid one), the op ids [T, S], each op's transition rows
-    nxt[u, v] = {w : v -> w} [U, V], the oob flags [U] and the start
-    vector as a state set a mask [M]."""
-    K, T, S = pend.shape
-    V = mtT.shape[1]
+class RescanChunk:
+    """One chunk's rescan operands, derived once for any number of
+    candidate batches: the arguments of :func:`window_rescan` past the
+    masks, and on the card the kernel's forms of them — ids and slots
+    int32, the op words ``nxt`` [U, V] (bit w of nxt[u, v]: v -> w), oob
+    as bytes and the start frontier packed (``vw``, :func:`pack_bits`, or
+    ``v_words`` where the caller has v packed). Nothing is read back."""
+
+    def __init__(self, ids, mtT, oob, slots, v, v_words=None):
+        if ids.dim() != 2 or mtT.dim() != 3:
+            raise ValueError(f"window_rescan: ids [T, S] and mtT [U, V, V], "
+                             f"got {tuple(ids.shape)} {tuple(mtT.shape)}")
+        T, S = ids.shape
+        U, V = mtT.shape[0], mtT.shape[1]
+        if not 1 <= S <= RESCAN_MAX_SLOTS or not 1 <= V <= RESCAN_MAX_V:
+            raise ValueError(f"window_rescan: S={S}, V={V} outside the "
+                             f"kernel (S <= {RESCAN_MAX_SLOTS}, V <= "
+                             f"{RESCAN_MAX_V})")
+        if (tuple(mtT.shape) != (U, V, V) or tuple(oob.shape) != (U,)
+                or tuple(slots.shape) != (T,)
+                or tuple(v.shape) != ((1 << S) * V,)):
+            raise ValueError("window_rescan: inconsistent shapes "
+                             f"{tuple(ids.shape)} {tuple(mtT.shape)} "
+                             f"{tuple(oob.shape)} {tuple(slots.shape)} "
+                             f"{tuple(v.shape)}")
+        self.device = ids.device
+        for x in (mtT, oob, slots, v):
+            if x.device != self.device:
+                raise ValueError("window_rescan: inputs on different "
+                                 "devices")
+        if T == 0:
+            raise ValueError("window_rescan: a chunk of no returns")
+        self.T, self.S, self.V, self.U = T, S, V, U
+        self.ids, self.mtT, self.oob, self.slots, self.v = (
+            ids, mtT, oob, slots, v)
+        if self.device.type == "cuda":
+            self.ids = ids.to(torch.int32).contiguous()
+            self.slots = slots.to(torch.int32).contiguous()
+            # bit w of nxt[u, v]: mtT[u, w, v] > 0 (V <= 32: one word)
+            self.nxt = torch.where(mtT > 0, _pow2(mtT.device)[:V, None],
+                                   0).sum(dim=1, dtype=torch.int32)
+            self.oob8 = _bytes(oob)
+            self.vw = (pack_bits(v) if v_words is None
+                       else v_words.to(torch.int32)).contiguous()
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """A 0/1 tensor as contiguous uint8 bytes (a view of a bool one)."""
+    x = x if x.dtype == torch.bool else x > 0
+    return x.contiguous().view(torch.uint8)
+
+
+def rescan_entry_operands(pend, valid, chunk: RescanChunk):
+    """The rescan kernel's inputs in the order of the C entry
+    ``jt_window_rescan``: pend and valid as bytes, then the chunk's ids,
+    slots, op words, oob bytes and packed start."""
+    return (_bytes(pend), _bytes(valid), chunk.ids, chunk.slots, chunk.nxt,
+            chunk.oob8, chunk.vw)
+
+
+def window_rescan_chunk(pend, valid, chunk: RescanChunk):
+    """:func:`window_rescan` of the candidates' masks pend [K, T, S] and
+    valid [K, T] over a chunk whose operands are derived: one launch on
+    the card, nothing read back."""
+    if pend.dim() != 3 or tuple(pend.shape[1:]) != (chunk.T, chunk.S) \
+            or tuple(valid.shape) != tuple(pend.shape[:2]):
+        raise ValueError(f"window_rescan: masks {tuple(pend.shape)} "
+                         f"{tuple(valid.shape)} against T = {chunk.T}, "
+                         f"S = {chunk.S}")
+    if pend.device.type == "cpu" and chunk.device.type == "cpu":
+        val = valid > 0
+        if bool(((chunk.ids < 0) | (chunk.ids >= chunk.U)).any()
+                | (val & ((chunk.slots < 0)
+                          | (chunk.slots >= chunk.S))[None]).any()):
+            raise ValueError("window_rescan: an op id or slot out of range")
+        # an invalid return's slot is never read; the plain version
+        # indexes with every slot
+        return window_rescan_torch(pend, valid, chunk.ids, chunk.mtT,
+                                   chunk.oob,
+                                   chunk.slots.clamp(0, chunk.S - 1),
+                                   chunk.v)
+    if pend.device.type != "cuda":
+        raise ValueError(f"window_rescan: unsupported device {pend.device}")
+    if pend.device != chunk.device or valid.device != chunk.device:
+        raise ValueError("window_rescan: inputs on different devices")
+    K = pend.shape[0]
     dev = pend.device
-    val = valid > 0
-    bits = torch.arange(S, dtype=torch.int32, device=dev)
-    pm = (((pend > 0) & val[..., None]).to(torch.int32) << bits).sum(
-        dim=2, dtype=torch.int32)
-    rs = torch.where(val, slots.to(torch.int32)[None].expand(K, T),
-                     torch.full((K, T), -1, dtype=torch.int32, device=dev))
-    vbits = torch.arange(V, dtype=torch.int64, device=dev)
-    nxt = ((mtT > 0).to(torch.int64) << vbits[None, :, None]).sum(dim=1)
-    vset = ((v.reshape(-1, V) > 0).to(torch.int64) << vbits).sum(dim=1)
+    first = torch.empty((K,), dtype=torch.int32, device=dev)
+    inexact = torch.empty((K,), dtype=torch.uint8, device=dev)
+    if K == 0:
+        return first, inexact.view(torch.bool)
+    operands = rescan_entry_operands(pend, valid, chunk)
+    from jepsen_tpu_torch.ops import _build
+    lib = _build.library("window_rescan")
+    with torch.cuda.device(dev):
+        rc = lib.jt_window_rescan(*(_ptr(x) for x in operands), _ptr(first),
+                                  _ptr(inexact), K, chunk.T, chunk.S,
+                                  chunk.V, chunk.U, _stream(dev))
+    _check_launch(rc, "window_rescan")
+    window_rescan.launches += 1
+    return first, inexact.view(torch.bool)
 
-    def as_i32(x):
-        return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
 
-    return (pm.contiguous(), rs.contiguous(),
-            ids.to(torch.int32).contiguous(), as_i32(nxt).contiguous(),
-            (oob > 0).to(torch.int32).contiguous(), as_i32(vset).contiguous())
+def read_first(first: torch.Tensor):
+    """``first`` of :func:`window_rescan` on the host (numpy int32);
+    raises ValueError where the kernel met an op id or slot out of
+    range."""
+    out = first.cpu().numpy()
+    if (out == RESCAN_BAD).any():
+        raise ValueError("window_rescan: an op id or slot out of range")
+    return out
 
 
 def window_rescan_torch(pend, valid, ids, mtT, oob, slots, v):

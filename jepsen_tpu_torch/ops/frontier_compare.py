@@ -34,13 +34,14 @@ prints them. Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import re
 import shutil
 import subprocess
 import sys
 from pathlib import Path
+
+from jepsen_tpu_torch.ops.compare_common import build, card_line, in_turns
 
 NAMES = ("frontier_dense", "frontier_sparse")
 # the kernels' model codes (models.KERNEL_CAS, KERNEL_MULTI_REGISTER)
@@ -59,40 +60,6 @@ def model_free_signatures(root) -> dict:
         fn_name, argtypes = _build.SIGNATURES[name]
         out["other", name] = (fn_name, argtypes[:-4] + argtypes[-1:])
     return out
-
-
-def build(roots: dict, out_dir: Path, names=NAMES,
-          signatures: dict | None = None) -> dict:
-    """{(label, name): C entry} of the kernels ``names`` from each root's
-    csrc, all compiled at once. ``signatures`` may give a (label, name)
-    another (entry name, argtypes) than ``_build.SIGNATURES``: an earlier
-    build's C signature. Each entry's library path is its ``lib_path``."""
-    from jepsen_tpu_torch.ops import _build
-    jobs = []
-    for label, root in roots.items():
-        for name in names:
-            src = Path(root) / "jepsen_tpu_torch" / "ops" / "csrc" / \
-                f"{name}.cu"
-            lib = out_dir / f"lib{name}_{label}.so"
-            jobs.append((label, name, lib, subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                 str(src)], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)))
-    entries = {}
-    for label, name, lib, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {label} {name}:\n{log}")
-        fn_name, argtypes = (signatures or {}).get(
-            (label, name), _build.SIGNATURES[name])
-        fn = getattr(ctypes.CDLL(str(lib)), fn_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fn.lib_path = lib
-        fn.ptxas = [ln.strip() for ln in log.splitlines()
-                    if re.search(r"Compiling entry|Used \d+ registers|"
-                                 r"spill", ln)]
-        entries[label, name] = fn
-    return entries
 
 
 def sass_counts(lib: Path) -> dict:
@@ -289,27 +256,11 @@ def run_case(entries, kernel, st, shape, model, reps: int) -> dict:
            **info, "events": E, "result": t_out[:4].tolist(),
            "warp_work": int(t_out[4]), "work": int(t_out[5])}
 
-    def timing(*how):
-        times = {k: [] for k in labels}
-        for label in ("other", "this", "this", "other"):
-            if label not in times:
-                continue
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            call(label, *how)
-            torch.cuda.synchronize()
-            start.record()
-            for _ in range(reps):
-                call(label, *how)
-            end.record()
-            torch.cuda.synchronize()
-            times[label].append(start.elapsed_time(end) / reps)
-        return times
-
     for name, how in (("", ()), ("fixed_", (ev, 0)),
                       *((("invokes_", (ev_inv, int(inv.sum()))),)
                         if dense else ())):
-        for label, t in timing(*how).items():
+        for label, t in in_turns(lambda label: call(label, *how), labels,
+                                 reps).items():
             row[f"{label}_{name}ms"] = t
     return row
 
@@ -327,7 +278,7 @@ def main(argv) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     entries = build({"other": argv[0],
                      "this": Path(__file__).resolve().parents[2]}, out_dir,
-                    signatures=model_free_signatures(argv[0]))
+                    NAMES, signatures=model_free_signatures(argv[0]))
     for (label, name), fn in sorted(entries.items()):
         print(json.dumps({"sass": label, "library": name,
                           "instructions": sass_counts(fn.lib_path),
@@ -337,9 +288,7 @@ def main(argv) -> int:
         reps = 5 if len(st.kind) > 1000 else 20
         row = run_case(entries, kernel, st, shape, model, reps=reps)
         print(json.dumps({"case": case, **row}), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     return 0
 
 

@@ -267,15 +267,17 @@ def _build_matrix_kernel(S: int, V: int, step_ids, init_state: int,
             carry = step(carry, (pend[t], op_ids[t], slots[t], valid[t]))
         return carry
 
-    def products(pend, op_ids, uops, slots, valid):
+    def products(pend, op_ids, uops, slots, valid, tables=None):
         """Every chunk's composed operator product and inexact flag, (P
         [G, MV, MV], inexact [G]), without the combine: the chunk-product
         kernel, or the scan route's batched products outside
-        ``kernel_ok``."""
+        ``kernel_ok``. ``tables``: ``uop_tables(uops)`` at float32 when the
+        caller has them (the kernel route takes them)."""
         if scan:
             _DISPATCH_INFO.value = {"products": "scan"}
             return _scan_products(pend, op_ids, uops, slots, valid)
-        mt_tab, oob_tab = math.uop_tables(uops)
+        mt_tab, oob_tab = (tables if tables is not None
+                           else math.uop_tables(uops))
         mtT = mt_tab.transpose(1, 2).contiguous()
         # _matrix_grids checked the ids and slots on the host
         P = matrix_kernels.chunk_product(pend, op_ids, mtT, slots, valid,
@@ -514,10 +516,11 @@ def _matrix_plan(B, S, R_max, V):
 
 # copied from jepsen_tpu/ops/jitlin.py:1408-1470, without the mesh branch;
 # the grids land on ``device`` as int32/bool tensors
-def _matrix_grids(preps, S, V, B, C, T, device):
+def _matrix_grids(preps, S, V, B, C, T, device, host=None):
     """Pads each key's return grids into the (T, G) chunk layout and
     interns the batch's distinct ops. Returns ([pend, ids, slots, valid]
-    grids, uops) as tensors on ``device``."""
+    grids, uops) as tensors on ``device``; a dict ``host`` receives the
+    same as numpy arrays (``grids``, ``uops``)."""
 
     def key_arrays(p):
         r_slot, r_pend, r_ops, s_k = p
@@ -558,12 +561,13 @@ def _matrix_grids(preps, S, V, B, C, T, device):
         # [B, C*T, ...] → [B, C, T, ...] → [T, B, C, ...] → [T, B*C, ...]
         x = np.asarray(x).reshape((B, C, T) + x.shape[2:])
         x = np.moveaxis(x, 2, 0)
-        x = np.ascontiguousarray(x.reshape((T, B * C) + x.shape[3:]))
-        return _upload(x, device)
+        return np.ascontiguousarray(x.reshape((T, B * C) + x.shape[3:]))
 
     grids = [as_tg(np.stack(pends)), as_tg(ids), as_tg(slots_all),
              as_tg(np.stack(vals))]
-    return grids, _upload(uops, device)
+    if host is not None:
+        host.update(grids=grids, uops=uops)
+    return [_upload(g, device) for g in grids], _upload(uops, device)
 
 
 def _upload(x: np.ndarray, device) -> torch.Tensor:
@@ -627,26 +631,33 @@ def _build_forensics_kernel(S: int, V: int, step_ids, T: int, C: int,
       ``v0`` (``forensics_kernels.prefix_alive``): alive [C] and the
       packed frontier at every chunk's entry;
     * ``vec_batch`` — each candidate's first dead return over one chunk
-      on a frontier vector (``forensics_kernels.window_rescan``).
+      on a frontier vector (``forensics_kernels.window_rescan_chunk``),
+      over the chunk's operands that ``rescan_chunk`` derives once.
     """
     from jepsen_tpu_torch.ops import forensics_kernels
 
     run = _matrix_cache(S, V, step_ids, 0, T, C, 1, device)
     math = _kernel_math(S, V, step_ids, 1, device)
 
-    def vec_batch(pend, valid, op_ids, uops, slots, v0):
-        """pend [K, T, S], valid [K, T] (numpy or tensors), op_ids [T, S],
-        uops [U, 3], slots [T], v0 [MV] -> (first [K] int32, inexact [K]
-        bool) on the device."""
-        mt, oob = math.uop_tables(_upload(np.asarray(uops, np.int32),
-                                          device))
-        return forensics_kernels.window_rescan(
-            _to_device(pend, device), _to_device(valid, device),
-            _to_device(op_ids, device), mt.transpose(1, 2).contiguous(), oob,
-            _to_device(slots, device), v0)
+    def rescan_chunk(op_ids, tables, slots, v0, v0_words):
+        """op_ids [T, S] and slots [T] (tensors on the device), the
+        chunk's ``uop_tables`` (float32), v0 [MV] and its packed words ->
+        the chunk's ``RescanChunk``."""
+        mt, oob = tables
+        return forensics_kernels.RescanChunk(op_ids, mt.transpose(1, 2),
+                                             oob, slots, v0, v0_words)
+
+    def vec_batch(pend, valid, chunk):
+        """pend [K, T, S], valid [K, T] (numpy or tensors) over a
+        ``rescan_chunk`` -> (first [K] int32, inexact [K] bool) on the
+        device: the masks' upload and one launch."""
+        return forensics_kernels.window_rescan_chunk(
+            _to_device(pend, device), _to_device(valid, device), chunk)
 
     return types.SimpleNamespace(products=run.products,
+                                 uop_tables=math.uop_tables,
                                  prefix_alive=forensics_kernels.prefix_alive,
+                                 rescan_chunk=rescan_chunk,
                                  vec_batch=vec_batch)
 
 
@@ -674,12 +685,14 @@ class MatrixLocalization:
     """A settled device-side localization: WHERE the transfer-matrix
     frontier first died, plus the handles checker/explain.py needs to
     delta-debug a minimal witness over the guilty window (the chunk's
-    host grids and the frontier vector at its entry, on the device)."""
+    host grids, the frontier vector at its entry on the device, and the
+    chunk's rescan operands on the device, ``rescan``, so that a shrink
+    round uploads only its masks)."""
 
     def __init__(self, failed_return, failed_event, failed_op_index,
                  bisect_steps, chunk, step, n_chunks, chunk_returns,
                  kernel, uops, window_pend, window_ids, window_slots,
-                 window_valid, v_start, ret_idx):
+                 window_valid, v_start, ret_idx, rescan):
         self.failed_return = failed_return      # global return index
         self.failed_event = failed_event        # stream event index
         self.failed_op_index = failed_op_index  # history op index
@@ -696,6 +709,7 @@ class MatrixLocalization:
         self.window_valid = window_valid
         self.v_start = v_start                  # [MV] frontier at entry
         self.ret_idx = ret_idx                  # return -> event index map
+        self.rescan = rescan                    # RescanChunk of chunk c*
 
 
 # copied from jepsen_tpu/ops/jitlin.py:1710-1798, on ``device``
@@ -744,10 +758,14 @@ def matrix_localize(stream, tot0=None, step_ids=None, init_state: int = 0,
     except ValueError:
         return None  # out of element budget: the CPU frontier settles it
     dev = resolve_device(device)
-    grids, uops = _matrix_grids([prep], S, V, 1, C, T, dev)
+    host = {}
+    grids, uops = _matrix_grids([prep], S, V, 1, C, T, dev, host=host)
     fk = _forensics_cache(S, V, step_ids, T, C, dev)
     t1 = time.perf_counter()
-    P, inexact = fk.products(grids[0], grids[1], uops, grids[2], grids[3])
+    # the op tables, once for the products and the rescan
+    tables = fk.uop_tables(uops)
+    P, inexact = fk.products(grids[0], grids[1], uops, grids[2], grids[3],
+                             tables)
     oob = bool(inexact.any().item())
     t2 = time.perf_counter()
     _LOCALIZE_PHASE.value = {"grids": t1 - t0, "products": t2 - t1}
@@ -765,16 +783,21 @@ def matrix_localize(stream, tot0=None, step_ids=None, init_state: int = 0,
     if alive.all():
         return None  # the (carried) history is alive: nothing to localize
     c_star = int(np.argmax(~alive))
-    from jepsen_tpu_torch.ops.forensics_kernels import unpack_bits
+    from jepsen_tpu_torch.ops.forensics_kernels import read_first, unpack_bits
     v_start = unpack_bits(w[c_star], MV)
-    pend_c, ids_c, slots_c, valid_c = (g[:, c_star].cpu().numpy()
-                                       for g in grids)
-    uops_np = uops.cpu().numpy()
-    first, inexact2 = fk.vec_batch(pend_c[None], valid_c[None], ids_c,
-                                   uops_np, slots_c, v_start)
-    t_star = int(first[0].item())
+    # the chunk's grids stay on the device for the rescan; explain.py
+    # reads the host copies
+    pend_c, ids_c, slots_c, valid_c = (np.ascontiguousarray(g[:, c_star])
+                                       for g in host["grids"])
+    chunk = fk.rescan_chunk(grids[1][:, c_star], tables,
+                            grids[2][:, c_star], v_start, w[c_star])
+    first, inexact2 = fk.vec_batch(grids[0][:, c_star][None],
+                                   grids[3][:, c_star][None], chunk)
+    # first and the inexact flag in one read-back
+    t_star, inexact_any = read_first(torch.cat(
+        (first, inexact2.to(torch.int32)))).tolist()
     _LOCALIZE_PHASE.value["rescan"] = time.perf_counter() - t3
-    if t_star < 0 or bool(inexact2.any().item()):
+    if t_star < 0 or inexact_any:
         # the chunk verdict and its per-return rescan disagree — a bug
         # or an oob escape; never report a guessed position
         logging.getLogger("jepsen_tpu_torch.jitlin").warning(
@@ -789,9 +812,9 @@ def matrix_localize(stream, tot0=None, step_ids=None, init_state: int = 0,
     return MatrixLocalization(
         failed_return=r_star, failed_event=event, failed_op_index=op_index,
         bisect_steps=bisect_steps, chunk=c_star, step=t_star, n_chunks=C,
-        chunk_returns=T, kernel=fk, uops=uops_np, window_pend=pend_c,
+        chunk_returns=T, kernel=fk, uops=host["uops"], window_pend=pend_c,
         window_ids=ids_c, window_slots=slots_c, window_valid=valid_c,
-        v_start=v_start, ret_idx=ret_idx)
+        v_start=v_start, ret_idx=ret_idx, rescan=chunk)
 
 
 _LOCALIZE_PHASE = threading.local()
@@ -811,12 +834,15 @@ def last_localize_seconds() -> dict:
 def matrix_window_rescan(loc: MatrixLocalization, pend_batch, valid_batch):
     """First dead return (chunk-relative; -1 = survives) for each
     candidate's masked (pend, valid) grids over the localized chunk, as
-    ONE ``window_rescan`` launch — the witness shrinker's inner loop
-    (checker/explain.py). Returns a numpy int32 array."""
+    ONE ``window_rescan`` launch over the chunk's device operands that
+    the localization kept (the masks' upload is all a round adds) — the
+    witness shrinker's inner loop (checker/explain.py). Returns a numpy
+    int32 array."""
+    from jepsen_tpu_torch.ops.forensics_kernels import read_first
     first, _ = loc.kernel.vec_batch(
         np.ascontiguousarray(pend_batch), np.ascontiguousarray(valid_batch),
-        loc.window_ids, loc.uops, loc.window_slots, loc.v_start)
-    return first.cpu().numpy()
+        loc.rescan)
+    return read_first(first)
 
 
 # copied from jepsen_tpu/ops/jitlin.py:2040-2046

@@ -28,9 +28,11 @@ from __future__ import annotations
 import ctypes
 import json
 import re
-import subprocess
 import sys
 from pathlib import Path
+
+from jepsen_tpu_torch.ops.compare_common import (
+    build, card_line, device_ms, in_turns)
 
 PEAK_BYTES = 3.35e12
 # the C entry before it took the rows' order: words, t_read, invoke_t,
@@ -167,18 +169,7 @@ def run_case(entries, cols, E: int, reps: int) -> dict:
                 and torch.equal(latency, want[2])):
             raise AssertionError(f"{label} set_classify ({R} x {E}) differs "
                                  f"from the plain version")
-    times = {label: [] for label in entries}
-    for label in ("other", "this", "this", "other"):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        call(label)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            call(label)
-        end.record()
-        torch.cuda.synchronize()
-        times[label].append(start.elapsed_time(end) / reps)
+    times = in_turns(call, entries, reps)
     nbytes = setscan.kernel_bytes(R, E)
     bound = nbytes / PEAK_BYTES * 1e3
     row = {"R": R, "E": E, "W": W, "acked": int(has_ok.sum()),
@@ -190,28 +181,9 @@ def run_case(entries, cols, E: int, reps: int) -> dict:
         ms = sum(t) / len(t)
         row.update({f"{label}_ms": t, f"{label}_share": bound / ms,
                     f"{label}_gbps": nbytes / ms / 1e6,
-                    f"{label}_device_ms": device_ms(lambda: call(label))})
+                    f"{label}_device_ms": device_ms(lambda: call(label),
+                                                    "set_classify")})
     return row
-
-
-def device_ms(fn, calls: int = 5):
-    """The median device time of the kernel launches of ``calls`` calls
-    of ``fn()``, from ``torch.profiler`` (taken again, up to three times,
-    when a trace lacks them); None without one."""
-    import statistics
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and "set_classify" in e.name]
-        if len(us) == calls:
-            return statistics.median(us) / 1e3
-    return None
 
 
 def main(argv) -> int:
@@ -223,13 +195,12 @@ def main(argv) -> int:
         print("set_compare: no CUDA device", file=sys.stderr)
         return 1
     from jepsen_tpu_torch.ops import _build
-    from jepsen_tpu_torch.ops.frontier_compare import build
     out_dir = _build.BUILD_DIR / "compare"
     out_dir.mkdir(parents=True, exist_ok=True)
     roots = {"other": argv[0], "this": Path(__file__).resolve().parents[2]}
     signatures = {(label, "set_classify"): ORDERLESS
                   for label, root in roots.items() if not takes_order(root)}
-    built = build(roots, out_dir, names=("set_classify",),
+    built = build(roots, out_dir, ("set_classify",),
                   signatures=signatures)
     entries = {}
     for (label, _), fn in sorted(built.items()):
@@ -247,9 +218,7 @@ def main(argv) -> int:
             row = run_case(entries, cols, E, reps)
             print(json.dumps({"case": case, "add_oks": acked, **row}),
                   flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     return 0
 
 
