@@ -78,7 +78,25 @@ just before it and read just after:
   (2, 3) dense warp path, (3, 5) sparse list; B = 8), path counts
   included; and the (2, 3) shape (16 states) through ``torch-matrix``.
   Each frontier row of the ``kernels`` line gains a ``multi_register``
-  entry (ms, launches on the 1,000-key check, bound).
+  entry (ms, launches on the 1,000-key check, bound);
+* resumable long checks: the headline's shape at 700k ops (1,133,736
+  events, past MATRIX_SEGMENT_EVENTS = 2^20) through ``linearizable(
+  accelerator="gpu")``: the matrix chain's two segments (one chunk
+  product and one combine launch each), its last carry bit-equal to a
+  one-shot ``matrix_check_resume`` total, the verdict the twin's; a copy
+  with a read answering 999 in the second segment (two segments, then a
+  localization over the whole stream, chunks of T = 4,096 returns) and
+  one with it in the first (one segment), each with the twin's failing
+  op; the chain writing ``check.ckpt`` and resuming from it (one segment
+  of two, the same carry), and the checker resuming a planted checkpoint
+  through its test map and clearing it; ``segmented_check`` on the dense
+  table (the long history) and the sparse list (100k fresh-value ops,
+  segments of 2^16 events) against one launch on the whole stream, the
+  frontier at the last cut and the final one equal; and the chain's
+  carry at the first cut seeding the CPU twin, which finishes with the
+  twin's verdict. The chunk product and combine rows gain
+  ``launches_segmented``, the frontier rows ``segmented_ms``, the
+  forensics rows the long localization's times.
 
 Earlier phases keep their shapes.
 
@@ -386,25 +404,6 @@ def dense_scan_ops(stream, died: int, V: int, step_ops: int = 1) -> float:
     half = 1 << (S - 1)
     return float(((npend + 1) * half * W).sum()
                  + (kind == 0).sum() * V * step_ops)
-
-
-def quiescent_cut(stream) -> int:
-    """The quiescent point (no op pending) nearest the stream's middle."""
-    import numpy as np
-    kind = np.asarray(stream.kind)
-    pending = np.cumsum(np.where(kind == 0, 1, np.where(kind == 1, -1, 0)))
-    quiet = np.nonzero(pending == 0)[0] + 1
-    quiet = quiet[quiet < len(kind)]
-    return int(quiet[np.argmin(np.abs(quiet - len(kind) // 2))])
-
-
-def slice_stream(stream, lo: int, hi: int):
-    from jepsen_tpu_torch.checker.linear_encode import EventStream
-    return EventStream(kind=stream.kind[lo:hi], slot=stream.slot[lo:hi],
-                       f=stream.f[lo:hi], a=stream.a[lo:hi],
-                       b=stream.b[lo:hi], op_index=stream.op_index[lo:hi],
-                       n_slots=stream.n_slots, n_ops=stream.n_ops,
-                       intern=stream.intern)
 
 
 def reset_launches():
@@ -2271,6 +2270,404 @@ def forensics_rows(pc, launches, scan_bound, named_ms) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 12. resumable long checks: the segmented chains and checkpoints
+# ---------------------------------------------------------------------------
+
+# the long history: the headline's shape (5 processes, 5 values) at 70x its
+# depth, past MATRIX_SEGMENT_EVENTS = 2^20 events: two segments
+LONG_OPS = 700_000
+# the sparse list's long history (every write a fresh value) and its bound
+LONG_SPARSE_OPS, LONG_SPARSE_SEGMENT = 100_000, 1 << 16
+
+
+def corrupt_read_between(history, stream, lo: int, hi: int):
+    """(a shallow copy of ``history`` whose first ok read returning at an
+    event in [lo, hi) answers 999, that read's history index)."""
+    import numpy as np
+    rets = np.nonzero(stream.kind[lo:hi] == 1)[0] + lo
+    for e in rets:
+        i = int(stream.op_index[e])
+        if history[i]["f"] == "read" and history[i]["type"] == "ok":
+            bad = list(history)
+            bad[i] = dict(history[i], value=999)
+            return bad, i
+    raise AssertionError(f"no ok read returns in events [{lo}, {hi})")
+
+
+def segmented_phases(name, smi) -> dict:
+    """Phase 12: the long history through the resumable chains on the
+    card. Returns the kernels line's entries for this phase, by row."""
+    import json
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checker import checkpoint as ck
+    from jepsen_tpu_torch.checker.linear_cpu import (
+        FrontierSession, cas_register_step_py, check_stream)
+    from jepsen_tpu_torch.checker.linear_encode import encode_register_ops
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.convert import frontier_from_numpy
+    from jepsen_tpu_torch.histories import register_history
+    from jepsen_tpu_torch.ops import frontier_kernels as fk
+    from jepsen_tpu_torch.ops import jitlin
+
+    phase_t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    h = register_history(LONG_OPS, n_procs=N_PROCS, seed=SEED,
+                         n_values=N_VALUES)
+    gen_s = time.perf_counter() - t0
+    stream = encode_register_ops(h)
+    n = len(stream)
+    seg_max = jitlin.MATRIX_SEGMENT_EVENTS
+    cuts = jitlin.quiescent_cuts(stream.kind, seg_max)
+    if n <= seg_max or len(cuts) != 2:
+        raise AssertionError(f"long history: {n} events, cuts {cuts}")
+    cut = cuts[0]
+    V = jitlin._bucket(len(stream.intern), floor=8)
+    # the twin, through one session: its frontier at the cut, then the rest
+    t0 = time.perf_counter()
+    twin_fs = FrontierSession()
+    twin_fs.absorb(stream, end=cut)
+    at_cut = set(twin_fs.configs)
+    snap_at_cut = twin_fs.snapshot()
+    twin = twin_fs.absorb(stream, start=cut)
+    twin_s = time.perf_counter() - t0
+    if twin.valid is not True:
+        raise AssertionError("the CPU twin rejects the long history")
+    chk = linearizable(accelerator="gpu")
+
+    # 12a. the main path: two chain segments, one chunk product and one
+    # combine launch each
+    reset_launches()
+    t0 = time.perf_counter()
+    res = chk.check({}, h, {})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    if res["valid?"] is not True or res["algorithm"] != "torch-matrix":
+        raise AssertionError(f"long check: {res}")
+    if (launches["chunk_product"], launches["combine_product"]) != (2, 2) \
+            or any(v for k, v in launches.items()
+                   if k not in ("chunk_product", "combine_product")):
+        raise AssertionError(f"long check's launches: {launches}")
+    check_s, enc_s, segs, one_s = [], [], [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        chk.check({}, h, {})
+        torch.cuda.synchronize()
+        check_s.append(time.perf_counter() - t0)
+        segs.append(jitlin.last_segment_seconds())
+        t0 = time.perf_counter()
+        encode_register_ops(h)
+        enc_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        one = jitlin.matrix_check(stream)
+        torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - t0)
+        if one[:3] != (True, -1, False):
+            raise AssertionError(f"one-shot matrix_check: {one}")
+    carries = []
+    chain = jitlin.matrix_check_segmented(stream, carry_sink=carries.append)
+    _, _, total = jitlin.matrix_check_resume(
+        stream, num_states=len(stream.intern), n_slots=stream.n_slots)
+    if chain != (True, -1, False, 0) or len(carries) != 2 \
+            or [c["events_done"] for c in carries] != cuts \
+            or not torch.equal(carries[-1]["tot0"], total):
+        raise AssertionError("the chain's final carry differs from the "
+                             "one-shot total")
+    # the check's device work is the chain's (the encode launches
+    # nothing), so the profiler traces the chain alone
+    by_name = {}
+    for kname, us in device_kernels(
+            lambda: jitlin.matrix_check_segmented(stream)):
+        by_name[kname] = by_name.get(kname, 0.0) + us
+    busy_ms = sum(by_name.values()) / 1e3
+    med = statistics.median(check_s)
+    prep = jitlin._returns_prepass(stream.kind, stream.slot, stream.f,
+                                   stream.a, stream.b)
+    plans = []
+    for lo, hi in zip([0] + cuts[:-1], cuts):
+        r = int((stream.kind[lo:hi] == 1).sum())
+        plans.append(dict(zip(("C", "T"), jitlin._matrix_plan(
+            1, prep[3], r, V)), returns=r, events=hi - lo))
+    emit({"phase": "segmented_main_path", "ops": LONG_OPS, "events": n,
+          "returns": int(len(prep[0])), "S": prep[3], "V": V, "cuts": cuts,
+          "segment_plans": plans, "valid": res["valid?"],
+          "algorithm": res["algorithm"], "twin_valid": twin.valid,
+          "launches": launches, "generate_s": gen_s, "twin_s": twin_s,
+          "first_check_s": first_s, "check_s": check_s,
+          "median_check_s": med, "ops_per_sec": LONG_OPS / med,
+          "median_encode_s": statistics.median(enc_s),
+          "median_segment_s": [statistics.median(sg[i]["s"] for sg in segs)
+                               for i in range(len(cuts))],
+          "one_shot_matrix_check_s": one_s,
+          "median_one_shot_matrix_check_s": statistics.median(one_s),
+          "carry_equals_one_shot_total": True,
+          "device_busy_ms": busy_ms,
+          "device_busy_share": busy_ms / 1e3 / med,
+          "device_us_by_kernel": sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:8],
+          "card": name, "power": smi})
+
+    # 12b. invalid copies: one read answering 999 in the second segment
+    # (the chain runs both segments, then localizes over the whole stream)
+    # and in the first (the chain stops after one)
+    invalid = {}
+    for copy, lo, hi in (("second_segment", cut + (n - cut) // 2, n),
+                         ("first_segment", cut // 4, cut)):
+        bad, bad_i = corrupt_read_between(h, stream, lo, hi)
+        bad_stream = encode_register_ops(bad)
+        t0 = time.perf_counter()
+        if copy == "second_segment":
+            # the columns up to the cut are the valid history's, so the
+            # twin resumes from its session at the cut
+            if ck.stream_prefix_hash(bad_stream, cut) != \
+                    ck.stream_prefix_hash(stream, cut):
+                raise AssertionError("the corrupted copy's prefix differs")
+            tw = FrontierSession.restore(snap_at_cut).absorb(bad_stream,
+                                                             start=cut)
+        else:
+            tw = check_stream(bad_stream)
+        tw_s = time.perf_counter() - t0
+        if tw.valid is not False or tw.failed_op_index != bad_i:
+            raise AssertionError(f"{copy}: the twin's failure {tw}")
+        reset_launches()
+        t0 = time.perf_counter()
+        got = chk.check({}, bad, {})
+        torch.cuda.synchronize()
+        got_s = time.perf_counter() - t0
+        lc = read_launches()
+        n_seg = len(jitlin.last_segment_seconds())
+        want_seg = 2 if copy == "second_segment" else 1
+        if got["valid?"] is not False or got["algorithm"] != "torch-matrix" \
+                or got.get("failed-op") != bad[tw.failed_op_index] \
+                or n_seg != want_seg \
+                or lc["chunk_product"] != want_seg + 1 \
+                or lc["combine_product"] != want_seg \
+                or lc["prefix_alive"] != 1 or lc["window_rescan"] < 1 \
+                or lc["frontier_dense"] or lc["frontier_sparse"]:
+            raise AssertionError(f"{copy}: {got} with launches {lc}, "
+                                 f"{n_seg} segments")
+        # the localization again, alone: its split from the profiler's
+        # warm-up call, its kernels' device time from the traced one
+        locs = []
+
+        def localize():
+            locs.append((jitlin.matrix_localize(bad_stream),
+                         jitlin.last_localize_seconds()))
+        loc_k = device_kernels(localize, "window_rescan_kernel")
+        loc, loc_split = locs[0]
+        if loc.failed_event != tw.failed_event:
+            raise AssertionError(f"{copy}: localized at {loc.failed_event}, "
+                                 f"the twin at {tw.failed_event}")
+        invalid[copy] = dict(
+            loc_split=loc_split, T=loc.chunk_returns, C=loc.n_chunks,
+            prefix_device_ms=sum(us for k, us in loc_k if k.startswith(
+                ("pack_kernel", "warp_chain_kernel", "chain_kernel"))) / 1e3,
+            rescan_device_ms=sum(us for k, us in loc_k if k.startswith(
+                "window_rescan_kernel")) / 1e3)
+        emit({"phase": "segmented_invalid", "copy": copy, "events":
+              len(bad_stream), "corrupted_op": bad_i,
+              "failed_op": got["failed-op"], "twin_failed_op_index":
+              tw.failed_op_index, "twin_s": tw_s,
+              "twin_resumed_at_cut": copy == "second_segment",
+              "explain": got.get("explain"), "launches": lc,
+              "chain_segments": n_seg, "check_s": got_s,
+              "localization": {"chunk": loc.chunk, "step": loc.step,
+                               "n_chunks": loc.n_chunks,
+                               "chunk_returns": loc.chunk_returns,
+                               "failed_event": loc.failed_event},
+              "localize_split_s": loc_split,
+              "localize_device_ms": {
+                  "prefix_alive": invalid[copy]["prefix_device_ms"],
+                  "window_rescan": invalid[copy]["rescan_device_ms"]},
+              "card": name, "power": smi})
+
+    # 12c. checkpoints: a chain that persists after each segment, the same
+    # chain resumed from its check.ckpt (one segment of two), and the
+    # checker resuming a planted checkpoint through its test map
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "chain" / ck.CKPT_NAME
+        full_c = []
+        t0 = time.perf_counter()
+        full = jitlin.matrix_check_segmented(
+            stream, carry_sink=full_c.append,
+            ckpt=ck.CheckpointStore(path, interval_s=0.0, resume=False))
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        if not path.exists():
+            raise AssertionError("the chain wrote no check.ckpt")
+        doc = json.loads(path.read_text())
+        if (doc["kind"], doc["events_done"], doc["segment"]) != \
+                ("matrix", cut, 1):
+            raise AssertionError(f"check.ckpt: {doc['kind']} at "
+                                 f"{doc['events_done']}")
+        res_c = []
+        reset_launches()
+        t0 = time.perf_counter()
+        resumed = jitlin.matrix_check_segmented(
+            stream, carry_sink=res_c.append,
+            ckpt=ck.CheckpointStore(path, interval_s=None, resume=True))
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        lc_res = read_launches()
+        ran = jitlin.last_segment_seconds()
+        if resumed != full or len(ran) != 1 or ran[0]["base"] != cut \
+                or lc_res["chunk_product"] != 1 \
+                or not torch.equal(res_c[-1]["tot0"], full_c[-1]["tot0"]):
+            raise AssertionError(f"resumed chain: {resumed} vs {full}, "
+                                 f"segments {ran}, launches {lc_res}")
+        test = {"name": "chip-smoke", "start_time": "20261018T000000.000Z",
+                "store_dir": d}
+        planted = store.path(test, ck.CKPT_NAME)
+        planted.parent.mkdir(parents=True)
+        planted.write_text(path.read_text())
+        reset_launches()
+        t0 = time.perf_counter()
+        out = chk.check(test, h, {})
+        torch.cuda.synchronize()
+        ckpt_check_s = time.perf_counter() - t0
+        lc_chk = read_launches()
+        if out != res or planted.exists() \
+                or len(jitlin.last_segment_seconds()) != 1 \
+                or lc_chk["chunk_product"] != 1:
+            raise AssertionError(f"checker resume: {out}, launches "
+                                 f"{lc_chk}, ckpt left: {planted.exists()}")
+        emit({"phase": "segmented_resume", "events": n, "cut": cut,
+              "ckpt_bytes": len(path.read_text()),
+              "full_chain_s": full_s, "resumed_chain_s": resumed_s,
+              "resumed_segments": len(ran), "launches_resumed": lc_res,
+              "carry_equal": True, "checker_resumed_check_s": ckpt_check_s,
+              "checker_full_median_check_s": med,
+              "checker_launches": lc_chk, "ckpt_cleared": True,
+              "card": name, "power": smi})
+
+        # 12d. the frontier chain against one-shot scans: the dense table
+        # on the long history, the sparse list on a fresh-value one; the
+        # frontier the chain persists at its last cut equals the one-shot
+        # scan's there, and the last segment from it ends on the one-shot
+        # scan's final frontier
+        fresh = register_history(LONG_SPARSE_OPS, n_procs=N_PROCS,
+                                 seed=SEED, n_values=FRESH_VALUES)
+        frontier_rows = {}
+        kernel = jitlin.JitLinKernel()
+        for kind, st, seg in (
+                ("dense", stream, seg_max),
+                ("sparse", encode_register_ops(fresh), LONG_SPARSE_SEGMENT)):
+            wrapper = fk.frontier_dense if kind == "dense" \
+                else fk.frontier_sparse
+            S = max(1, st.n_slots)
+            if kernel.route(S, len(st.intern)) != kind:
+                raise AssertionError(f"{kind} chain took the other route")
+            f_cuts = jitlin.quiescent_cuts(st.kind, seg)
+            fpath = Path(d) / kind / ck.CKPT_NAME
+            reset_launches()
+            t0 = time.perf_counter()
+            got = jitlin.segmented_check(st, max_segment=seg, kernel=kernel)
+            torch.cuda.synchronize()
+            seg_ms = (time.perf_counter() - t0) * 1e3
+            seg_launches = wrapper.launches
+            # again, persisting the frontier at every cut
+            t0 = time.perf_counter()
+            got_ck = jitlin.segmented_check(
+                st, max_segment=seg, kernel=kernel,
+                ckpt=ck.CheckpointStore(fpath, interval_s=0.0,
+                                        resume=False))
+            torch.cuda.synchronize()
+            seg_ckpt_ms = (time.perf_counter() - t0) * 1e3
+
+            def start():
+                if kind == "dense":
+                    return (fk.init_table(
+                        S, jitlin._bucket(len(st.intern), floor=16), 0,
+                        "cuda"),)
+                return fk.init_frontier(256, 0, "cuda")
+
+            def scan(lo, hi, carry):
+                ev = card_events(jitlin._slice_stream(st, lo, hi))
+                if kind == "dense":
+                    return wrapper(*ev, *carry)
+                return wrapper(*ev, *carry, S)
+
+            def quad(out):
+                return tuple(int(x) for x in out[:4])
+
+            t0 = time.perf_counter()
+            one = scan(0, len(st), start())
+            torch.cuda.synchronize()
+            one_ms = (time.perf_counter() - t0) * 1e3
+            fdoc = json.loads(fpath.read_text())
+            last = fdoc["events_done"]
+            at_last = scan(0, last, start())
+            saved = [ck.decode_array(a) for a in fdoc["carry"]["arrays"]]
+            saved = [a.astype(ck.host_array(x).dtype)
+                     for a, x in zip(saved, at_last[4:])]
+            resumed_carry = frontier_from_numpy(*saved, device="cuda")
+            if kind == "dense":
+                resumed_carry = (resumed_carry,)
+            tail = scan(last, len(st), resumed_carry)
+            same_at_cut = frontier_err(resumed_carry, at_last[4:]) == 0.0
+            same_final = frontier_err(tail[4:], one[4:]) == 0.0
+            one_q = quad(one)
+            if (int(got[0]), got[1], int(got[2]), got[3]) != one_q \
+                    or got_ck != got or not same_at_cut or not same_final \
+                    or seg_launches != len(f_cuts) or len(f_cuts) < 2:
+                raise AssertionError(f"{kind} chain {got} vs one-shot "
+                                     f"{one_q}; cuts {len(f_cuts)}, "
+                                     f"launches {seg_launches}")
+            frontier_rows[f"frontier_{kind}"] = {
+                "segmented_ms": seg_ms, "segmented_ckpt_ms": seg_ckpt_ms,
+                "segmented_one_shot_ms": one_ms,
+                "launches_segmented": seg_launches,
+                "segmented_events": len(st),
+                "segmented_max_segment": seg}
+            emit({"phase": "segmented_frontier", "kind": kind,
+                  "events": len(st), "states": len(st.intern), "S": S,
+                  "max_segment": seg, "cuts": f_cuts, "result": list(got),
+                  "one_shot": list(one_q), "launches": seg_launches,
+                  "frontier_at_last_cut_equal": same_at_cut,
+                  "final_frontier_equal": same_final,
+                  "segmented_ms": seg_ms, "segmented_ckpt_ms": seg_ckpt_ms,
+                  "one_shot_ms": one_ms, "card": name, "power": smi})
+
+    # 12e. the matrix carry's hand-off: the chain's carry at the first cut
+    # seeds the exact CPU frontier, which absorbs the rest
+    fs = ck.frontier_from_matrix_carry(carries[0], cas_register_step_py, 0)
+    if fs is None or fs.configs != at_cut or fs.events_absorbed != cut:
+        raise AssertionError("the carry's frontier is not the twin's at "
+                             "the cut")
+    t0 = time.perf_counter()
+    hand = fs.absorb(stream, start=cut)
+    hand_s = time.perf_counter() - t0
+    if (hand.valid, hand.failed_event) != (twin.valid, twin.failed_event):
+        raise AssertionError(f"hand-off: {hand} vs the twin's {twin}")
+    emit({"phase": "matrix_carry_handoff", "cut": cut,
+          "configs_at_cut": len(at_cut), "valid": hand.valid,
+          "absorb_s": hand_s, "events_absorbed": n - cut,
+          "phase_s": time.perf_counter() - phase_t0,
+          "card": name, "power": smi})
+    return {"chunk_product": {"launches_segmented":
+                              launches["chunk_product"]},
+            "combine_product": {"launches_segmented":
+                                launches["combine_product"]},
+            **frontier_rows,
+            "prefix_alive": {"long_localize_device_ms": {
+                c: v["prefix_device_ms"] for c, v in invalid.items()},
+                "long_localize_host_ms": {
+                c: v["loc_split"].get("prefix", 0.0) * 1e3
+                for c, v in invalid.items()},
+                "long_T": invalid["second_segment"]["T"]},
+            "window_rescan": {"long_localize_device_ms": {
+                c: v["rescan_device_ms"] for c, v in invalid.items()},
+                "long_localize_host_ms": {
+                c: v["loc_split"].get("rescan", 0.0) * 1e3
+                for c, v in invalid.items()},
+                "long_T": invalid["second_segment"]["T"]}}
+
+
 def nvidia_smi(query: str) -> str:
     """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
     return subprocess.run(
@@ -2614,11 +3011,15 @@ def main() -> int:
     scan_bytes = 2.0 * C6 * 1024 * 1024 * 2
     scan_bound_ms = max(scan_ops / PEAK_BF16_OPS, scan_bytes / PEAK_BYTES) \
         * 1e3
-    cut = quiescent_cut(st6)
+    # the last quiescent point at or before the stream's middle
+    cut = jitlin.quiescent_cuts(st6.kind, len(st6) // 2)[0]
+    if not 0 < cut < len(st6):
+        raise AssertionError(f"MV = 1024 history: no quiescent cut ({cut})")
     kw = dict(num_states=len(st6.intern), n_slots=st6.n_slots)
-    a1, _, t1 = jitlin.matrix_check_resume(slice_stream(st6, 0, cut), **kw)
+    a1, _, t1 = jitlin.matrix_check_resume(jitlin._slice_stream(st6, 0, cut),
+                                           **kw)
     a2, i2, t2 = jitlin.matrix_check_resume(
-        slice_stream(st6, cut, len(st6)), tot0=t1, **kw)
+        jitlin._slice_stream(st6, cut, len(st6)), tot0=t1, **kw)
     a_one, i_one, t_one = jitlin.matrix_check_resume(st6, **kw)
     torch.cuda.synchronize()
     if not torch.equal(t2, t_one) or bool(a2[0]) is not bool(a_one[0]) \
@@ -2843,6 +3244,12 @@ def main() -> int:
     for row in kernels:
         if row["name"] in mr:
             row["multi_register"] = mr[row["name"]]
+    # 12. resumable long checks: the 1,133,736-event history through the
+    # segmented matrix chain, its invalid copies, the checkpoint resume,
+    # the frontier chain and the carry's hand-off to the CPU twin
+    sg = segmented_phases(name, smi)
+    for row in kernels:
+        row.update(sg.get(row["name"], {}))
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,

@@ -70,13 +70,14 @@ class LinearResult:
 
 
 # copied from jepsen_tpu/checker/linear_cpu.py:78-244 (the pure-Python
-# step loop; no native frontier, snapshots or coverage probe)
+# step loop; no native frontier or coverage probe)
 class FrontierSession:
     """Resumable just-in-time linearization: the surviving
     configurations (linearized-pending bitmask, model state), the open
     ops per slot and the pending mask carry between absorbs. Once the
     frontier dies the session latches its failure LinearResult; further
-    absorbs are no-ops."""
+    absorbs are no-ops. :meth:`snapshot` and :meth:`restore` carry the
+    state through a durable checkpoint (checker/checkpoint.py)."""
 
     def __init__(
         self,
@@ -188,6 +189,70 @@ class FrontierSession:
             return self.failure
         return LinearResult(valid=True, configs_max=self.configs_max,
                             algorithm=self.algorithm)
+
+    # copied from jepsen_tpu/checker/linear_cpu.py:248-310. The port has no
+    # coverage probe and so no ``configs_min``: a snapshot carries
+    # ``"configs_min": None``, and ``restore`` takes a snapshot with or
+    # without a value there (one the JAX package wrote) and drops it.
+
+    def snapshot(self) -> dict | None:
+        """The session's resumable state as a JSON-serializable dict, or
+        None when it can't be serialized faithfully (exotic open-op
+        values). Restoring it and absorbing the remaining events is
+        bit-identical to one uninterrupted absorb: the configuration set,
+        the open ops and the pending mask are the algorithm's whole
+        state."""
+        try:
+            snap = {
+                "configs": sorted([int(m), int(s)] for m, s in self.configs),
+                "cur": {str(k): [int(x) for x in v]
+                        for k, v in self.cur.items()},
+                "cur_idx": {str(k): int(v) for k, v in self.cur_idx.items()},
+                "pending_mask": int(self.pending_mask),
+                "configs_max": int(self.configs_max),
+                "configs_min": None,
+                "events_absorbed": int(self.events_absorbed),
+            }
+            if self.failure is not None:
+                f = self.failure
+                snap["failure"] = {
+                    "failed_event": int(f.failed_event),
+                    "failed_op_index": int(f.failed_op_index),
+                    "configs_max": int(f.configs_max),
+                    "algorithm": f.algorithm,
+                }
+            return snap
+        except (TypeError, ValueError):
+            return None
+
+    @classmethod
+    def restore(cls, snap: dict, step=cas_register_step_py,
+                init_state: int = 0, algorithm: str = "jitlin-cpu"):
+        """A session rebuilt from :meth:`snapshot`'s product, or None on
+        a malformed snapshot (the caller restarts from zero: a bad
+        snapshot can delay a verdict, never change one)."""
+        try:
+            fs = cls(step=step, init_state=init_state, algorithm=algorithm)
+            fs.configs = {(int(m), int(s)) for m, s in snap["configs"]}
+            fs.cur = {int(k): tuple(int(x) for x in v)
+                      for k, v in (snap.get("cur") or {}).items()}
+            fs.cur_idx = {int(k): int(v)
+                          for k, v in (snap.get("cur_idx") or {}).items()}
+            fs.pending_mask = int(snap["pending_mask"])
+            fs.configs_max = int(snap.get("configs_max", 1))
+            fs.events_absorbed = int(snap["events_absorbed"])
+            fail = snap.get("failure")
+            if fail is not None:
+                fs.failure = LinearResult(
+                    valid=False,
+                    failed_event=int(fail["failed_event"]),
+                    failed_op_index=int(fail["failed_op_index"]),
+                    configs_max=int(fail.get("configs_max", 0)),
+                    algorithm=fail.get("algorithm") or algorithm,
+                )
+            return fs
+        except (KeyError, TypeError, ValueError):
+            return None
 
 
 # copied from jepsen_tpu/checker/linear_cpu.py:310-319

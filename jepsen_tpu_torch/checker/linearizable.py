@@ -10,8 +10,11 @@ multi-register history outside the packed encoding, runs ``wgl``. The
 rungs, tried in order:
 
 * ``torch-matrix`` — the block-composed transfer-matrix check
-  (ops/jitlin.matrix_check) on the device, for histories in its regime.
-  An exact True settles valid. With ``explain`` on (the default), an
+  (ops/jitlin.matrix_check) on the device, for histories in its regime;
+  a stream longer than MATRIX_SEGMENT_EVENTS = 2^20 events, or one with
+  a pending checkpoint, runs as a chain of segments cut at quiescent
+  points (ops/jitlin.matrix_check_segmented). An exact True settles
+  valid. With ``explain`` on (the default), an
   exact False localizes the first anomaly on the device
   (ops/jitlin.matrix_localize) and settles invalid with its event; with
   it off, or when the localization declines, and on an inexact verdict,
@@ -30,7 +33,8 @@ rungs, tried in order:
   the history on.
 * ``cpu`` — the exact CPU twin (linear_cpu.check_stream with the
   encoding's step), which settles everything the other rungs did not,
-  with the failing op. After a device rung ran, its algorithm reads
+  with the failing op; it starts at the matrix chain's last cut when the
+  chain sank a carry. After a device rung ran, its algorithm reads
   ``jitlin-cpu(fallback)``.
 
 ``accelerator`` is "gpu" (the device rung whenever in regime), "cpu" or
@@ -46,6 +50,12 @@ witness, the backend (``matrix-bisect`` or ``frontier-cpu``) and the
 bisection steps. The forensics never fail a check. Their localization
 runs on the checker's device, or on the CPU under ``accelerator="cpu"``.
 Not ported: the artifacts the reference writes beside them.
+
+A test map with a ``start_time`` gives the check a durable checkpoint,
+``store_dir/name/start_time/check.ckpt`` (checker/checkpoint.py): the
+matrix chain and the CPU rung persist their carry there and resume a
+valid one; a settled check removes it. ``check_ckpt_interval`` and
+``resume_check`` in the test map tune it.
 """
 from __future__ import annotations
 
@@ -151,8 +161,15 @@ class LinearizableChecker(Checker):
             return self._finish(wgl(history, self.model), history)
         stream, step_py, spec = enc
         extras: dict = {}
+        # copied from jepsen_tpu/checker/linearizable.py:175-186: a check
+        # with store coordinates persists its carry to check.ckpt and
+        # resumes a valid one; a settled check clears it
+        ckpt = self._ckpt_store(test)
         res = self._search_stream(stream, step_py, spec, accelerator,
-                                  explain=explain_on, extras=extras)
+                                  explain=explain_on, extras=extras,
+                                  ckpt=ckpt)
+        if ckpt is not None:
+            ckpt.clear()
         return self._finish(res, history, stream, step_py, spec.init_state,
                             test=test, step_ids=spec.step_ids,
                             explain_on=explain_on,
@@ -160,32 +177,72 @@ class LinearizableChecker(Checker):
                             device=("cpu" if accelerator == "cpu"
                                     else self.device))
 
+    # copied from jepsen_tpu/checker/linearizable.py:195-212
+    @staticmethod
+    def _ckpt_store(test):
+        """The run's durable check.ckpt store, or None when the test map
+        has no store coordinates (no ``start_time``) or checkpointing and
+        resumption are both off."""
+        if not isinstance(test, dict) or not test.get("start_time"):
+            return None
+        from jepsen_tpu_torch.checker import checkpoint as ckpt_mod
+        interval = ckpt_mod.ckpt_interval(test)
+        resume = ckpt_mod.resume_enabled(test)
+        if interval is None and not resume:
+            return None
+        try:
+            from jepsen_tpu_torch import store
+            path = store.path(test, ckpt_mod.CKPT_NAME)
+        except Exception:  # noqa: BLE001 — no store dir: no checkpoints
+            return None
+        return ckpt_mod.CheckpointStore(path, interval_s=interval,
+                                        resume=resume)
+
+    def _matrix_rung(self, stream, spec, ckpt, carries: list):
+        """The matrix screen (jepsen_tpu/checker/linearizable.py:302-333,
+        ``matrix_rung_check``): one-shot ``matrix_check`` for a stream
+        within one segment when no resume is pending (no check.ckpt), else
+        the resumable chain ``matrix_check_segmented``, whose carries after
+        each exact, alive segment go to ``carries``. Bit-identical either
+        way."""
+        from jepsen_tpu_torch.ops import jitlin
+        kw = dict(step_ids=spec.step_ids, init_state=spec.init_state,
+                  num_states=len(stream.intern), device=self.device)
+        resume_pending = (ckpt is not None and ckpt.resume
+                          and ckpt.path.exists())
+        if not resume_pending and len(stream) <= jitlin.MATRIX_SEGMENT_EVENTS:
+            return jitlin.matrix_check(stream, **kw)
+        return jitlin.matrix_check_segmented(stream, ckpt=ckpt,
+                                             carry_sink=carries.append, **kw)
+
     def _search_stream(self, stream, step_py, spec, accelerator,
                        explain: bool = True,
-                       extras: dict | None = None) -> LinearResult:
+                       extras: dict | None = None,
+                       ckpt=None) -> LinearResult:
         """The rungs over an encoded stream. With ``explain``, a
         localization that settles the matrix rung goes to
-        ``extras["loc"]`` for the witness shrink."""
+        ``extras["loc"]`` for the witness shrink. ``ckpt`` (a
+        ``checkpoint.CheckpointStore``) makes the matrix chain and the CPU
+        rung resumable."""
         from jepsen_tpu_torch.ops.jitlin import (
-            JitLinKernel, matrix_check, matrix_localize, matrix_ok, verdict)
+            JitLinKernel, matrix_localize, matrix_ok, verdict)
 
         device_regime = not (accelerator == "cpu" or (
             accelerator == "auto" and len(stream) < AUTO_TPU_THRESHOLD))
         attempted = False
+        carries: list = []
         if device_regime:
             n_returns = int((np.asarray(stream.kind) == EV_RETURN).sum())
             if matrix_ok(stream.n_slots, len(stream.intern), n_returns):
                 attempted = True
-                m = matrix_check(stream, step_ids=spec.step_ids,
-                                 init_state=spec.init_state,
-                                 num_states=len(stream.intern),
-                                 device=self.device)
+                m = self._matrix_rung(stream, spec, ckpt, carries)
                 # copied from jepsen_tpu/checker/linearizable.py:347-383
                 # (matrix_settle): an exact True settles valid; an exact
                 # False settles invalid at its localized event when explain
                 # is on; inexact, explain off or a declined localization
                 # pass the history on. An error of the localization
-                # propagates (the reference demotes on it).
+                # propagates (the reference demotes on it). A chain's
+                # invalid verdict localizes over the whole stream.
                 if m is not None and not m[2] and m[0]:
                     return LinearResult(valid=True, algorithm="torch-matrix")
                 if m is not None and not m[2] and explain:
@@ -224,10 +281,34 @@ class LinearizableChecker(Checker):
             res = check_stream_native(stream)
             if res is not None and res.valid != "unknown":
                 return res
-        res = check_stream(stream, step=step_py, init_state=spec.init_state)
+        res = self._cpu_rung(stream, step_py, spec.init_state, ckpt,
+                             carries[-1] if carries else None)
         if attempted:
             res.algorithm = "jitlin-cpu(fallback)"
         return res
+
+    @staticmethod
+    def _cpu_rung(stream, step_py, init: int, ckpt, carry) -> LinearResult:
+        """The exact CPU twin (jepsen_tpu/checker/linearizable.py:527-
+        560, ``cpu_fn``): from the matrix chain's last carry when one was
+        sunk (``frontier_from_matrix_carry``: the frontier at that cut),
+        and checkpointed when the check has a store."""
+        from jepsen_tpu_torch.checker import checkpoint as ckpt_mod
+        session = None
+        if carry is not None and carry.get("init_state") == init:
+            session = ckpt_mod.frontier_from_matrix_carry(carry, step_py,
+                                                          init)
+            if session is not None:
+                ckpt_mod.count_resume("carry")
+                logger.info("exact CPU frontier resuming from the matrix "
+                            "chain's carry at event %d",
+                            session.events_absorbed)
+        if ckpt is not None:
+            return ckpt_mod.checkpointed_check_stream(
+                stream, step_py, init, ckpt, session=session)
+        if session is not None:
+            return session.absorb(stream, start=session.events_absorbed)
+        return check_stream(stream, step=step_py, init_state=init)
 
     # copied from jepsen_tpu/checker/linearizable.py:675-713 without the
     # plot, the trace and the explain artifacts

@@ -26,6 +26,15 @@ The frontier rung below it (:class:`JitLinKernel`) scans one history's
 events with the dense-table or the sparse-frontier kernel
 (``frontier_kernels``), chosen by ``_dense_ok``.
 
+A stream longer than MATRIX_SEGMENT_EVENTS runs as a chain
+(:func:`matrix_check_segmented`): segments cut at quiescent points
+(:func:`quiescent_cuts`), each one ``matrix_check_resume`` dispatch from
+the composed product of the ones before, with the carry offered to a
+durable checkpoint (checker/checkpoint.py) after each.
+:func:`segmented_check` is the frontier scan's own chain: one
+``frontier_dense`` / ``frontier_sparse`` launch a segment, the frontier
+carried between them.
+
 :func:`matrix_localize` finds where an invalid matrix verdict died: the
 chunk products again (stage 1 alone), the frontier chained through them
 to the first dead chunk, and that chunk's returns rescanned on a frontier
@@ -33,6 +42,7 @@ vector (``forensics_kernels``: ``prefix_alive``, ``window_rescan``).
 """
 from __future__ import annotations
 
+import logging
 import threading
 import time
 import types
@@ -45,6 +55,8 @@ from jepsen_tpu_torch.models import cas_register_spec
 from jepsen_tpu_torch.ops import frontier_kernels, matrix_kernels
 
 EV_INVOKE, EV_RETURN, EV_NOOP = 0, 1, 2
+
+logger = logging.getLogger("jepsen_tpu_torch.jitlin")
 
 # Most recent dispatch routing of the calling thread.
 _DISPATCH_INFO = threading.local()
@@ -337,6 +349,12 @@ MATRIX_MAX_ELEMS = 1 << 28
 # of a batch of MATRIX_PIPELINE_KEYS + 1 to MATRIX_SUB_KEYS keys
 MATRIX_SUB_KEYS = 128
 MATRIX_PIPELINE_KEYS = 32
+# copied from jepsen_tpu/ops/jitlin.py:968-973, without the environment
+# override: events per segment of a resumable matrix chain
+# (matrix_check_segmented), and the checker's routing threshold: a longer
+# stream takes the chain, so that a check killed mid-way keeps its
+# completed segments
+MATRIX_SEGMENT_EVENTS = 1 << 20
 
 
 def matrix_ok(S: int, num_states: int | None, n_returns: int) -> bool:
@@ -407,6 +425,170 @@ def matrix_check_resume(stream, tot0=None, step_ids=None,
     dev = resolve_device(device)
     return _matrix_dispatch([prep], S, R_max, V, step_ids, init_state, dev,
                             resume=True, tot0=tot0)
+
+
+# copied from jepsen_tpu/ops/jitlin.py:1073-1089; this package has no
+# ``variant`` or ``combine_fused`` knob, so both stay None
+def matrix_segmented_config(S, V, init_state, num_states, max_segment,
+                            step_ids=None) -> dict:
+    """The knob and shape fingerprint a segmented-matrix checkpoint is
+    valid under, one constructor for the writer (matrix_check_segmented)
+    and the tests. ``step_ids`` stamps the model: the prefix hash covers
+    only the encoded columns, so a model swap between interrupt and
+    resume must discard on the config."""
+    from jepsen_tpu_torch.checker.checkpoint import step_identity
+    if step_ids is None:
+        step_ids = cas_register_spec().step_ids
+    return {"path": "matrix", "S": S, "V": V, "init_state": init_state,
+            "num_states": num_states, "max_segment": max_segment,
+            "variant": None, "combine_fused": None,
+            "step": step_identity(step_ids)}
+
+
+def _flags(alive, inexact) -> tuple[bool, bool]:
+    """(all alive, any inexact) of a segment's verdict: device tensors,
+    read back together, or the host values that a segment without returns
+    gives (``matrix_check_resume`` returns the carry's alive tensor and a
+    host False there)."""
+    if isinstance(alive, torch.Tensor) and isinstance(inexact, torch.Tensor):
+        a, i = torch.stack([alive.all(), inexact.any()]).tolist()
+        return bool(a), bool(i)
+    a = (alive.all().item() if isinstance(alive, torch.Tensor)
+         else np.asarray(alive).all())
+    return bool(a), bool(np.asarray(inexact).any())
+
+
+_SEGMENT_PHASE = threading.local()
+
+
+def last_segment_seconds() -> list:
+    """The calling thread's last ``matrix_check_segmented`` chain, one
+    entry a segment it ran: ``{"base", "end", "s"}``, host seconds from
+    the slice to the read-back of the segment's verdict."""
+    return list(getattr(_SEGMENT_PHASE, "value", []))
+
+
+# copied from jepsen_tpu/ops/jitlin.py:1092-1223, without the mesh, the
+# routing overrides and the trace span
+def matrix_check_segmented(stream, step_ids=None, init_state: int = 0,
+                           num_states: int | None = None,
+                           n_slots: int | None = None,
+                           max_segment: int | None = None,
+                           ckpt=None, carry: dict | None = None,
+                           carry_sink=None, device=None):
+    """One long small-domain history through a resumable chain of
+    :func:`matrix_check_resume` segments cut at quiescent points
+    (:func:`quiescent_cuts`, at most ``max_segment`` =
+    MATRIX_SEGMENT_EVENTS events apart). Returns the :func:`matrix_check`
+    quad ``(alive, -1, inexact, 0)``.
+
+    Resumable two ways:
+
+    * ``ckpt`` — a :class:`~jepsen_tpu_torch.checker.checkpoint.CheckpointStore`:
+      the composed ``tot0`` persists after each segment when the write
+      interval elapses, and a valid ``matrix`` checkpoint (same S, V and
+      knobs, matching prefix hash) resumes the chain at its cut. Boolean
+      operator products are exact under any association, so a resumed
+      chain composes the same total as an uninterrupted one.
+    * ``carry``/``carry_sink`` — in process: after each exact, alive
+      segment ``carry_sink`` receives ``{"rep": "matrix", "tot0",
+      "events_done", "S", "V", "init_state"}`` (``tot0`` the bf16 total
+      on ``device``), and a matching ``carry`` passed back in resumes
+      mid-chain.
+
+    An INEXACT segment aborts the chain at once without sinking or
+    persisting its carry: an under-approximate product must never seed an
+    exact resume. A dead segment returns at once; dead carries are never
+    persisted."""
+    if step_ids is None:
+        step_ids = cas_register_spec().step_ids
+    if num_states is None:
+        num_states = len(stream.intern)
+    V = _bucket(num_states, floor=8)
+    kind = np.asarray(stream.kind)
+    slot = np.asarray(stream.slot)
+    S = max(n_slots or 1, int(slot.max(initial=0)) + 1)
+    if max_segment is None:
+        max_segment = MATRIX_SEGMENT_EVENTS
+    dev = resolve_device(device)
+    cuts = quiescent_cuts(kind, max_segment)
+    cut_set = set(cuts)
+    n = len(kind)
+    base, seg_i = 0, 0
+    tot = None
+    config = ckpt_mod = None
+    if ckpt is not None:
+        from jepsen_tpu_torch.checker import checkpoint as ckpt_mod
+        config = matrix_segmented_config(S, V, init_state, num_states,
+                                         max_segment, step_ids=step_ids)
+    # the in-process carry first: it is at least as fresh as the durable
+    # checkpoint (the sink runs every segment, the store on an interval)
+    if carry is not None:
+        if (carry.get("rep") == "matrix" and carry.get("S") == S
+                and carry.get("V") == V
+                and carry.get("init_state") == init_state
+                and carry.get("events_done") in cut_set):
+            tot = carry["tot0"]
+            base = int(carry["events_done"])
+            seg_i = cuts.index(base) + 1
+            from jepsen_tpu_torch.checker.checkpoint import count_resume
+            count_resume("carry")
+            logger.info("segmented matrix check resuming from in-process "
+                        "carry at event %d/%d", base, n)
+        else:
+            logger.warning("matrix carry (S=%r V=%r events=%r) doesn't "
+                           "fit this stream (S=%d V=%d); restarting",
+                           carry.get("S"), carry.get("V"),
+                           carry.get("events_done"), S, V)
+    if tot is None and ckpt is not None:
+        state = ckpt_mod.load_resume(ckpt, "matrix", config, stream)
+        if state is not None and state["events_done"] in cut_set:
+            from jepsen_tpu_torch.convert import carry_from_numpy
+            tot = carry_from_numpy(
+                ckpt_mod.decode_array(state["carry"]["tot0"]), device=dev)
+            base = int(state["events_done"])
+            seg_i = cuts.index(base) + 1
+            ckpt_mod.count_resume("ckpt")
+            logger.info("resuming segmented matrix check from %s at "
+                        "event %d/%d", ckpt.path, base, n)
+        elif state is not None:
+            logger.warning("matrix checkpoint's cut %d is not a "
+                           "quiescent cut of this stream; restarting",
+                           state["events_done"])
+    segments = _SEGMENT_PHASE.value = []
+    for end in cuts:
+        if end <= base:
+            continue
+        t0 = time.perf_counter()
+        seg = _slice_stream(stream, base, end)
+        alive, ix, tot = matrix_check_resume(
+            seg, tot, step_ids=step_ids, init_state=init_state,
+            num_states=num_states, n_slots=S, device=dev)
+        alive_b, ix_b = _flags(alive, ix)
+        segments.append({"base": base, "end": end,
+                         "s": time.perf_counter() - t0})
+        if ix_b:
+            # an oob escape proves nothing, and its under-approximate
+            # carry must never seed an exact resume: abort unsunk
+            return alive_b, -1, True, 0
+        if not alive_b:
+            return False, -1, False, 0
+        base = end
+        seg_i += 1
+        if carry_sink is not None:
+            carry_sink({"rep": "matrix", "tot0": tot, "events_done": base,
+                        "S": S, "V": V, "init_state": init_state})
+        if ckpt is not None and base < n:
+            def make_state(tot=tot, base=base, seg_i=seg_i):
+                return {
+                    "kind": "matrix", "config": config,
+                    "events_done": base, "segment": seg_i,
+                    "prefix_hash": ckpt_mod.stream_prefix_hash(stream,
+                                                               base),
+                    "carry": {"tot0": ckpt_mod.encode_array(tot)},
+                }
+            ckpt.maybe_save(make_state, base)
+    return True, -1, False, 0
 
 
 # copied from jepsen_tpu/ops/jitlin.py:1226-1330, without the mesh branch,
@@ -732,8 +914,6 @@ def matrix_localize(stream, tot0=None, step_ids=None, init_state: int = 0,
     returns, is out of the plan's budget, is inexact (an oob transition
     proves nothing), is alive, or when the rescan disagrees with the
     chunk verdict (logged)."""
-    import logging
-
     t0 = time.perf_counter()
     if step_ids is None:
         step_ids = cas_register_spec().step_ids
@@ -800,7 +980,7 @@ def matrix_localize(stream, tot0=None, step_ids=None, init_state: int = 0,
     if t_star < 0 or inexact_any:
         # the chunk verdict and its per-return rescan disagree — a bug
         # or an oob escape; never report a guessed position
-        logging.getLogger("jepsen_tpu_torch.jitlin").warning(
+        logger.warning(
             "matrix localization inconsistency at chunk %d (first=%d); "
             "declining", c_star, t_star)
         return None
@@ -876,6 +1056,150 @@ def verdict(alive: bool, overflow: bool):
     if alive:
         return True
     return "unknown" if overflow else False
+
+
+# copied from jepsen_tpu/ops/jitlin.py:1844-1874
+def quiescent_cuts(kind, max_segment: int) -> list[int]:
+    """Cut positions for segmented verification: indices where no op is
+    pending (every invoke has returned), at most ``max_segment`` events
+    apart, as cumulative end positions including the final one. A window
+    with no quiescent point extends to the next one (or the end): a raw
+    cut would drop pending-op state and could convict a valid history."""
+    kind = np.asarray(kind)
+    delta = np.where(kind == EV_INVOKE, 1,
+                     np.where(kind == EV_RETURN, -1, 0))
+    pending = np.cumsum(delta)
+    quiet = np.nonzero(pending == 0)[0] + 1  # cut AFTER these events
+    cuts: list[int] = []
+    pos = 0
+    n = len(kind)
+    while pos < n:
+        limit = pos + max_segment
+        if limit >= n:
+            cuts.append(n)
+            break
+        j = np.searchsorted(quiet, limit, side="right") - 1
+        if j >= 0 and quiet[j] > pos:
+            nxt = int(quiet[j])
+        else:
+            k = np.searchsorted(quiet, limit, side="right")
+            nxt = int(quiet[k]) if k < len(quiet) else n
+        cuts.append(nxt)
+        pos = nxt
+    return cuts
+
+
+# copied from jepsen_tpu/ops/jitlin.py:1877-1969, on the frontier kernels
+def segmented_check(stream, max_segment: int = 1 << 21, kernel=None,
+                    capacity: int = 256, num_states: int | None = None,
+                    ckpt=None):
+    """Checks one long history as a chain of bounded segments cut at
+    quiescent points, carrying the frontier on the device between them:
+    the dense table or the capacity-``capacity`` sparse list, as
+    ``kernel`` (a :class:`JitLinKernel`, which names the device, the step
+    and the initial state) routes it, one ``frontier_dense`` /
+    ``frontier_sparse`` launch a segment from the frontier the last one
+    left. Returns (alive, died_event, overflow, peak): ``died`` an index
+    into the whole stream, ``overflow`` ORed over the segments (for the
+    dense table, its out-of-range flag), ``peak`` their max.
+
+    The reference pads each segment to a bucketed length with no-op
+    events; the kernels here take the segment as it is, which changes
+    nothing (a no-op event steps nothing).
+
+    ``ckpt`` makes the chain resumable: the frontier persists after each
+    segment when the write interval elapses, and a valid ``frontier``
+    checkpoint (same cuts, same config, matching prefix hash) resumes the
+    chain at its cut."""
+    if kernel is None:
+        kernel = JitLinKernel()
+    if num_states is None and getattr(stream, "intern", None) is not None:
+        num_states = len(stream.intern)
+    S = max(1, stream.n_slots)
+    dev = resolve_device(kernel.device)
+    dense = kernel.route(S, num_states) == "dense"
+    if dense:
+        carry = (frontier_kernels.init_table(
+            S, _bucket(num_states, floor=16), kernel.init_state, dev),)
+    else:
+        carry = frontier_kernels.init_frontier(capacity, kernel.init_state,
+                                               dev)
+    kind = np.asarray(stream.kind)
+    cuts = quiescent_cuts(kind, max_segment)
+    ovf, peak = False, 0
+    base = 0
+    config = ckpt_mod = None
+    if ckpt is not None:
+        from jepsen_tpu_torch.checker import checkpoint as ckpt_mod
+        config = {"path": "segmented", "S": S, "capacity": capacity,
+                  "num_states": num_states, "max_segment": max_segment,
+                  "dense": dense,
+                  "step": ckpt_mod.step_identity(kernel.step_ids)}
+        state = ckpt_mod.load_resume(ckpt, "frontier", config, stream)
+        if state is not None and state["events_done"] in set(cuts):
+            from jepsen_tpu_torch.convert import frontier_from_numpy
+            base = state["events_done"]
+            arrays = [ckpt_mod.decode_array(a).astype(d.dtype)
+                      for a, d in zip(state["carry"]["arrays"],
+                                      (ckpt_mod.host_array(c)
+                                       for c in carry))]
+            carry = frontier_from_numpy(*arrays, device=dev)
+            if dense:
+                carry = (carry,)
+            ovf = bool(state["carry"].get("overflow", False))
+            peak = int(state["carry"].get("peak", 0))
+            ckpt_mod.count_resume("ckpt")
+            logger.info("resuming segmented check from %s at event %d/%d",
+                        ckpt.path, base, len(kind))
+        elif state is not None:
+            logger.warning("segmented checkpoint's cut %d is not a "
+                           "quiescent cut of this stream; restarting",
+                           state["events_done"])
+    for end in cuts:
+        if end <= base:
+            continue  # already covered by the resumed carry
+        seg = _slice_stream(stream, base, end)
+        events = (seg.kind, seg.slot, seg.f, seg.a, seg.b)
+        if dense:
+            out = frontier_kernels.frontier_dense(*events, *carry,
+                                                  step_ids=kernel.step_ids)
+        else:
+            out = frontier_kernels.frontier_sparse(*events, *carry, S,
+                                                   step_ids=kernel.step_ids)
+        carry = out[4:]
+        a, d, o, p = torch.stack([x.to(torch.int32) for x in out[:4]]
+                                 ).cpu().tolist()
+        ovf |= bool(o)
+        peak = max(peak, p)
+        if not a:
+            return False, base + d if d >= 0 else -1, ovf, peak
+        base = end
+        if ckpt is not None and base < len(kind):
+            def make_state(carry=carry, base=base, ovf=ovf, peak=peak):
+                return {
+                    "kind": "frontier", "config": config,
+                    "events_done": base, "segment": cuts.index(base),
+                    "prefix_hash": ckpt_mod.stream_prefix_hash(stream,
+                                                               base),
+                    "carry": {
+                        "arrays": [ckpt_mod.encode_array(c) for c in carry],
+                        "overflow": ovf, "peak": peak,
+                    },
+                }
+            ckpt.maybe_save(make_state, base)
+    return True, -1, ovf, peak
+
+
+# copied from jepsen_tpu/ops/jitlin.py:1972-1982
+def _slice_stream(stream, lo: int, hi: int):
+    """A view-slice of an EventStream's arrays (shared intern and slot
+    count). ``op_index`` slices too: a segment's diagnostics resolve
+    through its own events."""
+    import copy
+    seg = copy.copy(stream)
+    for field in ("kind", "slot", "f", "a", "b", "op_index"):
+        setattr(seg, field, np.asarray(getattr(stream, field))[lo:hi])
+    return seg
 
 
 class JitLinKernel:

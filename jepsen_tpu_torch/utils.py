@@ -1,9 +1,25 @@
 """Host helpers shared by the checkers."""
 from __future__ import annotations
 
+import json
 import math
+import os
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from typing import Callable, Iterable, Sequence
+
+
+# copied from jepsen_tpu/utils/__init__.py:34-45
+def atomic_write_json(path, value) -> None:
+    """Durable atomic JSON write: tmp file + flush + fsync + rename, so
+    readers never see a torn document and the content survives a crash."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(value, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
 
 
 # copied from jepsen_tpu/utils/__init__.py:196-203

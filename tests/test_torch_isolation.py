@@ -45,7 +45,7 @@ def test_port_sources_exist():
             "txn.py", "columnar.py", "list_append.py",
             "rw_register.py", "independent.py", "parallel.py",
             "utils.py", "setscan.py", "views.py", "explain.py",
-            "forensics_kernels.py"} <= names
+            "forensics_kernels.py", "checkpoint.py", "store.py"} <= names
     assert (ROOT / "jepsen_tpu_torch/native/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/wgl.cpp").exists()
     assert (ROOT / "jepsen_tpu_torch/elle/__init__.py") in _sources()
@@ -133,6 +133,41 @@ h = set_full_history(300, 20, n_lost=2, n_stale=2, seed=1)
 out = set_full(True, "gpu", device="cpu").check({}, h, {})
 assert (out["lost-count"], out["stale-count"]) == (2, 2), out
 assert out == set_full(True, "cpu").check({}, h, {})
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+print("LEAKED", leaked)
+"""
+    out = _leaked_modules(code)
+    assert "LEAKED []" in out, out
+
+
+def test_checkpointed_cpu_check_loads_neither_jax_nor_reference():
+    """A check with store coordinates: the matrix chain writes check.ckpt
+    through checker/checkpoint.py and store.py, and the settled check
+    removes it."""
+    code = """
+import sys, tempfile
+from pathlib import Path
+from jepsen_tpu_torch.checker.linearizable import linearizable
+from jepsen_tpu_torch.histories import corrupt_reads, register_history
+from jepsen_tpu_torch.ops import jitlin
+jitlin.MATRIX_MIN_RETURNS = 10
+jitlin.MATRIX_SEGMENT_EVENTS = 128
+writes = []
+from jepsen_tpu_torch.checker import checkpoint
+real = checkpoint.CheckpointStore.save
+checkpoint.CheckpointStore.save = lambda self, *a, **k: (
+    writes.append(1), real(self, *a, **k))[1]
+with tempfile.TemporaryDirectory() as d:
+    test = {"name": "iso", "start_time": "t0", "store_dir": d,
+            "check_ckpt_interval": 1e-9}
+    h = corrupt_reads(register_history(300, n_procs=3, seed=2, n_values=4),
+                      n=1, seed=1)
+    for acc in ("gpu", "cpu"):
+        out = linearizable(accelerator=acc, device="cpu").check(test, h, {})
+        assert out["valid?"] is False, out
+        assert not (Path(d) / "iso" / "t0" / "check.ckpt").exists()
+assert writes, "no checkpoint was written"
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("LEAKED", leaked)
