@@ -65,7 +65,7 @@ just before it and read just after:
   inputs, as they are and with the reads listed last first;
 * the multi-register slice (the multi-key-acid workload, K = 3 keys x
   V = 5 values, 216 states): ``independent.checker(compose({"linear":
-  linearizable(model=MultiRegister(), accelerator="gpu")}))`` on 1,000
+  linearizable(model=MultiRegister(), accelerator="gpu")}))`` on 500
   keys of 20 txns on 10 processes each, valid and with 10 keys given an
   impossible read, each key's verdict and failing op equal to the port's
   ``accelerator="cpu"`` run, one frontier launch a key (dense table for
@@ -78,7 +78,7 @@ just before it and read just after:
   (2, 3) dense warp path, (3, 5) sparse list; B = 8), path counts
   included; and the (2, 3) shape (16 states) through ``torch-matrix``.
   Each frontier row of the ``kernels`` line gains a ``multi_register``
-  entry (ms, launches on the 1,000-key check, bound);
+  entry (ms, launches on the 500-key check, bound);
 * resumable long checks: the headline's shape at 700k ops (1,133,736
   events, past MATRIX_SEGMENT_EVENTS = 2^20) through ``linearizable(
   accelerator="gpu")``: the matrix chain's two segments (one chunk
@@ -97,6 +97,20 @@ just before it and read just after:
   twin's verdict. The chunk product and combine rows gain
   ``launches_segmented``, the frontier rows ``segmented_ms``, the
   forensics rows the long localization's times.
+* stored-run re-checks (``stored_recheck`` lines): in a temporary store,
+  the port's ``write_history`` and ``write_columnar`` write the headline
+  and its copy with two corrupted reads, bench.py's 50k-txn list-append
+  history and its copy with 50 crossed pairs, and phase 12's long
+  history; each is re-checked with ``check_stored(accelerator="gpu")``
+  (median of 5, 3 for the long history) and must give its live check's
+  verdict and failed op, or result map without ``builder``: the valid
+  copies in the stored lane (``(stored)``, ``columnar-store``), the
+  invalid ones through the jsonl. Each line has the store's write
+  seconds, the sidecar load's, the launches and the profiler's kernels.
+  The live 50k-txn check runs through the C parser and through the numpy
+  front in turns, with equal result maps (``stored_recheck_fronts``: each
+  one's ``build`` seconds). Every row of the ``kernels`` line gains
+  ``launches_stored``.
 
 Earlier phases keep their shapes.
 
@@ -438,15 +452,16 @@ def read_launches() -> dict:
             "window_rescan": fx.window_rescan.launches}
 
 
-def device_kernels(fn, want: str = ""):
+def device_kernels(fn, want: str = "", warm: bool = True):
     """[(kernel name, device us)] of the CUDA kernels that one call of
     ``fn()`` runs, in launch order, from ``torch.profiler`` (after one
-    warm-up call); with ``want``, a trace that holds a kernel whose name
-    contains it."""
+    warm-up call, unless ``warm`` is False); with ``want``, a trace that
+    holds a kernel whose name contains it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     # the profiler now and then returns a trace without the device's
     # events, or without some of them: take the call again, up to three
     # times
@@ -712,6 +727,7 @@ def elle_main_path(case, history, want_types, name, smi):
         if out["anomaly-types"] != want_types:
             raise AssertionError(f"elle {case}: timed check {out}")
     med = statistics.median(times)
+    LIVE_RUNS[case] = (history, got, times)
     kerns = device_kernels(
         lambda: list_append.check(history, accelerator="gpu"))
     screen_ms = sum(us for k, us in kerns
@@ -1541,15 +1557,15 @@ def set_full_phases(name, smi) -> dict:
 
 # the multi-register slice (the multi-key-acid workload,
 # jepsen_tpu/workloads/multi_key_acid.py; multi_key_acid.clj:40-41 and
-# :59): 1,000 keys of 20 txns, each key on its own 10 processes (2n, n = 5
+# :59): 500 keys of 20 txns, each key on its own 10 processes (2n, n = 5
 # nodes; 5 read, 5 write), K = 3 keys x V = 5 values (216 states); the
-# invalid copy gives 10 keys an impossible read. One 10k-txn history on 5
-# processes at the same width (the dense table's CTA path), its copy with
-# two impossible reads, and a copy whose last writes crash until S = 10
-# (the sparse list). The kernels alone on 1k-txn histories: the plain
-# versions loop over events in Python.
-ACID_GROUPS, ACID_PER_GROUP, ACID_PROCS = 1000, 20, 10
-ACID_BAD = tuple(range(7, 1000, 100))
+# invalid copy gives 10 keys an impossible read (the key count is the
+# depth cut). One 10k-txn history on 5 processes at the same width (the
+# dense table's CTA path), its copy with two impossible reads, and a copy
+# whose last writes crash until S = 10 (the sparse list). The kernels
+# alone on 1k-txn histories: the plain versions loop over events in Python.
+ACID_GROUPS, ACID_PER_GROUP, ACID_PROCS = 500, 20, 10
+ACID_BAD = tuple(range(7, 500, 50))
 MR_SHAPE, MR_TXNS, MR_KERNEL_TXNS = (3, 5), 10_000, 1000
 
 
@@ -1757,31 +1773,7 @@ def multi_register_phases(name, smi) -> dict:
         sts = [encode_multi_register_ops(s) for s in subs.values()]
         return sts, [kernel.route(s.n_slots, len(s.intern)) for s in sts]
 
-    def split(h, check_med, reps):
-        """Median host seconds of the check's parts, one after another:
-        the split by key, the encode, every key's frontier rung, and the
-        twin for the keys the rung leaves unknown or invalid (their
-        verdict, or the invalid ones' final configurations)."""
-        parts = {k: [] for k in ("split", "encode", "rung", "twin")}
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            _, subs = independent.split_history(h)
-            t1 = time.perf_counter()
-            sts = [lin._encoding(s)[0] for s in subs.values()]
-            t2 = time.perf_counter()
-            outs = [kernel.check(s) for s in sts]
-            t3 = time.perf_counter()
-            for s, o in zip(sts, outs):
-                if not o[0]:
-                    check_stream(s, step=step_py)
-            t4 = time.perf_counter()
-            for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-                parts[k].append(dt)
-        med = {k: statistics.median(v) for k, v in parts.items()}
-        med["threads_and_rest"] = check_med - sum(med.values())
-        return med
-
-    # 11a. the main path: 1,000 multi-key-acid keys, valid
+    # 11a. the main path: 500 multi-key-acid keys, valid
     h = multi_key_acid_history(ACID_GROUPS, ACID_PER_GROUP, ACID_PROCS)
     sts, rts = routes(h)
     n_dense, n_sparse = rts.count("dense"), rts.count("sparse")
@@ -1807,10 +1799,13 @@ def multi_register_phases(name, smi) -> dict:
     for r in got["results"].values():
         a = r["linear"]["algorithm"]
         algs[a] = algs.get(a, 0) + 1
-    check_s, _ = timed(lambda: chk.check({}, h, {}), 3)
+    # the first check is warm (the kernels ran in phases 9-10): it is the
+    # first of the 3 timed checks, and the profiler takes no warm-up call
+    more_s, _ = timed(lambda: chk.check({}, h, {}), 2)
+    check_s = [first_s] + more_s
     med = statistics.median(check_s)
-    med_split = split(h, med, reps=1)
-    busy = device_kernels(lambda: chk.check({}, h, {}), "frontier")
+    busy = device_kernels(lambda: chk.check({}, h, {}), "frontier",
+                          warm=False)
     busy_ms = sum(us for _, us in busy) / 1e3
     by_kernel = {}
     for kname, us in busy:
@@ -1827,15 +1822,23 @@ def multi_register_phases(name, smi) -> dict:
           "launches_per_check": launches, "first_check_s": first_s,
           "check_s": check_s, "median_check_s": med,
           "txns_per_sec": ACID_GROUPS * ACID_PER_GROUP / med,
-          "median_split_s": med_split, "device_busy_ms": busy_ms,
+          "device_busy_ms": busy_ms,
           "device_busy_share": busy_ms / 1e3 / med,
           "device_us_by_kernel": sorted(by_kernel.items(),
                                         key=lambda kv: -kv[1])[:6],
           "cpu_oracle_check_s": oracle_s, "card": name, "power": smi})
 
-    # 11b. 10 keys with an impossible read
+    # 11b. 10 keys with an impossible read. The other keys' sub-histories
+    # are 11a's, so the cpu oracle checks the 10 keys alone and takes 11a's
+    # results for the rest
     hb = corrupt_txn_keys(h, ACID_BAD, n=1)
-    want_b = oracle.check({}, hb, {})
+    from jepsen_tpu_torch.independent import is_tuple_value
+    want_bad = oracle.check({}, [op for op in hb
+                                 if is_tuple_value(op.get("value"))
+                                 and op["value"][0] in ACID_BAD], {})
+    want_b = {"valid?": False, "count": want["count"],
+              "failures": want_bad["failures"],
+              "results": {**want["results"], **want_bad["results"]}}
     reset_launches()
     t0 = time.perf_counter()
     got_b = chk.check({}, hb, {})
@@ -1853,9 +1856,7 @@ def multi_register_phases(name, smi) -> dict:
         bad_algs[a] = bad_algs.get(a, 0) + 1
     emit({"phase": "multi_key_acid_invalid", "bad_keys": list(ACID_BAD),
           "failures": got_b["failures"], "failure_algorithms": bad_algs,
-          "launches": lb, "check_s": check_b,
-          "median_split_s": split(hb, check_b, reps=1),
-          "card": name, "power": smi})
+          "launches": lb, "check_s": check_b, "card": name, "power": smi})
 
     # 11c. one 10k-txn history at the same width: the dense table's CTA
     # path; two impossible reads; a copy whose last writes crash (S = 10:
@@ -1984,12 +1985,12 @@ def multi_register_phases(name, smi) -> dict:
             **rows["dense_cta"], "launches": launches["frontier_dense"],
             "warp_2x3": rows["dense_warp"],
             "cta_3x5_invalid": rows["dense_cta_invalid"],
-            "main_path": "multi_key_acid (1,000 keys, one launch a key)",
+            "main_path": "multi_key_acid (500 keys, one launch a key)",
             "long_history_events": len(st_main)},
         "frontier_sparse": {
             **rows["sparse"], "launches": launches["frontier_sparse"],
             "s5": rows["sparse_s5"],
-            "main_path": "multi_key_acid (1,000 keys, one launch a key)"},
+            "main_path": "multi_key_acid (500 keys, one launch a key)"},
         "frontier_dense_batch": {**batch_rows["frontier_dense_batch"],
                                  "launches": 0},
         "frontier_sparse_batch": {**batch_rows["frontier_sparse_batch"],
@@ -2386,6 +2387,7 @@ def segmented_phases(name, smi) -> dict:
         by_name[kname] = by_name.get(kname, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     med = statistics.median(check_s)
+    LIVE_RUNS["long"] = (h, res, check_s)
     prep = jitlin._returns_prepass(stream.kind, stream.slot, stream.f,
                                    stream.a, stream.b)
     plans = []
@@ -2666,6 +2668,216 @@ def segmented_phases(name, smi) -> dict:
                 c: v["loc_split"].get("rescan", 0.0) * 1e3
                 for c, v in invalid.items()},
                 "long_T": invalid["second_segment"]["T"]}}
+
+
+# ---------------------------------------------------------------------------
+# 13. stored-run re-checks: the history.npz sidecar and check_stored
+# ---------------------------------------------------------------------------
+
+#: live checks of the main paths that phase 13 re-checks from the store,
+#: by case: (history, result, host seconds of each timed check); filled by
+#: phases 8 and 12
+LIVE_RUNS: dict = {}
+
+# the launches each stored re-check must show (at least): the register
+# lane's matrix kernels, Elle's φ screen (the valid 50k-txn history
+# settles without a launch); the invalid headline's stored lane settles
+# on the frontier rung, and its jsonl fallback localizes with explain on
+STORED_WANT = {
+    "headline": {"chunk_product": 1, "combine_product": 1},
+    "headline_corrupted": {"chunk_product": 2, "combine_product": 2,
+                           "frontier_dense": 1, "prefix_alive": 1,
+                           "window_rescan": 1},
+    "elle_50k": {},
+    "elle_50k_pairs": {"cluster_screen": 2},
+    "long": {"chunk_product": 2, "combine_product": 2},
+}
+
+
+def stored_recheck_case(case, kind, history, valid, reps, store_dir, name,
+                        smi, live=None) -> dict:
+    """One history of phase 13: written with the port's ``write_history``
+    and ``write_columnar``, then ``check_stored(accelerator="gpu")``
+    against the live check (``live``: its (result, seconds) when an
+    earlier phase ran it). A valid copy must settle in the stored lane,
+    an invalid one in the jsonl fallback, with the live check's verdict
+    and failed op (registers) or result map without ``builder`` (Elle).
+    Returns the launches of the first stored re-check."""
+    import torch
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checker.linearizable import (check_stored,
+                                                       linearizable)
+    from jepsen_tpu_torch.elle import list_append
+    test = {"name": case, "start_time": "t0", "store_dir": store_dir,
+            "history": history}
+    t0 = time.perf_counter()
+    store.write_history(test)
+    t1 = time.perf_counter()
+    store.write_columnar(test)
+    write_s = {"history": t1 - t0, "columnar": time.perf_counter() - t1}
+    if kind == "register":
+        chk = linearizable(accelerator="gpu")
+        live_fn = lambda: chk.check({}, history, {})  # noqa: E731
+        stored_fn = lambda: check_stored(  # noqa: E731
+            case, "t0", store_dir, accelerator="gpu")
+        load_fn = lambda: store.load_linear_columns(  # noqa: E731
+            case, "t0", store_dir)
+    else:
+        live_fn = lambda: list_append.check(  # noqa: E731
+            history, accelerator="gpu")
+        stored_fn = lambda: list_append.check_stored(  # noqa: E731
+            case, "t0", store_dir, accelerator="gpu")
+        load_fn = lambda: store.load_elle_columns(  # noqa: E731
+            case, "t0", store_dir)
+    if live is None:
+        live_s, live_res = timed(live_fn, reps)
+    else:
+        live_res, live_s = live
+    reset_launches()
+    t0 = time.perf_counter()
+    got = stored_fn()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    lc = read_launches()
+    # the first re-check is warm (the live checks ran the same kernels):
+    # it is the first of the timed ones
+    more_s, _ = timed(stored_fn, reps - 1)
+    stored_s = [first_s] + more_s
+    load_s, cols = timed(load_fn, reps)
+    if cols is None:
+        raise AssertionError(f"stored {case}: the sidecar has no columns")
+    if kind == "register":
+        lane = "stored" if got["algorithm"].endswith("(stored)") \
+            else "jsonl"
+        same = (got["valid?"], got.get("failed-op")) == (
+            live_res["valid?"], live_res.get("failed-op"))
+    else:
+        lane = {"columnar-store": "stored", "columnar": "jsonl"}.get(
+            got.get("builder"))
+        same = without_builder(got) == without_builder(live_res)
+    short = {k: n for k, n in STORED_WANT[case].items() if lc[k] < n}
+    if not same or got["valid?"] is not valid \
+            or lane != ("stored" if valid else "jsonl") or short:
+        raise AssertionError(f"stored {case}: {lane} lane, equal to the "
+                             f"live check: {same}, valid {got['valid?']}, "
+                             f"launches {lc}")
+    kerns = device_kernels(stored_fn, warm=False)
+    by_kernel = {}
+    for kname, us in kerns:
+        by_kernel[kname] = by_kernel.get(kname, 0.0) + us
+    emit({"phase": "stored_recheck", "case": case, "kind": kind,
+          "ops": len(history), "valid": got["valid?"], "lane": lane,
+          "algorithm": got.get("algorithm"), "builder": got.get("builder"),
+          "failed_op": got.get("failed-op"),
+          "anomaly_types": got.get("anomaly-types"),
+          "equals_live_check": True,
+          "write_history_s": write_s["history"],
+          "write_columnar_s": write_s["columnar"],
+          "sidecar_bytes": (store.path(test, "history.npz")
+                            .stat().st_size),
+          "live_check_s": live_s,
+          "median_live_check_s": statistics.median(live_s),
+          "stored_check_s": stored_s,
+          "median_stored_check_s": statistics.median(stored_s),
+          "sidecar_load_s": load_s,
+          "median_sidecar_load_s": statistics.median(load_s),
+          "launches": lc, "device_kernels": sorted(
+              by_kernel.items(), key=lambda kv: -kv[1])[:8],
+          "device_busy_ms": sum(by_kernel.values()) / 1e3,
+          "card": name, "power": smi})
+    return lc
+
+
+def stored_phases(name, smi) -> dict:
+    """Phase 13: each history written to a temporary store and re-checked
+    with ``check_stored(accelerator="gpu")`` against its live check: the
+    headline and its two corrupted reads, bench.py's 50k-txn list-append
+    history and its 50 crossed pairs, phase 12's long history (the Elle
+    and long histories and their live checks from phases 8 and 12 when
+    they ran); then the live 50k-txn check through the C front and
+    through the numpy front. Returns the stored re-checks' launches by
+    kernel."""
+    import tempfile
+
+    import torch
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.elle import columnar, list_append
+    from jepsen_tpu_torch.histories import (corrupt_reads, elle_history,
+                                            register_history)
+    from jepsen_tpu_torch.native import columnar_c
+
+    phase_t0 = time.perf_counter()
+    headline = register_history(N_OPS, n_procs=N_PROCS, seed=SEED,
+                                n_values=N_VALUES)
+
+    def earlier(key, make, live_fn):
+        """(history, live (result, seconds)) of an earlier phase's run,
+        or made and checked here when that phase did not run."""
+        if key not in LIVE_RUNS:
+            h = make()
+            check_s, res = timed(lambda: live_fn(h), 3)
+            LIVE_RUNS[key] = (h, res, check_s)
+        h, res, check_s = LIVE_RUNS[key]
+        return h, (res, check_s)
+
+    chk = linearizable(accelerator="gpu")
+    h_valid, live_valid = earlier(
+        "valid_50k", lambda: elle_history(ELLE_TXNS),
+        lambda h: list_append.check(h, accelerator="gpu"))
+    h_pairs, live_pairs = earlier(
+        "pairs_at_end_50k",
+        lambda: elle_history(ELLE_TXNS, crossed_pairs=ELLE_PAIRS),
+        lambda h: list_append.check(h, accelerator="gpu"))
+    long_h, live_long = earlier(
+        "long", lambda: register_history(LONG_OPS, n_procs=N_PROCS,
+                                         seed=SEED, n_values=N_VALUES),
+        lambda h: chk.check({}, h, {}))
+    cases = [
+        ("headline", "register", headline, True, 5, None),
+        ("headline_corrupted", "register",
+         corrupt_reads(headline, n=2, seed=0), False, 5, None),
+        ("elle_50k", "elle", h_valid, True, 5, live_valid),
+        ("elle_50k_pairs", "elle", h_pairs, False, 5, live_pairs),
+        ("long", "register", long_h, True, 3, live_long),
+    ]
+    launches: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        for case, kind, h, valid, reps, live in cases:
+            lc = stored_recheck_case(case, kind, h, valid, reps, d, name,
+                                     smi, live)
+            for k, v in lc.items():
+                launches[k] = launches.get(k, 0) + v
+    # the live 50k-txn check through both fronts of the graph build, in
+    # turns: the C parser, then the numpy front (columnar._build_py)
+    h = h_valid
+    if columnar_c.mod().parse(h) is None:
+        raise AssertionError("the C parser declines the 50k-txn history")
+    c_build = columnar._build
+    builds = {"c": [], "numpy": []}
+    maps = {}
+    for _ in range(3):
+        for front, fn in (("c", c_build), ("numpy", columnar._build_py)):
+            columnar._build = fn
+            t0 = time.perf_counter()
+            maps[front] = list_append.check(h, accelerator="gpu")
+            torch.cuda.synchronize()
+            builds[front].append((columnar.LAST_PHASE_SECONDS["build"],
+                                  time.perf_counter() - t0))
+    columnar._build = c_build
+    if maps["c"] != maps["numpy"] or maps["c"]["valid?"] is not True:
+        raise AssertionError("the C front's result map differs from the "
+                             "numpy front's")
+    emit({"phase": "stored_recheck_fronts", "txns": ELLE_TXNS,
+          "maps_equal": True,
+          "build_s": {k: [b for b, _ in v] for k, v in builds.items()},
+          "check_s": {k: [c for _, c in v] for k, v in builds.items()},
+          "median_build_s": {k: statistics.median(b for b, _ in v)
+                             for k, v in builds.items()},
+          "median_check_s": {k: statistics.median(c for _, c in v)
+                             for k, v in builds.items()},
+          "phase_s": time.perf_counter() - phase_t0,
+          "card": name, "power": smi})
+    return launches
 
 
 def nvidia_smi(query: str) -> str:
@@ -3250,6 +3462,12 @@ def main() -> int:
     sg = segmented_phases(name, smi)
     for row in kernels:
         row.update(sg.get(row["name"], {}))
+    # 13. stored-run re-checks: each history through the port's store and
+    # check_stored against its live check; each row gains the launches of
+    # the stored re-checks
+    stored = stored_phases(name, smi)
+    for row in kernels:
+        row["launches_stored"] = stored.get(row["name"], 0)
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,

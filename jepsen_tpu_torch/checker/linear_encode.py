@@ -215,21 +215,10 @@ def encode_multi_register_ops(history, n_keys: int = 3, n_values: int = 5):
     return stream
 
 
-# copied from jepsen_tpu/history_ir/sidecar.py:119-135
+# copied from jepsen_tpu/checker/linear_encode.py:108-111: the lin_*
+# column round-trip lives with the sidecar (history_ir/sidecar.py)
 def stream_from_columns(cols: dict) -> EventStream:
-    """Rebuilds an EventStream from the ``lin_*`` column dict the JAX
-    package persists (its ``stream_to_columns`` product)."""
-    intern = Intern()
-    for v in np.asarray(cols["intern_table"]).tolist():
-        intern.id(int(v))
-    return EventStream(
-        kind=np.asarray(cols["kind"], np.int8),
-        slot=np.asarray(cols["slot"], np.int32),
-        f=np.asarray(cols["f"], np.int32),
-        a=np.asarray(cols["a"], np.int32),
-        b=np.asarray(cols["b"], np.int32),
-        op_index=np.asarray(cols["op_index"], np.int32),
-        n_slots=int(cols["n_slots"]),
-        n_ops=int(cols["n_ops"]),
-        intern=intern,
-    )
+    """Rebuilds an EventStream from the ``lin_*`` column dict either
+    package persists."""
+    from jepsen_tpu_torch.history_ir import sidecar
+    return sidecar.stream_from_columns(cols)

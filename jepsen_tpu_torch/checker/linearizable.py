@@ -56,6 +56,11 @@ A test map with a ``start_time`` gives the check a durable checkpoint,
 matrix chain and the CPU rung persist their carry there and resume a
 valid one; a settled check removes it. ``check_ckpt_interval`` and
 ``resume_check`` in the test map tune it.
+
+:func:`check_stored` re-checks a stored run from the ``lin_*`` columns of
+its ``history.npz`` sidecar (store.py), through the same rungs and with
+no re-encode: a valid verdict settles there, ``"(stored)"`` after its
+algorithm; anything else re-checks ``history.jsonl``.
 """
 from __future__ import annotations
 
@@ -369,3 +374,55 @@ class LinearizableChecker(Checker):
 
 def linearizable(model=None, **kw) -> Checker:
     return LinearizableChecker(model=model, **kw)
+
+
+# copied from jepsen_tpu/checker/linearizable.py:805-850. An error of the
+# stored lane's check propagates, a kernel's above all: the reference logs
+# it and falls back to the jsonl ("fast lane must never block"), which
+# would hide a failed kernel
+def check_stored(test_name: str, timestamp: str, store_dir: str = "store",
+                 model=None, accelerator: str = "auto",
+                 device=None) -> dict:
+    """Re-checks a STORED register run's linearizability, preferring the
+    ``lin_*`` EventStream columns in its history.npz sidecar — no jsonl
+    load, no re-encoding. The stored lane settles only VALID verdicts
+    (``algorithm`` ends in ``"(stored)"``) through the same rungs as
+    ``check``; anything else — invalid (the failure report needs the
+    ops), a model other than ``CASRegister``, a missing, damaged or
+    older sidecar — goes to the jsonl history through the normal
+    check. Device work runs on ``device`` (the CUDA device by
+    default)."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checker.linear_encode import stream_from_columns
+
+    model = model if model is not None else CASRegister()
+    cols = None
+    if isinstance(model, CASRegister):
+        try:
+            cols = store.load_linear_columns(test_name, timestamp,
+                                             store_dir)
+        except Exception as e:  # noqa: BLE001 - damaged sidecar: use jsonl
+            store.note_sidecar_load_failure(
+                f"{test_name}/{timestamp} (lin_*)", e)
+            cols = None
+    if cols is not None:
+        stream = stream_from_columns(cols)
+        init_id = (0 if model.value is None
+                   else stream.intern.id(model.value))
+        spec = cas_register_spec(init_id)
+        checker = LinearizableChecker(model=model, accelerator=accelerator,
+                                      device=device)
+        # the rungs check() runs, so the stored lane can't drift from the
+        # live one; explain=False: an invalid stored verdict goes to the
+        # jsonl check below, which localizes itself
+        res = checker._search_stream(stream, cas_register_step_py, spec,
+                                     accelerator, explain=False)
+        res.algorithm += "(stored)"
+        if res.valid is True:
+            return checker._finish(res, [])
+    history = store.load_history(test_name, timestamp, store_dir)
+    checker = LinearizableChecker(model=model, accelerator=accelerator,
+                                  device=device)
+    return checker.check({"name": test_name, "start_time": timestamp,
+                          "store_dir": store_dir}, history, {})
+

@@ -7,8 +7,9 @@ txns the equivalent Python walk dominates the whole check. This module
 derives the same dependency graph with a few C-speed passes instead:
 
 * history parsing — event pairing, micro-op flattening, key interning,
-  spine selection, prefix verification — runs in the vectorized numpy
-  front (``_build_py``; the reference's C parser is not ported),
+  spine selection, prefix verification — runs in the C parser
+  (``native/columnar_ext.c``, built with g++ at first use); a history
+  it returns None on takes the vectorized numpy front (``_build_py``),
 * writer maps, element-level scans (aborted reads, unobserved writers,
   intermediate reads), the internal (own-writes) check, ww/wr/rw edge
   derivation and the realtime/process timing edges are array joins over
@@ -25,6 +26,10 @@ Applies when append/fail values are ints in [0, 2^32) (the universal
 workload shape — elle's own generator emits dense int appends); anything
 else returns None and the caller takes the Python builder. The
 cpu-oracle path never comes here: the tests pin this builder to it.
+
+The C parser's product is also what the store persists (``parse_columns``,
+the ``elle_*`` keys of ``history.npz``), and ``check_columns`` re-checks a
+stored run from those arrays alone.
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ _MAX_VAL = 1 << 32
 
 
 # copied from jepsen_tpu/elle/columnar.py:49-52: phase timings of the
-# most recent check_columnar call (seconds); build is the host-side numpy
+# most recent check_columnar call (seconds); build is the host-side C/numpy
 # build, cycles the (possibly device) screen + search
 LAST_PHASE_SECONDS: dict = {}
 
@@ -84,18 +89,223 @@ def check_columnar(history: list, consistency_models, accelerator: str,
     return result
 
 
-# jepsen_tpu/elle/columnar.py:96-107 without the C parser, which is not
-# ported: the numpy front alone, as the reference runs without it
+# copied from jepsen_tpu/elle/columnar.py:55-58
+def _cmod():
+    """The C parser's extension module, built at first use (a failed
+    build raises)."""
+    from jepsen_tpu_torch.native import columnar_c
+    return columnar_c.mod()
+
+
+def _parse(history: list):
+    """The C parser's 25-tuple, or None on a regime miss: ``parse``
+    returning None, or raising the TypeError, ValueError or OverflowError
+    that views.elle_build catches. Any other exception propagates, and so
+    does a failed build (the reference takes every exception, and a
+    missing parser, for a regime miss)."""
+    m = _cmod()
+    try:
+        return m.parse(history)
+    except (TypeError, ValueError, OverflowError):
+        return None
+
+
+# copied from jepsen_tpu/elle/columnar.py:96-107, through _parse
 def _build(history: list):
-    """Dependency-graph build. Returns (graph, txns, extras, n_keys) or
-    None (regime miss)."""
+    """Dependency-graph build: the C parser, the numpy front on a regime
+    miss. Returns (graph, txns, extras, n_keys) or None (regime miss)."""
+    out = _parse(history)
+    if out is not None:
+        return _build_from_c(out)
     return _build_py(history)
+
+
+# copied from jepsen_tpu/elle/columnar.py:110-140
+def _build_from_c(out):
+    """Adapts the C parser's 25-tuple into the shared tail's inputs."""
+    (n_ok, nk, node_pos_b, node_inv_b, node_proc_b, txns,
+     a_txn_b, a_kid_b, a_val_b, a_mi_b,
+     r_txn_b, r_kid_b, r_mi_b, r_len_b, r_last_b,
+     payloads, raw_key, f_kid_b, f_val_b,
+     s_concat_b, s_kid_b, soff_b, slen_b, brow_b, scrutiny_l) = out
+    b = lambda x: np.frombuffer(x, np.int64)  # noqa: E731
+    R_txn = b(r_txn_b)
+    R_isok = R_txn < n_ok
+    F_comp = np.sort((b(f_kid_b) << 32) | b(f_val_b)) \
+        if len(f_val_b) else np.asarray([], np.int64)
+    brow = b(brow_b)
+
+    def spine_of(k):
+        r = int(brow[k])
+        return payloads[r] if r >= 0 else None
+
+    return _tail(
+        txns=txns, n=len(txns), n_ok=n_ok, nk=nk, raw_key=raw_key,
+        A_txn=b(a_txn_b), A_kid=b(a_kid_b), A_val=b(a_val_b),
+        A_mi=b(a_mi_b), F_comp=F_comp,
+        R_txn=R_txn, R_kid=b(r_kid_b), R_mi=b(r_mi_b),
+        lens=b(r_len_b), last_arr=b(r_last_b), R_isok=R_isok,
+        payloads=payloads,
+        S_concat=b(s_concat_b), s_kid=b(s_kid_b),
+        soff_of_kid=b(soff_b), slen_of_kid=b(slen_b),
+        spine_of=spine_of,
+        scrutiny=set(scrutiny_l), rows_by_kid=None,
+        node_pos=b(node_pos_b), node_inv=b(node_inv_b),
+        node_proc=b(node_proc_b))
 
 
 # copied from jepsen_tpu/elle/columnar.py:143-145
 class NeedsObjects(Exception):
     """A finding requires op-object context (txn values) that stored
     columns don't carry — re-run the check from the jsonl history."""
+
+
+# copied from jepsen_tpu/elle/columnar.py:148-162
+class _ObjectsNeeded:
+    """Stand-in for the txn-object list in stored-column checks: sized,
+    but any element access means a finding wants to cite a txn — the
+    caller must fall back to the object history."""
+
+    def __init__(self, n: int):
+        self._n = n
+
+    def __len__(self):
+        return self._n
+
+    def __getitem__(self, i):
+        raise NeedsObjects("finding cites txn objects; re-check from "
+                           "the jsonl history")
+
+
+# copied from jepsen_tpu/elle/columnar.py:165-177
+class _PayloadView:
+    """Read payloads as lists on demand from the stored concat+offsets
+    (only anomaly-scrutiny paths ever materialize one)."""
+
+    def __init__(self, concat, off):
+        self.concat = concat
+        self.off = off
+
+    def __len__(self):
+        return len(self.off) - 1
+
+    def __getitem__(self, j):
+        return self.concat[self.off[j]:self.off[j + 1]].tolist()
+
+
+# copied from jepsen_tpu/elle/columnar.py:180-186
+#: keys of the storable column set (parse_columns product); scalars
+#: n_ok/nk ride as 0-d arrays
+ELLE_COLUMN_KEYS = (
+    "n_ok", "nk", "node_pos", "node_inv", "node_proc",
+    "a_txn", "a_kid", "a_val", "a_mi",
+    "r_txn", "r_kid", "r_mi", "r_len", "r_last",
+    "f_kid", "f_val", "s_concat", "s_kid", "soff", "slen", "brow",
+    "scrutiny", "raw_key", "payload_concat", "payload_off")
+
+
+# copied from jepsen_tpu/elle/columnar.py:189-245, through _parse
+def parse_columns(history: list):
+    """The C parser's product as plain int64 numpy columns — the
+    struct-of-arrays form the store persists so later re-checks skip
+    the PyObject parse entirely. None when the history is outside the
+    storable regime (exotic keys, non-int payload elements)."""
+    out = _parse(history)
+    if out is None:
+        return None
+    (n_ok, nk, node_pos_b, node_inv_b, node_proc_b, _txns,
+     a_txn_b, a_kid_b, a_val_b, a_mi_b,
+     r_txn_b, r_kid_b, r_mi_b, r_len_b, r_last_b,
+     payloads, raw_key, f_kid_b, f_val_b,
+     s_concat_b, s_kid_b, soff_b, slen_b, brow_b, scrutiny_l) = out
+    b = lambda x: np.frombuffer(x, np.int64)  # noqa: E731
+    try:
+        raw_key_arr = np.asarray(raw_key, np.int64)
+        # natural-dtype conversion + integer-kind check: a forced
+        # int64 cast would silently TRUNCATE float payload elements
+        # (e.g. a corrupt read of 1.5) and the stored re-check would
+        # miss anomalies the object path reports
+        pay_arrays = []
+        for p in payloads:
+            a = np.asarray(p)
+            if a.size == 0:
+                a = np.zeros(0, np.int64)
+            elif a.ndim != 1 or a.dtype.kind not in "iu":
+                return None  # non-int elements: not storable
+            pay_arrays.append(a.astype(np.int64))
+    except (TypeError, ValueError, OverflowError):
+        return None  # exotic keys/payload elements: not storable
+    lens = b(r_len_b)
+    off = np.zeros(len(pay_arrays) + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    concat = (np.concatenate(pay_arrays) if pay_arrays
+              else np.zeros(0, np.int64))
+    return {
+        "n_ok": np.int64(n_ok), "nk": np.int64(nk),
+        "node_pos": b(node_pos_b), "node_inv": b(node_inv_b),
+        "node_proc": b(node_proc_b),
+        "a_txn": b(a_txn_b), "a_kid": b(a_kid_b), "a_val": b(a_val_b),
+        "a_mi": b(a_mi_b),
+        "r_txn": b(r_txn_b), "r_kid": b(r_kid_b), "r_mi": b(r_mi_b),
+        "r_len": lens, "r_last": b(r_last_b),
+        "f_kid": b(f_kid_b), "f_val": b(f_val_b),
+        "s_concat": b(s_concat_b), "s_kid": b(s_kid_b),
+        "soff": b(soff_b), "slen": b(slen_b), "brow": b(brow_b),
+        "scrutiny": np.asarray(scrutiny_l, np.int64),
+        "raw_key": raw_key_arr,
+        "payload_concat": concat, "payload_off": off,
+    }
+
+
+# copied from jepsen_tpu/elle/columnar.py:248-293, with the device passed
+# through to check_cycles
+def check_columns(cols: dict, consistency_models=("strict-serializable",),
+                  accelerator: str = "auto", device=None) -> dict:
+    """Full list-append check from stored columns — no op objects, no
+    parse. Raises :class:`NeedsObjects` when a finding needs to cite
+    txn values (anomalous histories); the clean path completes
+    entirely from the arrays. Device work runs on ``device`` (the CUDA
+    device by default)."""
+    import time as _time
+    t0 = _time.perf_counter()
+    a = {k: np.asarray(cols[k]) for k in ELLE_COLUMN_KEYS}
+    n_ok, nk = int(a["n_ok"]), int(a["nk"])
+    payloads = _PayloadView(a["payload_concat"], a["payload_off"])
+    brow = a["brow"]
+
+    def spine_of(k):
+        r = int(brow[k])
+        return payloads[r] if r >= 0 else None
+
+    F_comp = np.sort((a["f_kid"] << 32) | a["f_val"]) \
+        if a["f_val"].size else np.asarray([], np.int64)
+    txns = _ObjectsNeeded(int(a["node_pos"].size))
+    graph, _txns, extras, nk = _tail(
+        txns=txns, n=len(txns), n_ok=n_ok, nk=nk,
+        raw_key=a["raw_key"].tolist(),
+        A_txn=a["a_txn"], A_kid=a["a_kid"], A_val=a["a_val"],
+        A_mi=a["a_mi"], F_comp=F_comp,
+        R_txn=a["r_txn"], R_kid=a["r_kid"], R_mi=a["r_mi"],
+        lens=a["r_len"], last_arr=a["r_last"],
+        R_isok=a["r_txn"] < n_ok, payloads=payloads,
+        S_concat=a["s_concat"], s_kid=a["s_kid"],
+        soff_of_kid=a["soff"], slen_of_kid=a["slen"], spine_of=spine_of,
+        scrutiny=set(a["scrutiny"].tolist()), rows_by_kid=None,
+        node_pos=a["node_pos"], node_inv=a["node_inv"],
+        node_proc=a["node_proc"])
+    t1 = _time.perf_counter()
+    cyc = elle.check_cycles(graph, accelerator=accelerator, device=device)
+    LAST_PHASE_SECONDS.update(build=round(t1 - t0, 3),
+                              cycles=round(_time.perf_counter() - t1, 3))
+    merged_extras = {k: v for k, v in extras.items()
+                     if k != "unobserved-writer"}
+    result = elle.result_map(cyc, txns, merged_extras,
+                             consistency_models=consistency_models)
+    result["txn-count"] = graph.n
+    result["edge-count"] = graph.edge_count()
+    result["read-scan-keys"] = {"columnar": nk, "python": 0}
+    result["builder"] = "columnar-store"
+    return result
 
 
 # copied from jepsen_tpu/elle/columnar.py:296-364
@@ -389,8 +599,8 @@ def _tail(*, txns, n, n_ok, nk, raw_key,
     extras: dict[str, list] = defaultdict(list)
     n_reads = len(payloads)
 
-    # lazy rows_by_kid: the reference's C front doesn't build it (only
-    # anomaly attribution needs it, which clean histories never reach)
+    # lazy rows_by_kid: the C front doesn't build it (only anomaly
+    # attribution needs it, which clean histories never reach)
     _rbk = [rows_by_kid]
 
     def get_rows_by_kid():

@@ -13,7 +13,8 @@ are data-parallel scans.
 ``accelerator`` is "gpu" (the device screen and trim wherever the
 reference's "tpu" takes them), "cpu" (the Python builder and the host
 trim + Tarjan oracle) or "auto"; device work runs on ``device`` (the CUDA
-device by default).
+device by default). :func:`check_stored` re-checks a stored run from the
+``elle_*`` columns of its ``history.npz`` sidecar.
 """
 from __future__ import annotations
 
@@ -206,6 +207,41 @@ def _scan_reads_py(k, reads, longest, txns, writer_of, failed_writes,
                     {"key": k, "value": v})
         _g1b_one_read(k, i, r, txns, writer_of, appends_per_txn_key,
                       anomalies_extra)
+
+
+# copied from jepsen_tpu/elle/list_append.py:208-237, with the device
+# passed through
+def check_stored(test_name: str, timestamp: str, store_dir: str = "store",
+                 accelerator: str = "auto",
+                 consistency_models=("strict-serializable",),
+                 device=None) -> dict:
+    """Re-checks a STORED run's list-append history, preferring the
+    ``elle_*`` columns in its history.npz sidecar — a pure array
+    pipeline with no jsonl parse and no PyObject history. Falls back to
+    the jsonl history when the sidecar is missing, damaged or predates
+    the columns, or when a finding needs to cite txn objects (anomalous
+    histories). Device work runs on ``device`` (the CUDA device by
+    default)."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.elle import columnar
+
+    try:
+        cols = store.load_elle_columns(test_name, timestamp, store_dir)
+    except Exception as e:  # noqa: BLE001 - any sidecar damage (missing,
+        #              truncated zip, wrong keys) means: use the jsonl
+        store.note_sidecar_load_failure(
+            f"{test_name}/{timestamp} (elle_*)", e)
+        cols = None
+    if cols is not None:
+        try:
+            return columnar.check_columns(
+                cols, consistency_models=consistency_models,
+                accelerator=accelerator, device=device)
+        except columnar.NeedsObjects:
+            pass
+    history = store.load_history(test_name, timestamp, store_dir)
+    return check(history, accelerator=accelerator,
+                 consistency_models=consistency_models, device=device)
 
 
 # copied from jepsen_tpu/elle/list_append.py:240-388, without the

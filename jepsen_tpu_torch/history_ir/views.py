@@ -1,16 +1,87 @@
-"""The set-full checker's membership columns (jepsen_tpu/history_ir/
-views.py's set-full view).
+"""Checker views over the history IR (jepsen_tpu/history_ir/views.py).
 
-One deliberate change from the reference: the times come back as
-float64. Jepsen records times in nanoseconds since the test began, and
-float32 cannot tell two times about 8 us apart near 100 s, which turns
-a read that began before an add was acknowledged into a later one.
+The memoized views of a :class:`~jepsen_tpu_torch.history_ir.ir
+.DeviceHistory` — :func:`register_stream`, :func:`elle_build`,
+:func:`elle_columns`, :func:`txn_nodes` — are what the ``history.npz``
+sidecar persists and the stored re-checks read back. The set-full
+checker's membership columns are a plain function of a history.
+
+One deliberate change from the reference in :func:`set_full_columns`:
+the times come back as float64. Jepsen records times in nanoseconds since
+the test began, and float32 cannot tell two times about 8 us apart near
+100 s, which turns a read that began before an add was acknowledged into
+a later one.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from jepsen_tpu_torch.history import Intern
+from jepsen_tpu_torch.history_ir.ir import DeviceHistory
+
+
+# copied from jepsen_tpu/history_ir/views.py:43-49
+def _key_of(v) -> str:
+    """A stable hashable memo-key fragment for an arbitrary value."""
+    try:
+        hash(v)
+        return v
+    except TypeError:
+        return repr(v)
+
+
+# copied from jepsen_tpu/history_ir/views.py:234-243, over the port's
+# checker/linear_encode.encode_register_ops
+def register_stream(dh: DeviceHistory, init_value=None):
+    """The memoized register EventStream view. ``init_value`` (the
+    model's initial register value) interns FIRST so its id is the
+    kernel's init state — the memo is keyed on it."""
+    from jepsen_tpu_torch.checker.linear_encode import encode_register_ops
+
+    def build():
+        intern = Intern()
+        if init_value is not None:
+            intern.id(init_value)
+        return encode_register_ops(dh.ops, intern=intern)
+    return dh.view(("register-stream", _key_of(init_value)), build)
+
+
+# copied from jepsen_tpu/history_ir/views.py:262-272
+def elle_build(dh: DeviceHistory):
+    """The memoized Elle dependency-graph build product
+    ((graph, txns, extras, n_keys) — ``elle.columnar._build``), or None
+    when the history is outside the integer columnar regime."""
+    def build():
+        from jepsen_tpu_torch.elle import columnar
+        try:
+            return columnar._build(dh.ops)
+        except (TypeError, ValueError, OverflowError):
+            return None
+    return dh.view(("elle-build",), build)
+
+
+# copied from jepsen_tpu/history_ir/views.py:275-281
+def elle_columns(dh: DeviceHistory):
+    """The memoized storable Elle builder columns
+    (``elle.columnar.parse_columns``), or None when not storable."""
+    def build():
+        from jepsen_tpu_torch.elle import columnar
+        return columnar.parse_columns(dh.ops)
+    return dh.view(("elle-columns",), build)
+
+
+# copied from jepsen_tpu/history_ir/views.py:284-298
+def txn_nodes(dh: DeviceHistory) -> tuple[list, list, list]:
+    """The memoized (oks, fails, infos) op split every elle-style
+    checker starts from (list-append's Python builder, rw-register)."""
+    def build():
+        oks = [op for op in dh.ops if op.get("type") == "ok"
+               and isinstance(op.get("process"), int)]
+        fails = [op for op in dh.ops if op.get("type") == "fail"]
+        infos = [op for op in dh.ops if op.get("type") == "info"
+                 and isinstance(op.get("process"), int)]
+        return oks, fails, infos
+    return dh.view(("txn-nodes",), build)
 
 
 # copied from jepsen_tpu/history_ir/views.py:302-454, times in float64

@@ -40,3 +40,17 @@ def quantile(sorted_xs: Sequence[float], q: float) -> float:
         return math.nan
     i = min(len(sorted_xs) - 1, max(0, int(math.ceil(q * len(sorted_xs))) - 1))
     return sorted_xs[i]
+
+
+# copied from jepsen_tpu/utils/__init__.py:374-384
+def op2str(op: dict) -> str:
+    """Render an op like the reference log format (util.clj:205-243)."""
+    proc = op.get("process")
+    typ = op.get("type")
+    f = op.get("f")
+    value = op.get("value")
+    err = op.get("error")
+    s = f"{proc}\t{typ}\t{f}\t{value}"
+    if err is not None:
+        s += f"\t{err}"
+    return s

@@ -45,9 +45,12 @@ def test_port_sources_exist():
             "txn.py", "columnar.py", "list_append.py",
             "rw_register.py", "independent.py", "parallel.py",
             "utils.py", "setscan.py", "views.py", "explain.py",
-            "forensics_kernels.py", "checkpoint.py", "store.py"} <= names
+            "forensics_kernels.py", "checkpoint.py", "store.py",
+            "codec.py", "journal.py", "ir.py", "sidecar.py",
+            "artifacts.py", "columnar_c.py"} <= names
     assert (ROOT / "jepsen_tpu_torch/native/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/wgl.cpp").exists()
+    assert (ROOT / "jepsen_tpu_torch/native/columnar_ext.c").exists()
     assert (ROOT / "jepsen_tpu_torch/elle/__init__.py") in _sources()
     assert sorted(p.name for p in
                   (ROOT / "jepsen_tpu_torch/ops/csrc").glob("*.cu")) == [
@@ -168,6 +171,43 @@ with tempfile.TemporaryDirectory() as d:
         assert out["valid?"] is False, out
         assert not (Path(d) / "iso" / "t0" / "check.ckpt").exists()
 assert writes, "no checkpoint was written"
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+print("LEAKED", leaked)
+"""
+    out = _leaked_modules(code)
+    assert "LEAKED []" in out, out
+
+
+def test_stored_recheck_loads_neither_jax_nor_reference():
+    """Both lanes of both stored re-checks through the port: the stored
+    columns (valid runs) and the jsonl fallback (invalid runs), with the
+    C parser writing the elle_* columns."""
+    code = """
+import sys, tempfile
+from jepsen_tpu_torch import store
+from jepsen_tpu_torch.checker.linearizable import check_stored as lin_stored
+from jepsen_tpu_torch.elle.list_append import check_stored as la_stored
+from jepsen_tpu_torch.histories import (corrupt_reads, elle_history,
+                                        register_history)
+with tempfile.TemporaryDirectory() as d:
+    h = register_history(120, n_procs=3, seed=2, n_values=4)
+    cases = [("lin-ok", h, lin_stored, True),
+             ("lin-bad", corrupt_reads(h, n=1, seed=1), lin_stored, False),
+             ("la-ok", elle_history(200), la_stored, True),
+             ("la-bad", elle_history(200, crossed_pairs=2), la_stored,
+              False)]
+    for name, hh, fn, valid in cases:
+        test = {"name": name, "start_time": "t0", "store_dir": d,
+                "history": hh}
+        store.write_history(test)
+        store.write_columnar(test)
+        for acc in ("gpu", "cpu"):
+            out = fn(name, "t0", d, accelerator=acc, device="cpu")
+            assert out["valid?"] is valid, out
+            stored = (out.get("builder") == "columnar-store"
+                      or out.get("algorithm", "").endswith("(stored)"))
+            assert stored is valid, out
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("LEAKED", leaked)
