@@ -727,7 +727,6 @@ def elle_main_path(case, history, want_types, name, smi):
         if out["anomaly-types"] != want_types:
             raise AssertionError(f"elle {case}: timed check {out}")
     med = statistics.median(times)
-    LIVE_RUNS[case] = (history, got, times)
     kerns = device_kernels(
         lambda: list_append.check(history, accelerator="gpu"))
     screen_ms = sum(us for k, us in kerns
@@ -1559,11 +1558,14 @@ def set_full_phases(name, smi) -> dict:
 # jepsen_tpu/workloads/multi_key_acid.py; multi_key_acid.clj:40-41 and
 # :59): 500 keys of 20 txns, each key on its own 10 processes (2n, n = 5
 # nodes; 5 read, 5 write), K = 3 keys x V = 5 values (216 states); the
-# invalid copy gives 10 keys an impossible read (the key count is the
-# depth cut). One 10k-txn history on 5 processes at the same width (the
-# dense table's CTA path), its copy with two impossible reads, and a copy
-# whose last writes crash until S = 10 (the sparse list). The kernels
-# alone on 1k-txn histories: the plain versions loop over events in Python.
+# invalid copy gives 10 keys an impossible read. The key count is the
+# depth cut that keeps the whole script inside its time budget: on one
+# H100 host 11a and 11b took 117 s of a 665 s run at 1,000 keys, and 85 s
+# of a 679 s run at 650 keys on another. One 10k-txn history on 5
+# processes at the same width (the dense table's CTA path), its copy with
+# two impossible reads, and a copy whose last writes crash until S = 10
+# (the sparse list). The kernels alone on 1k-txn histories: the plain
+# versions loop over events in Python.
 ACID_GROUPS, ACID_PER_GROUP, ACID_PROCS = 500, 20, 10
 ACID_BAD = tuple(range(7, 500, 50))
 MR_SHAPE, MR_TXNS, MR_KERNEL_TXNS = (3, 5), 10_000, 1000
@@ -1773,7 +1775,29 @@ def multi_register_phases(name, smi) -> dict:
         sts = [encode_multi_register_ops(s) for s in subs.values()]
         return sts, [kernel.route(s.n_slots, len(s.intern)) for s in sts]
 
+    def split(h, check_med):
+        """Host seconds of the check's parts, one after another: the
+        split by key, the encode, every key's frontier rung, and the twin
+        for the keys the rung leaves unknown or invalid (their verdict,
+        or the invalid ones' final configurations)."""
+        t0 = time.perf_counter()
+        _, subs = independent.split_history(h)
+        t1 = time.perf_counter()
+        sts = [lin._encoding(s)[0] for s in subs.values()]
+        t2 = time.perf_counter()
+        outs = [kernel.check(s) for s in sts]
+        t3 = time.perf_counter()
+        for s, o in zip(sts, outs):
+            if not o[0]:
+                check_stream(s, step=step_py)
+        t4 = time.perf_counter()
+        parts = dict(zip(("split", "encode", "rung", "twin"),
+                         (t1 - t0, t2 - t1, t3 - t2, t4 - t3)))
+        parts["threads_and_rest"] = check_med - sum(parts.values())
+        return parts
+
     # 11a. the main path: 500 multi-key-acid keys, valid
+    acid_t0 = time.perf_counter()
     h = multi_key_acid_history(ACID_GROUPS, ACID_PER_GROUP, ACID_PROCS)
     sts, rts = routes(h)
     n_dense, n_sparse = rts.count("dense"), rts.count("sparse")
@@ -1804,6 +1828,7 @@ def multi_register_phases(name, smi) -> dict:
     more_s, _ = timed(lambda: chk.check({}, h, {}), 2)
     check_s = [first_s] + more_s
     med = statistics.median(check_s)
+    med_split = split(h, med)
     busy = device_kernels(lambda: chk.check({}, h, {}), "frontier",
                           warm=False)
     busy_ms = sum(us for _, us in busy) / 1e3
@@ -1822,7 +1847,7 @@ def multi_register_phases(name, smi) -> dict:
           "launches_per_check": launches, "first_check_s": first_s,
           "check_s": check_s, "median_check_s": med,
           "txns_per_sec": ACID_GROUPS * ACID_PER_GROUP / med,
-          "device_busy_ms": busy_ms,
+          "split_s": med_split, "device_busy_ms": busy_ms,
           "device_busy_share": busy_ms / 1e3 / med,
           "device_us_by_kernel": sorted(by_kernel.items(),
                                         key=lambda kv: -kv[1])[:6],
@@ -1856,7 +1881,9 @@ def multi_register_phases(name, smi) -> dict:
         bad_algs[a] = bad_algs.get(a, 0) + 1
     emit({"phase": "multi_key_acid_invalid", "bad_keys": list(ACID_BAD),
           "failures": got_b["failures"], "failure_algorithms": bad_algs,
-          "launches": lb, "check_s": check_b, "card": name, "power": smi})
+          "launches": lb, "check_s": check_b,
+          "acid_phase_s": time.perf_counter() - acid_t0,
+          "card": name, "power": smi})
 
     # 11c. one 10k-txn history at the same width: the dense table's CTA
     # path; two impossible reads; a copy whose last writes crash (S = 10:
@@ -2674,9 +2701,11 @@ def segmented_phases(name, smi) -> dict:
 # 13. stored-run re-checks: the history.npz sidecar and check_stored
 # ---------------------------------------------------------------------------
 
-#: live checks of the main paths that phase 13 re-checks from the store,
-#: by case: (history, result, host seconds of each timed check); filled by
-#: phases 8 and 12
+#: phase 12's long history and its live check, which phase 13 re-checks
+#: from the store: (history, result, host seconds of each timed check).
+#: Phase 13 makes its other histories itself: with phase 8's 50k-txn Elle
+#: histories kept until then, phases 9 and 10 ran 7-8 s slower in two runs
+#: on an H100 host
 LIVE_RUNS: dict = {}
 
 # the launches each stored re-check must show (at least): the register
@@ -2792,11 +2821,10 @@ def stored_phases(name, smi) -> dict:
     """Phase 13: each history written to a temporary store and re-checked
     with ``check_stored(accelerator="gpu")`` against its live check: the
     headline and its two corrupted reads, bench.py's 50k-txn list-append
-    history and its 50 crossed pairs, phase 12's long history (the Elle
-    and long histories and their live checks from phases 8 and 12 when
-    they ran); then the live 50k-txn check through the C front and
-    through the numpy front. Returns the stored re-checks' launches by
-    kernel."""
+    history and its 50 crossed pairs, phase 12's long history (with its
+    live checks from phase 12 when it ran); then the live 50k-txn check
+    through the C front and through the numpy front. Returns the stored
+    re-checks' launches by kernel."""
     import tempfile
 
     import torch
@@ -2810,35 +2838,23 @@ def stored_phases(name, smi) -> dict:
     headline = register_history(N_OPS, n_procs=N_PROCS, seed=SEED,
                                 n_values=N_VALUES)
 
-    def earlier(key, make, live_fn):
-        """(history, live (result, seconds)) of an earlier phase's run,
-        or made and checked here when that phase did not run."""
-        if key not in LIVE_RUNS:
-            h = make()
-            check_s, res = timed(lambda: live_fn(h), 3)
-            LIVE_RUNS[key] = (h, res, check_s)
-        h, res, check_s = LIVE_RUNS[key]
-        return h, (res, check_s)
-
-    chk = linearizable(accelerator="gpu")
-    h_valid, live_valid = earlier(
-        "valid_50k", lambda: elle_history(ELLE_TXNS),
-        lambda h: list_append.check(h, accelerator="gpu"))
-    h_pairs, live_pairs = earlier(
-        "pairs_at_end_50k",
-        lambda: elle_history(ELLE_TXNS, crossed_pairs=ELLE_PAIRS),
-        lambda h: list_append.check(h, accelerator="gpu"))
-    long_h, live_long = earlier(
-        "long", lambda: register_history(LONG_OPS, n_procs=N_PROCS,
-                                         seed=SEED, n_values=N_VALUES),
-        lambda h: chk.check({}, h, {}))
+    if "long" not in LIVE_RUNS:
+        h = register_history(LONG_OPS, n_procs=N_PROCS, seed=SEED,
+                             n_values=N_VALUES)
+        chk = linearizable(accelerator="gpu")
+        check_s, res = timed(lambda: chk.check({}, h, {}), 3)
+        LIVE_RUNS["long"] = (h, res, check_s)
+    long_h, long_res, long_s = LIVE_RUNS.pop("long")
+    h_valid = elle_history(ELLE_TXNS)
     cases = [
         ("headline", "register", headline, True, 5, None),
         ("headline_corrupted", "register",
          corrupt_reads(headline, n=2, seed=0), False, 5, None),
-        ("elle_50k", "elle", h_valid, True, 5, live_valid),
-        ("elle_50k_pairs", "elle", h_pairs, False, 5, live_pairs),
-        ("long", "register", long_h, True, 3, live_long),
+        ("elle_50k", "elle", h_valid, True, 5, None),
+        ("elle_50k_pairs", "elle",
+         elle_history(ELLE_TXNS, crossed_pairs=ELLE_PAIRS), False, 5,
+         None),
+        ("long", "register", long_h, True, 3, (long_res, long_s)),
     ]
     launches: dict = {}
     with tempfile.TemporaryDirectory() as d:

@@ -396,19 +396,22 @@ def check_stored(test_name: str, timestamp: str, store_dir: str = "store",
     from jepsen_tpu_torch.checker.linear_encode import stream_from_columns
 
     model = model if model is not None else CASRegister()
-    cols = None
+    stream = None
     if isinstance(model, CASRegister):
         try:
             cols = store.load_linear_columns(test_name, timestamp,
                                              store_dir)
+            # decoding the columns is part of loading them: a malformed
+            # lin_* set falls back like an unreadable sidecar
+            if cols is not None:
+                stream = stream_from_columns(cols)
+                init_id = (0 if model.value is None
+                           else stream.intern.id(model.value))
         except Exception as e:  # noqa: BLE001 - damaged sidecar: use jsonl
             store.note_sidecar_load_failure(
                 f"{test_name}/{timestamp} (lin_*)", e)
-            cols = None
-    if cols is not None:
-        stream = stream_from_columns(cols)
-        init_id = (0 if model.value is None
-                   else stream.intern.id(model.value))
+            stream = None
+    if stream is not None:
         spec = cas_register_spec(init_id)
         checker = LinearizableChecker(model=model, accelerator=accelerator,
                                       device=device)

@@ -64,7 +64,8 @@ class Intern:
         return len(self.table)
 
 
-# copied from jepsen_tpu/history.py:143-217
+# copied from jepsen_tpu/history.py:143-192, without the f lookups and
+# the type masks, which nothing of the port calls
 @dataclass
 class ColumnarHistory:
     """Struct-of-arrays history: the device-ready form.
@@ -117,28 +118,3 @@ class ColumnarHistory:
 
     def __len__(self) -> int:
         return len(self.types)
-
-    def f_id(self, f) -> int:
-        try:
-            return self.f_table.index(f)
-        except ValueError:
-            return -1
-
-    def mask_f(self, f) -> np.ndarray:
-        return self.fs == self.f_id(f)
-
-    @property
-    def is_invoke(self) -> np.ndarray:
-        return self.types == TYPE_CODE[INVOKE]
-
-    @property
-    def is_ok(self) -> np.ndarray:
-        return self.types == TYPE_CODE[OK]
-
-    @property
-    def is_fail(self) -> np.ndarray:
-        return self.types == TYPE_CODE[FAIL]
-
-    @property
-    def is_info(self) -> np.ndarray:
-        return self.types == TYPE_CODE[INFO]

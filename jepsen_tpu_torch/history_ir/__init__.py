@@ -1,70 +1,12 @@
 """The columnar history IR (jepsen_tpu/history_ir): one encoding of a
-run's history, shared by its checkers and persisted as the
-``history.npz`` sidecar.
+run's history, persisted as the ``history.npz`` sidecar.
 
-``history_ir.of(test, history)`` returns the run's shared
-:class:`DeviceHistory`, building it on first call and memoizing it on the
-test map under ``_history_ir`` (underscore keys never serialize), or None
-when the IR is disabled (``ir_enabled: False``) or there is no test map
-to share through. Checkers derive their encodings from it as memoized
-views (:mod:`.views`); :mod:`.sidecar` saves and loads it. The WAL
-streamer of the reference is not ported.
+:class:`DeviceHistory` holds the canonical columns and memoizes the
+checkers' encodings as views (:mod:`.views`); :mod:`.sidecar` saves and
+loads it. The store builds one per run when it writes the sidecar. Not
+ported: the IR shared by a run's checkers through the test map
+(``history_ir.of`` and the ``ir_enabled`` knob) and the WAL streamer.
 """
-from __future__ import annotations
-
-import logging
-import threading
-
 from jepsen_tpu_torch.history_ir.ir import CANONICAL_COLUMNS, DeviceHistory
 
-logger = logging.getLogger("jepsen_tpu_torch.history_ir")
-
-__all__ = ["DeviceHistory", "CANONICAL_COLUMNS", "of", "enabled"]
-
-# copied from jepsen_tpu/history_ir/__init__.py:45-50
-#: test-map key the shared IR memoizes under (underscore: never serialized)
-ATTACH_KEY = "_history_ir"
-
-# one lock for the attach-or-build race: composed checks may ask for the
-# IR at once
-_ATTACH_LOCK = threading.Lock()
-
-
-# copied from jepsen_tpu/history_ir/__init__.py:53-60
-def enabled(test) -> bool:
-    """The ``ir_enabled`` knob, tolerantly coerced (default True)."""
-    from jepsen_tpu_torch.parallel import coerce_flag
-    if not isinstance(test, dict):
-        return True
-    flag = coerce_flag(test.get("ir_enabled"), knob="ir_enabled")
-    return True if flag is None else flag
-
-
-# copied from jepsen_tpu/history_ir/__init__.py:74-112, without the WAL
-# streamer branch
-def of(test, history) -> DeviceHistory | None:
-    """The run's shared IR for ``history``, or None when disabled or
-    there's no test map to memoize on. Reuses the cached IR only when
-    it was built for this exact history object (a re-indexed history is
-    a new list; a stale IR must never serve a different one)."""
-    if not isinstance(test, dict) or not enabled(test) or history is None:
-        return None
-    with _ATTACH_LOCK:
-        cached = test.get(ATTACH_KEY)
-        if isinstance(cached, DeviceHistory) and cached.ops is history:
-            return cached
-        try:
-            dh = DeviceHistory.from_ops(history)
-        except Exception:  # noqa: BLE001 — the IR is an optimization:
-            # a history the column encoder can't pack (non-numeric
-            # time, unhashable process — a hand-edited or foreign
-            # history.jsonl) must fall back to the per-checker
-            # encodes, never fail the check
-            logger.warning("history IR build failed; checkers fall "
-                           "back to per-checker encodes", exc_info=True)
-            return None
-        # pin the caller's list itself (from_ops copies it) so the
-        # cached-IR identity check above recognizes repeat calls
-        dh.ops = history
-        test[ATTACH_KEY] = dh
-        return dh
+__all__ = ["DeviceHistory", "CANONICAL_COLUMNS"]

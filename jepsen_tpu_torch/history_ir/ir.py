@@ -9,7 +9,7 @@ columns (type/process/f/time/index plus the invocation pairing) — with
   workload values are dense int32 ids;
 * **memoized views** (:meth:`DeviceHistory.view`): each checker derives
   its encoding (register event stream, Elle builder columns; see
-  :mod:`jepsen_tpu_torch.history_ir.views`) from the IR once per run.
+  :mod:`jepsen_tpu_torch.history_ir.views`) from the IR once.
 
 Its ``.npz`` serialization is :mod:`jepsen_tpu_torch.history_ir.sidecar`.
 The device placement of the canonical columns (the reference's
@@ -62,8 +62,7 @@ class DeviceHistory(ColumnarHistory):
 
     All base columns keep their dtypes and semantics; ``value_ids``
     interns every op's ``value`` (id 0 = None) into ``intern``. Views
-    are memoized on the instance — build the IR once per run
-    (``history_ir.of``) and every checker shares it.
+    are memoized on the instance, so each is derived once per IR.
     """
 
     value_ids: np.ndarray | None = None  # int32 into intern

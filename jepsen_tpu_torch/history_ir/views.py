@@ -1,9 +1,9 @@
 """Checker views over the history IR (jepsen_tpu/history_ir/views.py).
 
 The memoized views of a :class:`~jepsen_tpu_torch.history_ir.ir
-.DeviceHistory` — :func:`register_stream`, :func:`elle_build`,
-:func:`elle_columns`, :func:`txn_nodes` — are what the ``history.npz``
-sidecar persists and the stored re-checks read back. The set-full
+.DeviceHistory` — :func:`register_stream` and :func:`elle_columns` — are
+what the ``history.npz`` sidecar persists and the stored re-checks read
+back. The set-full
 checker's membership columns are a plain function of a history.
 
 One deliberate change from the reference in :func:`set_full_columns`:
@@ -46,20 +46,6 @@ def register_stream(dh: DeviceHistory, init_value=None):
     return dh.view(("register-stream", _key_of(init_value)), build)
 
 
-# copied from jepsen_tpu/history_ir/views.py:262-272
-def elle_build(dh: DeviceHistory):
-    """The memoized Elle dependency-graph build product
-    ((graph, txns, extras, n_keys) — ``elle.columnar._build``), or None
-    when the history is outside the integer columnar regime."""
-    def build():
-        from jepsen_tpu_torch.elle import columnar
-        try:
-            return columnar._build(dh.ops)
-        except (TypeError, ValueError, OverflowError):
-            return None
-    return dh.view(("elle-build",), build)
-
-
 # copied from jepsen_tpu/history_ir/views.py:275-281
 def elle_columns(dh: DeviceHistory):
     """The memoized storable Elle builder columns
@@ -68,20 +54,6 @@ def elle_columns(dh: DeviceHistory):
         from jepsen_tpu_torch.elle import columnar
         return columnar.parse_columns(dh.ops)
     return dh.view(("elle-columns",), build)
-
-
-# copied from jepsen_tpu/history_ir/views.py:284-298
-def txn_nodes(dh: DeviceHistory) -> tuple[list, list, list]:
-    """The memoized (oks, fails, infos) op split every elle-style
-    checker starts from (list-append's Python builder, rw-register)."""
-    def build():
-        oks = [op for op in dh.ops if op.get("type") == "ok"
-               and isinstance(op.get("process"), int)]
-        fails = [op for op in dh.ops if op.get("type") == "fail"]
-        infos = [op for op in dh.ops if op.get("type") == "info"
-                 and isinstance(op.get("process"), int)]
-        return oks, fails, infos
-    return dh.view(("txn-nodes",), build)
 
 
 # copied from jepsen_tpu/history_ir/views.py:302-454, times in float64

@@ -99,24 +99,20 @@ def first_client_f(history) -> str | None:
          and op.get("f") is not None), None)
 
 
-# copied from jepsen_tpu/store.py:161-179
+# copied from jepsen_tpu/store.py:161-179, building the IR here: the
+# port's checkers share no IR through the test map yet
 def write_columnar(test: dict) -> None:
     """history.npz: the serialized history IR, checker-ready. The
     sidecar holds the canonical packed columns and the value intern
     table, plus the derived view products — ``elle_*`` Elle builder
     columns and ``lin_*`` register EventStream — so later re-checks run
-    straight off arrays with no PyObject parse. Views are derived
-    through the run's shared IR (``history_ir.of``), so a run whose
-    checkers already encoded pays nothing extra here."""
-    from jepsen_tpu_torch import history_ir
-    from jepsen_tpu_torch.history_ir import sidecar
+    straight off arrays with no PyObject parse."""
+    from jepsen_tpu_torch.history_ir import DeviceHistory, sidecar
     history = test.get("history") or []
     if not history:
         return
-    dh = history_ir.of(test, history)
-    if dh is None:  # ir_enabled: False still persists a sidecar
-        dh = history_ir.DeviceHistory.from_ops(history)
-    sidecar.save(path_mk(test, "history.npz"), dh)
+    sidecar.save(path_mk(test, "history.npz"),
+                 DeviceHistory.from_ops(history))
 
 
 # copied from jepsen_tpu/store.py:182-192

@@ -47,7 +47,7 @@ def test_port_sources_exist():
             "utils.py", "setscan.py", "views.py", "explain.py",
             "forensics_kernels.py", "checkpoint.py", "store.py",
             "codec.py", "journal.py", "ir.py", "sidecar.py",
-            "artifacts.py", "columnar_c.py"} <= names
+            "columnar_c.py"} <= names
     assert (ROOT / "jepsen_tpu_torch/native/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/wgl.cpp").exists()
     assert (ROOT / "jepsen_tpu_torch/native/columnar_ext.c").exists()
