@@ -111,6 +111,32 @@ just before it and read just after:
   front in turns, with equal result maps (``stored_recheck_fronts``: each
   one's ``build`` seconds). Every row of the ``kernels`` line gains
   ``launches_stored``.
+* checking across devices (``mesh*`` lines), on ``Mesh([cuda:0] * 4)``:
+  four shards on the one card, which check the sharded math and give no
+  speed-up. The headline, its corrupted copy and phase 12's long history
+  (its encoded stream, not encoded again) through ``matrix_check`` and
+  ``matrix_check_resume`` with the mesh, and the long one through
+  ``matrix_check_segmented`` with it: verdicts and bf16 carries bit-equal
+  to one device's, a chunk-product and a combine launch a shard and a
+  dispatch; config 3's corrupted 64 keys (a batched dense launch a
+  shard for the 8 undecided keys), the 1,024 keys and 63 of them (a
+  padding key) through ``batch_check(mesh=)``, key for key equal to one
+  device's; ``checker_sharded: True`` (``auto_mesh`` given the card four
+  times): the headline settles at ``torch-sharded-matrix``, its
+  corrupted copy there with the unsharded check's failed op, and
+  ``independent.checker`` on config 3 reports ``jitlin-gpu-sharded``;
+  the sharded trim on phase 8's 50k-txn edges and the seeded 2^19-node,
+  2^20-edge graph against its plain rounds on the card, and
+  ``trim_degrees.cu``'s two entries against their plain versions (two
+  rows of the ``kernels`` line); the routing: ``auto_mesh()``, the
+  measured round trip, the "auto" lanes of config 3 and of 3 keys, and
+  the 1,024-key batch's pipeline stats. Then two processes on the card
+  (``distributed`` line; gloo, a ``file://`` init method, each child
+  this script with ``--distributed-worker``): ``batch_check_distributed``
+  on config 3 and ``trim_to_cycles_distributed`` on the 50k-txn edges,
+  equal to one process's results. Every row of the ``kernels`` line
+  gains ``launches_mesh``; a ``total`` line after it gives the script's
+  seconds.
 
 Earlier phases keep their shapes.
 
@@ -128,6 +154,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 N_OPS, N_PROCS, N_VALUES, SEED = 10_000, 5, 5, 42
 # values drawn from a domain this wide make every write a fresh value
 FRESH_VALUES = 10 ** 9
@@ -429,7 +456,8 @@ def reset_launches():
     for fn in (mk.chunk_product, mk.combine_product, fk.frontier_dense,
                fk.frontier_sparse, fk.frontier_dense_batch,
                fk.frontier_sparse_batch, sk.cluster_screen, sk.scc_trim,
-               setscan.set_classify, fx.prefix_alive, fx.window_rescan):
+               setscan.set_classify, fx.prefix_alive, fx.window_rescan,
+               sk.trim_partial_degrees, sk.trim_update):
         fn.launches = 0
 
 
@@ -449,7 +477,9 @@ def read_launches() -> dict:
             "scc_trim": sk.scc_trim.launches,
             "set_classify": setscan.set_classify.launches,
             "prefix_alive": fx.prefix_alive.launches,
-            "window_rescan": fx.window_rescan.launches}
+            "window_rescan": fx.window_rescan.launches,
+            "trim_partial_degrees": sk.trim_partial_degrees.launches,
+            "trim_update": sk.trim_update.launches}
 
 
 def device_kernels(fn, want: str = "", warm: bool = True):
@@ -768,9 +798,10 @@ def elle_phases(name, smi) -> list:
     # device
     chain_n = 5000
     trims = {}
+    LIVE_RUNS["elle_pairs_edges"] = dep_edges(h_pairs)
     for case, (n, src, dst) in (
             ("valid_50k_dep", dep_edges(h_valid)),
-            ("pairs_50k_dep", dep_edges(h_pairs)),
+            ("pairs_50k_dep", LIVE_RUNS["elle_pairs_edges"]),
             ("random_64k_256k", random_trim_graph(16, 18, SEED)),
             ("chain_5000_capped", (chain_n, np.arange(chain_n - 1),
                                    np.arange(1, chain_n))),
@@ -1227,6 +1258,7 @@ def independent_phases(name, smi):
     busy_b = device_kernels(lambda: chk.check({}, hb, {}),
                             "frontier_dense_kernel")
     keys_b, streams_b = streams_of(hb)
+    LIVE_RUNS["config3"] = (h, got, streams_b)
     n_states = max(len(s.intern) for s in streams_b)
     screen = jitlin.matrix_check_batch(streams_b, num_states=n_states)
     undecided = [i for i, r in enumerate(screen) if not r[0] or r[2]]
@@ -1305,6 +1337,7 @@ def independent_phases(name, smi):
     lk = read_launches()
     sub_k = jitlin.last_phase_seconds()
     cpu_s, cpu = timed(lambda: batch_check(streams_k, accelerator="cpu"), 2)
+    LIVE_RUNS["config3_1024"] = (streams_k, gpu)
     if [r[0] for r in gpu] != [r[0] for r in cpu] or not all(
             r[0] for r in gpu):
         raise AssertionError("independent_1024: the card's verdicts differ "
@@ -2415,6 +2448,7 @@ def segmented_phases(name, smi) -> dict:
     busy_ms = sum(by_name.values()) / 1e3
     med = statistics.median(check_s)
     LIVE_RUNS["long"] = (h, res, check_s)
+    LIVE_RUNS["long_stream"] = stream
     prep = jitlin._returns_prepass(stream.kind, stream.slot, stream.f,
                                    stream.a, stream.b)
     plans = []
@@ -2701,11 +2735,16 @@ def segmented_phases(name, smi) -> dict:
 # 13. stored-run re-checks: the history.npz sidecar and check_stored
 # ---------------------------------------------------------------------------
 
-#: phase 12's long history and its live check, which phase 13 re-checks
-#: from the store: (history, result, host seconds of each timed check).
-#: Phase 13 makes its other histories itself: with phase 8's 50k-txn Elle
-#: histories kept until then, phases 9 and 10 ran 7-8 s slower in two runs
-#: on an H100 host
+#: what later phases reuse of earlier ones: phase 12's long history and
+#: its live check (``long``: history, result, host seconds of each timed
+#: check), which phase 13 re-checks from the store; for phase 14, the
+#: anomalous 50k-txn history's dependency edges (``elle_pairs_edges``,
+#: phase 8), config 3's valid history, its map and the corrupted copy's
+#: streams (``config3``) and the 1,024 keys' streams and results
+#: (``config3_1024``, phase 9), and the long history's encoded stream
+#: (``long_stream``, phase 12). Phase 13 makes its other histories itself:
+#: with phase 8's 50k-txn Elle histories kept until then, phases 9 and 10
+#: ran 7-8 s slower in two runs on an H100 host
 LIVE_RUNS: dict = {}
 
 # the launches each stored re-check must show (at least): the register
@@ -2894,6 +2933,443 @@ def stored_phases(name, smi) -> dict:
           "phase_s": time.perf_counter() - phase_t0,
           "card": name, "power": smi})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 14. checking across devices: the mesh on one card, and two processes
+# ---------------------------------------------------------------------------
+
+# four shards on the one card: the sharded math, bit-equal to one
+# device's; their times are no speed-up (the shards run one after another)
+MESH_WIDTH = 4
+WORLD = 2
+
+
+def mesh_case(case, single_fn, mesh_fn, same, expect, reps, name, smi,
+              **extra) -> dict:
+    """One mesh case: the mesh call's launches (its first call, counts
+    set to 0 just before), which must equal ``expect`` on its kernels, its
+    result against the single-device call's (``same(mesh_out,
+    single_out)`` raises on a difference), and both timed in turns,
+    ``reps`` each. Returns the launches."""
+    import torch
+    reset_launches()
+    got = mesh_fn()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if any(launches[k] != v for k, v in expect.items()):
+        raise AssertionError(f"mesh {case}: launches {launches}, want "
+                             f"{expect}")
+    want = single_fn()
+    same(got, want)
+    t_single, t_mesh = [], []
+    for _ in range(reps):
+        for times, fn in ((t_single, single_fn), (t_mesh, mesh_fn)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    emit({"phase": "mesh", "case": case, "mesh": f"cuda:0 x {MESH_WIDTH}",
+          "equal": True, "launches": {k: v for k, v in launches.items()
+                                      if v},
+          "single_s": t_single, "mesh_s": t_mesh,
+          "median_single_s": statistics.median(t_single),
+          "median_mesh_s": statistics.median(t_mesh),
+          "note": "shards on one card run in turn: no speed-up",
+          **extra, "card": name, "power": smi})
+    return launches
+
+
+def plain_sharded_trim(n, src, dst, nd, max_iters=512):
+    """The sharded trim's rounds with the plain degree pass and update
+    (``index_add_``), on the card: its mask, and the rounds it ran."""
+    import numpy as np
+    import torch
+    from jepsen_tpu_torch.ops import scc_kernels as sk
+    E = len(src)
+    z = np.zeros((-E) % nd, np.int32)
+    cols = [torch.from_numpy(np.concatenate([np.asarray(c, np.int32), z])
+                             ).cuda() for c in (src, dst, np.ones(E))]
+    cols[2] = cols[2].to(torch.int32)
+    shards = [c.chunk(nd) for c in cols]
+    active = torch.ones(n, dtype=torch.bool, device="cuda")
+    rounds, changed = 0, True
+    while changed and rounds < max_iters:
+        deg = sum(sk.trim_partial_degrees_torch(s, d, w, active, n)
+                  for s, d, w in zip(*shards))
+        changed = bool(sk.trim_update_torch(deg, active).item())
+        rounds += 1
+    return active.cpu().numpy(), rounds
+
+
+def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
+    """Both entries of ``trim_degrees.cu`` against their plain versions on
+    the card, on one of four edge shards of the graph ``(n, src, dst)``
+    with a seeded mask, bit-equal, then timed: the kernels line's rows.
+    The bound counts bytes: a degree pass reads each edge's 12 bytes and
+    the mask and writes the two rows; the update reads the rows and the
+    mask and writes the mask and the flag."""
+    import numpy as np
+    import torch
+    from jepsen_tpu_torch.ops import scc_kernels as sk
+    rng = np.random.default_rng(SEED)
+    E = len(src) // MESH_WIDTH
+    s = torch.from_numpy(np.asarray(src[:E], np.int32)).cuda()
+    d = torch.from_numpy(np.asarray(dst[:E], np.int32)).cuda()
+    w = torch.from_numpy((rng.random(E) < 0.95).astype(np.int32)).cuda()
+    act = torch.from_numpy(rng.random(n) < 0.7).cuda()
+    deg = sk.trim_partial_degrees(s, d, w, act, n)
+    ref = sk.trim_partial_degrees_torch(s, d, w, act, n)
+    err_d = (deg - ref).abs().max().item()
+    a1, a2 = act.clone(), act.clone()
+    ch1 = sk.trim_update(deg, a1)
+    ch2 = sk.trim_update_torch(ref, a2)
+    err_u = max(int((a1 != a2).sum()), abs(int(ch1) - int(ch2)))
+    if err_d or err_u:
+        raise AssertionError(f"trim_degrees differs from plain: degrees "
+                             f"{err_d}, update {err_u}")
+    ms_d = cuda_ms(lambda: sk.trim_partial_degrees(s, d, w, act, n), 50)
+    plain_d = cuda_ms(lambda: sk.trim_partial_degrees_torch(s, d, w, act,
+                                                             n), 20)
+    ew = w * (act[s.long()] & act[d.long()]).to(torch.int32)
+    idx = torch.cat([d.long(), s.long() + n])
+    ewx = torch.cat([ew, ew])
+    flat = torch.zeros(2 * n, dtype=torch.int32, device="cuda")
+    lib_d = cuda_ms(lambda: flat.index_add_(0, idx, ewx), 50)
+    ms_u = cuda_ms(lambda: sk.trim_update(deg, act.clone()), 50)
+    plain_u = cuda_ms(lambda: sk.trim_update_torch(deg, act.clone()), 50)
+    clone_ms = cuda_ms(lambda: act.clone(), 50)
+    # the profiler's device time of each entry's kernel and its memsets
+    prof = {k: device_kernels(fn, want) for k, fn, want in (
+        ("trim_partial_degrees",
+         lambda: sk.trim_partial_degrees(s, d, w, act, n),
+         "partial_degrees"),
+        ("trim_update", lambda: sk.trim_update(deg, act.clone()),
+         "update_mask"))}
+    bytes_d = 12 * E + n + 8 * n
+    bytes_u = 8 * n + 2 * n + 4
+    rows = []
+    for kname, rep, err, ms, pms, lib, nbytes, extra in (
+            ("trim_partial_degrees", "jepsen_tpu/ops/scc.py:164", err_d,
+             ms_d, plain_d, lib_d, bytes_d,
+             {"library_call": "one index_add_ of the masked weights into "
+              "[2n] (the mask's gather outside it)"}),
+            ("trim_update", "jepsen_tpu/ops/scc.py:176", err_u,
+             ms_u - clone_ms, plain_u - clone_ms, None, bytes_u,
+             {"ms_note": "each call's mask clone subtracted"})):
+        rows.append({"name": kname, "route": "cuda",
+                     "source": "jepsen_tpu_torch/ops/csrc/trim_degrees.cu",
+                     "replaces": rep, "launches": launches[kname],
+                     "max_abs_err": float(err), "equal": True, "ms": ms,
+                     "plain_ms": pms, "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                     "bound_by": "bytes", "library_ms": lib,
+                     "launches_mesh": launches[kname], "nodes": n,
+                     "edges_per_shard": E, "bytes": nbytes,
+                     "device_kernels_us": prof[kname],
+                     "device_ms": sum(us for k, us in prof[kname]
+                                      if "elementwise" not in k
+                                      and "copy" not in k.lower()) / 1e3,
+                     **extra})
+    emit({"phase": "trim_degrees_kernel", "nodes": n, "edges": E,
+          "rows": [{k: r[k] for k in ("name", "ms", "device_ms",
+                                      "plain_ms", "library_ms",
+                                      "bound_ms")}
+                   for r in rows], "card": name, "power": smi})
+    return rows
+
+
+def mesh_phases(name, smi, history, bad, stream, bad_stream) -> tuple:
+    """Phase 14 on one card with ``M4 = Mesh([cuda:0] * 4)``: the matrix
+    check one-shot, resumed and chained on the headline, its corrupted
+    copy and phase 12's long history; config 3's corrupted batch, the
+    1,024-key batch and 63 of its keys (padded) through ``batch_check``;
+    the checker's sharded rung (``checker_sharded: True``, ``auto_mesh``
+    given the card four times) on the headline, its corrupted copy and
+    config 3 through ``independent``; the sharded trim on phase 8's
+    50k-txn edges and the seeded 2^19-node graph against its plain
+    rounds, and ``trim_degrees.cu`` against its plain version; the
+    routing (``auto_mesh``, the round trip, "auto" lanes, the pipelined
+    batch's stats); then phase 15, two processes. Returns (the trim
+    rows of the kernels line, launches of the mesh cases by kernel)."""
+    import numpy as np
+    import torch
+    from jepsen_tpu_torch import independent, parallel
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.histories import random_trim_graph
+    from jepsen_tpu_torch.ops import jitlin, scc
+    from jepsen_tpu_torch.parallel import Mesh, batch_check, pipeline
+
+    phase_t0 = time.perf_counter()
+    m4 = Mesh([torch.device("cuda", 0)] * MESH_WIDTH)
+    totals: dict = {}
+
+    def add(lc):
+        for k, v in lc.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def same_tuple(got, want):
+        if got != want:
+            raise AssertionError(f"mesh {got} vs one device {want}")
+
+    def same_resume(got, want):
+        (a, i, t), (a0, i0, t0) = got, want
+        if not (torch.equal(a, a0) and torch.equal(i, i0)
+                and torch.equal(t, t0)):
+            raise AssertionError("the mesh's carry differs from one "
+                                 "device's")
+
+    # 14a. one history's chunks over the mesh: a chunk product and a
+    # combine launch a shard and a dispatch
+    long_stream = LIVE_RUNS.pop("long_stream")
+    per_shard = {"chunk_product": MESH_WIDTH, "combine_product": MESH_WIDTH}
+    for case, st in (("headline", stream), ("headline_corrupted",
+                                            bad_stream)):
+        add(mesh_case(f"matrix_check_{case}",
+                      lambda st=st: jitlin.matrix_check(st),
+                      lambda st=st: jitlin.matrix_check(st, mesh=m4),
+                      same_tuple, per_shard, 5, name, smi, events=len(st)))
+    kw = dict(num_states=len(stream.intern), n_slots=stream.n_slots)
+    add(mesh_case("matrix_check_resume_headline",
+                  lambda: jitlin.matrix_check_resume(stream, **kw),
+                  lambda: jitlin.matrix_check_resume(stream, mesh=m4, **kw),
+                  same_resume, per_shard, 5, name, smi))
+    add(mesh_case("matrix_check_long",
+                  lambda: jitlin.matrix_check(long_stream),
+                  lambda: jitlin.matrix_check(long_stream, mesh=m4),
+                  same_tuple, per_shard, 1, name, smi,
+                  events=len(long_stream)))
+
+    def chain(mesh):
+        carries = []
+        out = jitlin.matrix_check_segmented(long_stream, mesh=mesh,
+                                            carry_sink=carries.append)
+        return out, [(c["events_done"], c["tot0"]) for c in carries]
+
+    def same_chain(got, want):
+        if got[0] != want[0] or len(got[1]) != len(want[1]) or any(
+                e != e0 or not torch.equal(t, t0)
+                for (e, t), (e0, t0) in zip(got[1], want[1])):
+            raise AssertionError("the mesh's chain or carries differ")
+
+    add(mesh_case("matrix_check_segmented_long", lambda: chain(None),
+                  lambda: chain(m4), same_chain,
+                  {k: 2 * v for k, v in per_shard.items()}, 1, name, smi,
+                  events=len(long_stream)))
+
+    # 14b. key batches over the mesh
+    h3, map3, streams_b = LIVE_RUNS.pop("config3")
+    streams_k, gpu_k = LIVE_RUNS.pop("config3_1024")
+    # config 3's corrupted keys: the screen, then one batched dense launch
+    # a shard for the 8 keys it leaves undecided
+    for case, sts, scan in (("config3_corrupted", streams_b, MESH_WIDTH),
+                            ("keys_1024", streams_k, 0),
+                            ("keys_63", streams_k[:63], 0)):
+        add(mesh_case(f"batch_check_{case}", lambda sts=sts: batch_check(sts),
+                      lambda sts=sts: batch_check(sts, mesh=m4), same_tuple,
+                      {**per_shard, "frontier_dense_batch": scan,
+                       "frontier_sparse_batch": 0},
+                      3 if len(sts) < 100 else 1, name, smi,
+                      keys=len(sts), padded_keys=(-len(sts)) % MESH_WIDTH))
+        if case == "keys_1024":
+            # the single-device calls' last pipeline: 8 sub-batches
+            stats_1024 = pipeline.last_stats()
+    if [r[0] for r in gpu_k] != [True] * len(streams_k):
+        raise AssertionError("keys_1024: phase 9's verdicts changed")
+
+    # 14c. the checker's sharded rung: auto_mesh sees the card four times
+    chk = linearizable(accelerator="gpu")
+    one = chk.check({}, bad, {})
+    devices = parallel.devices
+    parallel.devices = lambda: list(m4.devices)
+    try:
+        opts = {"checker_sharded": True}
+        reset_launches()
+        res = chk.check({}, history, opts)
+        torch.cuda.synchronize()
+        lc_rung = read_launches()
+        add(lc_rung)
+        res_bad = chk.check({}, bad, opts)
+        ind = independent.checker(chk).check({}, h3, opts)
+    finally:
+        parallel.devices = devices
+    if res["valid?"] is not True \
+            or res["algorithm"] != "torch-sharded-matrix":
+        raise AssertionError(f"sharded rung, headline: {res}")
+    if res_bad["algorithm"] != "torch-sharded-matrix" \
+            or res_bad["valid?"] is not False \
+            or res_bad.get("failed-op") != one.get("failed-op"):
+        raise AssertionError(f"sharded rung, corrupted: {res_bad} vs {one}")
+    same_map("independent_sharded", ind, map3)
+    algs = {r["algorithm"] for r in ind["results"].values()}
+    if algs != {"jitlin-gpu-sharded"}:
+        raise AssertionError(f"independent_sharded: {algs}")
+    emit({"phase": "mesh_checker", "headline": res["algorithm"],
+          "headline_launches": {k: v for k, v in lc_rung.items() if v},
+          "corrupted": res_bad["algorithm"],
+          "failed_op": res_bad["failed-op"],
+          "unsharded_failed_op": one["failed-op"],
+          "independent_backends": sorted(algs), "card": name, "power": smi})
+
+    # 14d. the edge-sharded trim, and its round's kernel
+    trim_launches = None
+    elle_graph = LIVE_RUNS.pop("elle_pairs_edges")
+    masks = {}
+    for case, (n, src, dst) in (
+            ("elle_50k_pairs", elle_graph),
+            ("random_512k_1m", random_trim_graph(19, 20, SEED))):
+        reset_launches()
+        t0 = time.perf_counter()
+        got = scc.trim_to_cycles_sharded(n, src, dst, m4)
+        mesh_s = time.perf_counter() - t0
+        lc = read_launches()
+        if trim_launches is None:
+            trim_launches = lc
+        t0 = time.perf_counter()
+        want, rounds = plain_sharded_trim(n, src, dst, MESH_WIDTH)
+        plain_s = time.perf_counter() - t0
+        if not np.array_equal(got, want):
+            raise AssertionError(f"sharded trim {case}: the mask differs "
+                                 "from the plain rounds'")
+        masks[case] = got
+        if lc["trim_partial_degrees"] != MESH_WIDTH * rounds \
+                or lc["trim_update"] != rounds:
+            raise AssertionError(f"sharded trim {case}: {lc}, {rounds} "
+                                 "rounds")
+        add(lc)
+        # the bound: each round reads every edge's 12 bytes and the mask
+        # and writes the mask, the degrees kept on chip
+        nbytes = rounds * (12 * len(src) + 2 * n)
+        emit({"phase": "mesh_trim", "case": case, "nodes": n,
+              "edges": len(src), "rounds": rounds,
+              "residue": int(got.sum()), "equal": True,
+              "launches": {k: v for k, v in lc.items() if v},
+              "mesh_s": mesh_s, "plain_rounds_s": plain_s,
+              "us_per_round": mesh_s * 1e6 / rounds, "bytes": nbytes,
+              "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+              "note": "shards on one card run in turn: no speed-up",
+              "card": name, "power": smi})
+    n_r, src_r, dst_r = random_trim_graph(19, 20, SEED)
+    trim_rows = trim_degrees_rows(n_r, src_r, dst_r, trim_launches, name,
+                                  smi)
+
+    # 14e. routing
+    t0 = time.perf_counter()
+    rtt = pipeline.measured_roundtrip_s()
+    rtt_s = time.perf_counter() - t0
+    lanes = {}
+    for case, sts in (("config3_corrupted", streams_b),
+                      ("keys_3", streams_b[:3])):
+        batch_check(sts, accelerator="auto")
+        lanes[case] = {"route": parallel.last_route(),
+                       "events": sum(len(x) for x in sts)}
+    stats = stats_1024
+    emit({"phase": "mesh_routing", "auto_mesh": repr(parallel.auto_mesh()),
+          "measured_roundtrip_s": rtt, "first_measure_s": rtt_s,
+          "cpu_events_per_sec": pipeline.cpu_events_per_sec(),
+          "device_events_per_sec": {k: pipeline.device_events_per_sec(k)
+                                    for k in (1, MESH_WIDTH)},
+          "auto_lanes": lanes, "pipelined_1024": stats,
+          "card": name, "power": smi})
+    if stats.get("batches") != sub_batches(len(streams_k)):
+        raise AssertionError(f"the 1,024-key pipeline: {stats}")
+
+    # 15. two processes on the card, gloo
+    distributed_phase(streams_b, batch_check(streams_b), elle_graph,
+                      masks["elle_50k_pairs"], name, smi)
+    emit({"phase": "mesh_total", "seconds": time.perf_counter() - phase_t0,
+          "card": name, "power": smi})
+    return trim_rows, totals
+
+
+def distributed_phase(streams, want_batch, graph, want_mask, name, smi):
+    """Phase 15: ``batch_check_distributed`` on ``streams`` and
+    ``trim_to_cycles_distributed`` on ``graph`` (its edges split in two
+    halves) in a world of two processes on the one card (gloo, a
+    ``file://`` init method), each child this script with
+    ``--distributed-worker``; both must return the single-process results,
+    and a child that fails fails the phase."""
+    import os
+    import pickle
+    import subprocess
+    import tempfile
+
+    n, src, dst = graph
+    half = (len(src) + 1) // 2
+    with tempfile.TemporaryDirectory() as d:
+        job = os.path.join(d, "job.pkl")
+        with open(job, "wb") as f:
+            pickle.dump({"init": f"file://{d}/rendezvous", "world": WORLD,
+                         "streams": streams, "n_nodes": n,
+                         "edges": [(src[:half], dst[:half]),
+                                   (src[half:], dst[half:])]}, f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--distributed-worker", job, str(r)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(WORLD)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_s = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"distributed rank {r} failed:\n"
+                                     f"{out[-3000:]}")
+        res = []
+        for r in range(WORLD):
+            with open(f"{job}.{r}.out", "rb") as f:
+                res.append(pickle.load(f))
+    for r, out in enumerate(res):
+        if out["batch"] != want_batch or not (out["mask"] == want_mask).all():
+            raise AssertionError(f"distributed rank {r}: the results differ "
+                                 "from the single process's")
+    emit({"phase": "distributed", "world": WORLD, "backend":
+          res[0]["backend"], "devices": [o["device"] for o in res],
+          "keys": len(streams), "edges": len(src), "equal": True,
+          "batch_s": [o["batch_s"] for o in res],
+          "trim_s": [o["trim_s"] for o in res],
+          "launches": [o["launches"] for o in res], "wall_s": wall_s,
+          "note": "two processes on one card: no speed-up",
+          "card": name, "power": smi})
+
+
+def distributed_worker(job_path: str, rank: int) -> int:
+    """One process of phase 15's world (``--distributed-worker JOB
+    RANK``): joins it, runs both checks on its card, writes its results
+    beside the job."""
+    import pickle
+
+    import torch
+    from jepsen_tpu_torch.parallel import distributed
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    backend = distributed.initialize(job["init"], job["world"], rank)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        batch = distributed.batch_check_distributed(job["streams"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        src, dst = job["edges"][rank]
+        mask = distributed.trim_to_cycles_distributed(job["n_nodes"], src,
+                                                      dst)
+        t2 = time.perf_counter()
+        out = {"backend": backend, "batch": batch, "mask": mask,
+               "device": str(distributed.global_mesh().devices[0]),
+               "batch_s": t1 - t0, "trim_s": t2 - t1,
+               "launches": {k: v for k, v in read_launches().items() if v}}
+    finally:
+        distributed.dist.destroy_process_group()
+    with open(f"{job_path}.{rank}.out", "wb") as f:
+        pickle.dump(out, f)
+    return 0
 
 
 def nvidia_smi(query: str) -> str:
@@ -3484,6 +3960,15 @@ def main() -> int:
     stored = stored_phases(name, smi)
     for row in kernels:
         row["launches_stored"] = stored.get(row["name"], 0)
+    # 14-15. checking across devices: four shards on the card, then two
+    # processes; each row gains the launches of the mesh cases
+    trim_rows, meshed = mesh_phases(name, smi, history, bad, stream,
+                                    bad_stream)
+    for row in kernels:
+        row["launches_mesh"] = meshed.get(row["name"], 0)
+    for row in trim_rows:
+        row.update(launches_independent=0, launches_stored=0)
+    kernels += trim_rows
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,
@@ -3495,6 +3980,7 @@ def main() -> int:
           "combine_ops": ops_c, "combine_bytes": bytes_c,
           "combine_kernels_us": comb_k})
     emit({"kernels": kernels})
+    emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -3502,4 +3988,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--distributed-worker"]:
+        sys.exit(distributed_worker(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

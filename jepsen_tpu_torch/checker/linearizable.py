@@ -9,6 +9,16 @@ search below) or "auto" (= "jitlin"). The models with an int encoding,
 multi-register history outside the packed encoding, runs ``wgl``. The
 rungs, tried in order:
 
+* ``torch-sharded-matrix`` — the matrix check below with its chunk axis
+  sharded over a device mesh (``parallel.Mesh``; ops/jitlin.py
+  ``_build_matrix_kernel_mesh``), in the same regime. ``checker_sharded``
+  (opts over the test map, ``parallel.sharding_knobs``): True takes
+  ``parallel.auto_mesh(mesh_devices)``, False turns the rung off, unset
+  asks the cost model (``parallel.sharded_mesh_for``) for a checker on a
+  card. On one card ``auto_mesh`` is None and the rung does not run. It
+  settles as ``torch-matrix`` does (an invalid verdict localizes on one
+  device); a screen that finished without settling is not repeated by
+  ``torch-matrix``. An error of a shard propagates.
 * ``torch-matrix`` — the block-composed transfer-matrix check
   (ops/jitlin.matrix_check) on the device, for histories in its regime;
   a stream longer than MATRIX_SEGMENT_EVENTS = 2^20 events, or one with
@@ -165,6 +175,8 @@ class LinearizableChecker(Checker):
         if enc is None:
             return self._finish(wgl(history, self.model), history)
         stream, step_py, spec = enc
+        from jepsen_tpu_torch.parallel import sharding_knobs
+        sharded, mesh_devices = sharding_knobs(test, opts)
         extras: dict = {}
         # copied from jepsen_tpu/checker/linearizable.py:175-186: a check
         # with store coordinates persists its carry to check.ckpt and
@@ -172,7 +184,8 @@ class LinearizableChecker(Checker):
         ckpt = self._ckpt_store(test)
         res = self._search_stream(stream, step_py, spec, accelerator,
                                   explain=explain_on, extras=extras,
-                                  ckpt=ckpt)
+                                  ckpt=ckpt, sharded=sharded,
+                                  mesh_devices=mesh_devices)
         if ckpt is not None:
             ckpt.clear()
         return self._finish(res, history, stream, step_py, spec.init_state,
@@ -203,16 +216,17 @@ class LinearizableChecker(Checker):
         return ckpt_mod.CheckpointStore(path, interval_s=interval,
                                         resume=resume)
 
-    def _matrix_rung(self, stream, spec, ckpt, carries: list):
+    def _matrix_rung(self, stream, spec, ckpt, carries: list, mesh=None):
         """The matrix screen (jepsen_tpu/checker/linearizable.py:302-333,
         ``matrix_rung_check``): one-shot ``matrix_check`` for a stream
         within one segment when no resume is pending (no check.ckpt), else
         the resumable chain ``matrix_check_segmented``, whose carries after
         each exact, alive segment go to ``carries``. Bit-identical either
-        way."""
+        way, and sharded over ``mesh`` when one is given."""
         from jepsen_tpu_torch.ops import jitlin
         kw = dict(step_ids=spec.step_ids, init_state=spec.init_state,
-                  num_states=len(stream.intern), device=self.device)
+                  num_states=len(stream.intern), device=self.device,
+                  mesh=mesh)
         resume_pending = (ckpt is not None and ckpt.resume
                           and ckpt.path.exists())
         if not resume_pending and len(stream) <= jitlin.MATRIX_SEGMENT_EVENTS:
@@ -220,17 +234,65 @@ class LinearizableChecker(Checker):
         return jitlin.matrix_check_segmented(stream, ckpt=ckpt,
                                              carry_sink=carries.append, **kw)
 
+    # copied from jepsen_tpu/checker/linearizable.py:411-428
+    # (``sharded_eligible``)
+    def _sharded_mesh(self, stream, sharded, mesh_devices):
+        """The mesh of the ``torch-sharded-matrix`` rung, or None: False
+        turns it off, True takes ``auto_mesh`` past the cost gate, unset
+        asks ``sharded_mesh_for`` when SHARDED is on and the checker's
+        device is a card."""
+        from jepsen_tpu_torch import parallel
+        from jepsen_tpu_torch.device import resolve_device
+        if sharded is False:
+            return None
+        if sharded is True:
+            return parallel.auto_mesh(mesh_devices)
+        if not parallel.sharded_enabled() \
+                or resolve_device(self.device).type != "cuda":
+            return None
+        return parallel.sharded_mesh_for(len(stream), mesh_devices)
+
+    # copied from jepsen_tpu/checker/linearizable.py:347-383
+    # (``matrix_settle``)
+    def _matrix_settle(self, m, stream, spec, explain, extras,
+                       algorithm) -> LinearResult | None:
+        """A finished matrix screen's verdict: an exact True settles
+        valid; an exact False settles invalid at its localized event when
+        ``explain`` is on (the localization runs on the checker's one
+        device, for a sharded screen too); inexact, explain off or a
+        declined localization give None. An error of the localization
+        propagates (the reference demotes on it)."""
+        from jepsen_tpu_torch.ops.jitlin import matrix_localize
+        if m is None or m[2]:
+            return None
+        if m[0]:
+            return LinearResult(valid=True, algorithm=algorithm)
+        if not explain:
+            return None
+        loc = matrix_localize(stream, step_ids=spec.step_ids,
+                              init_state=spec.init_state,
+                              num_states=len(stream.intern),
+                              device=self.device)
+        if loc is None:
+            return None
+        if extras is not None:
+            extras["loc"] = loc
+        return LinearResult(valid=False, failed_event=loc.failed_event,
+                            failed_op_index=loc.failed_op_index,
+                            configs_max=0, algorithm=algorithm)
+
     def _search_stream(self, stream, step_py, spec, accelerator,
                        explain: bool = True,
                        extras: dict | None = None,
-                       ckpt=None) -> LinearResult:
+                       ckpt=None, sharded=None,
+                       mesh_devices=None) -> LinearResult:
         """The rungs over an encoded stream. With ``explain``, a
-        localization that settles the matrix rung goes to
-        ``extras["loc"]`` for the witness shrink. ``ckpt`` (a
-        ``checkpoint.CheckpointStore``) makes the matrix chain and the CPU
-        rung resumable."""
+        localization that settles a matrix rung goes to ``extras["loc"]``
+        for the witness shrink. ``ckpt`` (a ``checkpoint.CheckpointStore``)
+        makes the matrix chain and the CPU rung resumable. ``sharded`` and
+        ``mesh_devices`` are ``parallel.sharding_knobs``'s pair."""
         from jepsen_tpu_torch.ops.jitlin import (
-            JitLinKernel, matrix_localize, matrix_ok, verdict)
+            JitLinKernel, matrix_ok, verdict)
 
         device_regime = not (accelerator == "cpu" or (
             accelerator == "auto" and len(stream) < AUTO_TPU_THRESHOLD))
@@ -240,28 +302,24 @@ class LinearizableChecker(Checker):
             n_returns = int((np.asarray(stream.kind) == EV_RETURN).sum())
             if matrix_ok(stream.n_slots, len(stream.intern), n_returns):
                 attempted = True
-                m = self._matrix_rung(stream, spec, ckpt, carries)
-                # copied from jepsen_tpu/checker/linearizable.py:347-383
-                # (matrix_settle): an exact True settles valid; an exact
-                # False settles invalid at its localized event when explain
-                # is on; inexact, explain off or a declined localization
-                # pass the history on. An error of the localization
-                # propagates (the reference demotes on it). A chain's
+                # the sharded screen first; one that finished without
+                # settling is bit-identical to the single-device screen,
+                # which then does not run (jepsen_tpu/checker/
+                # linearizable.py:430-440, ``_matrix_screened``). A chain's
                 # invalid verdict localizes over the whole stream.
-                if m is not None and not m[2] and m[0]:
-                    return LinearResult(valid=True, algorithm="torch-matrix")
-                if m is not None and not m[2] and explain:
-                    loc = matrix_localize(stream, step_ids=spec.step_ids,
-                                          init_state=spec.init_state,
-                                          num_states=len(stream.intern),
-                                          device=self.device)
-                    if loc is not None:
-                        if extras is not None:
-                            extras["loc"] = loc
-                        return LinearResult(
-                            valid=False, failed_event=loc.failed_event,
-                            failed_op_index=loc.failed_op_index,
-                            configs_max=0, algorithm="torch-matrix")
+                mesh = self._sharded_mesh(stream, sharded, mesh_devices)
+                rungs = [(None, "torch-matrix")]
+                if mesh is not None:
+                    rungs.insert(0, (mesh, "torch-sharded-matrix"))
+                for rung_mesh, algorithm in rungs:
+                    m = self._matrix_rung(stream, spec, ckpt, carries,
+                                          mesh=rung_mesh)
+                    res = self._matrix_settle(m, stream, spec, explain,
+                                              extras, algorithm)
+                    if res is not None:
+                        return res
+                    if m is not None:
+                        break
             # the dense table takes S <= 12, so one bound gates both
             if stream.n_slots <= FRONTIER_MAX_SLOTS:
                 attempted = True

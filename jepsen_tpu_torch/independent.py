@@ -21,10 +21,19 @@ op, the size of its witness and the backend. A key in the matrix regime
 localizes on the card; a shorter key reruns the exact Python twin, since
 the batched lane keeps no per-key failure.
 
+The batched lane reads ``checker_sharded`` and ``mesh_devices``
+(``parallel.sharding_knobs``): False keeps one device, True shards the
+keys over ``parallel.auto_mesh(mesh_devices)``, unset lets
+``batch_check`` ask the cost model; a sharded batch reports the backend
+``jitlin-gpu-sharded``. When ``torch.distributed`` is initialized with a
+world of more than one process, the invalid keys localize through
+``parallel.distributed.localize_keys_distributed`` (each process its
+slice; no witness), as in the reference.
+
 Not ported: the forensics' artifacts under ``independent/<k>``, the
-multi-host localization, the history-IR split, and the key-lifting
-generators. An error in the batched lane propagates; the reference
-catches it and checks key by key instead.
+history-IR split, and the key-lifting generators. An error in the
+batched lane propagates; the reference catches it and checks key by key
+instead.
 """
 from __future__ import annotations
 
@@ -38,8 +47,10 @@ from jepsen_tpu_torch.utils import bounded_pmap
 logger = logging.getLogger("jepsen_tpu_torch.independent")
 
 # the batched lane's backend names, by batch_check's route (the
-# reference's device route is "jitlin-tpu")
-BACKENDS = {"cpu": "jitlin-cpu(routed)", "device": "jitlin-gpu"}
+# reference's device and mesh routes are "jitlin-tpu" and
+# "jitlin-tpu-sharded")
+BACKENDS = {"cpu": "jitlin-cpu(routed)", "device": "jitlin-gpu",
+            "mesh": "jitlin-gpu-sharded"}
 
 
 # copied from jepsen_tpu/independent.py:29-37
@@ -172,12 +183,12 @@ class IndependentChecker(Checker):
         is "cpu", the algorithm is "wgl", or a key has more than
         FRONTIER_MAX_SLOTS slots (the single check skips its frontier
         rung there too)."""
+        from jepsen_tpu_torch import parallel
         from jepsen_tpu_torch.checker.linear_cpu import check_stream
         from jepsen_tpu_torch.checker.linearizable import (
             FRONTIER_MAX_SLOTS, LinearizableChecker)
         from jepsen_tpu_torch.models import CASRegister
         from jepsen_tpu_torch.ops.jitlin import JitLinKernel, verdict
-        from jepsen_tpu_torch.parallel import batch_check, last_route
 
         # see through a Compose holding exactly one LinearizableChecker:
         # it takes the batched lane, the rest run per key, and the per-key
@@ -210,14 +221,22 @@ class IndependentChecker(Checker):
         step_py, spec = encs[0][1], encs[0][2]
         kernel = JitLinKernel(step_ids=spec.step_ids,
                               init_state=spec.init_state, device=chk.device)
-        outcomes = batch_check(streams, capacity=chk.capacity, kernel=kernel,
-                               accelerator=accelerator)
-        backend = BACKENDS[last_route()]
+        # copied from jepsen_tpu/independent.py:395-405: False forces one
+        # device, True shards past the cost gate, unset is cost-gated
+        sharded, mesh_devices = parallel.sharding_knobs(test, opts)
+        mesh = False if sharded is False else None
+        if sharded is True:
+            mesh = parallel.auto_mesh(mesh_devices)
+        outcomes = parallel.batch_check(
+            streams, capacity=chk.capacity, kernel=kernel,
+            accelerator=accelerator, mesh=mesh, mesh_devices=mesh_devices)
+        backend = BACKENDS[parallel.last_route()]
         from jepsen_tpu_torch.checker.explain import enabled
         explain_on = enabled(test, opts)
         results = {}
-        # copied from jepsen_tpu/independent.py:414-460, the single-host
-        # branch: the invalid keys' forensics, off the happy path
+        invalid = []
+        # copied from jepsen_tpu/independent.py:414-460: the invalid keys'
+        # forensics, off the happy path
         for fk, stream, (alive, died, ovf, peak) in zip(fkeys, streams,
                                                          outcomes):
             v = verdict(alive, ovf)
@@ -232,6 +251,25 @@ class IndependentChecker(Checker):
                                "configs-max": peak}
                 failure = None
             if v is False and explain_on:
+                invalid.append((fk, stream, failure))
+        if invalid and _world_size() > 1:
+            # several processes: each localizes its slice's invalid keys,
+            # and only the positions gather (no witness)
+            from jepsen_tpu_torch.parallel.distributed import (
+                localize_keys_distributed)
+            idx = {fk: i for i, fk in enumerate(fkeys)}
+            found = localize_keys_distributed(
+                streams, [idx[fk] for fk, _, _ in invalid],
+                step_ids=spec.step_ids, step_py=step_py,
+                init_state=spec.init_state, device=chk.device)
+            for fk, _, _ in invalid:
+                hit = found.get(idx[fk])
+                if hit is not None:
+                    results[fk]["explain"] = {
+                        "first-anomaly-op": hit[1],
+                        "backend": "matrix-bisect-distributed"}
+        else:
+            for fk, stream, failure in invalid:
                 self._explain_key(test, stream, step_py, spec, failure,
                                   results[fk], chk.device)
         if lin_name is None:
@@ -249,6 +287,15 @@ class IndependentChecker(Checker):
                 **sub,
             }
         return merged
+
+
+def _world_size() -> int:
+    """The processes of the initialized ``torch.distributed`` world (1
+    when it is not initialized)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return dist.get_world_size()
 
 
 def checker(inner: Checker) -> Checker:

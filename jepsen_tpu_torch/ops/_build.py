@@ -51,6 +51,9 @@ SIGNATURES = {
     # words, t_read, order, invoke_t, ok_t, has_ok, code, stale, latency
     "set_classify": ("jt_set_classify",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    # src, dst, w, active, n_edges, n_nodes, out_in, out_out
+    "trim_degrees": ("jt_trim_partial_degrees",
+                     [_P, _P, _P, _P, _I, _I, _P, _P, _P]),
     # pend, valid, ids, slots, nxt, oob, vw, first, inexact, K, T, S, V, U
     "window_rescan": ("jt_window_rescan",
                       [_P] * 9 + [_I] * 5 + [_P]),
@@ -69,6 +72,11 @@ BATCH_SIGNATURES = {
 # the chain's launch plan beside the prefix's entry: C, MV, plan[6]
 PLAN_SIGNATURES = {
     "prefix_alive": ("jt_prefix_alive_plan", [_I, _I, _P]),
+}
+# the trim round's mask update beside its degrees: in, out, active,
+# n_nodes, changed
+UPDATE_SIGNATURES = {
+    "trim_degrees": ("jt_trim_update", [_P, _P, _P, _I, _P, _P]),
 }
 
 _LOCK = threading.Lock()
@@ -130,7 +138,8 @@ def build_all() -> dict:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         for src in srcs:
             lib = ctypes.CDLL(str(_lib_path(src)))
-            for table in (SIGNATURES, BATCH_SIGNATURES, PLAN_SIGNATURES):
+            for table in (SIGNATURES, BATCH_SIGNATURES, PLAN_SIGNATURES,
+                          UPDATE_SIGNATURES):
                 if src.stem not in table:
                     continue
                 fn_name, argtypes = table[src.stem]

@@ -35,6 +35,13 @@ durable checkpoint (checker/checkpoint.py) after each.
 ``frontier_dense`` / ``frontier_sparse`` launch a segment, the frontier
 carried between them.
 
+With a ``mesh`` (``parallel.Mesh``) the matrix check shards
+(:func:`_build_matrix_kernel_mesh`): one history's chunk axis in
+contiguous time spans, each shard's products chained into its span on its
+device and the spans chained on the mesh's first device; a key batch's
+keys in blocks, each shard its own key-batch dispatch. A key batch
+without a mesh pipelines its sub-batches (``pipeline.DispatchPipeline``).
+
 :func:`matrix_localize` finds where an invalid matrix verdict died: the
 chunk products again (stage 1 alone), the frontier chained through them
 to the first dead chunk, and that chunk's returns rescanned on a frontier
@@ -155,6 +162,20 @@ def _bmm(x, y):
     return (torch.matmul(x, y) > 0).to(x.dtype)
 
 
+def _chain_time(seq):
+    """[n, MV, MV] time-ordered 0/1 products -> their composed product
+    (later on the LEFT), by the pairing tree of ``make_combine``, with a
+    > 0 threshold after each product (jepsen_tpu/ops/jitlin.py
+    ``_kernel_math.chain_time``)."""
+    while seq.shape[0] > 1:
+        odd = seq[-1:] if seq.shape[0] % 2 else None
+        pairs = seq[:-1] if odd is not None else seq
+        seq = _bmm(pairs[1::2], pairs[0::2])
+        if odd is not None:
+            seq = torch.cat([seq, odd], dim=0)
+    return seq[0]
+
+
 def _kernel_math(S: int, V: int, step_ids, G: int, device,
                  dtype=torch.float32):
     """The static tables, the per-return operator step and the
@@ -210,18 +231,6 @@ def _kernel_math(S: int, V: int, step_ids, G: int, device,
                                & val[:, None]).any(dim=1))
         return step
 
-    def chain_time(seq):
-        """[n, MV, MV] time-ordered chunk products -> their composed
-        product (later chunk on the LEFT), by the pairing tree of
-        make_combine."""
-        while seq.shape[0] > 1:
-            odd = seq[-1:] if seq.shape[0] % 2 else None
-            pairs = seq[:-1] if odd is not None else seq
-            seq = _bmm(pairs[1::2], pairs[0::2])
-            if odd is not None:
-                seq = torch.cat([seq, odd], dim=0)
-        return seq[0]
-
     def make_combine(B: int, C: int, init_state: int):
         def _combine(P, inexact, tot0):
             # total_b = P[b,C-1] @ ... @ P[b,0] @ tot0[b], tree-reduced
@@ -241,7 +250,7 @@ def _kernel_math(S: int, V: int, step_ids, G: int, device,
     return types.SimpleNamespace(
         M=M, MV=MV, n_sq=n_sq, eye=eye, v_range=v_range,
         receiver=receiver_t, kill_idx=kill_idx_t, kill_mask=kill_mask_t,
-        uop_tables=uop_tables, make_step=make_step, chain_time=chain_time,
+        uop_tables=uop_tables, make_step=make_step, chain_time=_chain_time,
         make_combine=make_combine)
 
 
@@ -336,6 +345,90 @@ def _build_matrix_kernel(S: int, V: int, step_ids, init_state: int,
     return run
 
 
+def _build_matrix_kernel_mesh(S: int, V: int, step_ids, init_state: int,
+                              g_steps: int, n_chunks: int, n_keys: int,
+                              mesh):
+    """The mesh twin of :func:`_build_matrix_kernel`
+    (jepsen_tpu/ops/jitlin.py:824-948): every argument is a list of
+    ``mesh.size`` shards, shard k on ``mesh.devices[k]``, cut from the
+    chunk axis G = B * C in contiguous blocks (``_matrix_grids``). Each
+    shard runs the single-device dispatch on its own device; the results
+    gather on the mesh's first device. Two modes, both bit-equal to one
+    device's verdicts and carries (boolean products are exact under any
+    association):
+
+    * ``n_keys == 1`` — one long history: shard k holds C / nd contiguous
+      chunks in time order. Each runs the chunk product and chains its
+      chunks into its span product (the resume form's total from the
+      identity: ``chunk_product.cu``, then ``chunk_combine.cu``). The nd
+      spans gather on the first device and chain later-on-the-LEFT with
+      a > 0 threshold after each product (torch products, as the
+      reference's einsum outside any Pallas kernel, ``:893-899``; bf16
+      on the card), then onto ``tot0``; ``inexact`` is OR'd over the
+      shards. ``resume`` and ``init_total`` as the single-device kernel.
+    * ``n_keys > 1`` — a key batch (padded to a device multiple by
+      ``_matrix_dispatch``): shard k runs the key-batch dispatch on its
+      B / nd keys with no traffic between shards; the verdicts gather
+      in key order."""
+    nd = mesh.size
+    B, C, T = n_keys, n_chunks, g_steps
+    if B == 1:
+        if C % nd:
+            raise ValueError(
+                f"chunk count {C} not divisible by {nd} devices: "
+                f"_matrix_plan must pad the chunk axis first")
+        b_local, c_local = 1, C // nd
+    else:
+        if B % nd:
+            raise ValueError(
+                f"key count {B} not divisible by {nd} devices: "
+                f"_matrix_dispatch must pad the key axis first")
+        b_local, c_local = B // nd, C
+    runs = [_matrix_cache(S, V, step_ids, init_state, T, c_local, b_local,
+                          dev) for dev in mesh.devices]
+    first = mesh.devices[0]
+    MV = (1 << S) * V
+
+    def init_total():
+        return torch.eye(MV, dtype=torch.bfloat16, device=first).expand(
+            B, MV, MV)
+
+    if B > 1:
+        def run(pend, op_ids, uops, slots, valid):
+            outs = [r(pend[k], op_ids[k], uops[k], slots[k], valid[k])
+                    for k, r in enumerate(runs)]
+            return (torch.cat([a.to(first) for a, _ in outs]),
+                    torch.cat([x.to(first) for _, x in outs]))
+
+        run.init_total = init_total
+        return run
+
+    # the spans' chain: bf16 on the card, as the scan route's products
+    dtype = torch.bfloat16 if first.type == "cuda" else torch.float32
+
+    def run_resume(pend, op_ids, uops, slots, valid, tot0):
+        spans, inexact = [], []
+        for k, r in enumerate(runs):
+            _, ix, span = r.resume(pend[k], op_ids[k], uops[k], slots[k],
+                                   valid[k], r.init_total())
+            spans.append(span.to(first))
+            inexact.append(ix.to(first))
+        total = _chain_time(torch.cat(spans).to(dtype))
+        total = _bmm(total, tot0.to(first).reshape(MV, MV).to(dtype))
+        total = total.to(torch.bfloat16)[None]
+        alive = (total[:, :, init_state] > 0).any(dim=1)
+        return alive, torch.cat(inexact).any()[None], total
+
+    def run(pend, op_ids, uops, slots, valid):
+        alive, inexact, _ = run_resume(pend, op_ids, uops, slots, valid,
+                                       init_total())
+        return alive, inexact
+
+    run.resume = run_resume
+    run.init_total = init_total
+    return run
+
+
 # copied from jepsen_tpu/ops/jitlin.py:949-951,976-979: matrix-path
 # applicability — cost is quadratic in MV = 2^S * V, so the value domain
 # must be small; below MIN_RETURNS composing matrices can't pay.
@@ -349,6 +442,10 @@ MATRIX_MAX_ELEMS = 1 << 28
 # of a batch of MATRIX_PIPELINE_KEYS + 1 to MATRIX_SUB_KEYS keys
 MATRIX_SUB_KEYS = 128
 MATRIX_PIPELINE_KEYS = 32
+# copied from jepsen_tpu/ops/jitlin.py:965-967, without the environment
+# override: sub-batch dispatches in flight before the pipeline blocks on
+# the oldest (bounds the [G, MV, MV] working sets on the card at once)
+PIPELINE_DEPTH = 2
 # copied from jepsen_tpu/ops/jitlin.py:968-973, without the environment
 # override: events per segment of a resumable matrix chain
 # (matrix_check_segmented), and the checker's routing threshold: a longer
@@ -373,12 +470,13 @@ def kernel_ok(S: int, V: int) -> bool:
 
 def matrix_check(stream, step_ids=None, init_state: int = 0,
                  num_states: int | None = None, force: bool = False,
-                 device=None):
+                 device=None, mesh=None):
     """Exact aliveness check of ONE history via block-composed transfer
     matrices. Returns (alive, died, inexact, peak) with died=-1/peak=0
     placeholders, or None when the matrix regime doesn't apply
     (``force=True`` skips the ``matrix_ok`` size gate, for differential
-    tests)."""
+    tests). With a ``mesh`` (``parallel.Mesh``) the chunk axis shards
+    over its devices (:func:`_build_matrix_kernel_mesh`)."""
     if step_ids is None:
         step_ids = cas_register_spec().step_ids
     num_states = num_states if num_states is not None else len(stream.intern)
@@ -389,18 +487,23 @@ def matrix_check(stream, step_ids=None, init_state: int = 0,
         return None
     return matrix_check_batch([stream], step_ids=step_ids,
                               init_state=init_state,
-                              num_states=num_states, device=device)[0]
+                              num_states=num_states, device=device,
+                              mesh=mesh)[0]
 
 
 def matrix_check_resume(stream, tot0=None, step_ids=None,
                         init_state: int = 0, num_states: int | None = None,
-                        n_slots: int | None = None, device=None):
+                        n_slots: int | None = None, device=None, mesh=None):
     """Segmented transfer-matrix verification of one long history: checks
     a segment starting from the composed operator product ``tot0`` of the
     prior segments (None = identity) and returns ``(alive, inexact,
     total)`` with ``total`` staying on the device for the next segment.
     Segments must cut at quiescent points, share the slot dimension
-    (``n_slots``) and share the state basis (``num_states``)."""
+    (``n_slots``) and share the state basis (``num_states``). With a
+    ``mesh`` the segment's chunk axis shards over its devices, and the
+    total lands on its first device; the carry is the same [1, MV, MV]
+    product either way, so a chain may mix sharded and single-device
+    segments."""
     if step_ids is None:
         step_ids = cas_register_spec().step_ids
     if num_states is None:
@@ -422,9 +525,9 @@ def matrix_check_resume(stream, tot0=None, step_ids=None,
             return True, False, tot0
         alive = (tot0[:, :, init_state] > 0).any(dim=1)
         return alive, False, tot0
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     return _matrix_dispatch([prep], S, R_max, V, step_ids, init_state, dev,
-                            resume=True, tot0=tot0)
+                            resume=True, tot0=tot0, mesh=mesh)
 
 
 # copied from jepsen_tpu/ops/jitlin.py:1073-1089; this package has no
@@ -468,14 +571,14 @@ def last_segment_seconds() -> list:
     return list(getattr(_SEGMENT_PHASE, "value", []))
 
 
-# copied from jepsen_tpu/ops/jitlin.py:1092-1223, without the mesh, the
-# routing overrides and the trace span
+# copied from jepsen_tpu/ops/jitlin.py:1092-1223, without the routing
+# overrides and the trace span
 def matrix_check_segmented(stream, step_ids=None, init_state: int = 0,
                            num_states: int | None = None,
                            n_slots: int | None = None,
                            max_segment: int | None = None,
                            ckpt=None, carry: dict | None = None,
-                           carry_sink=None, device=None):
+                           carry_sink=None, device=None, mesh=None):
     """One long small-domain history through a resumable chain of
     :func:`matrix_check_resume` segments cut at quiescent points
     (:func:`quiescent_cuts`, at most ``max_segment`` =
@@ -499,7 +602,8 @@ def matrix_check_segmented(stream, step_ids=None, init_state: int = 0,
     An INEXACT segment aborts the chain at once without sinking or
     persisting its carry: an under-approximate product must never seed an
     exact resume. A dead segment returns at once; dead carries are never
-    persisted."""
+    persisted. With a ``mesh`` each segment's chunk axis shards over its
+    devices, and the carry lives on its first device."""
     if step_ids is None:
         step_ids = cas_register_spec().step_ids
     if num_states is None:
@@ -510,7 +614,7 @@ def matrix_check_segmented(stream, step_ids=None, init_state: int = 0,
     S = max(n_slots or 1, int(slot.max(initial=0)) + 1)
     if max_segment is None:
         max_segment = MATRIX_SEGMENT_EVENTS
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     cuts = quiescent_cuts(kind, max_segment)
     cut_set = set(cuts)
     n = len(kind)
@@ -563,7 +667,7 @@ def matrix_check_segmented(stream, step_ids=None, init_state: int = 0,
         seg = _slice_stream(stream, base, end)
         alive, ix, tot = matrix_check_resume(
             seg, tot, step_ids=step_ids, init_state=init_state,
-            num_states=num_states, n_slots=S, device=dev)
+            num_states=num_states, n_slots=S, device=dev, mesh=mesh)
         alive_b, ix_b = _flags(alive, ix)
         segments.append({"base": base, "end": end,
                          "s": time.perf_counter() - t0})
@@ -591,24 +695,31 @@ def matrix_check_segmented(stream, step_ids=None, init_state: int = 0,
     return True, -1, False, 0
 
 
-# copied from jepsen_tpu/ops/jitlin.py:1226-1330, without the mesh branch,
-# the rate model and the routing overrides
+# copied from jepsen_tpu/ops/jitlin.py:1226-1330, without the routing
+# overrides
 def matrix_check_batch(streams, step_ids=None, init_state: int = 0,
-                       num_states: int | None = None, device=None):
+                       num_states: int | None = None, device=None,
+                       mesh=None):
     """Batched transfer-matrix check over independent per-key histories:
     all keys' chunk products advance together, then each key's chunks
     chain separately. Returns [(alive, -1, inexact, 0)] per stream.
     Callers gate the regime (matrix_ok).
 
-    A batch of more than MATRIX_SUB_KEYS keys runs in sub-batches of
-    MATRIX_SUB_KEYS keys, one of MATRIX_PIPELINE_KEYS + 1 to
-    MATRIX_SUB_KEYS keys in sub-batches of MATRIX_PIPELINE_KEYS, each
+    Without a ``mesh``, a batch of more than MATRIX_SUB_KEYS keys runs in
+    sub-batches of MATRIX_SUB_KEYS keys, one of MATRIX_PIPELINE_KEYS + 1
+    to MATRIX_SUB_KEYS keys in sub-batches of MATRIX_PIPELINE_KEYS, each
     planned at the batch's one (S, R_max, V) and the last padded with
-    empty keys, so every sub-batch has one shape. Sub-batch k + 1's host
-    prepass, grids and upload run while sub-batch k runs on the card:
-    nothing reads back until every sub-batch is enqueued, and the
-    results come back in one copy, in submission order. The host and
-    dispatch seconds go to ``last_phase_seconds()``."""
+    empty keys, so every sub-batch has one shape. They go through a
+    ``pipeline.DispatchPipeline`` of depth PIPELINE_DEPTH: sub-batch k +
+    1's host prepass, grids and upload run while sub-batch k runs on the
+    card, the oldest dispatch is waited for only past the depth, and the
+    results come back in one copy, in submission order
+    (``pipeline.last_stats()``). With a ``mesh`` the batch is one
+    sharded dispatch (keys padded to a device multiple). The host and
+    dispatch seconds go to ``last_phase_seconds()``, the measured rate to
+    ``pipeline.observe_device_rate``."""
+    from jepsen_tpu_torch.parallel import pipeline
+
     if step_ids is None:
         step_ids = cas_register_spec().step_ids
     if num_states is None:
@@ -621,42 +732,73 @@ def matrix_check_batch(streams, step_ids=None, init_state: int = 0,
     R_max = max(int((k == EV_RETURN).sum()) for k in kinds)
     if R_max == 0:
         return [(True, -1, False, 0)] * B
-    dev = resolve_device(device)
+    total_events = sum(len(k) for k in kinds)
+    t_start = time.perf_counter()
 
     def prep(i):
         s = streams[i]
         return _returns_prepass(kinds[i], slots_np[i], np.asarray(s.f),
                                 np.asarray(s.a), np.asarray(s.b))
 
+    if mesh is not None:
+        phases = {"sub_batches": 1}
+        t0 = time.perf_counter()
+        preps = [prep(i) for i in range(B)]
+        phases["prepass"] = time.perf_counter() - t0
+        alive, inexact = _matrix_dispatch(preps, S, R_max, V, step_ids,
+                                          init_state, mesh.devices[0],
+                                          mesh=mesh, phases=phases)
+        t0 = time.perf_counter()
+        both = torch.stack([alive[:B], inexact[:B]]).cpu().numpy()
+        phases["fetch"] = time.perf_counter() - t0
+        _PHASE.value = phases
+        pipeline.observe_device_rate(mesh.size, total_events,
+                                     time.perf_counter() - t_start)
+        return [(bool(both[0, b]), -1, bool(both[1, b]), 0)
+                for b in range(B)]
+
+    dev = resolve_device(device)
     sub = MATRIX_SUB_KEYS if B > MATRIX_SUB_KEYS else MATRIX_PIPELINE_KEYS
     if B <= sub:
         sub = B
     C, T = _matrix_plan(sub, S, R_max, V)
     run = _matrix_cache(S, V, step_ids, init_state, T, C, sub, dev)
+    pipe = pipeline.DispatchPipeline(depth=PIPELINE_DEPTH, name="matrix",
+                                     device=dev)
     phases = {"prepass": 0.0, "grids": 0.0, "dispatch": 0.0,
               "sub_batches": 0}
-    outs = []
     for lo in range(0, B, sub):
-        t0 = time.perf_counter()
-        preps = [prep(i) for i in range(lo, min(lo + sub, B))]
-        # a short tail is padded with empty keys (R = 0: the identity,
-        # trivially alive and exact) to the one shape
-        preps += [_EMPTY_PREP] * (sub - len(preps))
-        t1 = time.perf_counter()
-        grids, uops = _matrix_grids(preps, S, V, sub, C, T, dev)
-        t2 = time.perf_counter()
-        outs.append(run(grids[0], grids[1], uops, grids[2], grids[3]))
-        t3 = time.perf_counter()
-        phases["prepass"] += t1 - t0
-        phases["grids"] += t2 - t1
-        phases["dispatch"] += t3 - t2
-        phases["sub_batches"] += 1
+        def stage(lo=lo):
+            t0 = time.perf_counter()
+            preps = [prep(i) for i in range(lo, min(lo + sub, B))]
+            # a short tail is padded with empty keys (R = 0: the identity,
+            # trivially alive and exact) to the one shape
+            preps += [_EMPTY_PREP] * (sub - len(preps))
+            t1 = time.perf_counter()
+            grids, uops = _matrix_grids(preps, S, V, sub, C, T,
+                                        torch.device("cpu"))
+            staged = pipe.stage(*grids, uops)
+            phases["prepass"] += t1 - t0
+            phases["grids"] += time.perf_counter() - t1
+            return tuple(staged)
+
+        def dispatch(pend, ids, slots, valid, uops):
+            t0 = time.perf_counter()
+            out = run(pend, ids, uops, slots, valid)
+            phases["dispatch"] += time.perf_counter() - t0
+            phases["sub_batches"] += 1
+            return out
+
+        pipe.submit(stage, dispatch)
     t0 = time.perf_counter()
-    both = torch.stack([torch.cat([a for a, _ in outs]),
-                        torch.cat([x for _, x in outs])]).cpu().numpy()
+    fetched = pipe.results()
     phases["fetch"] = time.perf_counter() - t0
     _PHASE.value = phases
-    return [(bool(both[0, b]), -1, bool(both[1, b]), 0) for b in range(B)]
+    alive = np.concatenate([a.numpy() for a, _ in fetched])
+    inexact = np.concatenate([x.numpy() for _, x in fetched])
+    pipeline.observe_device_rate(1, total_events,
+                                 time.perf_counter() - t_start)
+    return [(bool(alive[b]), -1, bool(inexact[b]), 0) for b in range(B)]
 
 
 _PHASE = threading.local()
@@ -676,33 +818,43 @@ _EMPTY_PREP = (np.zeros(0, np.int32), np.zeros((0, 1), bool),
                np.zeros((0, 1, 3), np.int64), 1)
 
 
-# copied from jepsen_tpu/ops/jitlin.py:1361-1405, without the mesh branch
-def _matrix_plan(B, S, R_max, V):
+# copied from jepsen_tpu/ops/jitlin.py:1361-1405
+def _matrix_plan(B, S, R_max, V, mesh=None):
     """(C, T) for one dispatch's chunk layout: per key, C chunks of T
     returns (padded with identity); chunk g = b*C + c. R is bucketed so
     nearby history lengths share a layout. The chunk count targets
     G = B*C ≈ 256 for one history and ≈ 2048 for key batches, with C
-    capped at 256 and by the element budget."""
+    capped at 256 and by the element budget. With a ``mesh`` the budget
+    binds per device (ceil(B / nd) keys a device), and one history's C
+    is padded up to a device multiple (identity chunks)."""
     MV = (1 << S) * V
-    if B * MV * MV > MATRIX_MAX_ELEMS:
+    nd = mesh.size if mesh is not None else 1
+    budget_keys = -(-B // nd)
+    if budget_keys * MV * MV > MATRIX_MAX_ELEMS:
         raise ValueError(
-            f"matrix_check_batch out of regime: keys * MV^2 = "
-            f"{B * MV * MV} > {MATRIX_MAX_ELEMS}; split the key batch")
+            f"matrix_check_batch out of regime: keys/device * MV^2 = "
+            f"{budget_keys * MV * MV} > {MATRIX_MAX_ELEMS}; split the "
+            f"key batch")
     rb = _bucket(R_max, floor=64)
     target_g = 256 if B == 1 else 2048
     C = int(np.clip(target_g // B, 1, 256))
-    C = max(1, min(C, MATRIX_MAX_ELEMS // (B * MV * MV)))
+    C = max(1, min(C, MATRIX_MAX_ELEMS // (budget_keys * MV * MV)))
+    if mesh is not None and B == 1:
+        C = -(-max(C, nd) // nd) * nd
     T = -(-rb // C)
     return C, T
 
 
-# copied from jepsen_tpu/ops/jitlin.py:1408-1470, without the mesh branch;
-# the grids land on ``device`` as int32/bool tensors
-def _matrix_grids(preps, S, V, B, C, T, device, host=None):
+# copied from jepsen_tpu/ops/jitlin.py:1408-1470; the grids land on
+# ``device`` as int32/bool tensors
+def _matrix_grids(preps, S, V, B, C, T, device, host=None, mesh=None):
     """Pads each key's return grids into the (T, G) chunk layout and
     interns the batch's distinct ops. Returns ([pend, ids, slots, valid]
     grids, uops) as tensors on ``device``; a dict ``host`` receives the
-    same as numpy arrays (``grids``, ``uops``)."""
+    same as numpy arrays (``grids``, ``uops``). With a ``mesh`` each grid
+    is a list of shards instead, cut along G in contiguous blocks
+    (``parallel.shard_chunked``; G is a device multiple by the plan), and
+    uops a list of one copy a shard."""
 
     def key_arrays(p):
         r_slot, r_pend, r_ops, s_k = p
@@ -749,6 +901,10 @@ def _matrix_grids(preps, S, V, B, C, T, device, host=None):
              as_tg(np.stack(vals))]
     if host is not None:
         host.update(grids=grids, uops=uops)
+    if mesh is not None:
+        from jepsen_tpu_torch.parallel import shard_chunked
+        return (shard_chunked(mesh, grids, axis=1),
+                [_upload(uops, d) for d in mesh.devices])
     return [_upload(g, device) for g in grids], _upload(uops, device)
 
 
@@ -761,35 +917,77 @@ def _upload(x: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
+# copied from jepsen_tpu/ops/jitlin.py:1480-1499: the share of a sharded
+# dispatch's chunk-step work (G * T) that the mesh's padding adds
+def _mesh_padding_frac(B_real, B_pad, S, R_max, V, C, T) -> float | None:
+    """Identity chunks from bumping C (one history) or padded keys, as a
+    share of the sharded dispatch's chunk steps; None where the
+    unsharded plan is out of budget (no baseline)."""
+    try:
+        c0, t0 = _matrix_plan(B_real, S, R_max, V)
+    except ValueError:
+        return None
+    return max(0.0, 1.0 - (B_real * c0 * t0) / float(B_pad * C * T))
+
+
+# copied from jepsen_tpu/ops/jitlin.py:1501-1555
 def _matrix_dispatch(preps, S, R_max, V, step_ids, init_state, device,
-                     resume: bool = False, tot0=None):
+                     resume: bool = False, tot0=None, mesh=None,
+                     phases: dict | None = None):
     """Builds one dispatch's chunk grids and runs both stages, returning
     device tensors (alive[B], inexact[B]; plus the composed total
-    [B, MV, MV] when ``resume``)."""
+    [B, MV, MV] when ``resume``). With a ``mesh`` the dispatch shards (the
+    chunk axis of one history, else the key axis, padded here with empty
+    keys to a device multiple: callers read their real keys alone), the
+    results land on its first device, and ``last_dispatch_info()`` gains
+    ``mesh`` (its width) and ``mesh_padding_frac``. ``phases`` collects
+    the host seconds of the grids and of the dispatch."""
+    B_real = len(preps)
+    if mesh is not None and B_real > 1 and B_real % mesh.size:
+        preps = list(preps) + [_EMPTY_PREP] * ((-B_real) % mesh.size)
     B = len(preps)
-    C, T = _matrix_plan(B, S, R_max, V)
-    grids, uops = _matrix_grids(preps, S, V, B, C, T, device)
-    run = _matrix_cache(S, V, step_ids, init_state, T, C, B, device)
+    C, T = _matrix_plan(B, S, R_max, V, mesh)
+    t0 = time.perf_counter()
+    grids, uops = _matrix_grids(preps, S, V, B, C, T, device, mesh=mesh)
+    t1 = time.perf_counter()
+    run = _matrix_cache(S, V, step_ids, init_state, T, C, B, device, mesh)
     if resume:
         if tot0 is None:
             tot0 = run.init_total()
-        return run.resume(grids[0], grids[1], uops, grids[2], grids[3],
-                          tot0.to(device))
-    return run(grids[0], grids[1], uops, grids[2], grids[3])
+        out = run.resume(grids[0], grids[1], uops, grids[2], grids[3],
+                         tot0.to(device))
+    else:
+        out = run(grids[0], grids[1], uops, grids[2], grids[3])
+    if mesh is not None:
+        _DISPATCH_INFO.value = {
+            **last_dispatch_info(), "mesh": mesh.size,
+            "mesh_padding_frac": _mesh_padding_frac(B_real, B, S, R_max, V,
+                                                    C, T)}
+    if phases is not None:
+        phases["grids"] = phases.get("grids", 0.0) + (t1 - t0)
+        phases["dispatch"] = (phases.get("dispatch", 0.0)
+                              + time.perf_counter() - t1)
+    return out
 
 
 _MATRIX_CACHE: dict = {}
 
 
-def _matrix_cache(S, V, step_ids, init_state, T, C, B, device):
+def _matrix_cache(S, V, step_ids, init_state, T, C, B, device, mesh=None):
     # keyed by the step itself, not its id: the key holds it, so a step
     # built after another was freed never takes that one's kernel (the
-    # specs build one step per shape, so the cache holds one a shape)
-    key = (S, V, step_ids, init_state, T, C, B, str(device))
+    # specs build one step per shape, so the cache holds one a shape). A
+    # mesh keys on its device list, in order and with its repeats
+    key = (S, V, step_ids, init_state, T, C, B,
+           str(device) if mesh is None else mesh.key())
     fn = _MATRIX_CACHE.get(key)
     if fn is None:
-        fn = _build_matrix_kernel(S, V, step_ids, init_state, T, C, B,
-                                  device)
+        if mesh is not None:
+            fn = _build_matrix_kernel_mesh(S, V, step_ids, init_state, T,
+                                           C, B, mesh)
+        else:
+            fn = _build_matrix_kernel(S, V, step_ids, init_state, T, C, B,
+                                      device)
         _MATRIX_CACHE[key] = fn
     return fn
 
@@ -1247,12 +1445,12 @@ class JitLinKernel:
         alive, died, overflow, peak = (x.item() for x in out[:4])
         return bool(alive), int(died), bool(overflow), int(peak)
 
-    def check_batch(self, streams, capacity: int = 256):
+    def check_batch(self, streams, capacity: int = 256, mesh=None):
         """Independent per-key histories on the card
         (jepsen_tpu/ops/jitlin.py:2033): ``parallel.batch_check``'s
         matrix screen, then one key-batched frontier launch for the keys
-        it leaves undecided. Returns [(alive, died, overflow, peak)] per
-        stream."""
+        it leaves undecided, sharded over ``mesh`` as batch_check does.
+        Returns [(alive, died, overflow, peak)] per stream."""
         from jepsen_tpu_torch.parallel import batch_check
         return batch_check(streams, capacity=capacity, kernel=self,
-                           accelerator="gpu")
+                           accelerator="gpu", mesh=mesh)

@@ -83,6 +83,64 @@ def has_cycle(n_nodes: int, src, dst, device=None) -> bool:
     return bool(tarjan_scc(n_nodes, edges))
 
 
+# copied from jepsen_tpu/ops/scc.py:114-143
+def trim_to_cycles_sharded(n_nodes: int, src: np.ndarray, dst: np.ndarray,
+                           mesh, max_iters: int = 512) -> np.ndarray:
+    """Edge-sharded trim: the reference's capped 2-core peeling in
+    synchronous rounds (the same loose-superset residue; the exact host
+    pass is authoritative), with the edge list split over the mesh's
+    devices (``parallel.Mesh``) in contiguous blocks, padded with weight-0
+    edges to a device multiple. Each round every shard computes partial
+    in/out degrees over its edges, the partials sum on the mesh's first
+    device, and the mask updates there (:func:`run_sharded_trim`). The
+    residue equals the reference's mask bit for bit; it may differ from
+    :func:`trim_to_cycles` (``scc_trim.cu``'s worklist) when capped."""
+    if len(src) == 0 or n_nodes == 0:
+        return np.zeros(n_nodes, dtype=bool)
+    _check_ids("trim_to_cycles_sharded", n_nodes, src, dst)
+    from jepsen_tpu_torch.parallel import shard_leading
+    E = len(src)
+    pad = (-E) % mesh.size
+    z = np.zeros(pad, np.int32)
+    shards = shard_leading(
+        mesh, np.concatenate([np.asarray(src, np.int32), z]),
+        np.concatenate([np.asarray(dst, np.int32), z]),
+        np.concatenate([np.ones(E, np.int32), z]))
+    return run_sharded_trim(mesh, n_nodes, *shards,
+                            max_iters=max_iters).cpu().numpy()
+
+
+# copied from jepsen_tpu/ops/scc.py:146-186
+def run_sharded_trim(mesh, n_nodes: int, sj, dj, wj, max_iters: int = 512,
+                     reduce=None) -> torch.Tensor:
+    """The rounds of the sharded trim over edges already placed: ``sj``,
+    ``dj``, ``wj`` hold one int32 shard a mesh device (weight 0 pads).
+    From every node active, while the last round changed something and
+    fewer than ``max_iters`` ran: each shard's partial degrees
+    (``scc_kernels.trim_partial_degrees``), their sum on the first device,
+    ``reduce`` of that sum when given (the multi-process all_reduce,
+    ``parallel.distributed``), then ``active &= (in > 0) & (out > 0)``
+    (``scc_kernels.trim_update``). Each shard reads its own copy of the
+    mask. Returns the bool [n_nodes] mask on the first device."""
+    first = mesh.devices[0]
+    active = torch.ones((n_nodes,), dtype=torch.bool, device=first)
+    local = [torch.ones((n_nodes,), dtype=torch.bool, device=d)
+             for d in mesh.devices]
+    it, changed = 0, True
+    while changed and it < max_iters:
+        deg = None
+        for s, d, w, a in zip(sj, dj, wj, local):
+            part = scc_kernels.trim_partial_degrees(s, d, w, a, n_nodes)
+            deg = part.to(first) if deg is None else deg + part.to(first)
+        if reduce is not None:
+            deg = reduce(deg)
+        changed = bool(scc_kernels.trim_update(deg, active).item())
+        for a in local:
+            a.copy_(active)
+        it += 1
+    return active
+
+
 # copied from jepsen_tpu/ops/scc.py:240-243: ceiling on one screen call's
 # [B, V, V] element count (the plain version's float32 adjacency is
 # 128 MB at this size); batches beyond it are chunked along the cluster

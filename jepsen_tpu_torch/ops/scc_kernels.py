@@ -8,9 +8,14 @@ hand-written Hopper kernels in ``csrc/``, and their plain torch versions.
   may also hold acyclic chains.
 * :func:`cluster_screen` — per cluster, whether its edges close a directed
   cycle (jepsen_tpu/ops/scc.py ``_screen_kernel``). Exact.
+* :func:`trim_partial_degrees` and :func:`trim_update` — one round of the
+  edge-sharded trim (jepsen_tpu/ops/scc.py ``run_sharded_trim``): a
+  shard's partial in/out degrees over its edges, and the mask's update
+  from the summed degrees (``csrc/trim_degrees.cu``). Integer sums and
+  booleans: exact.
 
-Both match the reference bit for bit: their results are booleans (and the
-trim's step count). A wrapper takes its plain version only for tensors
+All match the reference bit for bit: their results are booleans and
+integers (and the trim's step count). A wrapper takes its plain version only for tensors
 that lie on the CPU; for CUDA tensors it makes one C call, which enqueues
 its kernel's launches, or raises. Each wrapper counts those C calls in
 ``.launches`` and keeps the kernel's own count of its work in ``.work``.
@@ -266,3 +271,97 @@ def cluster_screen_torch(cid, src_l, dst_l, valid, n_clusters: int,
         work["removed"] = int((~kept).sum())
         work["walked"] = int(((adj > 0) & ~kept[:, :, None]).sum())
     return on_cycle.any(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the edge-sharded trim's round
+# ---------------------------------------------------------------------------
+
+def trim_partial_degrees(src, dst, w, active, n_nodes: int):
+    """One shard's partial degrees for a round of the sharded trim.
+
+    src, dst [E] int32 (ids in ``[0, n_nodes)``), w [E] int32 (0 for a
+    padding edge), active bool [n_nodes] -> int32 [2, n_nodes]: row 0
+    sums w over the edges entering each node whose two ends are active,
+    row 1 over those leaving it (jepsen_tpu/ops/scc.py:164-167). On the
+    card one C call of ``csrc/trim_degrees.cu``'s
+    ``jt_trim_partial_degrees`` (zero the rows, a thread an edge with
+    atomic adds); every input on one card, as the caller placed it."""
+    if src.device.type == "cpu":
+        return trim_partial_degrees_torch(src, dst, w, active, n_nodes)
+    if src.device.type != "cuda":
+        raise ValueError(f"trim_partial_degrees: unsupported device "
+                         f"{src.device}")
+    dev = src.device
+    E = src.numel()
+    for x, dt, n in ((src, torch.int32, E), (dst, torch.int32, E),
+                     (w, torch.int32, E), (active, torch.bool, n_nodes)):
+        if x.device != dev or x.dtype != dt or x.shape != (n,) \
+                or not x.is_contiguous():
+            raise ValueError(f"trim_partial_degrees: want contiguous "
+                             f"{dt} [{n}] on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    if n_nodes < 1:
+        raise ValueError(f"trim_partial_degrees: n_nodes={n_nodes}")
+    out = torch.empty((2, n_nodes), dtype=torch.int32, device=dev)
+    from jepsen_tpu_torch.ops import _build
+    lib = _build.library("trim_degrees")
+    with _on(dev):
+        rc = lib.jt_trim_partial_degrees(
+            _ptr(src), _ptr(dst), _ptr(w), _ptr(active), E, n_nodes,
+            _ptr(out[0]), _ptr(out[1]), _stream(dev))
+    _check_launch(rc, "trim_partial_degrees")
+    trim_partial_degrees.launches += 1
+    return out
+
+
+trim_partial_degrees.launches = 0
+
+
+def trim_partial_degrees_torch(src, dst, w, active, n_nodes: int):
+    """Plain torch version of :func:`trim_partial_degrees`: the masked
+    weights, then ``index_add_`` into each row."""
+    s, d = src.long(), dst.long()
+    ew = w.to(torch.int32) * (active[s] & active[d]).to(torch.int32)
+    deg = torch.zeros((2, n_nodes), dtype=torch.int32, device=src.device)
+    deg[0].index_add_(0, d, ew)
+    deg[1].index_add_(0, s, ew)
+    return deg
+
+
+def trim_update(deg, active):
+    """The sharded trim's mask update: ``active &= (deg[0] > 0) & (deg[1]
+    > 0)`` in place (jepsen_tpu/ops/scc.py:176-177). deg int32
+    [2, n_nodes], active bool [n_nodes] -> int32 [1] on the same device,
+    1 when some node left. On the card one C call of ``jt_trim_update``."""
+    if active.device.type == "cpu":
+        return trim_update_torch(deg, active)
+    if active.device.type != "cuda":
+        raise ValueError(f"trim_update: unsupported device {active.device}")
+    dev = active.device
+    n = active.numel()
+    if active.dtype != torch.bool or not active.is_contiguous() \
+            or deg.device != dev or deg.dtype != torch.int32 \
+            or deg.shape != (2, n) or not deg.is_contiguous():
+        raise ValueError(f"trim_update: want int32 [2, {n}] degrees and a "
+                         f"bool [{n}] mask on {dev}")
+    changed = torch.empty((1,), dtype=torch.int32, device=dev)
+    from jepsen_tpu_torch.ops import _build
+    lib = _build.library("trim_degrees")
+    with _on(dev):
+        rc = lib.jt_trim_update(_ptr(deg[0]), _ptr(deg[1]), _ptr(active), n,
+                                _ptr(changed), _stream(dev))
+    _check_launch(rc, "trim_update")
+    trim_update.launches += 1
+    return changed
+
+
+trim_update.launches = 0
+
+
+def trim_update_torch(deg, active):
+    """Plain torch version of :func:`trim_update`."""
+    new = active & (deg[0] > 0) & (deg[1] > 0)
+    changed = (new != active).any().to(torch.int32).reshape(1)
+    active.copy_(new)
+    return changed

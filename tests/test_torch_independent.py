@@ -163,13 +163,23 @@ def test_compose_sees_through_one_linearizable(small_matrix_regime):
     assert got["results"]["1"]["linear"]["algorithm"] == "jitlin-gpu"
 
 
-def test_auto_matches_jax_verdicts():
-    """"auto" (the port by event count, the JAX package by its cost
-    model): the same ``valid?``, ``failures`` and ``count``."""
+def test_auto_matches_jax_verdicts(monkeypatch):
+    """"auto", both packages' cost models given one 0.05 s round trip
+    (the reference's through JEPSEN_TPU_RTT_S, the port's default model),
+    rates reset: the small batch takes the CPU lane in both, with the
+    same ``valid?``, ``failures`` and ``count``."""
     from jepsen_tpu import independent as ref_ind
     from jepsen_tpu.checker.linearizable import linearizable as ref_lin
+    from jepsen_tpu.parallel import pipeline as ref_pipeline
     from jepsen_tpu_torch import independent
     from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.parallel import pipeline
+
+    monkeypatch.setenv("JEPSEN_TPU_RTT_S", "0.05")
+    monkeypatch.setattr(pipeline, "_DEFAULT_MODEL",
+                        pipeline.CostModel(roundtrip_s=0.05))
+    for mod in (ref_pipeline, pipeline):
+        monkeypatch.setattr(mod, "_CPU_RATE", {})
 
     h = _lifted(n_keys=3, n_ops=40)
     ref = ref_ind.checker(ref_lin(accelerator="auto")).check({}, h, REF_OPTS)
@@ -178,6 +188,7 @@ def test_auto_matches_jax_verdicts():
     assert (got["valid?"], got["failures"], got["count"]) == (
         ref["valid?"], ref["failures"], ref["count"])
     assert got["results"]["0"]["algorithm"] == "jitlin-cpu(routed)"
+    assert ref["results"]["0"]["algorithm"] == "jitlin-cpu(routed)"
 
 
 def test_empty_and_unlifted_histories():

@@ -43,12 +43,13 @@ def test_port_sources_exist():
     assert {"jitlin.py", "matrix_kernels.py", "frontier_kernels.py",
             "linearizable.py", "chip_smoke.py", "scc.py", "scc_kernels.py",
             "txn.py", "columnar.py", "list_append.py",
-            "rw_register.py", "independent.py", "parallel.py",
-            "utils.py", "setscan.py", "views.py", "explain.py",
+            "rw_register.py", "independent.py", "pipeline.py",
+            "distributed.py", "utils.py", "setscan.py", "views.py", "explain.py",
             "forensics_kernels.py", "checkpoint.py", "store.py",
             "codec.py", "journal.py", "ir.py", "sidecar.py",
             "columnar_c.py"} <= names
     assert (ROOT / "jepsen_tpu_torch/native/__init__.py") in _sources()
+    assert (ROOT / "jepsen_tpu_torch/parallel/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/wgl.cpp").exists()
     assert (ROOT / "jepsen_tpu_torch/native/columnar_ext.c").exists()
     assert (ROOT / "jepsen_tpu_torch/elle/__init__.py") in _sources()
@@ -56,7 +57,8 @@ def test_port_sources_exist():
                   (ROOT / "jepsen_tpu_torch/ops/csrc").glob("*.cu")) == [
         "chunk_combine.cu", "chunk_product.cu", "cluster_screen.cu",
         "frontier_dense.cu", "frontier_sparse.cu", "prefix_alive.cu",
-        "scc_trim.cu", "set_classify.cu", "window_rescan.cu"]
+        "scc_trim.cu", "set_classify.cu", "trim_degrees.cu",
+        "window_rescan.cu"]
 
 
 def _leaked_modules(code: str) -> str:

@@ -149,14 +149,20 @@ def test_cpu_lane_matches_jax():
 
 
 def test_auto_lane_by_events(monkeypatch):
-    """"auto": the CPU lane below AUTO_TPU_THRESHOLD events in all, the
-    device lane from there; the same tuples on both."""
-    from jepsen_tpu_torch.parallel import batch_check, last_route
+    """"auto" asks the cost model: with a 0.01 s round trip and 100k
+    events/s the CPU lane wins below 2,000 events in all (its predicted
+    time under the two round trips' floor) and the device lane from
+    there; the same tuples on both."""
+    from jepsen_tpu_torch.parallel import batch_check, last_route, pipeline
 
+    monkeypatch.setattr(pipeline, "_DEFAULT_MODEL", pipeline.CostModel(
+        roundtrip_s=0.01, cpu_events_per_sec_=100_000.0))
     _, st = _streams(_keys(3, bad=(1,)))
+    assert sum(len(s.kind) for s in st) < 2000
     got = batch_check(st, accelerator="auto", device="cpu")
     assert last_route() == "cpu"
-    monkeypatch.setattr("jepsen_tpu_torch.parallel.AUTO_TPU_THRESHOLD", 10)
+    monkeypatch.setattr(pipeline, "_DEFAULT_MODEL", pipeline.CostModel(
+        roundtrip_s=0.001, cpu_events_per_sec_=100_000.0))
     again = batch_check(st, accelerator="auto", device="cpu")
     assert last_route() == "device"
     assert [r[:2] for r in again] == [r[:2] for r in got]
