@@ -126,9 +126,13 @@ just before it and read just after:
   corrupted copy there with the unsharded check's failed op, and
   ``independent.checker`` on config 3 reports ``jitlin-gpu-sharded``;
   the sharded trim on phase 8's 50k-txn edges and the seeded 2^19-node,
-  2^20-edge graph against its plain rounds on the card, and
-  ``trim_degrees.cu``'s two entries against their plain versions (two
-  rows of the ``kernels`` line); the routing: ``auto_mesh()``, the
+  2^20-edge graph against its plain rounds on the card, on both routes:
+  the one-card route (one ``scc_trim`` launch, no round launch) and the
+  rounds driven without a reduce (``ops.scc.trim_rounds``: one partial
+  launch a shard and one update a round), with placement and peel timed
+  apart; ``trim_degrees.cu``'s two entries against their plain versions
+  (two rows of the ``kernels`` line, each entry's profiler list one
+  kernel and no memset); the routing: ``auto_mesh()``, the
   measured round trip, the "auto" lanes of config 3 and of 3 keys, and
   the 1,024-key batch's pipeline stats. Then two processes on the card
   (``distributed`` line; gloo, a ``file://`` init method, each child
@@ -2983,32 +2987,67 @@ def mesh_case(case, single_fn, mesh_fn, same, expect, reps, name, smi,
 def plain_sharded_trim(n, src, dst, nd, max_iters=512):
     """The sharded trim's rounds with the plain degree pass and update
     (``index_add_``), on the card: its mask, and the rounds it ran."""
-    import numpy as np
     import torch
     from jepsen_tpu_torch.ops import scc_kernels as sk
+    shards = place_edges(nd, src, dst)
+    active = torch.ones(n, dtype=torch.bool, device="cuda")
+    bits = sk.pack_mask(active)
+    deg = torch.zeros((2, n), dtype=torch.int32, device="cuda")
+    flags = torch.zeros(2, dtype=torch.int32, device="cuda")
+    rounds, changed = 0, True
+    while changed and rounds < max_iters:
+        for s, d, w in zip(*shards):
+            sk.trim_partial_degrees_torch(s, d, w, active, bits, deg)
+        changed = bool(sk.trim_update_torch(deg, None, active, bits, flags,
+                                            rounds % 2).item())
+        rounds += 1
+    return active.cpu().numpy(), rounds
+
+
+def place_edges(nd, src, dst):
+    """The edges padded with weight-0 edges to a multiple of ``nd`` and
+    split into ``nd`` contiguous shards on the card, as
+    ``ops.scc.trim_to_cycles_sharded`` places them: [[src shards], [dst
+    shards], [weight shards]]."""
+    import numpy as np
+    import torch
     E = len(src)
     z = np.zeros((-E) % nd, np.int32)
     cols = [torch.from_numpy(np.concatenate([np.asarray(c, np.int32), z])
-                             ).cuda() for c in (src, dst, np.ones(E))]
-    cols[2] = cols[2].to(torch.int32)
-    shards = [c.chunk(nd) for c in cols]
-    active = torch.ones(n, dtype=torch.bool, device="cuda")
-    rounds, changed = 0, True
-    while changed and rounds < max_iters:
-        deg = sum(sk.trim_partial_degrees_torch(s, d, w, active, n)
-                  for s, d, w in zip(*shards))
-        changed = bool(sk.trim_update_torch(deg, active).item())
-        rounds += 1
-    return active.cpu().numpy(), rounds
+                             ).cuda() for c in (src, dst, np.ones(E, np.int32))]
+    return [[x.contiguous() for x in c.chunk(nd)] for c in cols]
+
+
+def trim_degrees_path() -> str:
+    """The degree pass's design in this build: its constants as
+    ``csrc/trim_degrees.cu`` sets them."""
+    import re
+    from jepsen_tpu_torch.ops import _build
+    text = (_build.SRC_DIR / "trim_degrees.cu").read_text()
+    got = {k: int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
+           for k in ("kBlocksPerSm", "kMatch", "kMaskBits")}
+    mask = ("bytes", "bits through L1", "bits staged in shared memory")[
+        got["kMaskBits"]]
+    grid = (f"{got['kBlocksPerSm']} CTAs an SM, grid-stride"
+            if got["kBlocksPerSm"] else "a thread an edge")
+    atomics = ("warp-aggregated atomics" if got["kMatch"]
+               else "an atomic an edge end")
+    return f"{grid}; mask read as {mask}; {atomics}"
 
 
 def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
     """Both entries of ``trim_degrees.cu`` against their plain versions on
     the card, on one of four edge shards of the graph ``(n, src, dst)``
-    with a seeded mask, bit-equal, then timed: the kernels line's rows.
-    The bound counts bytes: a degree pass reads each edge's 12 bytes and
-    the mask and writes the two rows; the update reads the rows and the
-    mask and writes the mask and the flag."""
+    with a seeded mask, bit-equal (the partial rows; the mask, its packed
+    copy, the zeroed rows and the flags), then timed: the kernels line's
+    rows. The partial accumulates into one row pair across the timed
+    calls, as the shards of a round do; each timed update first restores
+    its inputs (rows, mask, flags), whose copies' time is subtracted. The
+    profiler's list of each entry's launches holds its one kernel and no
+    memset. The bound counts bytes: a degree pass reads each edge's 12
+    bytes and the mask and writes the two rows; the update reads the mask
+    and the active nodes' rows and writes the removed nodes' mask bytes
+    and the flag."""
     import numpy as np
     import torch
     from jepsen_tpu_torch.ops import scc_kernels as sk
@@ -3018,36 +3057,68 @@ def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
     d = torch.from_numpy(np.asarray(dst[:E], np.int32)).cuda()
     w = torch.from_numpy((rng.random(E) < 0.95).astype(np.int32)).cuda()
     act = torch.from_numpy(rng.random(n) < 0.7).cuda()
-    deg = sk.trim_partial_degrees(s, d, w, act, n)
-    ref = sk.trim_partial_degrees_torch(s, d, w, act, n)
+    bits = sk.pack_mask(act)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device="cuda")
+    deg, ref = zeros(2, n), zeros(2, n)
+    sk.trim_partial_degrees(s, d, w, act, bits, deg)
+    sk.trim_partial_degrees_torch(s, d, w, act, bits, ref)
     err_d = (deg - ref).abs().max().item()
-    a1, a2 = act.clone(), act.clone()
-    ch1 = sk.trim_update(deg, a1)
-    ch2 = sk.trim_update_torch(ref, a2)
-    err_u = max(int((a1 != a2).sum()), abs(int(ch1) - int(ch2)))
+    snap = deg.clone()
+    outs = []
+    for update in (sk.trim_update, sk.trim_update_torch):
+        st = (snap.clone(), act.clone(), bits.clone(), zeros(2))
+        flag = update(st[0], None, st[1], st[2], st[3], 0)
+        outs.append((*st, flag.clone()))
+    err_u = max(int((a != b).sum()) for a, b in zip(*outs))
     if err_d or err_u:
         raise AssertionError(f"trim_degrees differs from plain: degrees "
                              f"{err_d}, update {err_u}")
-    ms_d = cuda_ms(lambda: sk.trim_partial_degrees(s, d, w, act, n), 50)
-    plain_d = cuda_ms(lambda: sk.trim_partial_degrees_torch(s, d, w, act,
-                                                             n), 20)
+    n_active = int(act.sum())
+    removed = n_active - int(outs[0][1].sum())
+    ms_d = cuda_ms(lambda: sk.trim_partial_degrees(s, d, w, act, bits, deg),
+                   50)
+    plain_d = cuda_ms(lambda: sk.trim_partial_degrees_torch(
+        s, d, w, act, bits, ref), 20)
     ew = w * (act[s.long()] & act[d.long()]).to(torch.int32)
     idx = torch.cat([d.long(), s.long() + n])
     ewx = torch.cat([ew, ew])
     flat = torch.zeros(2 * n, dtype=torch.int32, device="cuda")
     lib_d = cuda_ms(lambda: flat.index_add_(0, idx, ewx), 50)
-    ms_u = cuda_ms(lambda: sk.trim_update(deg, act.clone()), 50)
-    plain_u = cuda_ms(lambda: sk.trim_update_torch(deg, act.clone()), 50)
-    clone_ms = cuda_ms(lambda: act.clone(), 50)
-    # the profiler's device time of each entry's kernel and its memsets
-    prof = {k: device_kernels(fn, want) for k, fn, want in (
-        ("trim_partial_degrees",
-         lambda: sk.trim_partial_degrees(s, d, w, act, n),
-         "partial_degrees"),
-        ("trim_update", lambda: sk.trim_update(deg, act.clone()),
-         "update_mask"))}
+    dw, aw, bw, fw = snap.clone(), act.clone(), bits.clone(), zeros(2)
+
+    def restore():
+        dw.copy_(snap)
+        aw.copy_(act)
+        fw.zero_()
+
+    def update_call(update):
+        def call():
+            restore()
+            return update(dw, None, aw, bw, fw, 0)
+        return call
+    restore_ms = cuda_ms(restore, 50)
+    ms_u = cuda_ms(update_call(sk.trim_update), 50) - restore_ms
+    plain_u = cuda_ms(update_call(sk.trim_update_torch), 50) - restore_ms
+    own = {"trim_partial_degrees": "partial_degrees",
+           "trim_update": "update_mask"}
+    # each entry's launches alone: its one kernel, no memset
+    alone = {"trim_partial_degrees": device_kernels(
+                 lambda: sk.trim_partial_degrees(s, d, w, act, bits, deg),
+                 "partial_degrees"),
+             "trim_update": device_kernels(
+                 lambda: sk.trim_update(dw, None, aw, bw, fw, 1),
+                 "update_mask")}
+    for kname, kernels in alone.items():
+        if len(kernels) != 1 or own[kname] not in kernels[0][0]:
+            raise AssertionError(f"{kname}: launches {kernels}")
+    prof = {"trim_partial_degrees": alone["trim_partial_degrees"],
+            "trim_update": device_kernels(update_call(sk.trim_update),
+                                          "update_mask")}
     bytes_d = 12 * E + n + 8 * n
-    bytes_u = 8 * n + 2 * n + 4
+    bytes_u = n + 8 * n_active + removed + 4
+    path = trim_degrees_path()
     rows = []
     for kname, rep, err, ms, pms, lib, nbytes, extra in (
             ("trim_partial_degrees", "jepsen_tpu/ops/scc.py:164", err_d,
@@ -3055,8 +3126,11 @@ def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
              {"library_call": "one index_add_ of the masked weights into "
               "[2n] (the mask's gather outside it)"}),
             ("trim_update", "jepsen_tpu/ops/scc.py:176", err_u,
-             ms_u - clone_ms, plain_u - clone_ms, None, bytes_u,
-             {"ms_note": "each call's mask clone subtracted"})):
+             ms_u, plain_u, None, bytes_u,
+             {"ms_note": "each call's restore of its inputs subtracted",
+              "restore_ms": restore_ms, "nodes_active": n_active,
+              "nodes_removed": removed})):
+        dev_ms = sum(us for k, us in prof[kname] if own[kname] in k) / 1e3
         rows.append({"name": kname, "route": "cuda",
                      "source": "jepsen_tpu_torch/ops/csrc/trim_degrees.cu",
                      "replaces": rep, "launches": launches[kname],
@@ -3064,13 +3138,11 @@ def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
                      "plain_ms": pms, "bound_ms": nbytes / PEAK_BYTES * 1e3,
                      "bound_by": "bytes", "library_ms": lib,
                      "launches_mesh": launches[kname], "nodes": n,
-                     "edges_per_shard": E, "bytes": nbytes,
-                     "device_kernels_us": prof[kname],
-                     "device_ms": sum(us for k, us in prof[kname]
-                                      if "elementwise" not in k
-                                      and "copy" not in k.lower()) / 1e3,
+                     "edges_per_shard": E, "bytes": nbytes, "path": path,
+                     "device_kernels_us": prof[kname], "device_ms": dev_ms,
                      **extra})
     emit({"phase": "trim_degrees_kernel", "nodes": n, "edges": E,
+          "path": path,
           "rows": [{k: r[k] for k in ("name", "ms", "device_ms",
                                       "plain_ms", "library_ms",
                                       "bound_ms")}
@@ -3087,7 +3159,8 @@ def mesh_phases(name, smi, history, bad, stream, bad_stream) -> tuple:
     given the card four times) on the headline, its corrupted copy and
     config 3 through ``independent``; the sharded trim on phase 8's
     50k-txn edges and the seeded 2^19-node graph against its plain
-    rounds, and ``trim_degrees.cu`` against its plain version; the
+    rounds, through the one-card route and through ``trim_rounds``, and
+    ``trim_degrees.cu`` against its plain version; the
     routing (``auto_mesh``, the round trip, "auto" lanes, the pipelined
     batch's stats); then phase 15, two processes. Returns (the trim
     rows of the kernels line, launches of the mesh cases by kernel)."""
@@ -3210,46 +3283,87 @@ def mesh_phases(name, smi, history, bad, stream, bad_stream) -> tuple:
           "unsharded_failed_op": one["failed-op"],
           "independent_backends": sorted(algs), "card": name, "power": smi})
 
-    # 14d. the edge-sharded trim, and its round's kernel
-    trim_launches = None
+    # 14d. the edge-sharded trim on both routes, and its round's kernels:
+    # on one card the one-call peel (one scc_trim launch, no round
+    # launch); the rounds driven on the card without a reduce (one
+    # partial launch a shard and one update a round)
+    round_launches = None
     elle_graph = LIVE_RUNS.pop("elle_pairs_edges")
     masks = {}
+
+    def med3(fn):
+        times, out = [], None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times), times, out
+
     for case, (n, src, dst) in (
             ("elle_50k_pairs", elle_graph),
             ("random_512k_1m", random_trim_graph(19, 20, SEED))):
-        reset_launches()
-        t0 = time.perf_counter()
-        got = scc.trim_to_cycles_sharded(n, src, dst, m4)
-        mesh_s = time.perf_counter() - t0
-        lc = read_launches()
-        if trim_launches is None:
-            trim_launches = lc
         t0 = time.perf_counter()
         want, rounds = plain_sharded_trim(n, src, dst, MESH_WIDTH)
         plain_s = time.perf_counter() - t0
-        if not np.array_equal(got, want):
-            raise AssertionError(f"sharded trim {case}: the mask differs "
-                                 "from the plain rounds'")
-        masks[case] = got
-        if lc["trim_partial_degrees"] != MESH_WIDTH * rounds \
-                or lc["trim_update"] != rounds:
-            raise AssertionError(f"sharded trim {case}: {lc}, {rounds} "
-                                 "rounds")
-        add(lc)
+        masks[case] = want
+        reset_launches()
+        got = scc.trim_to_cycles_sharded(n, src, dst, m4)
+        lc_one = read_launches()
+        reset_launches()
+        shards = place_edges(MESH_WIDTH, src, dst)
+        got_rounds = scc.trim_rounds(m4, n, *shards).cpu().numpy()
+        lc_rounds = read_launches()
+        if round_launches is None:
+            round_launches = lc_rounds
+        for route, mask in (("one_card", got), ("rounds", got_rounds)):
+            if not np.array_equal(mask, want):
+                raise AssertionError(f"sharded trim {case} ({route}): the "
+                                     "mask differs from the plain rounds'")
+        if (lc_one["scc_trim"], lc_one["trim_partial_degrees"],
+                lc_one["trim_update"]) != (1, 0, 0):
+            raise AssertionError(f"sharded trim {case}, one card: {lc_one}")
+        if (lc_rounds["scc_trim"], lc_rounds["trim_partial_degrees"],
+                lc_rounds["trim_update"]) != (0, MESH_WIDTH * rounds,
+                                              rounds):
+            raise AssertionError(f"sharded trim {case}, rounds: "
+                                 f"{lc_rounds}, {rounds} rounds")
+        add(lc_one)
+        add(lc_rounds)
+        whole_s, whole_runs, _ = med3(
+            lambda: scc.trim_to_cycles_sharded(n, src, dst, m4))
+        place_s, _, shards = med3(lambda: place_edges(MESH_WIDTH, src, dst))
+        peel_s, peel_runs, got = med3(
+            lambda: scc.run_sharded_trim(m4, n, *shards).cpu().numpy())
+        rpeel_s, rpeel_runs, got_rounds = med3(
+            lambda: scc.trim_rounds(m4, n, *shards).cpu().numpy())
+        if not (np.array_equal(got, want) and np.array_equal(got_rounds,
+                                                             want)):
+            raise AssertionError(f"sharded trim {case}: a timed mask "
+                                 "differs")
         # the bound: each round reads every edge's 12 bytes and the mask
         # and writes the mask, the degrees kept on chip
         nbytes = rounds * (12 * len(src) + 2 * n)
         emit({"phase": "mesh_trim", "case": case, "nodes": n,
               "edges": len(src), "rounds": rounds,
-              "residue": int(got.sum()), "equal": True,
-              "launches": {k: v for k, v in lc.items() if v},
-              "mesh_s": mesh_s, "plain_rounds_s": plain_s,
-              "us_per_round": mesh_s * 1e6 / rounds, "bytes": nbytes,
+              "residue": int(want.sum()), "equal": True,
+              "launches_one_card": {k: v for k, v in lc_one.items() if v},
+              "launches_rounds": {k: v for k, v in lc_rounds.items() if v},
+              "mesh_s": whole_s, "mesh_runs_s": whole_runs,
+              "place_s": place_s, "peel_s": peel_s,
+              "peel_runs_s": peel_runs, "rounds_peel_s": rpeel_s,
+              "rounds_peel_runs_s": rpeel_runs,
+              "rounds_us_per_round": rpeel_s * 1e6 / rounds,
+              "plain_rounds_s": plain_s, "bytes": nbytes,
               "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-              "note": "shards on one card run in turn: no speed-up",
+              "note": "mesh_s: trim_to_cycles_sharded on one card (the "
+                      "upload and one scc_trim call); peel_s: "
+                      "run_sharded_trim on placed shards (joined, one "
+                      "scc_trim call, the mask read back); rounds_peel_s: "
+                      "trim_rounds on the same shards; medians of 3",
               "card": name, "power": smi})
     n_r, src_r, dst_r = random_trim_graph(19, 20, SEED)
-    trim_rows = trim_degrees_rows(n_r, src_r, dst_r, trim_launches, name,
+    trim_rows = trim_degrees_rows(n_r, src_r, dst_r, round_launches, name,
                                   smi)
 
     # 14e. routing

@@ -5,6 +5,7 @@
     python3 combine_sweep.py --product    # the chunk product
     python3 combine_sweep.py --trim       # the Elle trim's peel
     python3 combine_sweep.py --screen     # the Elle screen's peel
+    python3 combine_sweep.py --degrees    # the sharded trim's round
 
 The combine: builds ``jepsen_tpu_torch/ops/csrc/chunk_combine.cu`` with
 each pair of fan-in (``kFanIn``: 2, 4, 8) and CTA target (``kCtasPerSm``:
@@ -29,9 +30,18 @@ global path's, the capped 5,000-node chain, the graphs of 2^16 nodes and
 2^18 edges and of 2^19 nodes and 2^20 edges). The screen: builds
 ``cluster_screen.cu`` with ``kPeelWarps`` 1, 2, 4, 8 and 32 and runs
 each on the wide window's two calls and 16 chain clusters of V = 1024.
-Each variant's results (the trim's mask and steps, the screen's flags)
-must equal the plain version's; a variant that does not launch prints
-its error. Each case also gives its launches' device microseconds from
+The round: builds ``trim_degrees.cu`` with each CTA count an SM of the
+degree pass's and the update's grids (``kBlocksPerSm``: 0, a thread an
+edge or node as in PR 19, or 2, 4, 8, 16 with a grid-stride loop), each way of reading the mask
+(``kMaskBits``: 0 bytes, 1 packed bits through L1, 2 the bits staged in
+shared memory) and with and without warp-aggregated atomics
+(``kMatch``), and runs the degree pass (accumulating, as a round's
+shards do) and the update (its inputs restored before each call) on
+``ops/elle_compare.py``'s round cases: a shard of 2^18 edges of the
+2^19-node graph and of the global path's edges. Each variant's results
+(the trim's mask and steps, the screen's flags, the round's rows, mask,
+packed mask and flag) must equal the plain version's; a variant that
+does not launch prints its error. Each case also gives its launches' device microseconds from
 ``torch.profiler``.
 
 Each prints one JSON line per variant: bit equality with the plain
@@ -87,6 +97,7 @@ def build_variants(name, consts, variants, tmp):
         fn = getattr(ctypes.CDLL(str(lib)), entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        fn.lib_path = lib
         fns[values] = fn
     return fns
 
@@ -226,11 +237,98 @@ def sweep_elle(kernel, tmp):
         yield row
 
 
+def sweep_degrees(tmp):
+    """The round's degree pass and update in each build, on the round
+    cases, against the plain versions."""
+    import torch
+
+    import chip_smoke as cs
+    from jepsen_tpu_torch.ops import _build
+    from jepsen_tpu_torch.ops import elle_compare as ec
+    from jepsen_tpu_torch.ops import scc_kernels as sk
+    cases = {}
+    for case, (src, dst, n) in ec.round_cases(ec.recorded_inputs()).items():
+        s, d, w, act = ec.round_inputs(src, dst, n)
+        bits = sk.pack_mask(act)
+        rows = sk.trim_partial_degrees_torch(
+            s, d, w, act, bits, torch.zeros((2, n), dtype=torch.int32,
+                                            device="cuda"))
+        want = (rows.clone(), act.clone(), bits.clone(),
+                torch.zeros(2, dtype=torch.int32, device="cuda"))
+        sk.trim_update_torch(want[0], None, want[1], want[2], want[3], 0)
+        cases[case] = (s, d, w, act, bits, rows, want)
+    yield {"cases": {k: {"nodes": v[3].numel(), "edges": v[0].numel()}
+                     for k, v in cases.items()}}
+    consts = ("kBlocksPerSm = 8;", "kMatch = 0;", "kMaskBits = 1;")
+    fns = build_variants("trim_degrees", consts, itertools.product(
+        (0, 2, 4, 8, 16), (0, 1), (0, 1, 2)), tmp)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    fn_name, argtypes = _build.UPDATE_SIGNATURES["trim_degrees"]
+    for values, partial in fns.items():
+        update = getattr(ctypes.CDLL(str(partial.lib_path)), fn_name)
+        update.argtypes, update.restype = argtypes, ctypes.c_int
+        row = dict(zip(("kBlocksPerSm", "kMatch", "kMaskBits"), values))
+        for case, (s, d, w, act, bits, rows, want) in cases.items():
+            n, E = act.numel(), s.numel()
+            deg = torch.zeros((2, n), dtype=torch.int32, device="cuda")
+
+            def call_partial():
+                rc = partial(s.data_ptr(), d.data_ptr(), w.data_ptr(),
+                             act.data_ptr(), bits.data_ptr(), E, n,
+                             deg.data_ptr(), stream)
+                if rc != 0:
+                    raise RuntimeError(f"trim_partial_degrees: {rc}")
+            work = (rows.clone(), act.clone(), bits.clone(),
+                    torch.zeros(2, dtype=torch.int32, device="cuda"))
+
+            def restore():
+                work[0].copy_(rows)
+                work[1].copy_(act)
+                work[3].zero_()
+
+            def call_update():
+                restore()
+                rc = update(work[0].data_ptr(), None, 0, work[1].data_ptr(),
+                            work[2].data_ptr(), n, work[3].data_ptr(), 0,
+                            stream)
+                if rc != 0:
+                    raise RuntimeError(f"trim_update: {rc}")
+            try:
+                call_partial()
+                call_update()
+                torch.cuda.synchronize()
+            except RuntimeError as err:
+                row[case] = {"error": str(err)}
+                continue
+            if not torch.equal(deg, rows) or not all(
+                    torch.equal(a, b) for a, b in zip(work, want)):
+                raise AssertionError(f"trim_degrees {values} {case} "
+                                     f"differs from the plain version")
+            row[case] = {
+                "equal": True, "partial_ms": cs.cuda_ms(call_partial, 50),
+                "update_ms": cs.cuda_ms(call_update, 50),
+                "restore_ms": cs.cuda_ms(restore, 50),
+                "partial_kernels_us": [(k, round(us, 3)) for k, us in
+                                       cs.device_kernels(call_partial)],
+                "update_kernel_us": [(k, round(us, 3)) for k, us in
+                                     cs.device_kernels(call_update)
+                                     if "update_mask" in k]}
+        yield row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("combine_sweep: no CUDA device", file=sys.stderr)
         return 1
+    if "--degrees" in sys.argv[1:]:
+        import chip_smoke as cs
+        print(json.dumps({"card": cs.nvidia_smi("name,power.limit")}),
+              flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            for row in sweep_degrees(tmp):
+                print(json.dumps(row), flush=True)
+        return 0
     if "--trim" in sys.argv[1:] or "--screen" in sys.argv[1:]:
         import chip_smoke as cs
         kernel = "scc_trim" if "--trim" in sys.argv[1:] else \

@@ -4,104 +4,256 @@
 // Replaces the body of the XLA program jepsen_tpu/ops/scc.py
 // `run_sharded_trim` (:146-186): the `segment_sum` pair of each shard
 // (:164-167) and the mask update after the `psum` (:176-177). The caller
-// (ops/scc.py `run_sharded_trim`) keeps the reference's synchronous rounds
-// and cap: per round, every shard's partials, their sum on the mesh's
-// first device (or an all_reduce across processes), then the update, until
-// nothing changed or max_iters rounds ran. So the residue is the
-// reference's bit for bit; it may differ from scc_trim.cu's worklist
-// residue only when capped, since that kernel counts its steps otherwise.
+// (ops/scc.py `trim_rounds`) keeps the reference's synchronous rounds and
+// cap: per round, every shard's partials, the other devices' rows copied
+// to the mesh's first device (or the sum all-reduced across processes),
+// then the update, until nothing changed or max_iters rounds ran. So the
+// residue is the reference's bit for bit. A mesh whose shards all lie on
+// one card, with no reduction across processes, never comes here: the
+// rounds then compute exactly scc_trim.cu's peel over the union of the
+// shards' edges (the same mask and step count at every cap, shown by
+// tests/test_torch_trim_degrees.py), so ops/scc.py runs that in one call.
 //
-// jt_trim_partial_degrees: out_in[v] = sum of w[e] over the edges e with
-// dst[e] = v whose two ends are active, out_out[v] the same by src[e]. A
-// thread an edge (grid-stride), an atomicAdd of w into both rows; a weight
-// of 0 (the padding edges) skips the edge before reading the mask.
-// jt_trim_update: active[v] &= in[v] > 0 && out[v] > 0, and changed[0] = 1
-// when some node left (every remover stores the same 1).
+// Contracts (n nodes, W = ceil(n / 32) mask words):
+// jt_trim_partial_degrees(src, dst, w, active, bits, E, n, deg, stream):
+//   deg is int32 [2, n], row 0 the in-degrees and row 1 the out-degrees.
+//   For each edge e with w[e] != 0 whose two ends are active, adds w[e] to
+//   deg[0][dst[e]] and to deg[1][src[e]]. It accumulates: nothing is
+//   zeroed, so the shards on one device add into one row pair. active is
+//   uint8 [n], bits int32 [W] its packed copy (bit v & 31 of word v >> 5),
+//   as jt_trim_update leaves them.
+// jt_trim_update(deg, others, k, active, bits, n, flags, slot, stream):
+//   with others int32 [k, 2, n] (the other devices' rows, already on this
+//   device; NULL when k = 0): a node v stays active when deg[.][v] plus
+//   the k others' rows are > 0 in both rows. Clears active[v] of the nodes
+//   that leave, rewrites bits, zeroes deg for the next round (the rows of
+//   inactive nodes are 0 on entry, as the degree pass leaves them; others
+//   are not zeroed: the next round's copies overwrite them), sets
+//   flags[slot] = 1 when some node left (flags[slot] must be 0 on entry)
+//   and clears flags[slot ^ 1] for the next round. slot is 0 or 1.
+// Both enqueue one launch and no memset, never synchronise, and return
+// the first CUDA error.
 //
 // What bounds it: bytes. A round reads each edge's 12 bytes once and the
-// mask, and writes the degree rows; the atomics land in L2 at the sizes
+// mask, and adds into the degree rows; the atomics land in L2 at the sizes
 // the Elle graphs have (a 2^20-node mask and its degree rows are 9 MB).
-// Both entries zero their outputs with cudaMemsetAsync first, enqueue one
-// launch each, never synchronise, and return the first CUDA error.
+// PR 19's design zeroed both rows and the flag with three memsets a round
+// and took a fresh row pair a shard; here the rows live across rounds and
+// the update, which reads them anyway, zeroes them. Both kernels run
+// kBlocksPerSm CTAs an SM over a grid-stride loop, and the update stores
+// the flag once a CTA. The degree pass reads the mask as the packed bits
+// that the update writes with one ballot a warp (kMaskBits = 1: 64 KB at
+// 2^19 nodes, held in L1). combine_sweep.py --degrees builds and times the
+// alternatives that the constants select (PERF.md §6, PR 20): a thread an
+// edge or node (kBlocksPerSm = 0), the mask's bytes (kMaskBits = 0) or its
+// bits staged in shared memory (2, when they fit in kMaxStagedBytes), and
+// warp-aggregated atomics (kMatch = 1: __match_any_sync, then
+// __reduce_add_sync, one atomic for the lanes that share a node). On the
+// 2^18-edge shard of the 2^19-node graph the degree pass took 6.1 us with
+// these constants, 7.4 with the bytes, 15 staged and 11 with kMatch (also
+// slower on the Elle edges); the update 4.5 us, 6.3 at a thread a node.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 4096;
+constexpr int kBlocksPerSm = 8;
+constexpr int kMatch = 0;
+constexpr int kMaskBits = 1;
+constexpr int kMaxStagedBytes = 200 * 1024;
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void partial_degrees(const int* __restrict__ src,
-                                const int* __restrict__ dst,
-                                const int* __restrict__ w,
-                                const uint8_t* __restrict__ active,
-                                int n_edges, int* __restrict__ deg_in,
-                                int* __restrict__ deg_out) {
+template <int kBits>
+__device__ __forceinline__ bool is_active(const uint8_t* __restrict__ act,
+                                          const uint32_t* __restrict__ bits,
+                                          const uint32_t* staged, int v) {
+  if (kBits == 0) return act[v] != 0;
+  if (kBits == 1) return (__ldg(bits + (v >> 5)) >> (v & 31)) & 1u;
+  return (staged[v >> 5] >> (v & 31)) & 1u;
+}
+
+// adds w to row[v]; with kMatch, the lanes of `live` that share v add once
+__device__ __forceinline__ void add_degree(int* __restrict__ row, int v,
+                                           int w, unsigned live) {
+  if (kMatch) {
+    const unsigned peers = __match_any_sync(live, v);
+    const int sum = (int)__reduce_add_sync(peers, (unsigned)w);
+    if ((threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(row + v, sum);
+  } else {
+    atomicAdd(row + v, w);
+  }
+}
+
+template <int kBits>
+__global__ void __launch_bounds__(kThreads)
+    partial_degrees(const int* __restrict__ src, const int* __restrict__ dst,
+                    const int* __restrict__ w,
+                    const uint8_t* __restrict__ active,
+                    const uint32_t* __restrict__ bits, int n_edges, int words,
+                    int* __restrict__ deg_in, int* __restrict__ deg_out) {
+  extern __shared__ uint32_t staged[];
+  if (kBits == 2) {
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+      staged[i] = bits[i];
+    }
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
   const int stride = gridDim.x * blockDim.x;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n_edges;
-       e += stride) {
-    const int we = w[e];
-    if (we == 0) continue;
-    const int s = src[e];
-    const int d = dst[e];
-    if (active[s] && active[d]) {
-      atomicAdd(deg_in + d, we);
-      atomicAdd(deg_out + s, we);
+  // a warp-uniform trip count: every lane reaches the warp intrinsics
+  for (int base = blockIdx.x * blockDim.x + (threadIdx.x - lane);
+       base < n_edges; base += stride) {
+    const int e = base + lane;
+    int we = 0, s = 0, d = 0;
+    if (e < n_edges) {
+      we = w[e];
+      if (we != 0) {
+        s = src[e];
+        d = dst[e];
+        if (!is_active<kBits>(active, bits, staged, s) ||
+            !is_active<kBits>(active, bits, staged, d)) {
+          we = 0;
+        }
+      }
+    }
+    const unsigned live = kMatch ? __ballot_sync(kFull, we != 0) : 0u;
+    if (we != 0) {
+      add_degree(deg_in, d, we, live);
+      add_degree(deg_out, s, we, live);
     }
   }
 }
 
-__global__ void update_mask(const int* __restrict__ deg_in,
-                            const int* __restrict__ deg_out,
-                            uint8_t* __restrict__ active, int n_nodes,
-                            int* __restrict__ changed) {
+__global__ void __launch_bounds__(kThreads)
+    update_mask(int* __restrict__ deg, const int* __restrict__ others,
+                int n_others, uint8_t* __restrict__ active,
+                uint32_t* __restrict__ bits, int n, int* __restrict__ flags,
+                int slot) {
+  const int lane = threadIdx.x & 31;
+  if (blockIdx.x == 0 && threadIdx.x == 0) flags[slot ^ 1] = 0;
   const int stride = gridDim.x * blockDim.x;
-  for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < n_nodes;
-       v += stride) {
-    if (active[v] && (deg_in[v] <= 0 || deg_out[v] <= 0)) {
-      active[v] = 0;
-      *changed = 1;
+  bool left = false;
+  for (int base = blockIdx.x * blockDim.x + (threadIdx.x - lane); base < n;
+       base += stride) {
+    const int v = base + lane;
+    bool keep = false;
+    if (v < n && active[v]) {
+      int din = deg[v];
+      int dout = deg[(size_t)n + v];
+      if (din != 0) deg[v] = 0;
+      if (dout != 0) deg[(size_t)n + v] = 0;
+      for (int j = 0; j < n_others; ++j) {
+        const int* o = others + (size_t)j * 2 * n;
+        din += o[v];
+        dout += o[(size_t)n + v];
+      }
+      keep = din > 0 && dout > 0;
+      if (!keep) {
+        active[v] = 0;
+        left = true;
+      }
     }
+    const unsigned word = __ballot_sync(kFull, keep);
+    if (lane == 0) bits[base >> 5] = word;
   }
+  // one store a CTA that removed a node: stores to the one flag word
+  // queue in L2 (a store a warp kept the update at 14 us at 2^19 nodes)
+  if (__syncthreads_or(left) && threadIdx.x == 0) flags[slot] = 1;
 }
 
-int blocks_for(int n) {
-  int b = (n + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  return b > kMaxBlocks ? kMaxBlocks : b;
+struct Device {
+  int sms = 0;
+  cudaError_t err = cudaSuccess;
+};
+
+// Once per device and process: the SM count, and the staged pass's
+// shared-memory ceiling raised past 48 KB.
+Device device_setup() {
+  static std::mutex mu;
+  static Device devices[kMaxDevices];
+  static bool ready[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return Device{0, err};
+  if (dev >= kMaxDevices) return Device{0, cudaErrorInvalidDevice};
+  std::lock_guard<std::mutex> lock(mu);
+  if (ready[dev]) return devices[dev];
+  Device d;
+  d.err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount,
+                                 dev);
+  if (d.err == cudaSuccess && kMaskBits == 2) {
+    d.err = cudaFuncSetAttribute(partial_degrees<2>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxStagedBytes);
+  }
+  devices[dev] = d;
+  ready[dev] = true;
+  return d;
+}
+
+int grid_for(int items, int sms, int per_sm) {
+  int b = (items + kThreads - 1) / kThreads;
+  const int cap = kBlocksPerSm > 0 ? sms * per_sm : 4096;
+  if (b > cap) b = cap;
+  return b < 1 ? 1 : b;
 }
 
 }  // namespace
 
 extern "C" int jt_trim_partial_degrees(void* src, void* dst, void* w,
-                                       void* active, int n_edges,
-                                       int n_nodes, void* out_in,
-                                       void* out_out, void* stream) {
-  if (n_edges < 0 || n_nodes < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  int* din = (int*)out_in;
-  int* dout = (int*)out_out;
-  cudaError_t err = cudaMemsetAsync(din, 0, sizeof(int) * n_nodes, st);
-  if (err == cudaSuccess) {
-    err = cudaMemsetAsync(dout, 0, sizeof(int) * n_nodes, st);
+                                       void* active, void* bits, int n_edges,
+                                       int n_nodes, void* deg, void* stream) {
+  if (n_edges < 0 || n_nodes < 1 || n_nodes >= (1 << 30)) {
+    return (int)cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return (int)err;
-  if (n_edges > 0) {
-    partial_degrees<<<blocks_for(n_edges), kThreads, 0, st>>>(
-        (const int*)src, (const int*)dst, (const int*)w,
-        (const uint8_t*)active, n_edges, din, dout);
+  if (n_edges == 0) return (int)cudaSuccess;
+  const Device dev = device_setup();
+  if (dev.err != cudaSuccess) return (int)dev.err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int words = (n_nodes + 31) / 32;
+  const int* s = (const int*)src;
+  const int* d = (const int*)dst;
+  const int* we = (const int*)w;
+  const uint8_t* act = (const uint8_t*)active;
+  const uint32_t* bw = (const uint32_t*)bits;
+  int* din = (int*)deg;
+  int* dout = din + n_nodes;
+  const int smem = words * (int)sizeof(uint32_t);
+  if (kMaskBits == 2 && smem <= kMaxStagedBytes) {
+    // the resident CTAs an SM at this much shared memory
+    int per_sm = (228 * 1024) / (smem + 1024);
+    if (per_sm > kBlocksPerSm) per_sm = kBlocksPerSm;
+    if (per_sm < 1) per_sm = 1;
+    partial_degrees<2><<<grid_for(n_edges, dev.sms, per_sm), kThreads, smem,
+                         st>>>(s, d, we, act, bw, n_edges, words, din, dout);
+  } else if (kMaskBits >= 1) {
+    partial_degrees<1><<<grid_for(n_edges, dev.sms, kBlocksPerSm), kThreads,
+                         0, st>>>(s, d, we, act, bw, n_edges, words, din,
+                                  dout);
+  } else {
+    partial_degrees<0><<<grid_for(n_edges, dev.sms, kBlocksPerSm), kThreads,
+                         0, st>>>(s, d, we, act, bw, n_edges, words, din,
+                                  dout);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int jt_trim_update(void* deg_in, void* deg_out, void* active,
-                              int n_nodes, void* changed, void* stream) {
-  if (n_nodes < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int), st);
-  if (err != cudaSuccess) return (int)err;
-  update_mask<<<blocks_for(n_nodes), kThreads, 0, st>>>(
-      (const int*)deg_in, (const int*)deg_out, (uint8_t*)active, n_nodes,
-      (int*)changed);
+extern "C" int jt_trim_update(void* deg, void* others, int n_others,
+                              void* active, void* bits, int n_nodes,
+                              void* flags, int slot, void* stream) {
+  if (n_nodes < 1 || n_nodes >= (1 << 30) || n_others < 0 ||
+      (n_others > 0 && others == nullptr) || (slot != 0 && slot != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Device dev = device_setup();
+  if (dev.err != cudaSuccess) return (int)dev.err;
+  update_mask<<<grid_for(n_nodes, dev.sms, kBlocksPerSm), kThreads, 0,
+                (cudaStream_t)stream>>>(
+      (int*)deg, (const int*)others, n_others, (uint8_t*)active,
+      (uint32_t*)bits, n_nodes, (int*)flags, slot);
   return (int)cudaGetLastError();
 }

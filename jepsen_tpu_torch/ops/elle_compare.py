@@ -26,8 +26,24 @@ its call, and the earlier screen's C entry alone is timed too
 trim's mask and steps, the screen's flags); then each is timed by CUDA
 events over back-to-back calls, in the order other, this, this, other,
 and one JSON line per case gives both builds' two timings and this
-build's work count. The last line is the card's name and power limit as
-``nvidia-smi`` prints them. Exits 1 without a CUDA device.
+build's work count.
+
+``trim_degrees.cu`` (the sharded trim's round) is compared the same way
+when the other checkout has it: each entry on one of four edge shards of
+the seeded graph of 2^19 nodes and 2^20 edges (2^18 edges, PR 19's
+shape) and of the global path's recorded edges, with a seeded mask (70 %
+active) and weights (5 % padding). Each build is called as its own
+wrapper calls it: an earlier build's degree pass takes a fresh row pair
+(``torch.empty``) that its entry zeroes with two memsets, and its update
+a fresh flag that its entry zeroes; this build's degree pass accumulates
+into a kept pair and its update takes the mask's packed copy and a flag
+slot. Each update call first restores its inputs (the rows, the mask,
+the flags: ``restore_ms`` apart). The partial rows, the updated mask
+and the flag must agree bit for bit; each line adds the profiler's
+device ms of each build's kernel alone (``*_kernel_ms``).
+
+The last line is the card's name and power limit as ``nvidia-smi``
+prints them. Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -42,12 +58,22 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the earlier screen entry: (src, dst, valid, offs, out, B, V, stream),
 # the edges sorted by cluster
 EARLIER_SCREEN = ("jt_cluster_screen", [_P, _P, _P, _P, _P, _I, _I, _P])
+# the earlier round entries: (src, dst, w, active, E, n, out_in, out_out,
+# stream), zeroing their rows; (in, out, active, n, changed, stream)
+EARLIER_PARTIAL = ("jt_trim_partial_degrees",
+                   [_P, _P, _P, _P, _I, _I, _P, _P, _P])
+EARLIER_UPDATE = ("jt_trim_update", [_P, _P, _P, _I, _P, _P])
+
+
+def _source(root, name: str) -> Path:
+    return Path(root) / "jepsen_tpu_torch" / "ops" / "csrc" / f"{name}.cu"
 
 
 def earlier_design(root, name: str) -> bool:
     """Whether ``name``'s source under ``root`` has the earlier contract."""
-    text = (Path(root) / "jepsen_tpu_torch" / "ops" / "csrc" /
-            f"{name}.cu").read_text()
+    text = _source(root, name).read_text()
+    if name == "trim_degrees":
+        return "void* bits" not in text
     return ("stamp_in" in text if name == "scc_trim"
             else "void* scratch" not in text)
 
@@ -240,6 +266,117 @@ def run_case(entries, earlier, kernel, args, reps: int) -> dict:
     return row
 
 
+def round_inputs(src, dst, n, seed=42):
+    """One of four shards of the edges ``(src, dst)`` on ``n`` nodes, on
+    the card, with a seeded mask and weights: (src, dst, w, active)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    E = len(src) // 4
+    cols = [torch.from_numpy(np.asarray(x[:E], np.int32)).cuda()
+            for x in (src, dst)]
+    w = torch.from_numpy((rng.random(E) < 0.95).astype(np.int32)).cuda()
+    active = torch.from_numpy(rng.random(n) < 0.7).cuda()
+    return (*cols, w, active)
+
+
+def round_callers(fns, earlier, src, dst, w, active):
+    """{"partial": (call, result), "update": (call, result)} of one build
+    of ``trim_degrees.cu``, each entry called as its own wrapper calls it
+    (``fns``: its two C entries); the update on the rows this build's
+    degree pass leaves, its inputs restored before each call."""
+    import torch
+    from jepsen_tpu_torch.ops import scc_kernels as sk
+    partial, update = fns
+    n, E = active.numel(), src.numel()
+    stream = torch.cuda.current_stream().cuda_stream
+    bits = sk.pack_mask(active)
+    bits_out = bits.clone()
+    kept = torch.zeros((2, n), dtype=torch.int32, device="cuda")
+    last = {}
+
+    def call_partial():
+        if earlier:
+            out = torch.empty((2, n), dtype=torch.int32, device="cuda")
+            rc = partial(src.data_ptr(), dst.data_ptr(), w.data_ptr(),
+                         active.data_ptr(), E, n, out[0].data_ptr(),
+                         out[1].data_ptr(), stream)
+        else:
+            out = kept
+            rc = partial(src.data_ptr(), dst.data_ptr(), w.data_ptr(),
+                         active.data_ptr(), bits.data_ptr(), E, n,
+                         out.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"trim_partial_degrees: CUDA error {rc}")
+        last["deg"] = out
+
+    kept.zero_()
+    call_partial()
+    rows = last["deg"].clone()
+    deg, act = rows.clone(), active.clone()
+    flags = torch.zeros(2, dtype=torch.int32, device="cuda")
+
+    def restore():
+        deg.copy_(rows)
+        act.copy_(active)
+        flags.zero_()
+
+    def call_update():
+        restore()
+        if earlier:
+            changed = torch.empty(1, dtype=torch.int32, device="cuda")
+            rc = update(deg[0].data_ptr(), deg[1].data_ptr(),
+                        act.data_ptr(), n, changed.data_ptr(), stream)
+        else:
+            changed = flags[:1]
+            rc = update(deg.data_ptr(), None, 0, act.data_ptr(),
+                        bits_out.data_ptr(), n, flags.data_ptr(), 0, stream)
+        if rc != 0:
+            raise RuntimeError(f"trim_update: CUDA error {rc}")
+        last["changed"] = changed
+
+    def update_result():
+        call_update()
+        torch.cuda.synchronize()
+        return act.clone(), int(last["changed"].item())
+    return {"partial": (call_partial, lambda: rows),
+            "update": (call_update, update_result), "restore": restore}
+
+
+def run_round_cases(entries, earlier, cases, reps: int):
+    """Both builds' ``trim_degrees`` entries on each case: one JSON row
+    per case and entry."""
+    from jepsen_tpu_torch.ops.compare_common import device_ms, in_turns
+    for case, (src, dst, n) in cases.items():
+        inputs = round_inputs(src, dst, n)
+        callers = {label: round_callers(entries[label], earlier[label],
+                                        *inputs) for label in entries}
+        for entry, kernel in (("partial", "partial_degrees"),
+                              ("update", "update_mask")):
+            res = {label: c[entry][1]() for label, c in callers.items()}
+            o, t = res["other"], res["this"]
+            same = (o[0].equal(t[0]) and o[1] == t[1]
+                    if entry == "update" else o.equal(t))
+            if not same:
+                raise AssertionError(f"trim_degrees {entry} {case}: the "
+                                     "builds differ")
+            times = in_turns(lambda label: callers[label][entry][0](),
+                             entries, reps)
+            row = {"kernel": f"trim_degrees.{entry}", "case": case,
+                   "nodes": n, "edges": inputs[0].numel(),
+                   "other_ms": times["other"], "this_ms": times["this"],
+                   **{f"{label}_kernel_ms": device_ms(
+                       callers[label][entry][0], kernel)
+                      for label in entries}}
+            if entry == "update":
+                row["restore_ms"] = in_turns(
+                    lambda label: callers[label]["restore"](), ("this",),
+                    reps)["this"]
+                row["removed"] = int(inputs[3].sum()) - int(
+                    res["this"][0].sum())
+            print(json.dumps(row), flush=True)
+
+
 def main(argv) -> int:
     import torch
     from jepsen_tpu_torch.ops import _build
@@ -258,14 +395,50 @@ def main(argv) -> int:
     entries = build(roots, out_dir, NAMES, {
         key: EARLIER_SCREEN for key, old in earlier.items()
         if old and key[1] == "cluster_screen"})
-    for case, (kernel, args) in recorded_inputs().items():
+    inputs = recorded_inputs()
+    for case, (kernel, args) in inputs.items():
         row = run_case(entries, {label: earlier[label, kernel]
                                  for label in roots}, kernel, args, reps=10)
         print(json.dumps({"case": case, **row}), flush=True)
+    if all(_source(root, "trim_degrees").exists() for root in roots.values()):
+        run_round_cases(*round_entries(roots, out_dir), round_cases(inputs),
+                        reps=50)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     return 0
+
+
+def round_entries(roots, out_dir):
+    """Both builds' (partial, update) C entries of ``trim_degrees.cu`` and
+    whether each has the earlier contract."""
+    import ctypes as ct
+    from jepsen_tpu_torch.ops import _build
+    from jepsen_tpu_torch.ops.frontier_compare import build
+    earlier = {label: earlier_design(root, "trim_degrees")
+               for label, root in roots.items()}
+    partial = build(roots, out_dir, ("trim_degrees",), {
+        (label, "trim_degrees"): EARLIER_PARTIAL
+        for label, old in earlier.items() if old})
+    entries = {}
+    for label in roots:
+        fn_name, argtypes = (EARLIER_UPDATE if earlier[label]
+                             else _build.UPDATE_SIGNATURES["trim_degrees"])
+        fn = getattr(ct.CDLL(str(partial[label, "trim_degrees"].lib_path)),
+                     fn_name)
+        fn.argtypes, fn.restype = argtypes, ct.c_int
+        entries[label] = (partial[label, "trim_degrees"], fn)
+    return entries, earlier
+
+
+def round_cases(inputs) -> dict:
+    """{case: (src, dst, n)}: the 2^19-node graph of 2^20 edges and the
+    global path's recorded valid edges."""
+    from jepsen_tpu_torch.histories import random_trim_graph
+    src, dst, valid, n = inputs["global_path_input"][1]
+    n_r, src_r, dst_r = random_trim_graph(19, 20, 42)
+    return {"random_512k_1m": (src_r, dst_r, n_r),
+            "global_path_input": (src[valid], dst[valid], n)}
 
 
 if __name__ == "__main__":

@@ -83,6 +83,16 @@ def has_cycle(n_nodes: int, src, dst, device=None) -> bool:
     return bool(tarjan_scc(n_nodes, edges))
 
 
+def _one_card(mesh) -> bool:
+    """Whether every device of ``mesh`` is one card (or all the CPU)."""
+    def card(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    first = card(mesh.devices[0])
+    return all(card(d) == first for d in mesh.devices[1:])
+
+
 # copied from jepsen_tpu/ops/scc.py:114-143
 def trim_to_cycles_sharded(n_nodes: int, src: np.ndarray, dst: np.ndarray,
                            mesh, max_iters: int = 512) -> np.ndarray:
@@ -90,14 +100,28 @@ def trim_to_cycles_sharded(n_nodes: int, src: np.ndarray, dst: np.ndarray,
     synchronous rounds (the same loose-superset residue; the exact host
     pass is authoritative), with the edge list split over the mesh's
     devices (``parallel.Mesh``) in contiguous blocks, padded with weight-0
-    edges to a device multiple. Each round every shard computes partial
-    in/out degrees over its edges, the partials sum on the mesh's first
-    device, and the mask updates there (:func:`run_sharded_trim`). The
-    residue equals the reference's mask bit for bit; it may differ from
-    :func:`trim_to_cycles` (``scc_trim.cu``'s worklist) when capped."""
+    edges to a device multiple (:func:`run_sharded_trim`).
+
+    When every device of the mesh is one card (or the CPU), the sum of the
+    shards' partial degrees is the degree over all the edges, so the
+    rounds are exactly :func:`scc_kernels.scc_trim`'s peel of the whole
+    edge list, with the same mask and step count at every cap
+    (tests/test_torch_trim_degrees.py holds the two equal): the edges go
+    up unsharded and one ``scc_trim`` call peels them. Returns the bool
+    [n_nodes] mask, the reference's bit for bit."""
     if len(src) == 0 or n_nodes == 0:
         return np.zeros(n_nodes, dtype=bool)
     _check_ids("trim_to_cycles_sharded", n_nodes, src, dst)
+    if _one_card(mesh):
+        dev = mesh.devices[0]
+        if dev.type == "cpu":
+            s, d = (torch.from_numpy(np.asarray(c, np.int32))
+                    for c in (src, dst))
+        else:
+            s, d = scc_kernels.pinned_upload((src, dst), dev)
+        valid = torch.ones((len(src),), dtype=torch.bool, device=dev)
+        mask, _ = scc_kernels.scc_trim(s, d, valid, n_nodes, max_iters)
+        return mask.cpu().numpy()
     from jepsen_tpu_torch.parallel import shard_leading
     E = len(src)
     pad = (-E) % mesh.size
@@ -106,37 +130,81 @@ def trim_to_cycles_sharded(n_nodes: int, src: np.ndarray, dst: np.ndarray,
         mesh, np.concatenate([np.asarray(src, np.int32), z]),
         np.concatenate([np.asarray(dst, np.int32), z]),
         np.concatenate([np.ones(E, np.int32), z]))
-    return run_sharded_trim(mesh, n_nodes, *shards,
-                            max_iters=max_iters).cpu().numpy()
+    return trim_rounds(mesh, n_nodes, *shards,
+                       max_iters=max_iters).cpu().numpy()
 
 
 # copied from jepsen_tpu/ops/scc.py:146-186
 def run_sharded_trim(mesh, n_nodes: int, sj, dj, wj, max_iters: int = 512,
                      reduce=None) -> torch.Tensor:
-    """The rounds of the sharded trim over edges already placed: ``sj``,
-    ``dj``, ``wj`` hold one int32 shard a mesh device (weight 0 pads).
-    From every node active, while the last round changed something and
-    fewer than ``max_iters`` ran: each shard's partial degrees
-    (``scc_kernels.trim_partial_degrees``), their sum on the first device,
-    ``reduce`` of that sum when given (the multi-process all_reduce,
-    ``parallel.distributed``), then ``active &= (in > 0) & (out > 0)``
-    (``scc_kernels.trim_update``). Each shard reads its own copy of the
-    mask. Returns the bool [n_nodes] mask on the first device."""
+    """The sharded trim over edges already placed: ``sj``, ``dj``, ``wj``
+    hold one int32 shard a mesh device (weight 0 pads; weights are 0 or
+    positive). Without ``reduce`` on a mesh of one card, the shards are
+    joined on it and one :func:`scc_kernels.scc_trim` call peels them
+    (``valid = w != 0``, the same mask at every cap: see
+    :func:`trim_to_cycles_sharded`); otherwise :func:`trim_rounds` runs
+    the reference's rounds. Returns the bool [n_nodes] mask on the first
+    device."""
     first = mesh.devices[0]
+    if n_nodes == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=first)
+    if reduce is None and _one_card(mesh):
+        src = torch.cat([s.to(first) for s in sj])
+        dst = torch.cat([d.to(first) for d in dj])
+        valid = torch.cat([w.to(first) for w in wj]) != 0
+        mask, _ = scc_kernels.scc_trim(src, dst, valid, n_nodes, max_iters)
+        return mask
+    return trim_rounds(mesh, n_nodes, sj, dj, wj, max_iters, reduce)
+
+
+def trim_rounds(mesh, n_nodes: int, sj, dj, wj, max_iters: int = 512,
+                reduce=None) -> torch.Tensor:
+    """The reference's synchronous rounds of the sharded trim
+    (jepsen_tpu/ops/scc.py:160-184) over placed shards, as
+    :func:`run_sharded_trim` takes them. From every node active, while the
+    last round changed something and fewer than ``max_iters`` ran: each
+    shard adds its partial degrees into its device's row pair
+    (``scc_kernels.trim_partial_degrees``; the shards on the first device
+    into the sum itself, reading its mask), the other devices' pairs are
+    copied to the first, ``reduce`` (when given: the multi-process sum,
+    ``parallel.distributed``) sums the first device's pair in place across
+    processes, and ``scc_kernels.trim_update`` applies ``active &= (in >
+    0) & (out > 0)``, zeroes the sum for the next round and sets the
+    round's flag, the one value read back a round. Only devices other
+    than the first hold copies of the mask. Returns the bool [n_nodes]
+    mask on the first device."""
+    first = mesh.devices[0]
+    others = list(dict.fromkeys(d for d in mesh.devices if d != first))
     active = torch.ones((n_nodes,), dtype=torch.bool, device=first)
-    local = [torch.ones((n_nodes,), dtype=torch.bool, device=d)
-             for d in mesh.devices]
+    bits = scc_kernels.pack_mask(active)
+    rows = {first: torch.zeros((2, n_nodes), dtype=torch.int32,
+                               device=first)}
+    masks = {first: (active, bits)}
+    for d in others:
+        rows[d] = torch.zeros((2, n_nodes), dtype=torch.int32, device=d)
+        masks[d] = (active.to(d), bits.to(d))
+    staged = (torch.empty((len(others), 2, n_nodes), dtype=torch.int32,
+                          device=first) if others else None)
+    flags = torch.zeros((2,), dtype=torch.int32, device=first)
     it, changed = 0, True
     while changed and it < max_iters:
-        deg = None
-        for s, d, w, a in zip(sj, dj, wj, local):
-            part = scc_kernels.trim_partial_degrees(s, d, w, a, n_nodes)
-            deg = part.to(first) if deg is None else deg + part.to(first)
+        for s, d, w, dev in zip(sj, dj, wj, mesh.devices):
+            scc_kernels.trim_partial_degrees(s, d, w, *masks[dev], rows[dev])
+        for j, dev in enumerate(others):
+            staged[j].copy_(rows[dev])
+            rows[dev].zero_()
+        extra = staged
         if reduce is not None:
-            deg = reduce(deg)
-        changed = bool(scc_kernels.trim_update(deg, active).item())
-        for a in local:
-            a.copy_(active)
+            if staged is not None:
+                rows[first] += staged.sum(0)
+                extra = None
+            reduce(rows[first])
+        flag = scc_kernels.trim_update(rows[first], extra, active, bits,
+                                       flags, it % 2)
+        changed = bool(flag.item())
+        for dev in others:
+            masks[dev][0].copy_(active)
+            masks[dev][1].copy_(bits)
         it += 1
     return active
 

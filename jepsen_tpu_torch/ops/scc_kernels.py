@@ -277,91 +277,127 @@ def cluster_screen_torch(cid, src_l, dst_l, valid, n_clusters: int,
 # the edge-sharded trim's round
 # ---------------------------------------------------------------------------
 
-def trim_partial_degrees(src, dst, w, active, n_nodes: int):
-    """One shard's partial degrees for a round of the sharded trim.
+def pack_mask(active):
+    """The packed copy of a bool [n] mask that the round's kernels read:
+    int32 [ceil(n / 32)], bit ``v & 31`` of word ``v >> 5`` set when
+    ``active[v]`` (the bits past n are 0)."""
+    n = active.numel()
+    words = (n + 31) // 32
+    a = torch.zeros((words * 32,), dtype=torch.int64, device=active.device)
+    a[:n] = active
+    shifts = torch.arange(32, dtype=torch.int64, device=active.device)
+    packed = (a.view(words, 32) << shifts).sum(1)
+    return torch.where(packed >= 1 << 31, packed - (1 << 32),
+                       packed).to(torch.int32)
 
-    src, dst [E] int32 (ids in ``[0, n_nodes)``), w [E] int32 (0 for a
-    padding edge), active bool [n_nodes] -> int32 [2, n_nodes]: row 0
-    sums w over the edges entering each node whose two ends are active,
-    row 1 over those leaving it (jepsen_tpu/ops/scc.py:164-167). On the
-    card one C call of ``csrc/trim_degrees.cu``'s
-    ``jt_trim_partial_degrees`` (zero the rows, a thread an edge with
-    atomic adds); every input on one card, as the caller placed it."""
+
+def _want(what, x, dtype, shape, dev):
+    if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
+            or not x.is_contiguous():
+        raise ValueError(f"{what}: want contiguous {dtype} {list(shape)} "
+                         f"on {dev}, got {x.dtype} {list(x.shape)} on "
+                         f"{x.device}")
+
+
+def trim_partial_degrees(src, dst, w, active, bits, deg):
+    """One shard's partial degrees for a round of the sharded trim, added
+    into ``deg``.
+
+    src, dst [E] int32 (ids in ``[0, n)``), w [E] int32 (0 for a padding
+    edge), active bool [n] and ``bits`` its :func:`pack_mask`, deg int32
+    [2, n]: adds w over the edges entering each node whose two ends are
+    active to row 0, over those leaving it to row 1
+    (jepsen_tpu/ops/scc.py:164-167), and returns ``deg``. Nothing is
+    zeroed: the shards of one device add into one row pair, which
+    :func:`trim_update` zeroes. On the card one C call of
+    ``csrc/trim_degrees.cu``'s ``jt_trim_partial_degrees`` (one launch, no
+    memset); every input on one card, as the caller placed it."""
     if src.device.type == "cpu":
-        return trim_partial_degrees_torch(src, dst, w, active, n_nodes)
+        return trim_partial_degrees_torch(src, dst, w, active, bits, deg)
     if src.device.type != "cuda":
         raise ValueError(f"trim_partial_degrees: unsupported device "
                          f"{src.device}")
     dev = src.device
-    E = src.numel()
-    for x, dt, n in ((src, torch.int32, E), (dst, torch.int32, E),
-                     (w, torch.int32, E), (active, torch.bool, n_nodes)):
-        if x.device != dev or x.dtype != dt or x.shape != (n,) \
-                or not x.is_contiguous():
-            raise ValueError(f"trim_partial_degrees: want contiguous "
-                             f"{dt} [{n}] on {dev}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
-    if n_nodes < 1:
-        raise ValueError(f"trim_partial_degrees: n_nodes={n_nodes}")
-    out = torch.empty((2, n_nodes), dtype=torch.int32, device=dev)
+    E, n = src.numel(), active.numel()
+    if n < 1:
+        raise ValueError("trim_partial_degrees: no nodes")
+    for x, dt, shape in ((src, torch.int32, (E,)), (dst, torch.int32, (E,)),
+                         (w, torch.int32, (E,)), (active, torch.bool, (n,)),
+                         (bits, torch.int32, ((n + 31) // 32,)),
+                         (deg, torch.int32, (2, n))):
+        _want("trim_partial_degrees", x, dt, shape, dev)
     from jepsen_tpu_torch.ops import _build
     lib = _build.library("trim_degrees")
     with _on(dev):
         rc = lib.jt_trim_partial_degrees(
-            _ptr(src), _ptr(dst), _ptr(w), _ptr(active), E, n_nodes,
-            _ptr(out[0]), _ptr(out[1]), _stream(dev))
+            _ptr(src), _ptr(dst), _ptr(w), _ptr(active), _ptr(bits), E, n,
+            _ptr(deg), _stream(dev))
     _check_launch(rc, "trim_partial_degrees")
     trim_partial_degrees.launches += 1
-    return out
+    return deg
 
 
 trim_partial_degrees.launches = 0
 
 
-def trim_partial_degrees_torch(src, dst, w, active, n_nodes: int):
+def trim_partial_degrees_torch(src, dst, w, active, bits, deg):
     """Plain torch version of :func:`trim_partial_degrees`: the masked
-    weights, then ``index_add_`` into each row."""
+    weights, then ``index_add_`` into each row (``bits`` is not read)."""
     s, d = src.long(), dst.long()
     ew = w.to(torch.int32) * (active[s] & active[d]).to(torch.int32)
-    deg = torch.zeros((2, n_nodes), dtype=torch.int32, device=src.device)
     deg[0].index_add_(0, d, ew)
     deg[1].index_add_(0, s, ew)
     return deg
 
 
-def trim_update(deg, active):
-    """The sharded trim's mask update: ``active &= (deg[0] > 0) & (deg[1]
-    > 0)`` in place (jepsen_tpu/ops/scc.py:176-177). deg int32
-    [2, n_nodes], active bool [n_nodes] -> int32 [1] on the same device,
-    1 when some node left. On the card one C call of ``jt_trim_update``."""
+def trim_update(deg, others, active, bits, flags, slot: int):
+    """The sharded trim's mask update, in place: ``active &= (in > 0) &
+    (out > 0)`` (jepsen_tpu/ops/scc.py:176-177), the degrees being
+    ``deg`` (int32 [2, n]) plus, when ``others`` (int32 [k, 2, n] or
+    None) is given, each of its row pairs (the other devices' partials,
+    copied here). Also rewrites ``bits`` (:func:`pack_mask`), zeroes
+    ``deg`` for the next round (an inactive node's rows must be 0, as the
+    degree pass leaves them; ``others`` is left as it is), sets ``flags[
+    slot]`` (int32 [2], that slot 0 on entry) to 1 when some node left and
+    clears ``flags[1 - slot]`` for the next round. Returns ``flags[slot:
+    slot + 1]``. On the card one C call of ``jt_trim_update`` (one launch,
+    no memset)."""
     if active.device.type == "cpu":
-        return trim_update_torch(deg, active)
+        return trim_update_torch(deg, others, active, bits, flags, slot)
     if active.device.type != "cuda":
         raise ValueError(f"trim_update: unsupported device {active.device}")
     dev = active.device
     n = active.numel()
-    if active.dtype != torch.bool or not active.is_contiguous() \
-            or deg.device != dev or deg.dtype != torch.int32 \
-            or deg.shape != (2, n) or not deg.is_contiguous():
-        raise ValueError(f"trim_update: want int32 [2, {n}] degrees and a "
-                         f"bool [{n}] mask on {dev}")
-    changed = torch.empty((1,), dtype=torch.int32, device=dev)
+    k = 0 if others is None else others.shape[0]
+    for x, dt, shape in ((deg, torch.int32, (2, n)),
+                         (active, torch.bool, (n,)),
+                         (bits, torch.int32, ((n + 31) // 32,)),
+                         (flags, torch.int32, (2,))) + (
+            () if others is None else ((others, torch.int32, (k, 2, n)),)):
+        _want("trim_update", x, dt, shape, dev)
+    if n < 1 or slot not in (0, 1):
+        raise ValueError(f"trim_update: n={n}, slot={slot}")
     from jepsen_tpu_torch.ops import _build
     lib = _build.library("trim_degrees")
     with _on(dev):
-        rc = lib.jt_trim_update(_ptr(deg[0]), _ptr(deg[1]), _ptr(active), n,
-                                _ptr(changed), _stream(dev))
+        rc = lib.jt_trim_update(_ptr(deg), None if k == 0 else _ptr(others),
+                                k, _ptr(active), _ptr(bits), n, _ptr(flags),
+                                slot, _stream(dev))
     _check_launch(rc, "trim_update")
     trim_update.launches += 1
-    return changed
+    return flags[slot:slot + 1]
 
 
 trim_update.launches = 0
 
 
-def trim_update_torch(deg, active):
+def trim_update_torch(deg, others, active, bits, flags, slot: int):
     """Plain torch version of :func:`trim_update`."""
-    new = active & (deg[0] > 0) & (deg[1] > 0)
-    changed = (new != active).any().to(torch.int32).reshape(1)
+    total = deg if others is None else deg + others.sum(0)
+    new = active & (total[0] > 0) & (total[1] > 0)
+    flags[slot] = int((new != active).any())
+    flags[1 - slot] = 0
     active.copy_(new)
-    return changed
+    bits.copy_(pack_mask(new))
+    deg.zero_()
+    return flags[slot:slot + 1]

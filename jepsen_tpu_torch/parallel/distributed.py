@@ -93,12 +93,13 @@ def _host_collectives(t: torch.Tensor) -> bool:
 
 
 def _all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the world, on ``t``'s device (through the
-    host under gloo)."""
+    """Sums ``t`` over the world in place (through the host under gloo)
+    and returns it."""
     if _host_collectives(t):
         host = t.cpu()
         dist.all_reduce(host)
-        return host.to(t.device)
+        t.copy_(host)
+        return t
     dist.all_reduce(t)
     return t
 
@@ -132,10 +133,12 @@ def trim_to_cycles_distributed(n_nodes: int, local_src, local_dst,
     union; any sizes) and the same ``n_nodes``; each round the local
     shards' partial degrees sum on this process's first device, then
     ``all_reduce`` over the world, then the mask updates
-    (``ops.scc.run_sharded_trim``). Every process returns the same bool
-    [n_nodes] mask, the reference's bit for bit. ``mesh``: this process's
-    devices (default :func:`global_mesh` on ``device``); the local edges
-    are padded with weight-0 edges to a multiple of its width."""
+    (``ops.scc.run_sharded_trim``, which keeps these rounds whenever a
+    ``reduce`` is given: ``ops.scc.trim_rounds``). Every process returns
+    the same bool [n_nodes] mask, the reference's bit for bit. ``mesh``:
+    this process's devices (default :func:`global_mesh` on ``device``);
+    the local edges are padded with weight-0 edges to a multiple of its
+    width."""
     from jepsen_tpu_torch.ops.scc import _check_ids, run_sharded_trim
     from jepsen_tpu_torch.parallel import shard_leading
 

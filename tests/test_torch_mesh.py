@@ -10,7 +10,10 @@ eight virtual CPU devices), at zero tolerance: verdicts, integers and the
 - ``parallel.batch_check`` with a mesh: invalid keys, B = 6 keys on 4
   devices (padded keys), the matrix screen and the frontier scan;
 - ``ops.scc.trim_to_cycles_sharded`` with E not a multiple of 4, capped
-  and not, and the plain degree pass against ``jax.ops.segment_sum``;
+  and not; its one-card route (``scc_trim``'s peel) against the JAX
+  package's sharded rounds at every cap up to the uncapped count; and
+  the plain degree pass and update over rounds against
+  ``jax.ops.segment_sum``;
 - the checker's sharded rung (``torch-sharded-matrix`` against
   ``jitlin-tpu-matrix-sharded``) and ``independent``'s
   ``jitlin-gpu-sharded`` against ``jitlin-tpu-sharded``, with
@@ -26,6 +29,7 @@ import torch
 from jepsen_tpu_torch.histories import (
     corrupt_keys, corrupt_reads, independent_register_history,
     register_history)
+from test_torch_trim_degrees import GRAPHS, caps_of, trim_graph
 
 pytestmark = pytest.mark.mesh
 
@@ -202,8 +206,10 @@ def test_sharded_trim_matches_jax(max_iters):
 
 def test_degree_pass_and_update_match_segment_sum():
     """The plain degree pass (``index_add_``) against the reference's
-    ``jax.ops.segment_sum`` pair, with weight-0 padding edges, and the
-    mask update against ``active & (in > 0) & (out > 0)``."""
+    ``jax.ops.segment_sum`` pair, with weight-0 padding edges, over three
+    rounds: two shards accumulate into one row pair, the update applies
+    ``active & (in > 0) & (out > 0)``, zeroes the pair and sets the
+    round's flag slot (clearing the other)."""
     import jax
     import jax.numpy as jnp
 
@@ -214,20 +220,80 @@ def test_degree_pass_and_update_match_segment_sum():
     dst = rng.integers(0, n, E).astype(np.int32)
     w = (rng.random(E) < 0.9).astype(np.int32)
     active = rng.random(n) < 0.8
-    ew = w * (active[src] & active[dst]).astype(np.int32)
-    ref_in = np.asarray(jax.ops.segment_sum(jnp.asarray(ew), dst,
-                                            num_segments=n))
-    ref_out = np.asarray(jax.ops.segment_sum(jnp.asarray(ew), src,
-                                             num_segments=n))
-    deg = scc_kernels.trim_partial_degrees(
-        *(torch.from_numpy(x) for x in (src, dst, w, active)), n)
-    np.testing.assert_array_equal(deg.numpy(), np.stack([ref_in, ref_out]))
     act = torch.from_numpy(active.copy())
-    changed = scc_kernels.trim_update(deg, act)
-    want = active & (ref_in > 0) & (ref_out > 0)
-    np.testing.assert_array_equal(act.numpy(), want)
-    assert changed.tolist() == [int((want != active).any())]
-    assert scc_kernels.trim_update(deg, act).tolist() == [0]
+    bits = scc_kernels.pack_mask(act)
+    deg = torch.zeros((2, n), dtype=torch.int32)
+    flags = torch.zeros(2, dtype=torch.int32)
+    for r in range(3):
+        ew = w * (active[src] & active[dst]).astype(np.int32)
+        ref_in = np.asarray(jax.ops.segment_sum(jnp.asarray(ew), dst,
+                                                num_segments=n))
+        ref_out = np.asarray(jax.ops.segment_sum(jnp.asarray(ew), src,
+                                                 num_segments=n))
+        for lo, hi in ((0, 200), (200, E)):
+            scc_kernels.trim_partial_degrees(
+                *(torch.from_numpy(x[lo:hi].copy()) for x in (src, dst, w)),
+                act, bits, deg)
+        np.testing.assert_array_equal(deg.numpy(),
+                                      np.stack([ref_in, ref_out]))
+        slot = r % 2
+        flag = scc_kernels.trim_update(deg, None, act, bits, flags, slot)
+        want = active & (ref_in > 0) & (ref_out > 0)
+        np.testing.assert_array_equal(act.numpy(), want)
+        assert flag.tolist() == [int((want != active).any())]
+        assert flags[1 - slot] == 0 and not deg.any()
+        np.testing.assert_array_equal(bits.numpy(),
+                                      scc_kernels.pack_mask(act).numpy())
+        flags[slot] = 0
+        active = want
+
+
+@pytest.mark.parametrize("graph", GRAPHS[:4])
+def test_one_call_peel_matches_jax_sharded_at_every_cap(graph):
+    """The identity behind the one-card route: ``scc_trim``'s plain
+    version on the whole edge list against the JAX package's
+    ``trim_to_cycles_sharded`` on four virtual devices (weight-0 padding
+    for E % 4 != 0), at every cap from 0 to the uncapped round count and
+    at 512, on graphs with long chains, a self-loop and duplicate edges:
+    the same mask at every cap."""
+    from jepsen_tpu.ops.scc import trim_to_cycles_sharded as ref_trim
+    from jepsen_tpu_torch.ops import scc_kernels
+
+    ref_mesh, _ = _meshes()
+    n, src, dst = trim_graph(*graph)
+    cols = [torch.from_numpy(x) for x in (src, dst)]
+    valid = torch.ones(len(src), dtype=torch.bool)
+    for cap in caps_of((n, src, dst)):
+        ref = np.asarray(ref_trim(n, src, dst, ref_mesh, max_iters=cap))
+        got, _ = scc_kernels.scc_trim_torch(*cols, valid, n, cap)
+        np.testing.assert_array_equal(got.numpy(), ref, err_msg=str(cap))
+
+
+@pytest.mark.parametrize("width", [1, 4])
+def test_one_card_route_matches_jax(width):
+    """``trim_to_cycles_sharded`` and ``run_sharded_trim`` on
+    ``Mesh(["cpu"] * width)`` (the one-card route: one ``scc_trim`` call)
+    against the JAX package's sharded trim on four virtual devices, at
+    caps 0, 1, 3, 7 and 512."""
+    from jepsen_tpu.ops.scc import trim_to_cycles_sharded as ref_trim
+    from jepsen_tpu_torch.ops.scc import (run_sharded_trim,
+                                          trim_to_cycles_sharded)
+    from jepsen_tpu_torch.parallel import Mesh, shard_leading
+
+    ref_mesh, _ = _meshes()
+    mesh = Mesh(["cpu"] * width)
+    n, src, dst = trim_graph(*GRAPHS[3])
+    E = len(src)
+    z = np.zeros((-E) % width, np.int32)
+    shards = shard_leading(mesh, np.concatenate([src, z]),
+                           np.concatenate([dst, z]),
+                           np.concatenate([np.ones(E, np.int32), z]))
+    for cap in (0, 1, 3, 7, 512):
+        ref = np.asarray(ref_trim(n, src, dst, ref_mesh, max_iters=cap))
+        np.testing.assert_array_equal(
+            trim_to_cycles_sharded(n, src, dst, mesh, max_iters=cap), ref)
+        np.testing.assert_array_equal(
+            run_sharded_trim(mesh, n, *shards, max_iters=cap).numpy(), ref)
 
 
 @pytest.fixture
