@@ -3013,26 +3013,21 @@ def place_edges(nd, src, dst):
     import torch
     E = len(src)
     z = np.zeros((-E) % nd, np.int32)
-    cols = [torch.from_numpy(np.concatenate([np.asarray(c, np.int32), z])
-                             ).cuda() for c in (src, dst, np.ones(E, np.int32))]
+    cols = [torch.from_numpy(np.concatenate([np.asarray(c, np.int32), z]))
+            .cuda() for c in (src, dst, np.ones(E, np.int32))]
     return [[x.contiguous() for x in c.chunk(nd)] for c in cols]
 
 
 def trim_degrees_path() -> str:
-    """The degree pass's design in this build: its constants as
-    ``csrc/trim_degrees.cu`` sets them."""
+    """The round kernels' design in this build: the grid
+    ``csrc/trim_degrees.cu`` sets."""
     import re
     from jepsen_tpu_torch.ops import _build
     text = (_build.SRC_DIR / "trim_degrees.cu").read_text()
-    got = {k: int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
-           for k in ("kBlocksPerSm", "kMatch", "kMaskBits")}
-    mask = ("bytes", "bits through L1", "bits staged in shared memory")[
-        got["kMaskBits"]]
-    grid = (f"{got['kBlocksPerSm']} CTAs an SM, grid-stride"
-            if got["kBlocksPerSm"] else "a thread an edge")
-    atomics = ("warp-aggregated atomics" if got["kMatch"]
-               else "an atomic an edge end")
-    return f"{grid}; mask read as {mask}; {atomics}"
+    per_sm = int(re.search(r"constexpr int kBlocksPerSm = (\d+);",
+                           text).group(1))
+    return (f"{per_sm} CTAs an SM, grid-stride; the mask read as packed "
+            f"bits; an atomic an edge end; the flag stored once a CTA")
 
 
 def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
@@ -3042,9 +3037,10 @@ def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
     copy, the zeroed rows and the flags), then timed: the kernels line's
     rows. The partial accumulates into one row pair across the timed
     calls, as the shards of a round do; each timed update first restores
-    its inputs (rows, mask, flags), whose copies' time is subtracted. The
-    profiler's list of each entry's launches holds its one kernel and no
-    memset. The bound counts bytes: a degree pass reads each edge's 12
+    its inputs (rows, mask, flags), whose copies' time is subtracted;
+    ``launcher_ms`` times the calls as ``ops.scc.trim_rounds`` makes them
+    (checked once, then launched). The profiler's list of each entry's
+    launches holds its one kernel and no memset. The bound counts bytes: a degree pass reads each edge's 12
     bytes and the mask and writes the two rows; the update reads the mask
     and the active nodes' rows and writes the removed nodes' mask bytes
     and the flag."""
@@ -3101,6 +3097,11 @@ def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
     restore_ms = cuda_ms(restore, 50)
     ms_u = cuda_ms(update_call(sk.trim_update), 50) - restore_ms
     plain_u = cuda_ms(update_call(sk.trim_update_torch), 50) - restore_ms
+    # the calls as the round loop makes them: checked once, then launched
+    launch_d = sk.partial_degrees_launcher(s, d, w, act, bits, deg)
+    launch_u = sk.update_launcher(dw, None, aw, bw, fw)
+    launcher_d = cuda_ms(launch_d, 50)
+    launcher_u = cuda_ms(lambda: (restore(), launch_u(0)), 50) - restore_ms
     own = {"trim_partial_degrees": "partial_degrees",
            "trim_update": "update_mask"}
     # each entry's launches alone: its one kernel, no memset
@@ -3124,12 +3125,13 @@ def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
             ("trim_partial_degrees", "jepsen_tpu/ops/scc.py:164", err_d,
              ms_d, plain_d, lib_d, bytes_d,
              {"library_call": "one index_add_ of the masked weights into "
-              "[2n] (the mask's gather outside it)"}),
+              "[2n] (the mask's gather outside it)",
+              "launcher_ms": launcher_d}),
             ("trim_update", "jepsen_tpu/ops/scc.py:176", err_u,
              ms_u, plain_u, None, bytes_u,
              {"ms_note": "each call's restore of its inputs subtracted",
               "restore_ms": restore_ms, "nodes_active": n_active,
-              "nodes_removed": removed})):
+              "nodes_removed": removed, "launcher_ms": launcher_u})):
         dev_ms = sum(us for k, us in prof[kname] if own[kname] in k) / 1e3
         rows.append({"name": kname, "route": "cuda",
                      "source": "jepsen_tpu_torch/ops/csrc/trim_degrees.cu",
@@ -3143,8 +3145,8 @@ def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
                      **extra})
     emit({"phase": "trim_degrees_kernel", "nodes": n, "edges": E,
           "path": path,
-          "rows": [{k: r[k] for k in ("name", "ms", "device_ms",
-                                      "plain_ms", "library_ms",
+          "rows": [{k: r[k] for k in ("name", "ms", "launcher_ms",
+                                      "device_ms", "plain_ms", "library_ms",
                                       "bound_ms")}
                    for r in rows], "card": name, "power": smi})
     return rows
@@ -3449,6 +3451,7 @@ def distributed_phase(streams, want_batch, graph, want_mask, name, smi):
           "keys": len(streams), "edges": len(src), "equal": True,
           "batch_s": [o["batch_s"] for o in res],
           "trim_s": [o["trim_s"] for o in res],
+          "trim_reduce_s": [o["reduce_s"] for o in res],
           "launches": [o["launches"] for o in res], "wall_s": wall_s,
           "note": "two processes on one card: no speed-up",
           "card": name, "power": smi})
@@ -3475,10 +3478,17 @@ def distributed_worker(job_path: str, rank: int) -> int:
         mask = distributed.trim_to_cycles_distributed(job["n_nodes"], src,
                                                       dst)
         t2 = time.perf_counter()
+        launches = {k: v for k, v in read_launches().items() if v}
+        # the trim's all-reduces alone: one a round, of the same rows
+        rows = torch.zeros((2, job["n_nodes"]), dtype=torch.int32,
+                           device=distributed.global_mesh().devices[0])
+        t3 = time.perf_counter()
+        for _ in range(launches.get("trim_update", 0)):
+            distributed._all_reduce(rows)
         out = {"backend": backend, "batch": batch, "mask": mask,
                "device": str(distributed.global_mesh().devices[0]),
                "batch_s": t1 - t0, "trim_s": t2 - t1,
-               "launches": {k: v for k, v in read_launches().items() if v}}
+               "reduce_s": time.perf_counter() - t3, "launches": launches}
     finally:
         distributed.dist.destroy_process_group()
     with open(f"{job_path}.{rank}.out", "wb") as f:

@@ -5,7 +5,7 @@
     python3 combine_sweep.py --product    # the chunk product
     python3 combine_sweep.py --trim       # the Elle trim's peel
     python3 combine_sweep.py --screen     # the Elle screen's peel
-    python3 combine_sweep.py --degrees    # the sharded trim's round
+    python3 combine_sweep.py --degrees    # the sharded trim's round grids
 
 The combine: builds ``jepsen_tpu_torch/ops/csrc/chunk_combine.cu`` with
 each pair of fan-in (``kFanIn``: 2, 4, 8) and CTA target (``kCtasPerSm``:
@@ -31,18 +31,15 @@ global path's, the capped 5,000-node chain, the graphs of 2^16 nodes and
 ``cluster_screen.cu`` with ``kPeelWarps`` 1, 2, 4, 8 and 32 and runs
 each on the wide window's two calls and 16 chain clusters of V = 1024.
 The round: builds ``trim_degrees.cu`` with each CTA count an SM of the
-degree pass's and the update's grids (``kBlocksPerSm``: 0, a thread an
-edge or node as in PR 19, or 2, 4, 8, 16 with a grid-stride loop), each way of reading the mask
-(``kMaskBits``: 0 bytes, 1 packed bits through L1, 2 the bits staged in
-shared memory) and with and without warp-aggregated atomics
-(``kMatch``), and runs the degree pass (accumulating, as a round's
-shards do) and the update (its inputs restored before each call) on
-``ops/elle_compare.py``'s round cases: a shard of 2^18 edges of the
-2^19-node graph and of the global path's edges. Each variant's results
-(the trim's mask and steps, the screen's flags, the round's rows, mask,
-packed mask and flag) must equal the plain version's; a variant that
-does not launch prints its error. Each case also gives its launches' device microseconds from
-``torch.profiler``.
+degree pass's and the update's grids (``kBlocksPerSm``: 2, 4, 8, 16,
+each CTA in a grid-stride loop) and runs the degree pass (accumulating,
+as a round's shards do) and the update (its inputs restored before each
+call) on ``ops/elle_compare.py``'s round cases: a shard of 2^18 edges of
+the 2^19-node graph and of the global path's edges. Each variant's
+results (the trim's mask and steps, the screen's flags, the round's
+rows, mask, packed mask and flag) must equal the plain version's; a
+variant that does not launch prints its error. Each case also gives its
+launches' device microseconds from ``torch.profiler``.
 
 Each prints one JSON line per variant: bit equality with the plain
 version, CUDA-event milliseconds per call (the C entry called directly,
@@ -259,23 +256,21 @@ def sweep_degrees(tmp):
         cases[case] = (s, d, w, act, bits, rows, want)
     yield {"cases": {k: {"nodes": v[3].numel(), "edges": v[0].numel()}
                      for k, v in cases.items()}}
-    consts = ("kBlocksPerSm = 8;", "kMatch = 0;", "kMaskBits = 1;")
-    fns = build_variants("trim_degrees", consts, itertools.product(
-        (0, 2, 4, 8, 16), (0, 1), (0, 1, 2)), tmp)
+    fns = build_variants("trim_degrees", ("kBlocksPerSm = 8;",),
+                         [(k,) for k in (2, 4, 8, 16)], tmp)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     fn_name, argtypes = _build.UPDATE_SIGNATURES["trim_degrees"]
     for values, partial in fns.items():
         update = getattr(ctypes.CDLL(str(partial.lib_path)), fn_name)
         update.argtypes, update.restype = argtypes, ctypes.c_int
-        row = dict(zip(("kBlocksPerSm", "kMatch", "kMaskBits"), values))
+        row = {"kBlocksPerSm": values[0]}
         for case, (s, d, w, act, bits, rows, want) in cases.items():
             n, E = act.numel(), s.numel()
             deg = torch.zeros((2, n), dtype=torch.int32, device="cuda")
 
             def call_partial():
                 rc = partial(s.data_ptr(), d.data_ptr(), w.data_ptr(),
-                             act.data_ptr(), bits.data_ptr(), E, n,
-                             deg.data_ptr(), stream)
+                             bits.data_ptr(), E, n, deg.data_ptr(), stream)
                 if rc != 0:
                     raise RuntimeError(f"trim_partial_degrees: {rc}")
             work = (rows.clone(), act.clone(), bits.clone(),

@@ -51,9 +51,9 @@ SIGNATURES = {
     # words, t_read, order, invoke_t, ok_t, has_ok, code, stale, latency
     "set_classify": ("jt_set_classify",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    # src, dst, w, active, bits, n_edges, n_nodes, deg (accumulated)
+    # src, dst, w, bits, n_edges, n_nodes, deg (accumulated)
     "trim_degrees": ("jt_trim_partial_degrees",
-                     [_P, _P, _P, _P, _P, _I, _I, _P, _P]),
+                     [_P, _P, _P, _P, _I, _I, _P, _P]),
     # pend, valid, ids, slots, nxt, oob, vw, first, inexact, K, T, S, V, U
     "window_rescan": ("jt_window_rescan",
                       [_P] * 9 + [_I] * 5 + [_P]),

@@ -15,43 +15,43 @@
 // tests/test_torch_trim_degrees.py), so ops/scc.py runs that in one call.
 //
 // Contracts (n nodes, W = ceil(n / 32) mask words):
-// jt_trim_partial_degrees(src, dst, w, active, bits, E, n, deg, stream):
+// jt_trim_partial_degrees(src, dst, w, bits, E, n, deg, stream):
 //   deg is int32 [2, n], row 0 the in-degrees and row 1 the out-degrees.
 //   For each edge e with w[e] != 0 whose two ends are active, adds w[e] to
 //   deg[0][dst[e]] and to deg[1][src[e]]. It accumulates: nothing is
-//   zeroed, so the shards on one device add into one row pair. active is
-//   uint8 [n], bits int32 [W] its packed copy (bit v & 31 of word v >> 5),
-//   as jt_trim_update leaves them.
+//   zeroed, so the shards on one device add into one row pair. bits is
+//   int32 [W], the active mask packed (bit v & 31 of word v >> 5), as
+//   jt_trim_update leaves it.
 // jt_trim_update(deg, others, k, active, bits, n, flags, slot, stream):
 //   with others int32 [k, 2, n] (the other devices' rows, already on this
-//   device; NULL when k = 0): a node v stays active when deg[.][v] plus
-//   the k others' rows are > 0 in both rows. Clears active[v] of the nodes
-//   that leave, rewrites bits, zeroes deg for the next round (the rows of
-//   inactive nodes are 0 on entry, as the degree pass leaves them; others
-//   are not zeroed: the next round's copies overwrite them), sets
-//   flags[slot] = 1 when some node left (flags[slot] must be 0 on entry)
-//   and clears flags[slot ^ 1] for the next round. slot is 0 or 1.
+//   device; NULL when k = 0) and active uint8 [n]: a node v stays active
+//   when deg[.][v] plus the k others' rows are > 0 in both rows. Clears
+//   active[v] of the nodes that leave, rewrites bits, zeroes deg for the
+//   next round (the rows of inactive nodes are 0 on entry, as the degree
+//   pass leaves them; others are not zeroed: the next round's copies
+//   overwrite them), sets flags[slot] = 1 when some node left
+//   (flags[slot] must be 0 on entry) and clears flags[slot ^ 1] for the
+//   next round. slot is 0 or 1.
 // Both enqueue one launch and no memset, never synchronise, and return
 // the first CUDA error.
 //
 // What bounds it: bytes. A round reads each edge's 12 bytes once and the
 // mask, and adds into the degree rows; the atomics land in L2 at the sizes
 // the Elle graphs have (a 2^20-node mask and its degree rows are 9 MB).
-// PR 19's design zeroed both rows and the flag with three memsets a round
-// and took a fresh row pair a shard; here the rows live across rounds and
-// the update, which reads them anyway, zeroes them. Both kernels run
-// kBlocksPerSm CTAs an SM over a grid-stride loop, and the update stores
-// the flag once a CTA. The degree pass reads the mask as the packed bits
-// that the update writes with one ballot a warp (kMaskBits = 1: 64 KB at
-// 2^19 nodes, held in L1). combine_sweep.py --degrees builds and times the
-// alternatives that the constants select (PERF.md §6, PR 20): a thread an
-// edge or node (kBlocksPerSm = 0), the mask's bytes (kMaskBits = 0) or its
-// bits staged in shared memory (2, when they fit in kMaxStagedBytes), and
-// warp-aggregated atomics (kMatch = 1: __match_any_sync, then
-// __reduce_add_sync, one atomic for the lanes that share a node). On the
-// 2^18-edge shard of the 2^19-node graph the degree pass took 6.1 us with
-// these constants, 7.4 with the bytes, 15 staged and 11 with kMatch (also
-// slower on the Elle edges); the update 4.5 us, 6.3 at a thread a node.
+// The first design zeroed both rows and the flag with three memsets a
+// round and took a fresh row pair a shard; here the rows live across
+// rounds and the update, which reads them anyway, zeroes them. Both
+// kernels run kBlocksPerSm CTAs an SM over a grid-stride loop
+// (combine_sweep.py --degrees times other counts). The update stores the
+// flag once a CTA: stores to the one flag word queue in L2 (at 2^19 nodes
+// and a thread a node, 14 us with a store a warp, 6.3 with a store a
+// CTA). The degree pass reads the mask as the packed bits that the update
+// writes with one ballot a warp (64 KB at 2^19 nodes, held in L1).
+// Measured before this design settled (PERF.md §6): on a 2^18-edge shard
+// of the 2^19-node graph the degree pass took 6.1 us so, 7.4 reading the
+// mask's bytes, 15 with the bits staged in shared memory and 11 with
+// warp-aggregated atomics (__match_any_sync, then __reduce_add_sync;
+// slower on the Elle edges too); the update 4.5 us.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,69 +61,29 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
-constexpr int kMatch = 0;
-constexpr int kMaskBits = 1;
-constexpr int kMaxStagedBytes = 200 * 1024;
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int kBits>
-__device__ __forceinline__ bool is_active(const uint8_t* __restrict__ act,
-                                          const uint32_t* __restrict__ bits,
-                                          const uint32_t* staged, int v) {
-  if (kBits == 0) return act[v] != 0;
-  if (kBits == 1) return (__ldg(bits + (v >> 5)) >> (v & 31)) & 1u;
-  return (staged[v >> 5] >> (v & 31)) & 1u;
+__device__ __forceinline__ bool is_active(const uint32_t* __restrict__ bits,
+                                          int v) {
+  return (__ldg(bits + (v >> 5)) >> (v & 31)) & 1u;
 }
 
-// adds w to row[v]; with kMatch, the lanes of `live` that share v add once
-__device__ __forceinline__ void add_degree(int* __restrict__ row, int v,
-                                           int w, unsigned live) {
-  if (kMatch) {
-    const unsigned peers = __match_any_sync(live, v);
-    const int sum = (int)__reduce_add_sync(peers, (unsigned)w);
-    if ((threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(row + v, sum);
-  } else {
-    atomicAdd(row + v, w);
-  }
-}
-
-template <int kBits>
 __global__ void __launch_bounds__(kThreads)
     partial_degrees(const int* __restrict__ src, const int* __restrict__ dst,
                     const int* __restrict__ w,
-                    const uint8_t* __restrict__ active,
-                    const uint32_t* __restrict__ bits, int n_edges, int words,
+                    const uint32_t* __restrict__ bits, int n_edges,
                     int* __restrict__ deg_in, int* __restrict__ deg_out) {
-  extern __shared__ uint32_t staged[];
-  if (kBits == 2) {
-    for (int i = threadIdx.x; i < words; i += blockDim.x) {
-      staged[i] = bits[i];
-    }
-    __syncthreads();
-  }
-  const int lane = threadIdx.x & 31;
   const int stride = gridDim.x * blockDim.x;
-  // a warp-uniform trip count: every lane reaches the warp intrinsics
-  for (int base = blockIdx.x * blockDim.x + (threadIdx.x - lane);
-       base < n_edges; base += stride) {
-    const int e = base + lane;
-    int we = 0, s = 0, d = 0;
-    if (e < n_edges) {
-      we = w[e];
-      if (we != 0) {
-        s = src[e];
-        d = dst[e];
-        if (!is_active<kBits>(active, bits, staged, s) ||
-            !is_active<kBits>(active, bits, staged, d)) {
-          we = 0;
-        }
-      }
-    }
-    const unsigned live = kMatch ? __ballot_sync(kFull, we != 0) : 0u;
-    if (we != 0) {
-      add_degree(deg_in, d, we, live);
-      add_degree(deg_out, s, we, live);
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n_edges;
+       e += stride) {
+    const int we = w[e];
+    if (we == 0) continue;
+    const int s = src[e];
+    const int d = dst[e];
+    if (is_active(bits, s) && is_active(bits, d)) {
+      atomicAdd(deg_in + d, we);
+      atomicAdd(deg_out + s, we);
     }
   }
 }
@@ -137,6 +97,7 @@ __global__ void __launch_bounds__(kThreads)
   if (blockIdx.x == 0 && threadIdx.x == 0) flags[slot ^ 1] = 0;
   const int stride = gridDim.x * blockDim.x;
   bool left = false;
+  // a warp-uniform trip count, a word of the mask a warp
   for (int base = blockIdx.x * blockDim.x + (threadIdx.x - lane); base < n;
        base += stride) {
     const int v = base + lane;
@@ -160,85 +121,49 @@ __global__ void __launch_bounds__(kThreads)
     const unsigned word = __ballot_sync(kFull, keep);
     if (lane == 0) bits[base >> 5] = word;
   }
-  // one store a CTA that removed a node: stores to the one flag word
-  // queue in L2 (a store a warp kept the update at 14 us at 2^19 nodes)
   if (__syncthreads_or(left) && threadIdx.x == 0) flags[slot] = 1;
 }
 
-struct Device {
-  int sms = 0;
-  cudaError_t err = cudaSuccess;
-};
-
-// Once per device and process: the SM count, and the staged pass's
-// shared-memory ceiling raised past 48 KB.
-Device device_setup() {
+// The SM count, once per device and process.
+cudaError_t sm_count(int* sms) {
   static std::mutex mu;
-  static Device devices[kMaxDevices];
-  static bool ready[kMaxDevices] = {};
+  static int counts[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return Device{0, err};
-  if (dev >= kMaxDevices) return Device{0, cudaErrorInvalidDevice};
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(mu);
-  if (ready[dev]) return devices[dev];
-  Device d;
-  d.err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount,
-                                 dev);
-  if (d.err == cudaSuccess && kMaskBits == 2) {
-    d.err = cudaFuncSetAttribute(partial_degrees<2>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kMaxStagedBytes);
+  if (counts[dev] == 0) {
+    err = cudaDeviceGetAttribute(&counts[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
   }
-  devices[dev] = d;
-  ready[dev] = true;
-  return d;
+  *sms = counts[dev];
+  return cudaSuccess;
 }
 
-int grid_for(int items, int sms, int per_sm) {
-  int b = (items + kThreads - 1) / kThreads;
-  const int cap = kBlocksPerSm > 0 ? sms * per_sm : 4096;
-  if (b > cap) b = cap;
-  return b < 1 ? 1 : b;
+int grid_for(int items, int sms) {
+  const int b = (items + kThreads - 1) / kThreads;
+  return b < sms * kBlocksPerSm ? b : sms * kBlocksPerSm;
 }
 
 }  // namespace
 
 extern "C" int jt_trim_partial_degrees(void* src, void* dst, void* w,
-                                       void* active, void* bits, int n_edges,
-                                       int n_nodes, void* deg, void* stream) {
+                                       void* bits, int n_edges, int n_nodes,
+                                       void* deg, void* stream) {
   if (n_edges < 0 || n_nodes < 1 || n_nodes >= (1 << 30)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_edges == 0) return (int)cudaSuccess;
-  const Device dev = device_setup();
-  if (dev.err != cudaSuccess) return (int)dev.err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int words = (n_nodes + 31) / 32;
-  const int* s = (const int*)src;
-  const int* d = (const int*)dst;
-  const int* we = (const int*)w;
-  const uint8_t* act = (const uint8_t*)active;
-  const uint32_t* bw = (const uint32_t*)bits;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
   int* din = (int*)deg;
-  int* dout = din + n_nodes;
-  const int smem = words * (int)sizeof(uint32_t);
-  if (kMaskBits == 2 && smem <= kMaxStagedBytes) {
-    // the resident CTAs an SM at this much shared memory
-    int per_sm = (228 * 1024) / (smem + 1024);
-    if (per_sm > kBlocksPerSm) per_sm = kBlocksPerSm;
-    if (per_sm < 1) per_sm = 1;
-    partial_degrees<2><<<grid_for(n_edges, dev.sms, per_sm), kThreads, smem,
-                         st>>>(s, d, we, act, bw, n_edges, words, din, dout);
-  } else if (kMaskBits >= 1) {
-    partial_degrees<1><<<grid_for(n_edges, dev.sms, kBlocksPerSm), kThreads,
-                         0, st>>>(s, d, we, act, bw, n_edges, words, din,
-                                  dout);
-  } else {
-    partial_degrees<0><<<grid_for(n_edges, dev.sms, kBlocksPerSm), kThreads,
-                         0, st>>>(s, d, we, act, bw, n_edges, words, din,
-                                  dout);
-  }
+  partial_degrees<<<grid_for(n_edges, sms), kThreads, 0,
+                    (cudaStream_t)stream>>>(
+      (const int*)src, (const int*)dst, (const int*)w, (const uint32_t*)bits,
+      n_edges, din, din + n_nodes);
   return (int)cudaGetLastError();
 }
 
@@ -249,10 +174,10 @@ extern "C" int jt_trim_update(void* deg, void* others, int n_others,
       (n_others > 0 && others == nullptr) || (slot != 0 && slot != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Device dev = device_setup();
-  if (dev.err != cudaSuccess) return (int)dev.err;
-  update_mask<<<grid_for(n_nodes, dev.sms, kBlocksPerSm), kThreads, 0,
-                (cudaStream_t)stream>>>(
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  update_mask<<<grid_for(n_nodes, sms), kThreads, 0, (cudaStream_t)stream>>>(
       (int*)deg, (const int*)others, n_others, (uint8_t*)active,
       (uint32_t*)bits, n_nodes, (int*)flags, slot);
   return (int)cudaGetLastError();

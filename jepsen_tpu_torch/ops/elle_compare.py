@@ -30,9 +30,10 @@ build's work count.
 
 ``trim_degrees.cu`` (the sharded trim's round) is compared the same way
 when the other checkout has it: each entry on one of four edge shards of
-the seeded graph of 2^19 nodes and 2^20 edges (2^18 edges, PR 19's
-shape) and of the global path's recorded edges, with a seeded mask (70 %
-active) and weights (5 % padding). Each build is called as its own
+the seeded graph of 2^19 nodes and 2^20 edges (2^18 edges, the shape of
+``chip_smoke.py``'s ``trim_degrees_kernel`` line) and of the global
+path's recorded edges, with a seeded mask (70 % active) and weights (5 %
+padding). Each build is called as its own
 wrapper calls it: an earlier build's degree pass takes a fresh row pair
 (``torch.empty``) that its entry zeroes with two memsets, and its update
 a fresh flag that its entry zeroes; this build's degree pass accumulates
@@ -304,8 +305,7 @@ def round_callers(fns, earlier, src, dst, w, active):
         else:
             out = kept
             rc = partial(src.data_ptr(), dst.data_ptr(), w.data_ptr(),
-                         active.data_ptr(), bits.data_ptr(), E, n,
-                         out.data_ptr(), stream)
+                         bits.data_ptr(), E, n, out.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"trim_partial_degrees: CUDA error {rc}")
         last["deg"] = out

@@ -186,22 +186,24 @@ def trim_rounds(mesh, n_nodes: int, sj, dj, wj, max_iters: int = 512,
     staged = (torch.empty((len(others), 2, n_nodes), dtype=torch.int32,
                           device=first) if others else None)
     flags = torch.zeros((2,), dtype=torch.int32, device=first)
+    # the round's calls, checked once: every tensor keeps its storage
+    partials = [scc_kernels.partial_degrees_launcher(s, d, w, *masks[dev],
+                                                     rows[dev])
+                for s, d, w, dev in zip(sj, dj, wj, mesh.devices)]
+    update = scc_kernels.update_launcher(
+        rows[first], staged if reduce is None else None, active, bits, flags)
     it, changed = 0, True
     while changed and it < max_iters:
-        for s, d, w, dev in zip(sj, dj, wj, mesh.devices):
-            scc_kernels.trim_partial_degrees(s, d, w, *masks[dev], rows[dev])
+        for partial in partials:
+            partial()
         for j, dev in enumerate(others):
             staged[j].copy_(rows[dev])
             rows[dev].zero_()
-        extra = staged
         if reduce is not None:
             if staged is not None:
                 rows[first] += staged.sum(0)
-                extra = None
             reduce(rows[first])
-        flag = scc_kernels.trim_update(rows[first], extra, active, bits,
-                                       flags, it % 2)
-        changed = bool(flag.item())
+        changed = bool(update(it % 2).item())
         for dev in others:
             masks[dev][0].copy_(active)
             masks[dev][1].copy_(bits)

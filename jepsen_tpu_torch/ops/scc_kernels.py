@@ -10,8 +10,9 @@ hand-written Hopper kernels in ``csrc/``, and their plain torch versions.
   cycle (jepsen_tpu/ops/scc.py ``_screen_kernel``). Exact.
 * :func:`trim_partial_degrees` and :func:`trim_update` — one round of the
   edge-sharded trim (jepsen_tpu/ops/scc.py ``run_sharded_trim``): a
-  shard's partial in/out degrees over its edges, and the mask's update
-  from the summed degrees (``csrc/trim_degrees.cu``). Integer sums and
+  shard's partial in/out degrees over its edges, added into a row pair
+  kept across rounds, and the mask's update from the summed degrees,
+  which zeroes the pair (``csrc/trim_degrees.cu``). Integer sums and
   booleans: exact.
 
 All match the reference bit for bit: their results are booleans and
@@ -311,9 +312,18 @@ def trim_partial_degrees(src, dst, w, active, bits, deg):
     zeroed: the shards of one device add into one row pair, which
     :func:`trim_update` zeroes. On the card one C call of
     ``csrc/trim_degrees.cu``'s ``jt_trim_partial_degrees`` (one launch, no
-    memset); every input on one card, as the caller placed it."""
+    memset), which reads the mask's packed copy ``bits``; every input on
+    one card, as the caller placed it."""
+    return partial_degrees_launcher(src, dst, w, active, bits, deg)()
+
+
+def partial_degrees_launcher(src, dst, w, active, bits, deg):
+    """:func:`trim_partial_degrees` on these tensors, checked once: a
+    no-argument function that makes the call each time it is called (a
+    round loop over tensors that keep their storage)."""
     if src.device.type == "cpu":
-        return trim_partial_degrees_torch(src, dst, w, active, bits, deg)
+        return lambda: trim_partial_degrees_torch(src, dst, w, active, bits,
+                                                  deg)
     if src.device.type != "cuda":
         raise ValueError(f"trim_partial_degrees: unsupported device "
                          f"{src.device}")
@@ -327,14 +337,17 @@ def trim_partial_degrees(src, dst, w, active, bits, deg):
                          (deg, torch.int32, (2, n))):
         _want("trim_partial_degrees", x, dt, shape, dev)
     from jepsen_tpu_torch.ops import _build
-    lib = _build.library("trim_degrees")
-    with _on(dev):
-        rc = lib.jt_trim_partial_degrees(
-            _ptr(src), _ptr(dst), _ptr(w), _ptr(active), _ptr(bits), E, n,
-            _ptr(deg), _stream(dev))
-    _check_launch(rc, "trim_partial_degrees")
-    trim_partial_degrees.launches += 1
-    return deg
+    fn = _build.library("trim_degrees").jt_trim_partial_degrees
+    args = (_ptr(src), _ptr(dst), _ptr(w), _ptr(bits), E, n, _ptr(deg),
+            _stream(dev))
+
+    def launch():
+        with _on(dev):
+            rc = fn(*args)
+        _check_launch(rc, "trim_partial_degrees")
+        trim_partial_degrees.launches += 1
+        return deg
+    return launch
 
 
 trim_partial_degrees.launches = 0
@@ -362,8 +375,15 @@ def trim_update(deg, others, active, bits, flags, slot: int):
     clears ``flags[1 - slot]`` for the next round. Returns ``flags[slot:
     slot + 1]``. On the card one C call of ``jt_trim_update`` (one launch,
     no memset)."""
+    return update_launcher(deg, others, active, bits, flags)(slot)
+
+
+def update_launcher(deg, others, active, bits, flags):
+    """:func:`trim_update` on these tensors, checked once: a function of
+    the slot that makes the call each time it is called."""
     if active.device.type == "cpu":
-        return trim_update_torch(deg, others, active, bits, flags, slot)
+        return lambda slot: trim_update_torch(deg, others, active, bits,
+                                              flags, slot)
     if active.device.type != "cuda":
         raise ValueError(f"trim_update: unsupported device {active.device}")
     dev = active.device
@@ -375,17 +395,24 @@ def trim_update(deg, others, active, bits, flags, slot: int):
                          (flags, torch.int32, (2,))) + (
             () if others is None else ((others, torch.int32, (k, 2, n)),)):
         _want("trim_update", x, dt, shape, dev)
-    if n < 1 or slot not in (0, 1):
-        raise ValueError(f"trim_update: n={n}, slot={slot}")
+    if n < 1:
+        raise ValueError("trim_update: no nodes")
     from jepsen_tpu_torch.ops import _build
-    lib = _build.library("trim_degrees")
-    with _on(dev):
-        rc = lib.jt_trim_update(_ptr(deg), None if k == 0 else _ptr(others),
-                                k, _ptr(active), _ptr(bits), n, _ptr(flags),
-                                slot, _stream(dev))
-    _check_launch(rc, "trim_update")
-    trim_update.launches += 1
-    return flags[slot:slot + 1]
+    fn = _build.library("trim_degrees").jt_trim_update
+    head = (_ptr(deg), None if k == 0 else _ptr(others), k, _ptr(active),
+            _ptr(bits), n, _ptr(flags))
+    stream = _stream(dev)
+    views = (flags[0:1], flags[1:2])
+
+    def launch(slot: int):
+        if slot not in (0, 1):
+            raise ValueError(f"trim_update: slot={slot}")
+        with _on(dev):
+            rc = fn(*head, slot, stream)
+        _check_launch(rc, "trim_update")
+        trim_update.launches += 1
+        return views[slot]
+    return launch
 
 
 trim_update.launches = 0
