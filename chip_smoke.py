@@ -513,6 +513,31 @@ def device_kernels(fn, want: str = "", warm: bool = True):
             for e in evs]
 
 
+def profiled_launches(fn, calls: int = 5):
+    """[(kernel name, device us)] of every CUDA kernel and memset that
+    ``calls`` calls of ``fn()`` run, in launch order, from
+    ``torch.profiler`` after one warm-up call; the trace is taken again,
+    up to five times, while it holds no device event ([] if none did)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    evs = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if evs:
+            break
+    return [(e.name.replace("(anonymous namespace)::", "").split("(")[0]
+             .removeprefix("void "), e.time_range.end - e.time_range.start)
+            for e in evs]
+
+
 def chunk_entry_call(fn, args, S, V):
     """A no-argument call of the chunk-product C entry ``fn`` on the
     operands the wrapper derives from ``args``: the kernel alone, with no
@@ -3094,29 +3119,28 @@ def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
             restore()
             return update(dw, None, aw, bw, fw, 0)
         return call
-    restore_ms = cuda_ms(restore, 50)
-    ms_u = cuda_ms(update_call(sk.trim_update), 50) - restore_ms
+    restore_ms = cuda_ms(restore, 200)
+    ms_u = cuda_ms(update_call(sk.trim_update), 200) - restore_ms
     plain_u = cuda_ms(update_call(sk.trim_update_torch), 50) - restore_ms
     # the calls as the round loop makes them: checked once, then launched
     launch_d = sk.partial_degrees_launcher(s, d, w, act, bits, deg)
     launch_u = sk.update_launcher(dw, None, aw, bw, fw)
     launcher_d = cuda_ms(launch_d, 50)
-    launcher_u = cuda_ms(lambda: (restore(), launch_u(0)), 50) - restore_ms
+    launcher_u = cuda_ms(lambda: (restore(), launch_u(0)), 200) - restore_ms
     own = {"trim_partial_degrees": "partial_degrees",
            "trim_update": "update_mask"}
-    # each entry's launches alone: its one kernel, no memset
-    alone = {"trim_partial_degrees": device_kernels(
-                 lambda: sk.trim_partial_degrees(s, d, w, act, bits, deg),
-                 "partial_degrees"),
-             "trim_update": device_kernels(
-                 lambda: sk.trim_update(dw, None, aw, bw, fw, 1),
-                 "update_mask")}
+    # each entry's launches alone: its one kernel a call, no memset
+    alone = {"trim_partial_degrees": profiled_launches(
+                 lambda: sk.trim_partial_degrees(s, d, w, act, bits, deg)),
+             "trim_update": profiled_launches(
+                 lambda: sk.trim_update(dw, None, aw, bw, fw, 1))}
     for kname, kernels in alone.items():
-        if len(kernels) != 1 or own[kname] not in kernels[0][0]:
+        if kernels and (len(kernels) != 5 or any(
+                own[kname] not in k for k, _ in kernels)):
             raise AssertionError(f"{kname}: launches {kernels}")
     prof = {"trim_partial_degrees": alone["trim_partial_degrees"],
-            "trim_update": device_kernels(update_call(sk.trim_update),
-                                          "update_mask")}
+            "trim_update": [k for k in profiled_launches(
+                update_call(sk.trim_update)) if own["trim_update"] in k[0]]}
     bytes_d = 12 * E + n + 8 * n
     bytes_u = n + 8 * n_active + removed + 4
     path = trim_degrees_path()
@@ -3132,7 +3156,8 @@ def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
              {"ms_note": "each call's restore of its inputs subtracted",
               "restore_ms": restore_ms, "nodes_active": n_active,
               "nodes_removed": removed, "launcher_ms": launcher_u})):
-        dev_ms = sum(us for k, us in prof[kname] if own[kname] in k) / 1e3
+        dev_us = [us for k, us in prof[kname] if own[kname] in k]
+        dev_ms = statistics.median(dev_us) / 1e3 if dev_us else None
         rows.append({"name": kname, "route": "cuda",
                      "source": "jepsen_tpu_torch/ops/csrc/trim_degrees.cu",
                      "replaces": rep, "launches": launches[kname],
@@ -3142,6 +3167,7 @@ def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
                      "launches_mesh": launches[kname], "nodes": n,
                      "edges_per_shard": E, "bytes": nbytes, "path": path,
                      "device_kernels_us": prof[kname], "device_ms": dev_ms,
+                     "launches_alone": [k for k, _ in alone[kname]],
                      **extra})
     emit({"phase": "trim_degrees_kernel", "nodes": n, "edges": E,
           "path": path,
