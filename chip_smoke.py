@@ -3046,7 +3046,6 @@ def place_edges(nd, src, dst):
 def trim_degrees_path() -> str:
     """The round kernels' design in this build: the grid
     ``csrc/trim_degrees.cu`` sets."""
-    import re
     from jepsen_tpu_torch.ops import _build
     text = (_build.SRC_DIR / "trim_degrees.cu").read_text()
     per_sm = int(re.search(r"constexpr int kBlocksPerSm = (\d+);",
