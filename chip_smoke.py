@@ -486,43 +486,20 @@ def read_launches() -> dict:
             "trim_update": sk.trim_update.launches}
 
 
-def device_kernels(fn, want: str = "", warm: bool = True):
-    """[(kernel name, device us)] of the CUDA kernels that one call of
-    ``fn()`` runs, in launch order, from ``torch.profiler`` (after one
-    warm-up call, unless ``warm`` is False); with ``want``, a trace that
-    holds a kernel whose name contains it."""
+def device_kernels(fn, want: str = "", warm: bool = True, calls: int = 1):
+    """[(kernel name, device us)] of the CUDA kernels and memsets that
+    ``calls`` calls of ``fn()`` run, in launch order, from
+    ``torch.profiler`` (after one warm-up call, unless ``warm`` is False);
+    with ``want``, a trace that holds ``calls`` launches of a kernel whose
+    name contains it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()
         torch.cuda.synchronize()
     # the profiler now and then returns a trace without the device's
-    # events, or without some of them: take the call again, up to three
-    # times
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        evs = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-        if evs and any(want in e.name for e in evs):
-            break
-    return [(e.name.replace("(anonymous namespace)::", "").split("(")[0]
-             .removeprefix("void "), e.time_range.end - e.time_range.start)
-            for e in evs]
-
-
-def profiled_launches(fn, calls: int = 5):
-    """[(kernel name, device us)] of every CUDA kernel and memset that
-    ``calls`` calls of ``fn()`` run, in launch order, from
-    ``torch.profiler`` after one warm-up call; the trace is taken again,
-    up to five times, while it holds no device event ([] if none did)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    evs = []
+    # events, or without some of them (one launch of five): take the
+    # calls again, up to five times
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -531,7 +508,7 @@ def profiled_launches(fn, calls: int = 5):
         evs = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-        if evs:
+        if evs and sum(want in e.name for e in evs) >= calls:
             break
     return [(e.name.replace("(anonymous namespace)::", "").split("(")[0]
              .removeprefix("void "), e.time_range.end - e.time_range.start)
@@ -3054,20 +3031,27 @@ def trim_degrees_path() -> str:
             f"bits; an atomic an edge end; the flag stored once a CTA")
 
 
-def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
+def trim_degrees_rows(n, src, dst, launches, stand_in, name, smi) -> list:
     """Both entries of ``trim_degrees.cu`` against their plain versions on
     the card, on one of four edge shards of the graph ``(n, src, dst)``
     with a seeded mask, bit-equal (the partial rows; the mask, its packed
     copy, the zeroed rows and the flags), then timed: the kernels line's
-    rows. The partial accumulates into one row pair across the timed
-    calls, as the shards of a round do; each timed update first restores
-    its inputs (rows, mask, flags), whose copies' time is subtracted;
-    ``launcher_ms`` times the calls as ``ops.scc.trim_rounds`` makes them
-    (checked once, then launched). The profiler's list of each entry's
-    launches holds its one kernel and no memset. The bound counts bytes: a degree pass reads each edge's 12
-    bytes and the mask and writes the two rows; the update reads the mask
-    and the active nodes' rows and writes the removed nodes' mask bytes
-    and the flag."""
+    rows. ``launches``: each entry's launches in phase 15's trims (the
+    entry point that runs the rounds on this machine, both ranks);
+    ``stand_in``: those of phase 14d's rounds on one card, standing in for
+    a mesh of distinct cards. The partial accumulates into one row pair
+    across the timed calls, as the shards of a round do; each timed update
+    first restores its inputs (rows, mask, flags), whose copies' time is
+    subtracted; ``launcher_ms`` times the calls as ``ops.scc.trim_rounds``
+    makes them (checked once, then launched). The profiler's list of five
+    calls of each entry must hold five launches of its kernel and nothing
+    else (no memset); an empty trace fails the phase. The bound counts the
+    bytes this shard's data needs: the degree pass reads every weight, the
+    live edges' ends and the mask words they hit, and reads and writes
+    each row entry it adds to once (it accumulates); the update reads the
+    packed mask and the active nodes' rows, zeroes the nonzero entries,
+    and writes the removed nodes' mask bytes, the changed mask words and
+    the two flag slots."""
     import numpy as np
     import torch
     from jepsen_tpu_torch.ops import scc_kernels as sk
@@ -3129,19 +3113,28 @@ def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
     own = {"trim_partial_degrees": "partial_degrees",
            "trim_update": "update_mask"}
     # each entry's launches alone: its one kernel a call, no memset
-    alone = {"trim_partial_degrees": profiled_launches(
-                 lambda: sk.trim_partial_degrees(s, d, w, act, bits, deg)),
-             "trim_update": profiled_launches(
-                 lambda: sk.trim_update(dw, None, aw, bw, fw, 1))}
+    alone = {"trim_partial_degrees": device_kernels(
+                 lambda: sk.trim_partial_degrees(s, d, w, act, bits, deg),
+                 own["trim_partial_degrees"], calls=5),
+             "trim_update": device_kernels(
+                 lambda: sk.trim_update(dw, None, aw, bw, fw, 1),
+                 own["trim_update"], calls=5)}
     for kname, kernels in alone.items():
-        if kernels and (len(kernels) != 5 or any(
-                own[kname] not in k for k, _ in kernels)):
-            raise AssertionError(f"{kname}: launches {kernels}")
+        if len(kernels) != 5 or any(own[kname] not in k
+                                    for k, _ in kernels):
+            raise AssertionError(f"{kname}: five calls' launches {kernels}")
     prof = {"trim_partial_degrees": alone["trim_partial_degrees"],
-            "trim_update": [k for k in profiled_launches(
-                update_call(sk.trim_update)) if own["trim_update"] in k[0]]}
-    bytes_d = 12 * E + n + 8 * n
-    bytes_u = n + 8 * n_active + removed + 4
+            "trim_update": [k for k in device_kernels(
+                update_call(sk.trim_update), own["trim_update"], calls=5)
+                if own["trim_update"] in k[0]]}
+    live = w != 0
+    both = live & act[s.long()] & act[d.long()]
+    words = torch.unique(torch.cat([s[live], d[live]]) >> 5).numel()
+    touched = torch.unique(d[both]).numel() + torch.unique(s[both]).numel()
+    bytes_d = 4 * E + 8 * int(live.sum()) + 4 * words + 8 * touched
+    changed_words = int((outs[0][2] != bits).sum())
+    bytes_u = (4 * ((n + 31) // 32) + 8 * n_active + 4 * int((snap != 0)
+               .sum()) + removed + 4 * changed_words + 8)
     path = trim_degrees_path()
     rows = []
     for kname, rep, err, ms, pms, lib, nbytes, extra in (
@@ -3149,23 +3142,28 @@ def trim_degrees_rows(n, src, dst, launches, name, smi) -> list:
              ms_d, plain_d, lib_d, bytes_d,
              {"library_call": "one index_add_ of the masked weights into "
               "[2n] (the mask's gather outside it)",
-              "launcher_ms": launcher_d}),
+              "launcher_ms": launcher_d, "edges_live": int(live.sum()),
+              "mask_words_read": words, "row_entries_touched": touched}),
             ("trim_update", "jepsen_tpu/ops/scc.py:176", err_u,
              ms_u, plain_u, None, bytes_u,
              {"ms_note": "each call's restore of its inputs subtracted",
               "restore_ms": restore_ms, "nodes_active": n_active,
-              "nodes_removed": removed, "launcher_ms": launcher_u})):
+              "nodes_removed": removed, "mask_words_changed": changed_words,
+              "launcher_ms": launcher_u})):
         dev_us = [us for k, us in prof[kname] if own[kname] in k]
         dev_ms = statistics.median(dev_us) / 1e3 if dev_us else None
         rows.append({"name": kname, "route": "cuda",
                      "source": "jepsen_tpu_torch/ops/csrc/trim_degrees.cu",
                      "replaces": rep, "launches": launches[kname],
+                     "launches_from": "phase 15: trim_to_cycles_distributed, "
+                                      "both ranks",
                      "max_abs_err": float(err), "equal": True, "ms": ms,
                      "plain_ms": pms, "bound_ms": nbytes / PEAK_BYTES * 1e3,
                      "bound_by": "bytes", "library_ms": lib,
-                     "launches_mesh": launches[kname], "nodes": n,
-                     "edges_per_shard": E, "bytes": nbytes, "path": path,
-                     "device_kernels_us": prof[kname], "device_ms": dev_ms,
+                     "launches_rounds_stand_in": stand_in[kname],
+                     "nodes": n, "edges_per_shard": E, "bytes": nbytes,
+                     "path": path, "device_kernels_us": prof[kname],
+                     "device_ms": dev_ms,
                      "launches_alone": [k for k, _ in alone[kname]],
                      **extra})
     emit({"phase": "trim_degrees_kernel", "nodes": n, "edges": E,
@@ -3186,11 +3184,13 @@ def mesh_phases(name, smi, history, bad, stream, bad_stream) -> tuple:
     given the card four times) on the headline, its corrupted copy and
     config 3 through ``independent``; the sharded trim on phase 8's
     50k-txn edges and the seeded 2^19-node graph against its plain
-    rounds, through the one-card route and through ``trim_rounds``, and
-    ``trim_degrees.cu`` against its plain version; the
-    routing (``auto_mesh``, the round trip, "auto" lanes, the pipelined
-    batch's stats); then phase 15, two processes. Returns (the trim
-    rows of the kernels line, launches of the mesh cases by kernel)."""
+    rounds, through the one-card route and through ``trim_rounds`` (on
+    the mesh and on ``Mesh([cuda:0, cuda] * 2)``, the path of distinct
+    cards); the routing (``auto_mesh``, the round trip, "auto" lanes, the
+    pipelined batch's stats); then phase 15, two processes, and
+    ``trim_degrees.cu`` against its plain version, its launches from
+    phase 15's trims. Returns (the trim rows of the kernels line,
+    launches of the mesh cases by kernel)."""
     import numpy as np
     import torch
     from jepsen_tpu_torch import independent, parallel
@@ -3310,10 +3310,15 @@ def mesh_phases(name, smi, history, bad, stream, bad_stream) -> tuple:
           "unsharded_failed_op": one["failed-op"],
           "independent_backends": sorted(algs), "card": name, "power": smi})
 
-    # 14d. the edge-sharded trim on both routes, and its round's kernels:
-    # on one card the one-call peel (one scc_trim launch, no round
-    # launch); the rounds driven on the card without a reduce (one
-    # partial launch a shard and one update a round)
+    # 14d. the edge-sharded trim on both routes: on one card the one-call
+    # peel (one scc_trim launch, no round launch); the rounds driven on
+    # the card without a reduce (one partial launch a shard and one update
+    # a round), on m4 and on md = Mesh([cuda:0, cuda] * 2), whose two
+    # entries of one card the rounds keep apart as they keep distinct
+    # cards (the cuda shards' rows staged on cuda:0, added by the update)
+    from jepsen_tpu_torch.ops import scc_kernels as sk
+    md = Mesh([torch.device("cuda", 0), torch.device("cuda")]
+              * (MESH_WIDTH // 2))
     round_launches = None
     elle_graph = LIVE_RUNS.pop("elle_pairs_edges")
     masks = {}
@@ -3327,6 +3332,11 @@ def mesh_phases(name, smi, history, bad, stream, bad_stream) -> tuple:
             times.append(time.perf_counter() - t0)
         return statistics.median(times), times, out
 
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+
     for case, (n, src, dst) in (
             ("elle_50k_pairs", elle_graph),
             ("random_512k_1m", random_trim_graph(19, 20, SEED))):
@@ -3337,61 +3347,83 @@ def mesh_phases(name, smi, history, bad, stream, bad_stream) -> tuple:
         reset_launches()
         got = scc.trim_to_cycles_sharded(n, src, dst, m4)
         lc_one = read_launches()
-        reset_launches()
         shards = place_edges(MESH_WIDTH, src, dst)
-        got_rounds = scc.trim_rounds(m4, n, *shards).cpu().numpy()
-        lc_rounds = read_launches()
-        if round_launches is None:
-            round_launches = lc_rounds
-        for route, mask in (("one_card", got), ("rounds", got_rounds)):
+        lcs = {}
+        for route, mesh in (("rounds", m4), ("rounds_distinct", md)):
+            reset_launches()
+            mask = scc.trim_rounds(mesh, n, *shards).cpu().numpy()
+            lcs[route] = read_launches()
             if not np.array_equal(mask, want):
                 raise AssertionError(f"sharded trim {case} ({route}): the "
                                      "mask differs from the plain rounds'")
+            if (lcs[route]["scc_trim"], lcs[route]["trim_partial_degrees"],
+                    lcs[route]["trim_update"]) != (0, MESH_WIDTH * rounds,
+                                                   rounds):
+                raise AssertionError(f"sharded trim {case}, {route}: "
+                                     f"{lcs[route]}, {rounds} rounds")
+        lc_rounds = lcs["rounds"]
+        if round_launches is None:
+            round_launches = lc_rounds
+        if not np.array_equal(got, want):
+            raise AssertionError(f"sharded trim {case} (one_card): the "
+                                 "mask differs from the plain rounds'")
         if (lc_one["scc_trim"], lc_one["trim_partial_degrees"],
                 lc_one["trim_update"]) != (1, 0, 0):
             raise AssertionError(f"sharded trim {case}, one card: {lc_one}")
-        if (lc_rounds["scc_trim"], lc_rounds["trim_partial_degrees"],
-                lc_rounds["trim_update"]) != (0, MESH_WIDTH * rounds,
-                                              rounds):
-            raise AssertionError(f"sharded trim {case}, rounds: "
-                                 f"{lc_rounds}, {rounds} rounds")
         add(lc_one)
-        add(lc_rounds)
+        for lc in lcs.values():
+            add(lc)
         whole_s, whole_runs, _ = med3(
             lambda: scc.trim_to_cycles_sharded(n, src, dst, m4))
         place_s, _, shards = med3(lambda: place_edges(MESH_WIDTH, src, dst))
         peel_s, peel_runs, got = med3(
             lambda: scc.run_sharded_trim(m4, n, *shards).cpu().numpy())
+        walked = int(sk.scc_trim.work[1])
         rpeel_s, rpeel_runs, got_rounds = med3(
             lambda: scc.trim_rounds(m4, n, *shards).cpu().numpy())
-        if not (np.array_equal(got, want) and np.array_equal(got_rounds,
-                                                             want)):
+        dpeel_s, dpeel_runs, got_distinct = med3(
+            lambda: scc.trim_rounds(md, n, *shards).cpu().numpy())
+        if not all(np.array_equal(m, want)
+                   for m in (got, got_rounds, got_distinct)):
             raise AssertionError(f"sharded trim {case}: a timed mask "
                                  "differs")
-        # the bound: each round reads every edge's 12 bytes and the mask
-        # and writes the mask, the degrees kept on chip
-        nbytes = rounds * (12 * len(src) + 2 * n)
+        # the bound: what the function needs, as the scc_trim row counts
+        # it: each edge's 12 bytes (src, dst, weight) in and the mask out
+        # once; an operation an edge, a node and a row entry walked. The
+        # reference's rounds do every edge and node every round
+        nbytes = 12 * len(src) + n
+        b_ms, b_by = bound(float(len(src) + n + walked), nbytes)
+        ref_ms, ref_by = bound(float(len(src) + n) * rounds,
+                               rounds * (12 * len(src) + 2 * n))
         emit({"phase": "mesh_trim", "case": case, "nodes": n,
               "edges": len(src), "rounds": rounds,
               "residue": int(want.sum()), "equal": True,
               "launches_one_card": {k: v for k, v in lc_one.items() if v},
               "launches_rounds": {k: v for k, v in lc_rounds.items() if v},
+              "launches_rounds_distinct": {
+                  k: v for k, v in lcs["rounds_distinct"].items() if v},
               "mesh_s": whole_s, "mesh_runs_s": whole_runs,
               "place_s": place_s, "peel_s": peel_s,
               "peel_runs_s": peel_runs, "rounds_peel_s": rpeel_s,
               "rounds_peel_runs_s": rpeel_runs,
               "rounds_us_per_round": rpeel_s * 1e6 / rounds,
+              "rounds_distinct_peel_s": dpeel_s,
+              "rounds_distinct_peel_runs_s": dpeel_runs,
+              "rounds_distinct_us_per_round": dpeel_s * 1e6 / rounds,
               "plain_rounds_s": plain_s, "bytes": nbytes,
-              "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-              "note": "mesh_s: trim_to_cycles_sharded on one card (the "
-                      "upload and one scc_trim call); peel_s: "
-                      "run_sharded_trim on placed shards (joined, one "
-                      "scc_trim call, the mask read back); rounds_peel_s: "
-                      "trim_rounds on the same shards; medians of 3",
+              "row_entries_walked": walked, "bound_ms": b_ms,
+              "bound_by": b_by, "bound_ms_reference_work": ref_ms,
+              "bound_by_reference_work": ref_by,
+              "note": "mesh_s: trim_to_cycles_sharded on one card "
+                      "(trim_to_cycles: the upload and one scc_trim call); "
+                      "peel_s: run_sharded_trim on placed shards (joined, "
+                      "one scc_trim call, the mask read back); "
+                      "rounds_peel_s: trim_rounds on the same shards on "
+                      "m4; rounds_distinct_peel_s: on Mesh([cuda:0, cuda] "
+                      "x 2), the rows of the cuda entries staged; medians "
+                      "of 3",
               "card": name, "power": smi})
     n_r, src_r, dst_r = random_trim_graph(19, 20, SEED)
-    trim_rows = trim_degrees_rows(n_r, src_r, dst_r, round_launches, name,
-                                  smi)
 
     # 14e. routing
     t0 = time.perf_counter()
@@ -3414,9 +3446,16 @@ def mesh_phases(name, smi, history, bad, stream, bad_stream) -> tuple:
     if stats.get("batches") != sub_batches(len(streams_k)):
         raise AssertionError(f"the 1,024-key pipeline: {stats}")
 
-    # 15. two processes on the card, gloo
-    distributed_phase(streams_b, batch_check(streams_b), elle_graph,
-                      masks["elle_50k_pairs"], name, smi)
+    # 15. two processes on the card, gloo; their trims' launches are the
+    # round kernels' launches on the kernels line
+    rank_launches = distributed_phase(streams_b, batch_check(streams_b),
+                                      elle_graph, masks["elle_50k_pairs"],
+                                      name, smi)
+    trim_rows = trim_degrees_rows(
+        n_r, src_r, dst_r, {k: sum(lc.get(k, 0) for lc in rank_launches)
+                            for k in ("trim_partial_degrees",
+                                      "trim_update")},
+        round_launches, name, smi)
     emit({"phase": "mesh_total", "seconds": time.perf_counter() - phase_t0,
           "card": name, "power": smi})
     return trim_rows, totals
@@ -3428,7 +3467,8 @@ def distributed_phase(streams, want_batch, graph, want_mask, name, smi):
     halves) in a world of two processes on the one card (gloo, a
     ``file://`` init method), each child this script with
     ``--distributed-worker``; both must return the single-process results,
-    and a child that fails fails the phase."""
+    and a child that fails fails the phase. Returns each rank's launches
+    in its trim (the counts reset just before it, read just after)."""
     import os
     import pickle
     import subprocess
@@ -3477,9 +3517,12 @@ def distributed_phase(streams, want_batch, graph, want_mask, name, smi):
           "batch_s": [o["batch_s"] for o in res],
           "trim_s": [o["trim_s"] for o in res],
           "trim_reduce_s": [o["reduce_s"] for o in res],
-          "launches": [o["launches"] for o in res], "wall_s": wall_s,
-          "note": "two processes on one card: no speed-up",
+          "launches": [o["launches"] for o in res],
+          "batch_launches": [o["batch_launches"] for o in res],
+          "wall_s": wall_s, "note": "two processes on one card: no "
+          "speed-up; launches: each rank's trim alone",
           "card": name, "power": smi})
+    return [o["launches"] for o in res]
 
 
 def distributed_worker(job_path: str, rank: int) -> int:
@@ -3498,8 +3541,10 @@ def distributed_worker(job_path: str, rank: int) -> int:
         t0 = time.perf_counter()
         batch = distributed.batch_check_distributed(job["streams"])
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
+        batch_launches = {k: v for k, v in read_launches().items() if v}
         src, dst = job["edges"][rank]
+        reset_launches()
+        t1 = time.perf_counter()
         mask = distributed.trim_to_cycles_distributed(job["n_nodes"], src,
                                                       dst)
         t2 = time.perf_counter()
@@ -3513,7 +3558,8 @@ def distributed_worker(job_path: str, rank: int) -> int:
         out = {"backend": backend, "batch": batch, "mask": mask,
                "device": str(distributed.global_mesh().devices[0]),
                "batch_s": t1 - t0, "trim_s": t2 - t1,
-               "reduce_s": time.perf_counter() - t3, "launches": launches}
+               "reduce_s": time.perf_counter() - t3, "launches": launches,
+               "batch_launches": batch_launches}
     finally:
         distributed.dist.destroy_process_group()
     with open(f"{job_path}.{rank}.out", "wb") as f:
@@ -4116,7 +4162,8 @@ def main() -> int:
     for row in kernels:
         row["launches_mesh"] = meshed.get(row["name"], 0)
     for row in trim_rows:
-        row.update(launches_independent=0, launches_stored=0)
+        row.update(launches_independent=0, launches_stored=0,
+                   launches_mesh=meshed.get(row["name"], 0))
     kernels += trim_rows
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),

@@ -107,21 +107,16 @@ def trim_to_cycles_sharded(n_nodes: int, src: np.ndarray, dst: np.ndarray,
     rounds are exactly :func:`scc_kernels.scc_trim`'s peel of the whole
     edge list, with the same mask and step count at every cap
     (tests/test_torch_trim_degrees.py holds the two equal): the edges go
-    up unsharded and one ``scc_trim`` call peels them. Returns the bool
-    [n_nodes] mask, the reference's bit for bit."""
+    up unsharded and :func:`trim_to_cycles` peels them in one call (its
+    padding nodes have no edges and change no real node's mask at any
+    cap). Returns the bool [n_nodes] mask, the reference's bit for
+    bit."""
     if len(src) == 0 or n_nodes == 0:
         return np.zeros(n_nodes, dtype=bool)
-    _check_ids("trim_to_cycles_sharded", n_nodes, src, dst)
     if _one_card(mesh):
-        dev = mesh.devices[0]
-        if dev.type == "cpu":
-            s, d = (torch.from_numpy(np.asarray(c, np.int32))
-                    for c in (src, dst))
-        else:
-            s, d = scc_kernels.pinned_upload((src, dst), dev)
-        valid = torch.ones((len(src),), dtype=torch.bool, device=dev)
-        mask, _ = scc_kernels.scc_trim(s, d, valid, n_nodes, max_iters)
-        return mask.cpu().numpy()
+        return trim_to_cycles(n_nodes, src, dst, max_iters,
+                              device=mesh.devices[0])
+    _check_ids("trim_to_cycles_sharded", n_nodes, src, dst)
     from jepsen_tpu_torch.parallel import shard_leading
     E = len(src)
     pad = (-E) % mesh.size
@@ -200,6 +195,9 @@ def trim_rounds(mesh, n_nodes: int, sj, dj, wj, max_iters: int = 512,
             staged[j].copy_(rows[dev])
             rows[dev].zero_()
         if reduce is not None:
+            # the reduce sums one tensor across processes, so the other
+            # devices' rows join the first's before it; without one the
+            # update adds them itself, saving a sum and an add a round
             if staged is not None:
                 rows[first] += staged.sum(0)
             reduce(rows[first])

@@ -11,7 +11,8 @@ eight virtual CPU devices), at zero tolerance: verdicts, integers and the
   devices (padded keys), the matrix screen and the frontier scan;
 - ``ops.scc.trim_to_cycles_sharded`` with E not a multiple of 4, capped
   and not; its one-card route (``scc_trim``'s peel) against the JAX
-  package's sharded rounds at every cap up to the uncapped count; and
+  package's sharded rounds at every cap up to the uncapped count; its
+  rounds on a mesh of distinct devices, with and without a reduce; and
   the plain degree pass and update over rounds against
   ``jax.ops.segment_sum``;
 - the checker's sharded rung (``torch-sharded-matrix`` against
@@ -294,6 +295,42 @@ def test_one_card_route_matches_jax(width):
             trim_to_cycles_sharded(n, src, dst, mesh, max_iters=cap), ref)
         np.testing.assert_array_equal(
             run_sharded_trim(mesh, n, *shards, max_iters=cap).numpy(), ref)
+
+
+@pytest.mark.parametrize("reduce", [False, True])
+@pytest.mark.parametrize("graph", GRAPHS[:2])
+def test_distinct_device_rounds_match_jax(graph, reduce):
+    """The rounds on a mesh of distinct devices, ``Mesh(["cpu", "cpu:0"] *
+    2)`` (``cpu:0`` is another device than ``cpu`` to the mesh, so no
+    one-card route): the ``cpu:0`` shards' rows staged on the first device
+    and added by the update, or, with a ``reduce``, added before it;
+    ``trim_to_cycles_sharded`` and ``run_sharded_trim`` against the JAX
+    package's sharded trim on four virtual devices, at caps 0, 1, 2, 5,
+    13 and 512 (E a multiple of 4 and not)."""
+    from jepsen_tpu.ops.scc import trim_to_cycles_sharded as ref_trim
+    from jepsen_tpu_torch.ops.scc import (run_sharded_trim,
+                                          trim_to_cycles_sharded)
+    from jepsen_tpu_torch.parallel import Mesh, shard_leading
+
+    ref_mesh, _ = _meshes()
+    mesh = Mesh(["cpu", "cpu:0"] * 2)
+    n, src, dst = trim_graph(*graph)
+    E = len(src)
+    z = np.zeros((-E) % 4, np.int32)
+    shards = shard_leading(mesh, np.concatenate([src, z]),
+                           np.concatenate([dst, z]),
+                           np.concatenate([np.ones(E, np.int32), z]))
+    seen = []
+    for cap in (0, 1, 2, 5, 13, 512):
+        ref = np.asarray(ref_trim(n, src, dst, ref_mesh, max_iters=cap))
+        got = run_sharded_trim(mesh, n, *shards, max_iters=cap,
+                               reduce=seen.append if reduce else None)
+        np.testing.assert_array_equal(got.numpy(), ref, err_msg=str(cap))
+        if not reduce:
+            np.testing.assert_array_equal(
+                trim_to_cycles_sharded(n, src, dst, mesh, max_iters=cap),
+                ref, err_msg=str(cap))
+    assert bool(seen) == reduce
 
 
 @pytest.fixture

@@ -9,7 +9,10 @@ chains, self-loops, duplicate edges and weight-0 padding (E a multiple of
 4 and not): the identity that lets a one-card mesh peel in one call; and
 (``cuda``-marked, on the card) both C entries against their plain
 versions, bit-equal, with both routes on ``Mesh([cuda] * 3)`` against the
-same on ``Mesh(["cpu"] * 3)``. The file imports no JAX, so the card's lane
+same on ``Mesh(["cpu"] * 3)``. The rounds also run on a mesh of distinct
+devices (``Mesh(["cpu", "cpu:0"] * 2)``; on the card ``Mesh([cuda:0,
+cuda] * 2)``, two entries of one card that the rounds keep apart), with
+and without a reduce. The file imports no JAX, so the card's lane
 collects it where JAX is missing (tests/test_torch_mesh.py holds the same
 identity against the JAX package)."""
 from __future__ import annotations
@@ -231,6 +234,37 @@ def test_routes_on_cpu_meshes(width):
                             for c in (0, 2, 7, 512))
 
 
+@pytest.mark.parametrize("reduce", [False, True])
+@pytest.mark.parametrize("graph", GRAPHS[2:4])
+def test_distinct_device_rounds_at_every_cap(graph, reduce, monkeypatch):
+    """``trim_rounds`` on a mesh of distinct devices, ``Mesh(["cpu",
+    "cpu:0"] * 2)``, against the reference's rounds in numpy at every cap
+    from 0 to the uncapped round count and at 512: without a reduce the
+    ``cpu:0`` rows reach the update staged (its ``others``), with one
+    they join the first device's rows before it (``others`` None) and the
+    reduce runs once a round."""
+    from jepsen_tpu_torch.ops.scc import trim_rounds
+    from jepsen_tpu_torch.parallel import Mesh
+    n, src, dst = trim_graph(*graph)
+    shards = _shards(src, dst, 4)
+    mesh = Mesh(["cpu", "cpu:0"] * 2)
+    staged = []
+    launcher = sk.update_launcher
+
+    def spy(deg, others, *rest):
+        staged.append(None if others is None else tuple(others.shape))
+        return launcher(deg, others, *rest)
+    monkeypatch.setattr(sk, "update_launcher", spy)
+    for cap in caps_of((n, src, dst)):
+        want, rounds = reference_rounds(n, src, dst, cap)
+        seen = []
+        got = trim_rounds(mesh, n, *shards, max_iters=cap,
+                          reduce=seen.append if reduce else None)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=str(cap))
+        assert len(seen) == (rounds if reduce else 0)
+    assert set(staged) == {None if reduce else (1, 2, n)}
+
+
 @pytest.fixture
 def cuda_device():
     """The CUDA device; skips where there is none (decided here, never
@@ -317,3 +351,33 @@ def test_sharded_trim_on_card_matches_cpu_mesh(cuda_device):
                                   cap)[1]
         assert sk.trim_partial_degrees.launches == before[1] + 3 * rounds
         assert sk.trim_update.launches == before[2] + rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", [False, True])
+def test_distinct_device_rounds_on_card(cuda_device, reduce):
+    """``trim_rounds`` on ``Mesh([cuda:0, cuda] * 2)``: ``cuda`` and
+    ``cuda:0`` are distinct devices to the rounds, so the ``cuda`` shards
+    add into their own rows, staged on the first device each round and
+    added by the update's kernel (or, with a reduce, before it); the mask
+    against the reference's rounds at caps 0, 3 and 512, with one partial
+    launch a shard and one update a round."""
+    from jepsen_tpu_torch.ops.scc import trim_rounds
+    from jepsen_tpu_torch.parallel import Mesh
+    first = torch.device("cuda", torch.cuda.current_device())
+    mesh = Mesh([first, cuda_device] * 2)
+    rng = np.random.default_rng(5)
+    n = 5000
+    src = rng.integers(0, n, 12_002).astype(np.int32)
+    dst = rng.integers(0, n, 12_002).astype(np.int32)
+    shards = _shards(src, dst, 4, cuda_device)
+    for cap in (0, 3, 512):
+        want, rounds = reference_rounds(n, src, dst, cap)
+        before = (sk.trim_partial_degrees.launches, sk.trim_update.launches)
+        seen = []
+        got = trim_rounds(mesh, n, *shards, max_iters=cap,
+                          reduce=seen.append if reduce else None)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        assert (sk.trim_partial_degrees.launches - before[0],
+                sk.trim_update.launches - before[1]) == (4 * rounds, rounds)
+        assert len(seen) == (rounds if reduce else 0)
