@@ -139,7 +139,25 @@ just before it and read just after:
   this script with ``--distributed-worker``): ``batch_check_distributed``
   on config 3 and ``trim_to_cycles_distributed`` on the 50k-txn edges,
   equal to one process's results. Every row of the ``kernels`` line
-  gains ``launches_mesh``; a ``total`` line after it gives the script's
+  gains ``launches_mesh``.
+* the run's shared history IR and live checking (phase 16): the
+  headline checked twice on one test map (one encode and no column
+  build; the second check reads the IR's stream) against
+  ``ir_enabled: False`` (``history_ir_shared``), the IR's canonical columns on the card and on
+  ``Mesh([cuda:0] * 4)``, bit-equal to the host's, with a memo hit
+  (``device_columns``), config 3 through the IR's ``subhistories``, key
+  for key equal to the split path (``history_ir_config3``); then, from
+  WALs written in parts and tailed by ``journal.WalTailer``: the
+  headline and its corrupted copy in 10 polls through
+  ``live.LinearLiveSession(accelerator="gpu")`` (``live_register``: one
+  chunk-product and one combine launch a screened poll, the corrupted
+  copy localized once on the card and latched, every poll's verdict
+  the CPU twin's), config 3's corrupted copy in 4 polls through
+  ``MultiKeyLinearSession`` (``live_independent``, equal to the batch
+  check), the 50k-txn list-append histories in 5 polls through
+  ``ElleSession`` (``live_elle``: ``finalize`` equal to
+  ``list_append.check(accelerator="gpu")`` without ``builder``). Every row of the ``kernels`` line gains
+  ``launches_live``; a ``total`` line after it gives the script's
   seconds.
 
 Earlier phases keep their shapes.
@@ -3567,6 +3585,371 @@ def distributed_worker(job_path: str, rank: int) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# 16. the run's shared history IR, and live checking from a WAL
+# ---------------------------------------------------------------------------
+
+LIVE_POLLS = 10        # the headline tailed in 10 polls of 1,000 ops
+LIVE_IND_POLLS = 4     # config 3's corrupted copy
+LIVE_ELLE_POLLS = 5    # the 50k-txn list-append histories
+
+
+def wal_polls(history, n_polls: int, path):
+    """Appends ``history`` to a WAL at ``path`` in ``n_polls`` equal
+    parts, polling a ``WalTailer`` after each; yields each poll's ops."""
+    from jepsen_tpu_torch.journal import WalTailer
+    tailer = WalTailer(path)
+    size = -(-len(history) // n_polls)
+    with open(path, "w") as f:
+        for lo in range(0, len(history), size):
+            f.write("".join(json.dumps(op) + "\n"
+                            for op in history[lo:lo + size]))
+            f.flush()
+            yield tailer.poll()
+    if tailer.finalize() or tailer.torn_skipped:
+        raise AssertionError(f"{path}: the tailer left ops behind")
+
+
+def add_launches(total: dict, lc: dict) -> None:
+    for k, v in lc.items():
+        total[k] = total.get(k, 0) + v
+
+
+def live_session_run(sess, history, n_polls, path, total, twin=None):
+    """Drives ``sess`` through ``history`` tailed from a WAL in
+    ``n_polls`` polls: each poll's verdict, its host ms (ending in a
+    sync) and the launches it made (counts reset just before the
+    verdict and added to ``total``). ``twin``, a CPU session, takes the
+    same polls. Returns (the polls' rows, sess.finalize(), the twin's
+    verdicts and finalize or None)."""
+    import torch
+    rows, twin_v, seen = [], [], []
+    for ops in wal_polls(history, n_polls, path):
+        seen += ops
+        sess.add_many(ops)
+        reset_launches()
+        t0 = time.perf_counter()
+        v = sess.verdict()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        lc = read_launches()
+        add_launches(total, lc)
+        rows.append({**{k: v.get(k) for k in (
+            "valid_so_far", "first_anomaly_op", "backend", "checked_ops",
+            "anomaly_types")}, "ops": len(ops), "verdict_ms": ms,
+                     "launches": {k: n for k, n in lc.items() if n}})
+        if twin is not None:
+            twin.add_many(ops)
+            twin_v.append(twin.verdict())
+    if seen != history:
+        raise AssertionError(f"{path}: the WAL's ops differ from the "
+                             f"history written")
+    reset_launches()
+    t0 = time.perf_counter()
+    final = sess.finalize()
+    torch.cuda.synchronize()
+    rows.append({"finalize_ms": (time.perf_counter() - t0) * 1e3})
+    add_launches(total, read_launches())
+    return rows, final, (twin_v, twin.finalize()) if twin else None
+
+
+def live_phases(name, smi, history, bad, twin_bad) -> dict:
+    """Phase 16: the run's shared history IR (``history_ir.of``) and live
+    checking from a WAL (``jepsen_tpu_torch.live``) on the card. Returns
+    each kernel's launches in the live sessions' polls and finalizes."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from jepsen_tpu_torch import history_ir, independent
+    from jepsen_tpu_torch.checker import linear_encode
+    from jepsen_tpu_torch.checker import linearizable as lin_mod
+    from jepsen_tpu_torch.elle import list_append
+    from jepsen_tpu_torch.histories import (corrupt_keys, elle_history,
+                                            independent_register_history)
+    from jepsen_tpu_torch.history_ir import DeviceHistory, views
+    from jepsen_tpu_torch.history_ir.ir import CANONICAL_COLUMNS
+    from jepsen_tpu_torch.live import (ElleSession, LinearLiveSession,
+                                       MultiKeyLinearSession)
+    from jepsen_tpu_torch.parallel import Mesh
+    phase_t0 = time.perf_counter()
+    chk = lin_mod.linearizable(accelerator="gpu")
+    common = {"card": name, "power": smi}
+
+    # 16a. two checks on one test map: the first builds none of the IR's
+    # columns, the second pays no encode; the same checks with
+    # ir_enabled: False encode each time
+    real_encode = linear_encode.encode_register_ops
+    encodes = []
+
+    def counted(*a, **k):
+        encodes.append(1)
+        return real_encode(*a, **k)
+    parts = {k: [] for k in ("first_check", "second_check", "off_check",
+                             "ir_build", "stream_view", "plain_encode")}
+    for _ in range(5):
+        test = {}
+        encodes.clear()
+        linear_encode.encode_register_ops = counted
+        lin_mod.encode_register_ops = counted
+        try:
+            t0 = time.perf_counter()
+            r1 = chk.check(test, history, {})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r2 = chk.check(test, history, {})
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            n_shared = len(encodes)
+            r3 = chk.check({"ir_enabled": False}, history, {})
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            n_off = len(encodes) - n_shared
+        finally:
+            linear_encode.encode_register_ops = real_encode
+            lin_mod.encode_register_ops = real_encode
+        if not r1 == r2 == r3 or r1["valid?"] is not True \
+                or r1["algorithm"] != "torch-matrix":
+            raise AssertionError(f"history_ir_shared: {r1}, {r2}, {r3}")
+        if (n_shared, n_off) != (1, 1):
+            raise AssertionError(f"history_ir_shared: {n_shared} encodes "
+                                 f"on one test map, {n_off} without the IR")
+        if test["_history_ir"].columns_built():
+            raise AssertionError("history_ir_shared: a check built the "
+                                 "IR's columns")
+        t4 = time.perf_counter()
+        dh = DeviceHistory.from_ops(history)
+        t5 = time.perf_counter()
+        views.register_stream(dh)
+        t6 = time.perf_counter()
+        real_encode(history)
+        t7 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t5 - t4,
+                                 t6 - t5, t7 - t6)):
+            parts[k].append(dt)
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    emit({"phase": "history_ir_shared", "ops": N_OPS,
+          "encodes_on_one_map": 1, "column_builds_in_checks": 0,
+          "results_equal": True, "median_s": med,
+          "first_over_off": med["first_check"] / med["off_check"],
+          "s": parts, **common})
+
+    # 16b. the headline IR's canonical columns on the card and on a mesh
+    # of four entries of it
+    ir = history_ir.of({}, history)
+    host = {k: torch.from_numpy(getattr(ir, k)) for k in CANONICAL_COLUMNS}
+    n = len(ir)
+    placements, placed = {}, []
+    for case, mesh in (("cuda", None),
+                       ("mesh4", Mesh([torch.device("cuda", 0)] * 4))):
+        t0 = time.perf_counter()
+        cols, n_real = (ir.device_columns() if mesh is None
+                        else ir.device_columns(mesh=mesh))
+        torch.cuda.synchronize()
+        place_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        again = (ir.device_columns() if mesh is None
+                 else ir.device_columns(mesh=mesh))[0]
+        memo_ms = (time.perf_counter() - t0) * 1e3
+        if again is not cols or n_real != n:
+            raise AssertionError(f"device_columns {case}: no memo hit")
+        for k in CANONICAL_COLUMNS:
+            if mesh is None:
+                got, on = cols[k].cpu(), {cols[k].device.type}
+            else:
+                got = torch.cat([t.cpu() for t in cols[k]])
+                on = {t.device.type for t in cols[k]}
+                pad = (-1 if k in ("processes", "completion_of",
+                                   "invocation_of") else 0)
+                if len(cols[k]) != 4 or len(got) % 4 \
+                        or not bool((got[n:] == pad).all()):
+                    raise AssertionError(f"device_columns {case}: {k}'s "
+                                         f"shards or padding")
+                got = got[:n]
+            if on != {"cuda"} or not torch.equal(got, host[k]):
+                raise AssertionError(f"device_columns {case}: {k} differs "
+                                     f"from the host column")
+        placements[case] = {"place_ms": place_ms, "memo_ms": memo_ms,
+                            "bit_equal": True, "memo_hit": True}
+        placed.append(cols)
+    other = ir.device_columns(mesh=Mesh(["cuda:0", "cuda"] * 2))[0]
+    if any(other is cols for cols in placed):
+        raise AssertionError("device_columns: a mesh over other device "
+                             "names shared a placement")
+    emit({"phase": "device_columns", "rows": n, "columns":
+          len(CANONICAL_COLUMNS), "placements": placements, **common})
+
+    # 16c. config 3 through the IR's subhistories, key for key equal to
+    # the split path
+    h3 = (LIVE_RUNS["config3"][0] if "config3" in LIVE_RUNS
+          else independent_register_history(IND_KEYS, IND_OPS))
+    ind = independent.checker(chk)
+    times = {"ir_check": [], "off_check": [], "ir_build": [],
+             "subhistories": [], "split_history": []}
+    for _ in range(3):
+        test = {}
+        t0 = time.perf_counter()
+        got = ind.check(test, h3, {})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = ind.check({"ir_enabled": False}, h3, {})
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        same_map("history_ir_config3", got, want)
+        if ("subhistories",) not in test["_history_ir"].view_keys() \
+                or test["_history_ir"].columns_built():
+            raise AssertionError("history_ir_config3: no subhistories "
+                                 "view, or the check built the columns")
+        dh = DeviceHistory.from_ops(h3)
+        t3 = time.perf_counter()
+        keys, subs = views.subhistories(dh)
+        t4 = time.perf_counter()
+        keys2, subs2 = independent.split_history(h3)
+        t5 = time.perf_counter()
+        if keys != keys2 or subs != subs2:
+            raise AssertionError("history_ir_config3: the views' split "
+                                 "differs from split_history")
+        for k, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                 t5 - t4)):
+            times[k].append(dt)
+    emit({"phase": "history_ir_config3", "keys": IND_KEYS, "ops_a_key":
+          IND_OPS, "valid": got["valid?"], "equal_key_for_key": True,
+          "median_s": {k: statistics.median(v) for k, v in times.items()},
+          **common})
+
+    launches_live: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 16d. the headline and its corrupted copy tailed from a WAL in
+        # 10 polls through the live register session on the card; the
+        # copy also through its CPU twin, poll for poll
+        failed = int(twin_bad.failed_op_index)
+        for copy, hh in (("valid", history), ("corrupted", bad)):
+            t0 = time.perf_counter()
+            total: dict = {}
+            twin = (LinearLiveSession(accelerator="cpu")
+                    if copy == "corrupted" else None)
+            rows, final, tw = live_session_run(
+                LinearLiveSession(accelerator="gpu"), hh, LIVE_POLLS,
+                tmp / f"register_{copy}.wal.jsonl", total, twin)
+            wall_s = time.perf_counter() - t0
+            add_launches(launches_live, total)
+            polls = rows[:-1]
+            latched = False
+            for i, r in enumerate(polls):
+                if copy == "valid" or r["checked_ops"] <= failed:
+                    want = (True, None)
+                else:
+                    want = (False, failed)
+                if (r["valid_so_far"], r["first_anomaly_op"]) != want or (
+                        tw and (r["valid_so_far"], r["first_anomaly_op"]) !=
+                        (tw[0][i]["valid_so_far"],
+                         tw[0][i]["first_anomaly_op"])):
+                    raise AssertionError(f"live_register {copy} poll {i}: "
+                                         f"{r} against {want}")
+                lc = r["launches"]
+                if r["backend"] == "torch-matrix" and not latched:
+                    # one chunk product and one combine a screen; the
+                    # poll that latches localizes: one more chunk
+                    # product and each forensics kernel once
+                    latched = r["valid_so_far"] is False
+                    want_lc = {"chunk_product": 1 + latched,
+                               "combine_product": 1}
+                    if latched:
+                        want_lc.update(prefix_alive=1, window_rescan=1)
+                    if lc != want_lc:
+                        raise AssertionError(f"live_register {copy} poll "
+                                             f"{i} launched {lc}, not "
+                                             f"{want_lc}")
+                elif lc:
+                    raise AssertionError(f"live_register {copy} poll {i} "
+                                         f"({r['backend']}) launched {lc}")
+            if not any(r["backend"] == "torch-matrix" for r in polls):
+                raise AssertionError(f"live_register {copy}: no poll was "
+                                     f"screened on the card")
+            want_forensics = 1 if copy == "corrupted" else 0
+            if (total.get("prefix_alive", 0),
+                    total.get("window_rescan", 0)) != (want_forensics,) * 2:
+                raise AssertionError(f"live_register {copy}: forensics "
+                                     f"launches {total}")
+            if final["valid?"] is not (copy == "valid") or (
+                    copy == "corrupted"
+                    and (final.get("failed-op-index") != failed
+                         or final != tw[1])):
+                raise AssertionError(f"live_register {copy}: {final}")
+            emit({"phase": "live_register", "copy": copy, "ops": N_OPS,
+                  "polls": polls, "finalize_ms": rows[-1]["finalize_ms"],
+                  "final": final, "twin_failed_op": failed
+                  if copy == "corrupted" else None, "launches": total,
+                  "median_screen_ms": statistics.median(
+                      [r["verdict_ms"] for r in polls
+                       if r["backend"] == "torch-matrix"]),
+                  "wall_s": wall_s, **common})
+
+        # 16e. config 3's corrupted copy through the multi-key session
+        h3bad = corrupt_keys(h3, IND_BAD)
+        t0 = time.perf_counter()
+        total = {}
+        rows, final, _ = live_session_run(
+            MultiKeyLinearSession(accelerator="gpu"), h3bad, LIVE_IND_POLLS,
+            tmp / "independent.wal.jsonl", total)
+        wall_s = time.perf_counter() - t0
+        add_launches(launches_live, total)
+        batch = ind.check({}, h3bad, {})
+        want_fail = sorted(str(k) for k in IND_BAD)
+        if final["failures"] != batch["failures"] \
+                or sorted(final["failures"]) != want_fail:
+            raise AssertionError(f"live_independent: {final['failures']} "
+                                 f"against {batch['failures']}")
+        firsts = {}
+        for k in want_fail:
+            want_op = batch["results"][k].get("explain", {}).get(
+                "first-anomaly-op")
+            got_op = final["results"][k].get("failed-op-index")
+            if want_op is not None and got_op != want_op:
+                raise AssertionError(f"live_independent key {k}: failed op "
+                                     f"{got_op} against {want_op}")
+            firsts[k] = got_op
+        emit({"phase": "live_independent", "keys": IND_KEYS, "ops_a_key":
+              IND_OPS, "polls": rows[:-1], "finalize_ms":
+              rows[-1]["finalize_ms"], "failures": final["failures"],
+              "failed_ops": firsts, "launches": total, "wall_s": wall_s,
+              **common})
+
+        # 16f. bench.py's 50k-txn list-append history, valid and with 50
+        # crossed pairs, through the Elle session; finalize equals the
+        # batch check without ``builder`` (and its read-scan-keys)
+        def core(r):
+            return {k: v for k, v in r.items()
+                    if k not in ("builder", "read-scan-keys")}
+        for copy, pairs in (("valid", 0), ("pairs", ELLE_PAIRS)):
+            hh = elle_history(ELLE_TXNS, crossed_pairs=pairs)
+            t0 = time.perf_counter()
+            total = {}
+            rows, final, _ = live_session_run(
+                ElleSession(accelerator="gpu"), hh, LIVE_ELLE_POLLS,
+                tmp / f"elle_{copy}.wal.jsonl", total)
+            wall_s = time.perf_counter() - t0
+            add_launches(launches_live, total)
+            t0 = time.perf_counter()
+            batch = list_append.check(hh, accelerator="gpu")
+            torch.cuda.synchronize()
+            batch_s = time.perf_counter() - t0
+            if core(final) != core(batch) \
+                    or final["valid?"] is not (pairs == 0):
+                raise AssertionError(f"live_elle {copy}: the session's map "
+                                     f"differs from list_append.check's")
+            emit({"phase": "live_elle", "copy": copy, "txns": ELLE_TXNS,
+                  "polls": rows[:-1], "finalize_ms":
+                  rows[-1]["finalize_ms"], "valid": final["valid?"],
+                  "anomaly_types": final.get("anomaly-types"),
+                  "launches": total, "batch_check_s": batch_s,
+                  "wall_s": wall_s, **common})
+    emit({"phase": "live_total", "seconds": time.perf_counter() - phase_t0,
+          "launches_live": launches_live})
+    return launches_live
+
+
 def nvidia_smi(query: str) -> str:
     """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
     return subprocess.run(
@@ -4165,6 +4548,13 @@ def main() -> int:
         row.update(launches_independent=0, launches_stored=0,
                    launches_mesh=meshed.get(row["name"], 0))
     kernels += trim_rows
+    # 16. the run's shared history IR and live checking: two checks on
+    # one test map, the IR's columns on the card, config 3's split, the
+    # live register, multi-key and Elle sessions tailing WALs; each row
+    # gains the live sessions' launches
+    live = live_phases(name, smi, history, bad, twin_bad)
+    for row in kernels:
+        row["launches_live"] = live.get(row["name"], 0)
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,

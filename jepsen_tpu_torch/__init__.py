@@ -10,7 +10,9 @@ or plain torch; the list-append graph build starts in a C parser
 (``native/columnar_ext.c``). A stored run (``store``, the ``history.npz``
 sidecar of ``history_ir``) is re-checked by
 ``elle.list_append.check_stored`` and
-``checker.linearizable.check_stored``. The package imports neither
+``checker.linearizable.check_stored``. A run's checkers share one
+encoding of its history (``history_ir.of``), and ``live`` checks a run
+while its write-ahead journal grows. The package imports neither
 ``jax`` nor ``jepsen_tpu``; what it needs from the host-only modules of
 the JAX package is copied here, each copy naming its origin.
 

@@ -131,9 +131,10 @@ class SetFullChecker(Checker):
 
     ``accelerator`` "gpu" or "auto" (the default) encodes the history as a
     reads x elements membership matrix (history_ir.views.set_full_columns,
-    times in float64) and classifies every element in one launch of the
-    set-classify kernel on ``device`` (None: the CUDA device; "cpu": its
-    plain version). "cpu" runs the reference's per-element walk, the
+    times in float64; the view ``set_membership`` of the run's shared IR
+    when ``history_ir.of`` gives one) and classifies every element in one
+    launch of the set-classify kernel on ``device`` (None: the CUDA
+    device; "cpu": its plain version). "cpu" runs the reference's per-element walk, the
     oracle. A device failure raises: there is no fallback to the walk.
     """
 
@@ -158,10 +159,15 @@ class SetFullChecker(Checker):
     # copied from jepsen_tpu/checker/__init__.py:265-309, on the port's
     # encode and kernel
     def _check_device(self, test, history, opts):
-        from jepsen_tpu_torch.history_ir.views import set_full_columns
+        from jepsen_tpu_torch import history_ir
+        from jepsen_tpu_torch.history_ir import views
         from jepsen_tpu_torch.ops import setscan
 
-        enc = set_full_columns(history)
+        # the membership encode is an IR view, memoized on the run's
+        # shared IR when the test map can carry one
+        ir = history_ir.of(test, history)
+        enc = (views.set_membership(ir) if ir is not None
+               else views.set_full_columns(history))
         if "error" in enc:
             return {"valid?": "unknown", "error": enc["error"]}
         member = enc["member"]

@@ -140,26 +140,38 @@ class LinearizableChecker(Checker):
         # rand-val)
         self.multi_shape = multi_shape
 
-    # copied from jepsen_tpu/checker/linearizable.py:74-117, without the
-    # history IR
-    def _encoding(self, history):
+    # copied from jepsen_tpu/checker/linearizable.py:74-117
+    def _encoding(self, history, ir=None):
         """(stream, step_py, spec) when the model has an int encoding,
-        else None (the object-model wgl search). A non-None initial
-        register value interns FIRST so its id is the initial state."""
+        else None (the object-model wgl search). With an ``ir`` (the
+        run's shared history IR) the stream is its memoized view, so a
+        second checker over the same history pays no encode (the same
+        stream either way). A non-None initial register value interns
+        FIRST so its id is the initial state."""
+        from jepsen_tpu_torch.history_ir import views
         if isinstance(self.model, CASRegister):
-            intern = Intern()
-            if self.model.value is not None:
-                intern.id(self.model.value)
-            stream = encode_register_ops(history, intern=intern)
+            if ir is not None:
+                stream = views.register_stream(ir,
+                                               init_value=self.model.value)
+            else:
+                intern = Intern()
+                if self.model.value is not None:
+                    intern.id(self.model.value)
+                stream = encode_register_ops(history, intern=intern)
             init_id = (0 if self.model.value is None
                        else stream.intern.id(self.model.value))
             return stream, cas_register_step_py, cas_register_spec(init_id)
         if isinstance(self.model, MultiRegister):
             k, v = self.multi_shape
-            try:
-                stream = encode_multi_register_ops(history, k, v)
-            except ValueError:
-                return None  # outside the packed encoding: wgl
+            if ir is not None:
+                stream = views.multi_register_stream(ir, k, v)
+                if stream is None:
+                    return None  # outside the packed encoding: wgl
+            else:
+                try:
+                    stream = encode_multi_register_ops(history, k, v)
+                except ValueError:
+                    return None  # outside the packed encoding: wgl
             return (stream, multi_register_step_py(k, v),
                     multi_register_spec(k, v))
         return None
@@ -169,9 +181,14 @@ class LinearizableChecker(Checker):
         accelerator = opts.get("accelerator", self.accelerator)
         if algorithm not in ALGORITHMS:
             raise ValueError(f"algorithm {algorithm!r} not in {ALGORITHMS}")
-        # copied from jepsen_tpu/checker/linearizable.py:149-165
+        # copied from jepsen_tpu/checker/linearizable.py:149-165: the
+        # encode goes through the run's shared history IR when the test
+        # map can carry one (history_ir.of memoizes on it)
         explain_on = enabled(test, opts)
-        enc = None if algorithm == "wgl" else self._encoding(history)
+        enc = None
+        if algorithm != "wgl":
+            from jepsen_tpu_torch import history_ir
+            enc = self._encoding(history, ir=history_ir.of(test, history))
         if enc is None:
             return self._finish(wgl(history, self.model), history)
         stream, step_py, spec = enc

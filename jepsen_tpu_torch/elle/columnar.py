@@ -56,20 +56,22 @@ _MAX_VAL = 1 << 32
 LAST_PHASE_SECONDS: dict = {}
 
 
-# copied from jepsen_tpu/elle/columnar.py:61-93, without the history-IR
-# ``parts`` hand-off
+# copied from jepsen_tpu/elle/columnar.py:61-93
 def check_columnar(history: list, consistency_models, accelerator: str,
-                   device=None):
+                   device=None, parts=None):
     """Full list-append check on the columnar fast path, or None when the
     history falls outside the integer regime (the caller takes the Python
-    builder). Device work runs on ``device`` (the CUDA device by
-    default)."""
+    builder). ``parts`` short-circuits the build with a precomputed
+    ``_build`` product (the history IR's ``views.elle_build``), so a run
+    that already encoded pays no build here. Device work runs on
+    ``device`` (the CUDA device by default)."""
     import time as _time
     t0 = _time.perf_counter()
-    try:
-        parts = _build(history)
-    except (TypeError, ValueError, OverflowError):
-        return None
+    if parts is None:
+        try:
+            parts = _build(history)
+        except (TypeError, ValueError, OverflowError):
+            return None
     if parts is None:
         return None
     graph, txns, extras, n_keys = parts

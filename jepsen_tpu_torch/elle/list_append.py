@@ -244,31 +244,37 @@ def check_stored(test_name: str, timestamp: str, store_dir: str = "store",
                  consistency_models=consistency_models, device=device)
 
 
-# copied from jepsen_tpu/elle/list_append.py:240-388, without the
-# history-IR ``ir`` argument
+# copied from jepsen_tpu/elle/list_append.py:240-388
 def check(history: list[dict], accelerator: str = "auto",
-          consistency_models=("strict-serializable",), device=None) -> dict:
+          consistency_models=("strict-serializable",), device=None,
+          ir=None) -> dict:
     # Production path: the vectorized columnar builder (elle.columnar)
     # covers integer-valued histories — the universal workload shape —
     # and feeds the φ-cluster cycle path. The cpu oracle keeps the
-    # Python builder below; the tests pin the two together.
+    # Python builder below; the tests pin the two together. With an
+    # ``ir`` (the run's shared history IR) the build product is the
+    # memoized elle_build view: encode once per run.
     if accelerator not in elle.ACCELERATORS:
         raise ValueError(f"accelerator {accelerator!r} not in "
                          f"{elle.ACCELERATORS}")
     if accelerator != "cpu":
         from jepsen_tpu_torch.elle import columnar
-        r = columnar.check_columnar(history, consistency_models,
-                                    accelerator, device=device)
+        parts = None
+        if ir is not None:
+            from jepsen_tpu_torch.history_ir import views
+            parts = views.elle_build(ir)
+        r = (columnar.check_columnar(history, consistency_models,
+                                     accelerator, device=device,
+                                     parts=parts)
+             if parts is not None or ir is None else None)
         if r is not None:
             return r
     # ok txns participate in the graph; failed txns matter for G1a;
     # info (indeterminate) txns' writes may be observed — treated like ok
     # when they are (elle does the same: info writes that appear are real)
-    oks = [op for op in history if op.get("type") == "ok"
-           and isinstance(op.get("process"), int)]
-    fails = [op for op in history if op.get("type") == "fail"]
-    infos = [op for op in history if op.get("type") == "info"
-             and isinstance(op.get("process"), int)]
+    from jepsen_tpu_torch.history_ir import views
+    oks, fails, infos = (views.txn_nodes(ir) if ir is not None
+                         else views.txn_split(history))
 
     txns = oks + infos  # graph nodes; info txns included if observed
     n = len(txns)

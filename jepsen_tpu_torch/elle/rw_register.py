@@ -36,21 +36,20 @@ from jepsen_tpu_torch.ops.scc import tarjan_scc
 from jepsen_tpu_torch.txn import _hk, int_write_mops
 
 
-# copied from jepsen_tpu/elle/rw_register.py:38-179, without the
-# history-IR ``ir`` argument
+# copied from jepsen_tpu/elle/rw_register.py:38-179
 def check(history: list[dict], accelerator: str = "auto",
-          consistency_models=("strict-serializable",), device=None) -> dict:
+          consistency_models=("strict-serializable",), device=None,
+          ir=None) -> dict:
     """The rw-register check. ``accelerator`` is "gpu", "cpu" or "auto"
     as for the list-append check; device work runs on ``device`` (the
-    CUDA device by default)."""
+    CUDA device by default). With an ``ir`` (the run's shared history
+    IR) the ok/fail/info split is its memoized ``txn_nodes`` view."""
     if accelerator not in elle.ACCELERATORS:
         raise ValueError(f"accelerator {accelerator!r} not in "
                          f"{elle.ACCELERATORS}")
-    oks = [op for op in history if op.get("type") == "ok"
-           and isinstance(op.get("process"), int)]
-    fails = [op for op in history if op.get("type") == "fail"]
-    infos = [op for op in history if op.get("type") == "info"
-             and isinstance(op.get("process"), int)]
+    from jepsen_tpu_torch.history_ir import views
+    oks, fails, infos = (views.txn_nodes(ir) if ir is not None
+                         else views.txn_split(history))
     txns = oks + infos
     n = len(txns)
 

@@ -1,10 +1,23 @@
-"""Checker views over the history IR (jepsen_tpu/history_ir/views.py).
+"""Checker views over the history IR (jepsen_tpu/history_ir/views.py):
+encode once, consume everywhere.
 
-The memoized views of a :class:`~jepsen_tpu_torch.history_ir.ir
-.DeviceHistory` — :func:`register_stream` and :func:`elle_columns` — are
-what the ``history.npz`` sidecar persists and the stored re-checks read
-back. The set-full
-checker's membership columns are a plain function of a history.
+Every checker's encoding is a view derived from one
+:class:`~jepsen_tpu_torch.history_ir.ir.DeviceHistory` and memoized on it
+(``dh.view``), so the checkers of one run (``history_ir.of``) pay each
+encode once:
+
+* :func:`register_stream` / :func:`multi_register_stream` — the
+  linearizability EventStream (``checker.linear_encode``'s encoders);
+* :func:`elle_build` / :func:`elle_columns` — the list-append build
+  product and its storable columns (``elle.columnar``);
+* :func:`txn_nodes` — the ok/fail/info split (:func:`txn_split`) the
+  Python Elle builders start from;
+* :func:`set_membership` — :func:`set_full_columns`, the set-full
+  membership matrix the set-classify kernel reads;
+* :func:`subhistories` — the per-key split of the independent checker.
+
+:func:`register_stream` and :func:`elle_columns` are also what the
+``history.npz`` sidecar persists and the stored re-checks read back.
 
 One deliberate change from the reference in :func:`set_full_columns`:
 the times come back as float64. Jepsen records times in nanoseconds since
@@ -46,6 +59,38 @@ def register_stream(dh: DeviceHistory, init_value=None):
     return dh.view(("register-stream", _key_of(init_value)), build)
 
 
+# copied from jepsen_tpu/history_ir/views.py:246-259, over the port's
+# checker/linear_encode.encode_multi_register_ops
+def multi_register_stream(dh: DeviceHistory, n_keys: int, n_values: int):
+    """The memoized multi-register EventStream view, or None when the
+    history falls outside the packed encoding (the checker then runs
+    ``wgl``)."""
+    from jepsen_tpu_torch.checker.linear_encode import (
+        encode_multi_register_ops)
+
+    def build():
+        try:
+            return encode_multi_register_ops(dh.ops, n_keys, n_values)
+        except ValueError:
+            return None
+    return dh.view(("multi-register-stream", n_keys, n_values), build)
+
+
+# copied from jepsen_tpu/history_ir/views.py:262-272, over the port's
+# elle.columnar._build
+def elle_build(dh: DeviceHistory):
+    """The memoized Elle dependency-graph build product
+    ((graph, txns, extras, n_keys) — ``elle.columnar._build``), or None
+    when the history is outside the integer columnar regime."""
+    def build():
+        from jepsen_tpu_torch.elle import columnar
+        try:
+            return columnar._build(dh.ops)
+        except (TypeError, ValueError, OverflowError):
+            return None
+    return dh.view(("elle-build",), build)
+
+
 # copied from jepsen_tpu/history_ir/views.py:275-281
 def elle_columns(dh: DeviceHistory):
     """The memoized storable Elle builder columns
@@ -54,6 +99,40 @@ def elle_columns(dh: DeviceHistory):
         from jepsen_tpu_torch.elle import columnar
         return columnar.parse_columns(dh.ops)
     return dh.view(("elle-columns",), build)
+
+
+def txn_split(history) -> tuple[list, list, list]:
+    """(oks, fails, infos): the ok and info ops of an int process, and
+    every failed op, in history order — one pass over the ops."""
+    oks = [op for op in history if op.get("type") == "ok"
+           and isinstance(op.get("process"), int)]
+    fails = [op for op in history if op.get("type") == "fail"]
+    infos = [op for op in history if op.get("type") == "info"
+             and isinstance(op.get("process"), int)]
+    return oks, fails, infos
+
+
+# copied from jepsen_tpu/history_ir/views.py:284-298, through the type
+# masks when the columns are built
+def txn_nodes(dh: DeviceHistory) -> tuple[list, list, list]:
+    """The memoized :func:`txn_split` every elle-style checker starts
+    from (list-append's Python builder, rw-register). The type masks
+    pick the ops when the IR's columns are already built; otherwise the
+    one pass over the ops, which costs less than building them."""
+    def build():
+        if not dh.columns_built():
+            return txn_split(dh.ops)
+        ops = dh.ops
+
+        def pick(mask, typ, int_process):
+            return [ops[i] for i in np.flatnonzero(mask).tolist()
+                    if ops[i].get("type") == typ
+                    and (not int_process
+                         or isinstance(ops[i].get("process"), int))]
+        # an unknown type codes as info: the type test keeps it out
+        return (pick(dh.is_ok, "ok", True), pick(dh.is_fail, "fail", False),
+                pick(dh.is_info, "info", True))
+    return dh.view(("txn-nodes",), build)
 
 
 # copied from jepsen_tpu/history_ir/views.py:302-454, times in float64
@@ -204,3 +283,21 @@ def set_full_columns(history) -> dict:
         "has_ok": np.array(has_ok, dtype=bool),
         "els": [intern.value(j + 1) for j in range(E)],
     }
+
+
+# copied from jepsen_tpu/history_ir/views.py:457-459
+def set_membership(dh: DeviceHistory) -> dict:
+    """The memoized set-full membership view."""
+    return dh.view(("set-full",), lambda: set_full_columns(dh.ops))
+
+
+# copied from jepsen_tpu/history_ir/views.py:467-477, through
+# independent.split_history (one pass over the history)
+def subhistories(dh: DeviceHistory) -> tuple[list, dict]:
+    """The memoized ``(keys, {frozen_key: sub_history})`` split the
+    independent checker fans out over — computed once per run even when
+    several composed checkers lift the same history."""
+    def build():
+        from jepsen_tpu_torch import independent
+        return independent.split_history(dh.ops)
+    return dh.view(("subhistories",), build)

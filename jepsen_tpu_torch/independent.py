@@ -30,10 +30,15 @@ world of more than one process, the invalid keys localize through
 ``parallel.distributed.localize_keys_distributed`` (each process its
 slice; no witness), as in the reference.
 
-Not ported: the forensics' artifacts under ``independent/<k>``, the
-history-IR split, and the key-lifting generators. An error in the
-batched lane propagates; the reference catches it and checks key by key
-instead.
+The key split is the ``subhistories`` view of the run's shared history
+IR (``history_ir.of``) when the test map can carry one. Every per-key
+check, and the batched lane's other checkers of a Compose, see the test
+map with ``ir_enabled: False``, so no sub-history's IR evicts the run's
+(the reference passes that map to the per-key checks only).
+
+Not ported: the forensics' artifacts under ``independent/<k>`` and the
+key-lifting generators. An error in the batched lane propagates; the
+reference catches it and checks key by key instead.
 """
 from __future__ import annotations
 
@@ -155,15 +160,31 @@ class IndependentChecker(Checker):
                     filter(None, [d, "independent", str(k)])),
                 "history-key": k}
 
+    # copied from jepsen_tpu/independent.py:305-345
     def check(self, test, history, opts):
-        keys, subs = split_history(history)
+        # the per-key split rides the run's shared history IR when the
+        # test map can carry one (the memoized subhistories view):
+        # composed lifted checkers split the history once
+        from jepsen_tpu_torch import history_ir
+        ir = history_ir.of(test, history)
+        if ir is not None:
+            from jepsen_tpu_torch.history_ir import views
+            keys, subs = views.subhistories(ir)
+        else:
+            keys, subs = split_history(history)
         if not keys:
             return {"valid?": True, "results": {}, "count": 0}
-        results = self._try_batched(test, subs, opts)
+        # per-key sub-checks get ir_enabled: False — a sub-history is not
+        # the run's history, so attaching its IR would evict the run's
+        # ``_history_ir``; the per-key encode is what these small checks
+        # should pay
+        sub_test = ({**test, "ir_enabled": False}
+                    if isinstance(test, dict) else test)
+        results = self._try_batched(sub_test, subs, opts)
         if results is None:
             pairs = list(subs.items())
             rs = bounded_pmap(
-                lambda kv: check_safe(self.checker, test, kv[1],
+                lambda kv: check_safe(self.checker, sub_test, kv[1],
                                       self._key_opts(opts, kv[0])), pairs)
             results = {k: r for (k, _), r in zip(pairs, rs)}
         valid = merge_valid(r.get("valid?") for r in results.values())

@@ -99,20 +99,25 @@ def first_client_f(history) -> str | None:
          and op.get("f") is not None), None)
 
 
-# copied from jepsen_tpu/store.py:161-179, building the IR here: the
-# port's checkers share no IR through the test map yet
+# copied from jepsen_tpu/store.py:161-179
 def write_columnar(test: dict) -> None:
     """history.npz: the serialized history IR, checker-ready. The
     sidecar holds the canonical packed columns and the value intern
     table, plus the derived view products — ``elle_*`` Elle builder
     columns and ``lin_*`` register EventStream — so later re-checks run
-    straight off arrays with no PyObject parse."""
-    from jepsen_tpu_torch.history_ir import DeviceHistory, sidecar
+    straight off arrays with no PyObject parse. The IR is the run's
+    shared one (``history_ir.of``): a view its checkers already built
+    (the register stream) is not built again, and its columns are built
+    here on their first access."""
+    from jepsen_tpu_torch import history_ir
+    from jepsen_tpu_torch.history_ir import sidecar
     history = test.get("history") or []
     if not history:
         return
-    sidecar.save(path_mk(test, "history.npz"),
-                 DeviceHistory.from_ops(history))
+    dh = history_ir.of(test, history)
+    if dh is None:  # ir_enabled: False still persists a sidecar
+        dh = history_ir.DeviceHistory.from_ops(history)
+    sidecar.save(path_mk(test, "history.npz"), dh)
 
 
 # copied from jepsen_tpu/store.py:182-192

@@ -47,7 +47,8 @@ def test_port_sources_exist():
             "distributed.py", "utils.py", "setscan.py", "views.py", "explain.py",
             "forensics_kernels.py", "checkpoint.py", "store.py",
             "codec.py", "journal.py", "ir.py", "sidecar.py",
-            "columnar_c.py"} <= names
+            "columnar_c.py", "builder.py", "sessions.py"} <= names
+    assert (ROOT / "jepsen_tpu_torch/live/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/parallel/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/wgl.cpp").exists()
@@ -210,6 +211,46 @@ with tempfile.TemporaryDirectory() as d:
             stored = (out.get("builder") == "columnar-store"
                       or out.get("algorithm", "").endswith("(stored)"))
             assert stored is valid, out
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+print("LEAKED", leaked)
+"""
+    out = _leaked_modules(code)
+    assert "LEAKED []" in out, out
+
+
+def test_live_sessions_load_neither_jax_nor_reference():
+    """A WAL tailed into the live register session, whose screen runs
+    the plain kernels on the CPU, and the batch check of the same ops
+    through the run's shared IR."""
+    code = """
+import json, sys, tempfile
+from pathlib import Path
+import torch
+torch.set_num_threads(1)  # small ops: one thread beside the other workers
+from jepsen_tpu_torch import history_ir
+from jepsen_tpu_torch.checker.linearizable import linearizable
+from jepsen_tpu_torch.histories import corrupt_reads, register_history
+from jepsen_tpu_torch.journal import WalTailer
+from jepsen_tpu_torch.live import session_for_ops
+from jepsen_tpu_torch.ops import jitlin
+jitlin.MATRIX_MIN_RETURNS = 10
+h = corrupt_reads(register_history(300, n_procs=3, seed=2, n_values=4),
+                  n=1, seed=1)
+with tempfile.TemporaryDirectory() as d:
+    wal = Path(d) / "history.wal.jsonl"
+    wal.write_text("".join(json.dumps(op) + "\\n" for op in h))
+    ops = WalTailer(wal).poll()
+    sess = session_for_ops(ops, accelerator="gpu", device="cpu")
+    sess.add_many(ops)
+    v = sess.verdict()
+    assert v["backend"] == "torch-matrix" and v["valid_so_far"] is False, v
+    test = {}
+    out = linearizable(accelerator="gpu", device="cpu").check(
+        test, ops, {"explain": False})
+    assert out["valid?"] is False, out
+    assert history_ir.of(test, ops) is test["_history_ir"]
+    assert test["_history_ir"].ops is ops
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("LEAKED", leaked)
