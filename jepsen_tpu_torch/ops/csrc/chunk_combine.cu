@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -255,8 +257,7 @@ cudaError_t launch_level(bool final, unsigned grid, size_t smem,
   auto kernel = final ? tree_level_kernel<true, VW>
                       : tree_level_kernel<false, VW>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = allow_smem((const void*)kernel, smem);
     if (err != cudaSuccess) return err;
   }
   kernel<<<grid, kThreads, smem, st>>>(src, dst, out, n_in, n_out, MV, R,

@@ -69,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -328,9 +330,8 @@ int launch(const void* pmask, const void* sv, const void* ids,
        2 * kStage + kBinomN * kBinomN) *
           sizeof(uint32_t) +
       ((size_t)kStage << S);
-  cudaError_t err = cudaFuncSetAttribute(
-      chunk_product_kernel<LOGV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err =
+      allow_smem((const void*)chunk_product_kernel<LOGV>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(G, (W + kWords - 1) / kWords);
   chunk_product_kernel<LOGV><<<grid, kThreads, smem, stream>>>(

@@ -77,6 +77,7 @@
 #include <stdint.h>
 
 #include "frontier_model.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -513,8 +514,7 @@ int launch(const void* kind, const void* slot, const void* f, const void* a,
   const DenseKernel kernel = code == kMultiRegister
                                  ? pick_kernel<kMultiRegister>(rows, nib)
                                  : pick_kernel<kCas>(rows, nib);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)kind, (const int*)slot, (const int*)f, (const int*)a,

@@ -88,6 +88,7 @@
 #include <stdint.h>
 
 #include "frontier_model.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -679,8 +680,7 @@ int launch(const void* kind, const void* slot, const void* f, const void* a,
   const auto kernel = code == kMultiRegister
                           ? frontier_sparse_kernel<kMultiRegister>
                           : frontier_sparse_kernel<kCas>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)kind, (const int*)slot, (const int*)f, (const int*)a,

@@ -76,6 +76,7 @@
 #include <type_traits>
 
 #include "forensics.cuh"
+#include "smem_limit.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -507,23 +508,6 @@ chain_kernel(const ChainArgs a) {
       mbar_wait(full + i % a.stages, (uint32_t)((i / a.stages) & 1));
 }
 
-// Raises a chain kernel's dynamic shared-memory limit to the card's most,
-// once a kernel.
-cudaError_t raise_smem(void (*kern)(ChainArgs)) {
-  static void (*raised[16])(ChainArgs) = {};
-  int r = 0;
-  while (r < 16 && raised[r] && raised[r] != kern) ++r;
-  if (r < 16 && raised[r]) return cudaSuccess;
-  int dev = 0, most = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-  if (err == cudaSuccess && r < 16) raised[r] = kern;
-  return err;
-}
-
 // the cluster size that a launch takes at MV: the plan's, halved while
 // the card cannot hold one such cluster (kept a power of two)
 int cluster_at(int MV) {
@@ -538,7 +522,7 @@ int cluster_at(int MV) {
   for (; nc > 1; nc >>= 1) {
     const Plan p = plan_at(1 << 30, MV, nc);  // the most stages
     auto kern = p.stages ? chain_kernel<true> : chain_kernel<false>;
-    raise_smem(kern);
+    allow_smem((const void*)kern, p.smem);
     cudaFuncSetAttribute(kern,
                          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     cudaLaunchConfig_t cfg = {};
@@ -619,7 +603,7 @@ extern "C" int jt_prefix_alive(void* P, void* v0, void* alive, void* w,
     case 512: kern = warp_chain_kernel<512>; break;
     default: kern = p.stages ? chain_kernel<true> : chain_kernel<false>;
   }
-  err = raise_smem(kern);
+  err = allow_smem((const void*)kern, p.smem);
   if (err != cudaSuccess) return (int)err;
   // the warp design is launched while the pack runs (programmatic
   // dependent launch: its one small CTA takes one SM from the pack) and

@@ -1058,3 +1058,45 @@ def test_sparse_kernel_paths_match_plain_on_card(cuda_device, case):
         assert S >= 10 and bool(ref[2])
     if case == "overflow_k4":
         assert bool(ref[2])
+
+
+@pytest.mark.cuda
+def test_kernels_launch_from_threads_at_mixed_sizes(cuda_device):
+    """Both frontier kernels launched from eight threads at once, 160
+    launches a thread, each kernel at several shared-memory sizes (the
+    multi-register dense table at S = 5, 6 and 9, the CAS list at K = 4,
+    16 and 256), as the per-key checks of ``independent`` launch them:
+    every launch succeeds and equals the same launch made alone. A
+    launch that lowered a kernel's shared-memory limit to its own need
+    would fail another thread's larger launch in between."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jepsen_tpu_torch.models import multi_register_spec
+    from jepsen_tpu_torch.ops import frontier_kernels as fk
+    step = multi_register_spec(3, 5).step_ids
+    calls = []
+    for case in ("mr_cta_3x5_s5", "mr_cta_3x5_s9", "mr_cta_3x5_v512"):
+        S, V, (ev, _), _, _ = DENSE_PATH_CASES[case]()
+        ev = [torch.from_numpy(x).to(cuda_device) for x in ev]
+        t0 = torch.from_numpy(_init_table(S, V)).to(cuda_device)
+        calls.append(functools.partial(fk.frontier_dense, *ev, t0,
+                                       step_ids=step))
+    ev, S, _ = SPARSE_CASES[sorted(SPARSE_CASES)[0]]()
+    ev = [torch.from_numpy(x).to(cuda_device) for x in ev]
+    for K in (4, 16, 256):
+        m0, s0 = fk.init_frontier(K, 0, cuda_device)
+        calls.append(functools.partial(fk.frontier_sparse, *ev, m0, s0, S))
+    want = [[x.cpu() for x in call()] for call in calls]
+
+    def run(t):
+        out = []
+        for i in range(160):
+            j = (t + i) % len(calls)
+            out.append((j, [x.cpu() for x in calls[j]()]))
+        return out
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for out in pool.map(run, range(8)):
+            for j, got in out:
+                for x, y in zip(got, want[j]):
+                    assert torch.equal(x, y)
