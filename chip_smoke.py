@@ -52,7 +52,8 @@ just before it and read just after:
 * BASELINE config 3, ``independent.checker(linearizable(accelerator=
   "gpu"))``: 64 keys of 1k ops valid and with 8 keys corrupted (one
   key-batched dense launch), 16 fresh-value keys (one key-batched sparse
-  launch), 1,024 keys, and the native lane against the Python twin;
+  launch), 1,024 keys of 500 ops, and the native lane against the Python
+  twin;
 * BASELINE config 4, ``set_full(accelerator="gpu")`` on bench.py's
   20,000-element history with a read every 50 adds (400 reads): valid,
   with planted loss and staleness (``linearizable=True``: invalid), and
@@ -157,10 +158,31 @@ just before it and read just after:
   check), the 50k-txn list-append histories in 5 polls through
   ``ElleSession`` (``live_elle``: ``finalize`` equal to
   ``list_append.check(accelerator="gpu")`` without ``builder``). Every row of the ``kernels`` line gains
-  ``launches_live``; a ``total`` line after it gives the script's
+  ``launches_live``.
+* telemetry (phase 17): a live ``telemetry.Registry`` and a
+  ``trace.RunTracer`` (a Perfetto sink and a flight recorder in a
+  temporary store directory) on the headline check (null and live in
+  turns, medians of 5: the live registry's cost), its corrupted copy
+  with ``explain`` on, the long history's chain writing ``check.ckpt``
+  and the check resuming from it, and config 3's 64 keys; each result
+  map and each kernel's launches equal to the same check's with the null
+  registry; the registry's counts (``checker_backend_total``,
+  ``checker_resume_total{source="ckpt"}``,
+  ``checker_ckpt_writes_total``, ``explain_total``,
+  ``dispatch_batches_total``), the device memory high-water against the
+  card's memory, ``trace.json`` strict JSON with the ``segment``,
+  ``ckpt-write``, ``ckpt-resume``, ``explain`` and ``rung`` events, and a
+  ``telemetry.profiler_trace`` of one headline check naming the
+  chunk-product and combine kernels. The card's float32 matmul rate
+  (TF32 off) is published as the peak behind ``checker_roofline_frac``,
+  which models the reference's dense f32 products, not this port's
+  kernels, and can pass 1. Every row of the ``kernels`` line gains
+  ``launches_telemetry``; a ``total`` line after it gives the script's
   seconds.
 
-Earlier phases keep their shapes.
+Earlier phases keep their shapes, but for phase 9's 1,024 keys (500 ops
+a key, half of bench.py's depth).
+Every phase's line carries ``t_s``, the script's seconds so far.
 
 Prints one JSON line per phase, then a ``kernels`` line, the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -190,6 +212,10 @@ PEAK_BYTES = 3.35e12
 
 
 def emit(obj) -> None:
+    """Prints ``obj`` as one JSON line; a phase's line gains ``t_s``, the
+    script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1021,6 +1047,13 @@ def elle_phases(name, smi) -> list:
 # states (1k ops give about 450), so the batch takes the sparse list.
 IND_KEYS, IND_OPS, IND_BIG = 64, 1000, 1024
 IND_BAD = tuple(range(3, 64, 8))
+# the 1,024 keys run at half of bench.py's depth (500 ops a key), to keep
+# the whole script in its time. The fresh-value keys keep theirs: at 1,300
+# ops a key holds 555-601 states, past the dense table's 512, and 1,100
+# ops would leave some below it (470-506); and the plain batched scan,
+# most of their time, walks the longest key, so fewer keys save little
+# (8 keys: 30.2 s against 32.0 s for 16, on two H100 hosts)
+IND_BIG_OPS = 500
 IND_SPARSE_KEYS, IND_SPARSE_OPS, IND_SPARSE_BAD = 16, 1300, (1, 6, 11, 13)
 
 
@@ -1192,8 +1225,8 @@ def independent_phases(name, smi):
     """BASELINE config 3 on the card through
     ``independent.checker(linearizable(accelerator="gpu"))``: 64 keys
     valid and with 8 keys corrupted, 16 fresh-value keys (the sparse
-    list), 1,024 keys (eight matrix sub-batches of 128), and the native
-    lane against the Python twin. Returns the two batched entries'
+    list), 1,024 keys of 500 ops (eight matrix sub-batches of 128), and
+    the native lane against the Python twin. Returns the two batched entries'
     kernels-line rows and each kernel's launches in one valid 64-key
     check."""
     import numpy as np
@@ -1352,7 +1385,7 @@ def independent_phases(name, smi):
 
     # 9d. 1,024 keys (bench.py's scaling point): eight matrix sub-batches
     # of 128, against the native lane
-    hk = independent_register_history(IND_BIG, IND_OPS)
+    hk = independent_register_history(IND_BIG, IND_BIG_OPS)
     t0 = time.perf_counter()
     _, streams_k = streams_of(hk)
     prep_s = time.perf_counter() - t0
@@ -1376,16 +1409,18 @@ def independent_phases(name, smi):
     if full["valid?"] is not True or full["count"] != IND_BIG:
         raise AssertionError("independent_1024: the check failed")
     emit({"phase": "independent_1024", "keys": IND_BIG,
-          "ops": IND_BIG * IND_OPS, "split_and_encode_s": prep_s,
+          "ops": IND_BIG * IND_BIG_OPS, "ops_per_key": IND_BIG_OPS,
+          "split_and_encode_s": prep_s,
           "gpu_batch_check_s": gpu_s,
           "median_gpu_batch_check_s": statistics.median(gpu_s),
-          "gpu_ops_per_sec": IND_BIG * IND_OPS / statistics.median(gpu_s),
+          "gpu_ops_per_sec": IND_BIG * IND_BIG_OPS
+          / statistics.median(gpu_s),
           "native_lane_s": cpu_s,
-          "native_lane_ops_per_sec": IND_BIG * IND_OPS / min(cpu_s),
+          "native_lane_ops_per_sec": IND_BIG * IND_BIG_OPS / min(cpu_s),
           "matrix_sub_batch_phases_s": sub_k,
           "launches_per_batch_check": {k: v / 3 for k, v in lk.items()},
           "full_check_s": full_s,
-          "full_check_ops_per_sec": IND_BIG * IND_OPS / full_s,
+          "full_check_ops_per_sec": IND_BIG * IND_BIG_OPS / full_s,
           "card": name, "power": smi})
 
     # 9e. the native lane against the Python twin, key by key
@@ -2766,9 +2801,10 @@ def segmented_phases(name, smi) -> dict:
 #: phase 8), config 3's valid history, its map and the corrupted copy's
 #: streams (``config3``) and the 1,024 keys' streams and results
 #: (``config3_1024``, phase 9), and the long history's encoded stream
-#: (``long_stream``, phase 12). Phase 13 makes its other histories itself:
-#: with phase 8's 50k-txn Elle histories kept until then, phases 9 and 10
-#: ran 7-8 s slower in two runs on an H100 host
+#: (``long_stream``, phase 12). Phase 17 takes the long history, its
+#: stream and config 3's valid history last. Phase 13 makes its other
+#: histories itself: with phase 8's 50k-txn Elle histories kept until
+#: then, phases 9 and 10 ran 7-8 s slower in two runs on an H100 host
 LIVE_RUNS: dict = {}
 
 # the launches each stored re-check must show (at least): the register
@@ -2907,7 +2943,7 @@ def stored_phases(name, smi) -> dict:
         chk = linearizable(accelerator="gpu")
         check_s, res = timed(lambda: chk.check({}, h, {}), 3)
         LIVE_RUNS["long"] = (h, res, check_s)
-    long_h, long_res, long_s = LIVE_RUNS.pop("long")
+    long_h, long_res, long_s = LIVE_RUNS["long"]
     h_valid = elle_history(ELLE_TXNS)
     cases = [
         ("headline", "register", headline, True, 5, None),
@@ -3238,7 +3274,7 @@ def mesh_phases(name, smi, history, bad, stream, bad_stream) -> tuple:
 
     # 14a. one history's chunks over the mesh: a chunk product and a
     # combine launch a shard and a dispatch
-    long_stream = LIVE_RUNS.pop("long_stream")
+    long_stream = LIVE_RUNS["long_stream"]
     per_shard = {"chunk_product": MESH_WIDTH, "combine_product": MESH_WIDTH}
     for case, st in (("headline", stream), ("headline_corrupted",
                                             bad_stream)):
@@ -3275,7 +3311,7 @@ def mesh_phases(name, smi, history, bad, stream, bad_stream) -> tuple:
                   events=len(long_stream)))
 
     # 14b. key batches over the mesh
-    h3, map3, streams_b = LIVE_RUNS.pop("config3")
+    h3, map3, streams_b = LIVE_RUNS["config3"]
     streams_k, gpu_k = LIVE_RUNS.pop("config3_1024")
     # config 3's corrupted keys: the screen, then one batched dense launch
     # a shard for the 8 keys it leaves undecided
@@ -3950,6 +3986,339 @@ def live_phases(name, smi, history, bad, twin_bad) -> dict:
     return launches_live
 
 
+# ---------------------------------------------------------------------------
+# 17. telemetry: the registry, the run tracer and the profiler on the card
+# ---------------------------------------------------------------------------
+
+#: the side of the float32 matmul whose rate phase 17 publishes as the
+#: card's f32 matmul peak
+PEAK_MATMUL_N = 8192
+#: the names of the combine's CUDA kernels (ops/csrc/chunk_combine.cu)
+COMBINE_KERNELS = ("pack_flat_kernel", "pack_rows_kernel",
+                   "tree_level_kernel")
+#: timed pairs of headline checks, null and live registry, in phase 17:
+#: a headline check's host time spreads over 10-20 ms between calls on
+#: one host, so medians of 5 pairs cannot resolve a cost of a few percent
+TELEMETRY_PAIRS = 20
+
+
+def instrument_us(chk, stream, reps: int = 200) -> dict:
+    """Host microseconds a call of each instrumented step, with the null
+    registry and tracer and with live ones (a registry of its own and a
+    tracer with a flight recorder): the checker's ``_record_metrics`` for
+    a ``torch-matrix`` verdict on ``stream`` (with the card's allocator
+    high-water), a one-dispatch ``DispatchPipeline`` on the card (its
+    event and fetch included), a rung's slice, and
+    ``device_memory_peak_bytes`` alone."""
+    import torch
+    from jepsen_tpu_torch import telemetry, trace
+    from jepsen_tpu_torch.checker.linear_cpu import LinearResult
+    from jepsen_tpu_torch.checker.linearizable import _Rung
+    from jepsen_tpu_torch.parallel.pipeline import DispatchPipeline
+    from jepsen_tpu_torch.trace.flight import FlightRecorder
+    res = LinearResult(valid=True, algorithm="torch-matrix")
+    one = torch.zeros(1, device="cuda")
+
+    def pipeline():
+        p = DispatchPipeline(depth=2, name="matrix", device="cuda")
+        p.submit(lambda: (), lambda: one + 1)
+        p.results()
+
+    def rung():
+        with _Rung("torch-matrix") as r:
+            r.settled = True
+
+    steps = {"record_metrics": lambda: chk._record_metrics(
+                 res, 0.04, len(stream), stream),
+             "dispatch_pipeline": pipeline, "rung_span": rung,
+             "device_memory_peak_bytes":
+                 lambda: telemetry.device_memory_peak_bytes("cuda")}
+    out = {}
+    for live in (False, True):
+        reg = telemetry.Registry() if live else telemetry.NULL
+        tracer = (trace.RunTracer(flight=FlightRecorder(4096)) if live
+                  else trace.NULL_TRACER)
+        with telemetry.use(reg), trace.use(tracer):
+            for key, fn in steps.items():
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                out.setdefault(key, {})["live" if live else "null"] = (
+                    time.perf_counter() - t0) / reps * 1e6
+    return out
+
+
+def f32_matmul_peak() -> dict:
+    """The card's float32 matmul rate with TF32 off: ``torch.matmul`` of
+    two seeded PEAK_MATMUL_N-square matrices, CUDA events over 10 calls
+    after a warm-up."""
+    import torch
+    n = PEAK_MATMUL_N
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    a = torch.randn(n, n, device="cuda", generator=g)
+    b = torch.randn(n, n, device="cuda", generator=g)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ms = cuda_ms(lambda: torch.matmul(a, b), 10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"n": n, "ms": ms, "flops": 2.0 * n ** 3 / (ms * 1e-3)}
+
+
+def telemetry_phase(name, smi, history, bad, device=None) -> dict:
+    """Phase 17: the telemetry registry and the run tracer on the card's
+    check path. A live ``telemetry.Registry`` and a ``trace.RunTracer``
+    (a Perfetto sink and a flight recorder in a temporary store
+    directory) watch the headline check, its corrupted copy with
+    ``explain`` on, the long history's segmented chain writing
+    ``check.ckpt`` and the check that resumes from it, and config 3's key
+    batch; each runs with the null registry too, and its result map and
+    launches must be the same. Returns each kernel's launches in the live
+    checks."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from jepsen_tpu_torch import independent, telemetry, trace
+    from jepsen_tpu_torch.checker import checkpoint as ck
+    from jepsen_tpu_torch.checker.linear_encode import encode_register_ops
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.histories import (independent_register_history,
+                                            register_history)
+    from jepsen_tpu_torch.ops import jitlin
+    from jepsen_tpu_torch.trace.flight import FlightRecorder
+    from jepsen_tpu_torch.trace.perfetto import PerfettoSink
+
+    phase_t0 = time.perf_counter()
+    if "long" in LIVE_RUNS:
+        long_h = LIVE_RUNS.pop("long")[0]
+    else:
+        long_h = register_history(LONG_OPS, n_procs=N_PROCS, seed=SEED,
+                                  n_values=N_VALUES)
+    long_stream = LIVE_RUNS.pop("long_stream", None)
+    if long_stream is None:
+        long_stream = encode_register_ops(long_h)
+    h3 = (LIVE_RUNS.pop("config3")[0] if "config3" in LIVE_RUNS
+          else independent_register_history(IND_KEYS, IND_OPS))
+    peak = f32_matmul_peak()
+    telemetry.set_device_peak_flops(peak["flops"])
+    chk = linearizable(accelerator="gpu", device=device)
+    ind = independent.checker(chk)
+    reg = telemetry.Registry()
+    live_launches: dict = {}
+    common = {"card": name, "power": smi}
+
+    def run(fn, tracer):
+        """``fn()`` with the null registry and tracer (``tracer`` None) or
+        with the live ones: (its value, its launches, host seconds to a
+        sync)."""
+        reset_launches()
+        t0 = time.perf_counter()
+        if tracer is None:
+            out = fn()
+            torch.cuda.synchronize()
+        else:
+            with telemetry.use(reg), trace.use(tracer):
+                out = fn()
+                torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        lc = read_launches()
+        if tracer is not None:
+            add_launches(live_launches, lc)
+        return out, lc, s
+
+    def same(what, got, null):
+        """The live run's result and launches equal the null one's."""
+        if got[0] != null[0] or got[1] != null[1]:
+            raise AssertionError(f"telemetry {what}: the live run differs "
+                                 f"from the null one: {got[:2]} vs "
+                                 f"{null[:2]}")
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        tracer = trace.RunTracer(
+            perfetto=PerfettoSink(d / trace.TRACE_NAME),
+            flight=FlightRecorder(trace.DEFAULT_FLIGHT_EVENTS))
+        # 17a. the headline, null and live in turns (a first pair, then
+        # TELEMETRY_PAIRS timed pairs, which of the two goes first
+        # alternating)
+        times = {"null": [], "live": []}
+        for i in range(TELEMETRY_PAIRS + 1):
+            if i % 2:
+                got = run(lambda: chk.check({}, history, {}), tracer)
+                null = run(lambda: chk.check({}, history, {}), None)
+            else:
+                null = run(lambda: chk.check({}, history, {}), None)
+                got = run(lambda: chk.check({}, history, {}), tracer)
+            same("headline", got, null)
+            if got[0]["algorithm"] != "torch-matrix" or min(
+                    got[1]["chunk_product"], got[1]["combine_product"]) < 1:
+                raise AssertionError(f"telemetry headline: {got[:2]}")
+            if i:
+                times["null"].append(null[2])
+                times["live"].append(got[2])
+        n_headline = TELEMETRY_PAIRS + 1
+        # the gauges of the last live headline check: the reference's
+        # modeled dense f32 work over its wall time, and that over the
+        # card's measured f32 matmul rate (no kernel's roofline share)
+        roofline_headline = reg.gauge("checker_roofline_frac").value()
+        achieved_headline = reg.gauge(
+            "checker_achieved_matmul_flops").value()
+        # 17b. the corrupted headline with explain on: localized on the
+        # card, explained
+        null_b = run(lambda: chk.check({}, bad, {}), None)
+        got_b = run(lambda: chk.check({}, bad, {}), tracer)
+        same("headline_corrupted", got_b, null_b)
+        if got_b[0]["algorithm"] != "torch-matrix" \
+                or got_b[0]["valid?"] is not False \
+                or "explain" not in got_b[0] \
+                or min(got_b[1]["prefix_alive"],
+                       got_b[1]["window_rescan"]) < 1:
+            raise AssertionError(f"telemetry headline_corrupted: "
+                                 f"{got_b[1]}, {got_b[0].get('explain')}")
+
+        # 17c. the long history: the chain writes check.ckpt at each cut
+        # but its last; the check with the same store resumes at the
+        # last write, runs the last segment and clears it
+        n_cuts = len(jitlin.quiescent_cuts(long_stream.kind,
+                                           jitlin.MATRIX_SEGMENT_EVENTS))
+        def long_run(where):
+            test = {"name": "telemetry_long",
+                    "start_time": "20261018T000000.000Z",
+                    "store_dir": str(d / where),
+                    "check_ckpt_interval": 1e-9}
+            path = d / where / test["name"] / test["start_time"] / \
+                ck.CKPT_NAME
+            store = ck.CheckpointStore(path, interval_s=1e-9)
+            chain = jitlin.matrix_check_segmented(long_stream, ckpt=store,
+                                                  device=device)
+            if not path.exists():
+                raise AssertionError("telemetry long: the chain left no "
+                                     "check.ckpt")
+            out = chk.check(test, long_h, {})
+            if path.exists():
+                raise AssertionError("telemetry long: the settled check "
+                                     "left its check.ckpt")
+            return chain, store.writes, out
+
+        null_l = run(lambda: long_run("null"), None)
+        got_l = run(lambda: long_run("live"), tracer)
+        same("long", got_l, null_l)
+        if got_l[0][2]["valid?"] is not True \
+                or got_l[0][2]["algorithm"] != "torch-matrix" \
+                or got_l[0][1] != n_cuts - 1 or n_cuts < 2:
+            raise AssertionError(f"telemetry long: {got_l[0]}, {n_cuts} "
+                                 f"cuts")
+        # 17d. config 3's 64 keys through the dispatch pipeline
+        null_k = run(lambda: ind.check({}, h3, {}), None)
+        got_k = run(lambda: ind.check({}, h3, {}), tracer)
+        same("config3", got_k, null_k)
+        same_map("telemetry config3", got_k[0], null_k[0])
+        tracer.close()
+        trace_path = d / trace.TRACE_NAME
+        with open(trace_path, encoding="utf-8") as f:
+            events = json.load(f)            # strict JSON after close()
+        reg.export(d)
+        prom = (d / "metrics.prom").read_text()
+        trace_bytes = trace_path.stat().st_size
+
+        # 17e. a profiler trace of one headline check names both kernels
+        # (retaken, as device_kernels does, when it comes back short)
+        for attempt in range(5):
+            prof_dir = d / f"profile{attempt}"
+            with telemetry.profiler_trace(prof_dir):
+                chk.check({}, history, {})
+                torch.cuda.synchronize()
+            prof = (prof_dir / telemetry.PROFILE_NAME).read_text()
+            if "chunk_product_kernel" in prof and any(
+                    k in prof for k in COMBINE_KERNELS):
+                break
+        else:
+            raise AssertionError("telemetry: the profiler's trace names "
+                                 "no chunk-product or combine kernel")
+        prof_bytes = len(prof)
+
+    # the counts the live checks must show
+    def value(family, **labels):
+        return reg.counter(family, labels=tuple(labels)).value(**labels)
+
+    want = {
+        ("checker_backend_total", "torch-matrix"): n_headline + 2,
+        ("checker_resume_total", "ckpt"): 1,
+        ("checker_ckpt_writes_total", None): n_cuts - 1,
+        ("explain_total", "matrix-bisect"): 1,
+        ("dispatch_batches_total", "matrix"):
+            n_headline + 1 + sub_batches(IND_KEYS),
+    }
+    got_counts = {
+        ("checker_backend_total", "torch-matrix"):
+            value("checker_backend_total", backend="torch-matrix"),
+        ("checker_resume_total", "ckpt"):
+            value("checker_resume_total", source="ckpt"),
+        ("checker_ckpt_writes_total", None):
+            value("checker_ckpt_writes_total"),
+        ("explain_total", "matrix-bisect"):
+            value("explain_total", backend="matrix-bisect"),
+        ("dispatch_batches_total", "matrix"):
+            value("dispatch_batches_total", queue="matrix"),
+    }
+    if got_counts != want:
+        raise AssertionError(f"telemetry counts: {got_counts} vs {want}")
+    mem = reg.gauge("checker_device_memory_peak_bytes").value()
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    if not 0 < mem <= total_mem:
+        raise AssertionError(f"telemetry: device memory peak {mem} of "
+                             f"{total_mem}")
+    names = {e.get("name") for e in events}
+    need = {"segment", "ckpt-write", "ckpt-resume", "explain", "rung"}
+    if not need <= names:
+        raise AssertionError(f"telemetry: trace.json lacks "
+                             f"{sorted(need - names)}")
+    by_name = {}
+    for e in events:
+        if e.get("ph") != "M":
+            by_name[e["name"]] = by_name.get(e["name"], 0) + 1
+    med_null = statistics.median(times["null"])
+    med_live = statistics.median(times["live"])
+    med5_null = statistics.median(times["null"][:5])
+    med5_live = statistics.median(times["live"][:5])
+    emit({"phase": "telemetry", "headline_null_s": times["null"],
+          "headline_live_s": times["live"],
+          "median5_headline_null_s": med5_null,
+          "median5_headline_live_s": med5_live,
+          "live_overhead_frac_median5": med5_live / med5_null - 1.0,
+          "median_headline_null_s": med_null,
+          "median_headline_live_s": med_live,
+          "live_overhead_frac": med_live / med_null - 1.0,
+          "instrument_us": instrument_us(chk, encode_register_ops(history)),
+          "counts": {f"{k[0]}{{{k[1] or ''}}}": v
+                     for k, v in got_counts.items()},
+          "device_memory_peak_bytes": mem, "total_memory": total_mem,
+          "f32_matmul_peak": peak,
+          "roofline_frac_headline": roofline_headline,
+          "achieved_matmul_flops_headline": achieved_headline,
+          "roofline_frac_last": reg.gauge("checker_roofline_frac").value(),
+          "achieved_matmul_flops_last":
+              reg.gauge("checker_achieved_matmul_flops").value(),
+          "trace_events": by_name, "trace_bytes": trace_bytes,
+          "flight_recorded": tracer.flight.recorded,
+          "profile_bytes": prof_bytes, "profile_attempts": attempt + 1,
+          "launches_live": live_launches,
+          "seconds": time.perf_counter() - phase_t0, **common})
+    emit({"phase": "telemetry_prom",
+          "checker_families": [ln for ln in prom.splitlines()
+                               if ln.split("{")[0].split(" ")[0]
+                               .startswith("checker_")
+                               or ln.startswith(("# HELP checker_",
+                                                 "# TYPE checker_"))],
+          **common})
+    return live_launches
+
+
 def nvidia_smi(query: str) -> str:
     """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
     return subprocess.run(
@@ -4555,6 +4924,13 @@ def main() -> int:
     live = live_phases(name, smi, history, bad, twin_bad)
     for row in kernels:
         row["launches_live"] = live.get(row["name"], 0)
+    # 17. telemetry: a live registry and run tracer on the headline, its
+    # corrupted copy, the long history's checkpointed chain and resume and
+    # config 3's batch, each against the null registry; each row gains
+    # the live checks' launches
+    tel = telemetry_phase(name, smi, history, bad)
+    for row in kernels:
+        row["launches_telemetry"] = tel.get(row["name"], 0)
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,

@@ -39,9 +39,12 @@ A carry arrives as a torch tensor, on the card a bf16 one that numpy
 cannot take: :func:`host_array` moves it to a float32 (or its own
 integer) numpy array before it is encoded. Checkpointing never fails a
 check: a state that cannot be built, or a disk that cannot be written,
-is logged and the check goes on. Not ported: the resume and write
-counters and the staleness gauge, and the trace instants (ROADMAP
-Queue 1 item 9); :func:`count_resume` logs.
+is logged and the check goes on. With a live registry (``telemetry.
+use``) the store counts its writes (``checker_ckpt_writes_total``) and
+the events consumed since the last write (``checker_ckpt_staleness_ops``)
+and :func:`count_resume` counts ``checker_resume_total{source}``; with a
+live tracer each write and resume is a ``ckpt-write`` or ``ckpt-resume``
+instant on the checkpoint track.
 """
 from __future__ import annotations
 
@@ -54,6 +57,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from jepsen_tpu_torch import telemetry
+from jepsen_tpu_torch import trace as trace_mod
 
 logger = logging.getLogger("jepsen_tpu_torch.checker.checkpoint")
 
@@ -206,9 +212,17 @@ class CheckpointStore:
         return (self.interval_s is not None
                 and time.monotonic() - self._last_save >= self.interval_s)
 
+    # copied from jepsen_tpu/checker/checkpoint.py:217-232
     def maybe_save(self, make_state, events_done: int) -> bool:
         """Persists ``make_state()`` when the write interval has
-        elapsed."""
+        elapsed. Always updates the staleness gauge (events consumed
+        since the last durable checkpoint)."""
+        reg = telemetry.get_registry()
+        if reg.enabled:
+            reg.gauge("checker_ckpt_staleness_ops",
+                      "ops consumed since the last durable checker "
+                      "checkpoint").set(max(0, events_done
+                                           - self._last_events))
         if not self.due():
             return False
         try:
@@ -240,6 +254,18 @@ class CheckpointStore:
         if events_done is not None:
             self._last_events = int(events_done)
         self.writes += 1
+        # copied from jepsen_tpu/checker/checkpoint.py:258-270
+        reg = telemetry.get_registry()
+        if reg.enabled:
+            reg.counter("checker_ckpt_writes_total",
+                        "durable checker checkpoint persists").inc()
+            reg.gauge("checker_ckpt_staleness_ops",
+                      "ops consumed since the last durable checker "
+                      "checkpoint").set(0)
+        trace_mod.get_tracer().instant(
+            trace_mod.TRACK_CHECKPOINT, "ckpt-write",
+            args={"kind": str(state.get("kind")),
+                  "events_done": events_done})
         return True
 
     # -- reading --------------------------------------------------------
@@ -260,11 +286,19 @@ class CheckpointStore:
             logger.exception("couldn't clear %s", self.path)
 
 
+# copied from jepsen_tpu/checker/checkpoint.py:289-302
 def count_resume(source: str) -> None:
-    """A check resumed from a durable checkpoint (``ckpt``) or from an
-    in-process carry (``carry``). The reference counts it in
-    ``checker_resume_total{source}``; here it is logged."""
-    logger.info("check resumed from %s", source)
+    """``checker_resume_total{source}`` and a ``ckpt-resume`` instant: a
+    check resumed from a durable checkpoint (``ckpt``) or from an
+    in-process carry (``carry``)."""
+    reg = telemetry.get_registry()
+    if reg.enabled:
+        reg.counter("checker_resume_total",
+                    "checks resumed instead of restarted, by source",
+                    labels=("source",)).inc(source=source)
+    trace_mod.get_tracer().instant(trace_mod.TRACK_CHECKPOINT,
+                                   "ckpt-resume",
+                                   args={"source": source})
 
 
 def load_resume(store: CheckpointStore | None, kind: str, config: dict,

@@ -19,8 +19,10 @@ minimal witness (jepsen_tpu/checker/explain.py:54-398).
 
 Not ported: the artifacts (``compose_anomaly``, ``write_artifacts``,
 ``explain_run``, ``_explain_elle_run``: explain.py:427-618), which write
-through the store, the fault registry and the witness timeline, and the
-telemetry export (``_export_metrics``). Unlike the reference,
+through the store, the fault registry and the witness timeline. With a
+live registry, :func:`explain_stream` exports ``explain_total{backend}``,
+``explain_bisect_steps``, ``explain_latency_seconds`` and
+``witness_ops`` (``_export_metrics``). Unlike the reference,
 :func:`explain_stream` and :func:`first_failure` let an error of the
 device localization propagate instead of settling on the CPU frontier;
 the checkers' callers keep the reference's rule that forensics never
@@ -32,6 +34,8 @@ import logging
 import time
 
 import numpy as np
+
+from jepsen_tpu_torch import telemetry
 
 logger = logging.getLogger("jepsen_tpu_torch.checker.explain")
 
@@ -134,8 +138,7 @@ def ddmin(items: list, fails, budget: int = DEFAULT_SHRINK_BUDGET,
 # Core: forensics over an encoded stream
 # ---------------------------------------------------------------------------
 
-# copied from jepsen_tpu/checker/explain.py:162-201, with the device and
-# without the telemetry export
+# copied from jepsen_tpu/checker/explain.py:162-201, with the device
 def explain_stream(stream, step_ids=None, step_py=None, init_state: int = 0,
                    num_states: int | None = None, loc=None, failure=None,
                    shrink_budget: int | None = None,
@@ -165,7 +168,31 @@ def explain_stream(stream, step_ids=None, step_py=None, init_state: int = 0,
     if out is None:
         return None
     out["explain_latency_seconds"] = round(time.perf_counter() - t0, 4)
+    _export_metrics(out)
     return out
+
+
+# copied from jepsen_tpu/checker/explain.py:401-420
+def _export_metrics(forensics: dict) -> None:
+    reg = telemetry.get_registry()
+    if not reg.enabled:
+        return
+    try:
+        backend = forensics.get("backend", "unknown")
+        reg.counter("explain_total", "anomaly forensics derived, by "
+                    "localization backend", labels=("backend",)
+                    ).inc(backend=backend)
+        reg.gauge("explain_bisect_steps",
+                  "device combine steps of the last first-anomaly "
+                  "bisection").set(forensics.get("bisect_steps", 0))
+        reg.histogram("explain_latency_seconds",
+                      "wall time of localize + witness shrink"
+                      ).observe(forensics.get("explain_latency_seconds",
+                                              0.0))
+        reg.gauge("witness_ops", "ops in the last minimal witness").set(
+            len((forensics.get("witness") or {}).get("op_indices") or ()))
+    except Exception:  # noqa: BLE001 — telemetry never fails forensics
+        logger.exception("explain telemetry recording failed")
 
 
 def _in_matrix_regime(stream, num_states) -> bool:

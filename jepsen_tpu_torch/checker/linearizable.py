@@ -67,6 +67,15 @@ matrix chain and the CPU rung persist their carry there and resume a
 valid one; a settled check removes it. ``check_ckpt_interval`` and
 ``resume_check`` in the test map tune it.
 
+With a live telemetry registry or run tracer (``telemetry.use``,
+``trace.use``), a check records the reference's instruments: the settling
+backend, its times and events/s, the card's allocator high-water, the
+matrix rungs' modeled-FLOPs gauges and phase split (``_record_metrics``);
+each rung tried is a ``rung`` slice on the ladder track, a declined one
+adds the reference's ``demote``, and an invalid verdict an ``explain``
+instant with its op's trace id. Off by default, they cost a few attribute
+reads a check.
+
 :func:`check_stored` re-checks a stored run from the ``lin_*`` columns of
 its ``history.npz`` sidecar (store.py), through the same rungs and with
 no re-encode: a valid verdict settles there, ``"(stored)"`` after its
@@ -75,10 +84,13 @@ algorithm; anything else re-checks ``history.jsonl``.
 from __future__ import annotations
 
 import logging
+import time
 from typing import Any
 
 import numpy as np
 
+from jepsen_tpu_torch import telemetry
+from jepsen_tpu_torch import trace as trace_mod
 from jepsen_tpu_torch.checker import Checker
 from jepsen_tpu_torch.checker.explain import (
     enabled, explain_stream, max_witness_ops, shrink_budget)
@@ -117,6 +129,61 @@ ALGORITHMS = ("auto", "jitlin", "wgl")
 # configuration with all 32 slots linearized would read as empty: a
 # 32-slot stream settles in the exact twin instead.
 FRONTIER_MAX_SLOTS = 31
+
+# the rungs that run on the checker's device, and the matrix rungs among
+# them (``_record_metrics``)
+DEVICE_RUNGS = ("torch-sharded-matrix", "torch-matrix", "torch-frontier")
+MATRIX_RUNGS = ("torch-sharded-matrix", "torch-matrix")
+
+# backends whose first check was recorded (jepsen_tpu/checker/
+# linearizable.py:45): the first check of a process pays the kernels'
+# build and the CUDA context
+_FIRST_CHECK_SEEN: set = set()
+
+
+# copied from jepsen_tpu/checker/ladder.py:217-228, without the log line
+def _demote(name: str, reason: str) -> None:
+    reg = telemetry.get_registry()
+    if reg.enabled:
+        reg.counter("checker_backend_demotions_total",
+                    "ladder demotions, by backend and reason",
+                    labels=("backend", "reason")
+                    ).inc(backend=name, reason=reason)
+    trace_mod.get_tracer().instant(
+        trace_mod.TRACK_LADDER, "demote",
+        args={"backend": name, "reason": reason})
+
+
+class _Rung:
+    """One attempt of a rung, as the reference's ladder traces it
+    (jepsen_tpu/checker/ladder.py:296-382): a ``rung`` slice on the
+    ladder track whose ``outcome`` is "settled" when the block set
+    ``settled``, "declined" (then the reference's ``demote``) when it did
+    not, "error" when it raised. The error propagates: no rung of the
+    port demotes on one."""
+
+    __slots__ = ("backend", "settled", "_tracer", "_t0")
+
+    def __init__(self, backend: str):
+        self.backend = backend
+        self.settled = False
+
+    def __enter__(self):
+        self._tracer = trace_mod.get_tracer()
+        self._t0 = trace_mod.now_us() if self._tracer.enabled else 0
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        outcome = ("error" if exc_type is not None
+                   else "settled" if self.settled else "declined")
+        if self._tracer.enabled:
+            self._tracer.complete(
+                trace_mod.TRACK_LADDER, "rung", self._t0,
+                trace_mod.now_us() - self._t0,
+                args={"backend": self.backend, "outcome": outcome})
+        if outcome == "declined":
+            _demote(self.backend, "declined")
+        return False
 
 
 class LinearizableChecker(Checker):
@@ -185,12 +252,16 @@ class LinearizableChecker(Checker):
         # encode goes through the run's shared history IR when the test
         # map can carry one (history_ir.of memoizes on it)
         explain_on = enabled(test, opts)
+        t0 = time.perf_counter()
         enc = None
         if algorithm != "wgl":
             from jepsen_tpu_torch import history_ir
             enc = self._encoding(history, ir=history_ir.of(test, history))
         if enc is None:
-            return self._finish(wgl(history, self.model), history)
+            res = wgl(history, self.model)
+            self._record_metrics(res, time.perf_counter() - t0,
+                                 len(history), None)
+            return self._finish(res, history)
         stream, step_py, spec = enc
         from jepsen_tpu_torch.parallel import sharding_knobs
         sharded, mesh_devices = sharding_knobs(test, opts)
@@ -205,6 +276,8 @@ class LinearizableChecker(Checker):
                                   mesh_devices=mesh_devices)
         if ckpt is not None:
             ckpt.clear()
+        self._record_metrics(res, time.perf_counter() - t0, len(stream),
+                             stream)
         return self._finish(res, history, stream, step_py, spec.init_state,
                             test=test, step_ids=spec.step_ids,
                             explain_on=explain_on,
@@ -329,10 +402,12 @@ class LinearizableChecker(Checker):
                 if mesh is not None:
                     rungs.insert(0, (mesh, "torch-sharded-matrix"))
                 for rung_mesh, algorithm in rungs:
-                    m = self._matrix_rung(stream, spec, ckpt, carries,
-                                          mesh=rung_mesh)
-                    res = self._matrix_settle(m, stream, spec, explain,
-                                              extras, algorithm)
+                    with _Rung(algorithm) as rung:
+                        m = self._matrix_rung(stream, spec, ckpt, carries,
+                                              mesh=rung_mesh)
+                        res = self._matrix_settle(m, stream, spec, explain,
+                                                  extras, algorithm)
+                        rung.settled = res is not None
                     if res is not None:
                         return res
                     if m is not None:
@@ -341,13 +416,15 @@ class LinearizableChecker(Checker):
             if stream.n_slots <= FRONTIER_MAX_SLOTS:
                 attempted = True
                 # copied from jepsen_tpu/checker/linearizable.py:485-502
-                kernel = JitLinKernel(step_ids=spec.step_ids,
-                                      init_state=spec.init_state,
-                                      device=self.device)
-                alive, died, overflow, peak = kernel.check(
-                    stream, capacity=self.capacity)
-                valid = verdict(alive, overflow)
-                if valid != "unknown":
+                with _Rung("torch-frontier") as rung:
+                    kernel = JitLinKernel(step_ids=spec.step_ids,
+                                          init_state=spec.init_state,
+                                          device=self.device)
+                    alive, died, overflow, peak = kernel.check(
+                        stream, capacity=self.capacity)
+                    valid = verdict(alive, overflow)
+                    rung.settled = valid != "unknown"
+                if rung.settled:
                     return LinearResult(
                         valid=valid, failed_event=died,
                         failed_op_index=(int(stream.op_index[died])
@@ -358,11 +435,15 @@ class LinearizableChecker(Checker):
             # native rung, host regime only, for the model and init id it
             # hardcodes
             from jepsen_tpu_torch.native import check_stream_native
-            res = check_stream_native(stream)
-            if res is not None and res.valid != "unknown":
+            with _Rung("native-c") as rung:
+                res = check_stream_native(stream)
+                rung.settled = res is not None and res.valid != "unknown"
+            if rung.settled:
                 return res
-        res = self._cpu_rung(stream, step_py, spec.init_state, ckpt,
-                             carries[-1] if carries else None)
+        with _Rung("cpu") as rung:
+            res = self._cpu_rung(stream, step_py, spec.init_state, ckpt,
+                                 carries[-1] if carries else None)
+            rung.settled = True
         if attempted:
             res.algorithm = "jitlin-cpu(fallback)"
         return res
@@ -390,8 +471,122 @@ class LinearizableChecker(Checker):
             return session.absorb(stream, start=session.events_absorbed)
         return check_stream(stream, step=step_py, init_state=init)
 
+    # copied from jepsen_tpu/checker/linearizable.py:592-669: the device
+    # rungs are the port's, the device memory that of the checker's device
+    # (the reference's first local device), and the phase split has the
+    # port's keys (jitlin.last_phase_seconds)
+    def _record_metrics(self, res: LinearResult, dt: float, n_events: int,
+                        stream) -> None:
+        """Telemetry of one check: which backend settled it, first-call
+        (the kernels' build and the CUDA context included) and steady
+        latency, events/s, the device memory high-water, and on the
+        matrix rungs the modeled-FLOPs gauges (``telemetry.
+        matrix_modeled_flops``) and the host phase split. Reads only host
+        values: no sync, no read-back."""
+        reg = telemetry.get_registry()
+        if not reg.enabled:
+            return
+        try:
+            backend = res.algorithm or "unknown"
+            reg.counter("checker_backend_total",
+                        "checks settled, by winning backend",
+                        labels=("backend",)).inc(backend=backend)
+            reg.histogram("checker_check_seconds",
+                          "check dispatch wall time", labels=("backend",)
+                          ).observe(dt, backend=backend)
+            first = reg.gauge(
+                "checker_first_check_seconds",
+                "first dispatch per backend (includes JIT compile)",
+                labels=("backend",))
+            if backend not in _FIRST_CHECK_SEEN:
+                _FIRST_CHECK_SEEN.add(backend)
+                first.set(dt, backend=backend)
+            else:
+                reg.gauge("checker_steady_check_seconds",
+                          "most recent non-first dispatch (compile "
+                          "amortized; first minus steady ~= compile cost)",
+                          labels=("backend",)).set(dt, backend=backend)
+            if dt > 0:
+                reg.gauge("checker_events_per_sec",
+                          "events verified per second, last check",
+                          labels=("backend",)
+                          ).set(n_events / dt, backend=backend)
+            if backend in DEVICE_RUNGS:
+                peak_bytes = telemetry.device_memory_peak_bytes(
+                    "cuda" if self.device is None else self.device)
+                if peak_bytes is not None:
+                    reg.gauge("checker_device_memory_peak_bytes",
+                              "device allocator high-water"
+                              ).set_max(peak_bytes)
+            if backend in MATRIX_RUNGS and stream is not None and dt > 0:
+                n_returns = int((np.asarray(stream.kind) == EV_RETURN).sum())
+                achieved = telemetry.matrix_modeled_flops(
+                    n_returns, stream.n_slots, len(stream.intern)) / dt
+                reg.gauge("checker_achieved_matmul_flops",
+                          "modeled matrix-kernel FLOP/s, last check"
+                          ).set(achieved)
+                peak = telemetry.device_peak_flops()
+                if peak:
+                    reg.gauge(
+                        "checker_roofline_frac",
+                        "modeled f32 matmul FLOP/s over the published f32 "
+                        "matmul peak: no kernel's roofline share, can "
+                        "pass 1").set(achieved / peak)
+                from jepsen_tpu_torch.ops.jitlin import last_phase_seconds
+                phase_g = reg.gauge(
+                    "checker_matrix_phase_seconds",
+                    "host/device phase split of the last matrix "
+                    "dispatch", labels=("phase",))
+                split = last_phase_seconds()
+                for ph, secs in split.items():
+                    if isinstance(secs, (int, float)):
+                        phase_g.set(secs, phase=ph)
+                if "variant" in split:
+                    reg.counter(
+                        "checker_matrix_variant_total",
+                        "matrix dispatches by kernel representation "
+                        "and combine path",
+                        labels=("variant", "combine")).inc(
+                        variant=str(split["variant"]),
+                        combine=str(split.get("combine", "tree")))
+        except Exception:  # noqa: BLE001 — telemetry never fails a check
+            logger.exception("checker telemetry recording failed")
+
+    # copied from jepsen_tpu/checker/linearizable.py:715-750
+    @staticmethod
+    def _trace_anomaly(history, op_index: int, res) -> None:
+        """The causal-trace half of an INVALID verdict: an ``explain``
+        instant on the checker track carrying the first-anomaly op's
+        stable trace id, minted from its invocation's time. Never fails a
+        check."""
+        try:
+            tracer = trace_mod.get_tracer()
+            if not tracer.enabled or not (0 <= op_index < len(history)):
+                return
+            op = history[op_index]
+            inv = op
+            if op.get("type") != "invoke":
+                # walk back to this process's invocation: the most recent
+                # earlier invoke by the same process
+                for j in range(op_index - 1, -1, -1):
+                    cand = history[j]
+                    if cand.get("process") == op.get("process") \
+                            and cand.get("type") == "invoke":
+                        inv = cand
+                        break
+            tr_id = trace_mod.trace_id_for(inv.get("process"),
+                                           inv.get("time"))
+            tracer.instant(trace_mod.TRACK_CHECKER, "explain",
+                           args={"op_index": op_index,
+                                 "f": str(op.get("f")),
+                                 "process": op.get("process"),
+                                 "algorithm": res.algorithm,
+                                 "trace_id": tr_id})
+        except Exception:  # noqa: BLE001 — tracing never masks a verdict
+            logger.exception("anomaly trace emission failed")
+
     # copied from jepsen_tpu/checker/linearizable.py:675-713 without the
-    # plot, the trace and the explain artifacts
+    # plot and the explain artifacts
     def _finish(self, res: LinearResult, history, stream=None,
                 step_py=None, init_state: int = 0, test=None, step_ids=None,
                 explain_on: bool = False, explain_loc=None,
@@ -406,6 +601,7 @@ class LinearizableChecker(Checker):
             lo = max(0, i - 5)
             out["failed-op"] = history[i] if i < len(history) else None
             out["context"] = history[lo: i + 1][-10:]
+            self._trace_anomaly(history, i, res)
             if res.final_configs is None and stream is not None \
                     and len(stream) <= MAX_REPORT_EVENTS:
                 res2 = check_stream(stream, step=step_py,

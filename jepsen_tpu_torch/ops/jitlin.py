@@ -57,6 +57,8 @@ import types
 import numpy as np
 import torch
 
+from jepsen_tpu_torch import telemetry
+from jepsen_tpu_torch import trace as trace_mod
 from jepsen_tpu_torch.device import resolve_device
 from jepsen_tpu_torch.models import cas_register_spec
 from jepsen_tpu_torch.ops import frontier_kernels, matrix_kernels
@@ -572,7 +574,7 @@ def last_segment_seconds() -> list:
 
 
 # copied from jepsen_tpu/ops/jitlin.py:1092-1223, without the routing
-# overrides and the trace span
+# overrides
 def matrix_check_segmented(stream, step_ids=None, init_state: int = 0,
                            num_states: int | None = None,
                            n_slots: int | None = None,
@@ -660,17 +662,26 @@ def matrix_check_segmented(stream, step_ids=None, init_state: int = 0,
                            "quiescent cut of this stream; restarting",
                            state["events_done"])
     segments = _SEGMENT_PHASE.value = []
+    tracer = trace_mod.get_tracer()
     for end in cuts:
         if end <= base:
             continue
         t0 = time.perf_counter()
         seg = _slice_stream(stream, base, end)
+        seg_t0 = trace_mod.now_us() if tracer.enabled else 0
         alive, ix, tot = matrix_check_resume(
             seg, tot, step_ids=step_ids, init_state=init_state,
             num_states=num_states, n_slots=S, device=dev, mesh=mesh)
         alive_b, ix_b = _flags(alive, ix)
         segments.append({"base": base, "end": end,
                          "s": time.perf_counter() - t0})
+        # a segment span from the verdict read back above
+        # (jepsen_tpu/ops/jitlin.py:1195-1201)
+        if tracer.enabled:
+            tracer.complete(trace_mod.TRACK_CHECKPOINT, "segment",
+                            seg_t0, trace_mod.now_us() - seg_t0,
+                            args={"base": base, "end": end,
+                                  "alive": alive_b, "inexact": ix_b})
         if ix_b:
             # an oob escape proves nothing, and its under-approximate
             # carry must never seed an exact resume: abort unsunk
@@ -930,6 +941,17 @@ def _mesh_padding_frac(B_real, B_pad, S, R_max, V, C, T) -> float | None:
     return max(0.0, 1.0 - (B_real * c0 * t0) / float(B_pad * C * T))
 
 
+# copied from jepsen_tpu/ops/jitlin.py:1486-1500, the gauge alone
+def _publish_mesh_padding(frac: float) -> None:
+    """``checker_mesh_padding_frac``: the share of a sharded dispatch's
+    chunk-step work spent on mesh-divisibility padding."""
+    reg = telemetry.get_registry()
+    if reg.enabled:
+        reg.gauge("checker_mesh_padding_frac",
+                  "fraction of sharded chunk-step work spent on mesh "
+                  "divisibility padding, last sharded dispatch").set(frac)
+
+
 # copied from jepsen_tpu/ops/jitlin.py:1501-1555
 def _matrix_dispatch(preps, S, R_max, V, step_ids, init_state, device,
                      resume: bool = False, tot0=None, mesh=None,
@@ -959,10 +981,11 @@ def _matrix_dispatch(preps, S, R_max, V, step_ids, init_state, device,
     else:
         out = run(grids[0], grids[1], uops, grids[2], grids[3])
     if mesh is not None:
-        _DISPATCH_INFO.value = {
-            **last_dispatch_info(), "mesh": mesh.size,
-            "mesh_padding_frac": _mesh_padding_frac(B_real, B, S, R_max, V,
-                                                    C, T)}
+        frac = _mesh_padding_frac(B_real, B, S, R_max, V, C, T)
+        _DISPATCH_INFO.value = {**last_dispatch_info(), "mesh": mesh.size,
+                                "mesh_padding_frac": frac}
+        if frac is not None:
+            _publish_mesh_padding(frac)
     if phases is not None:
         phases["grids"] = phases.get("grids", 0.0) + (t1 - t0)
         phases["dispatch"] = (phases.get("dispatch", 0.0)

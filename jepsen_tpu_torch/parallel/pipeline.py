@@ -12,13 +12,14 @@ jepsen_tpu/parallel/pipeline.py:1-431).
   ``accelerator="auto"``, and the mesh gate (``mesh_route``) from the
   measured per-width rates.
 
-The reference reads ``JEPSEN_TPU_RTT_S`` and ``JEPSEN_TPU_MESH_MIN_EVENTS``
-and counts ``dispatch_*`` instruments in its telemetry registry. The port
-reads no environment variable: the round trip is a ``CostModel``
-argument (or measured on the card), MESH_MIN_EVENTS a module constant,
-and the instruments are fields of :func:`last_stats`. The reference's
-``donate_ok`` has no torch meaning (buffers are not donated) and is not
-ported.
+The pipeline counts its sub-batches, in-flight depth, overlap, stalls
+and final fetch in the ``dispatch_*`` instruments of the telemetry
+registry when one is live (``telemetry.use``), and keeps the same values
+in :func:`last_stats`. The reference reads ``JEPSEN_TPU_RTT_S`` and
+``JEPSEN_TPU_MESH_MIN_EVENTS``; the port reads no environment variable:
+the round trip is a ``CostModel`` argument (or measured on the card) and
+MESH_MIN_EVENTS a module constant. The reference's ``donate_ok`` has no
+torch meaning (buffers are not donated) and is not ported.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from jepsen_tpu_torch import telemetry
 from jepsen_tpu_torch.device import resolve_device
 
 # Stats of the calling thread's most recently completed pipeline
@@ -39,7 +41,7 @@ _LAST_STATS = threading.local()
 
 def last_stats() -> dict:
     """The calling thread's most recent pipeline stats ({} if none):
-    ``queue``, ``batches`` (the reference's ``dispatch_batches_total``),
+    ``queue``, ``batches`` (what ``dispatch_batches_total`` counted),
     ``inflight_peak`` (``dispatch_inflight_peak``), ``host_prep_s``,
     ``overlapped_prep_s``, ``overlap_frac`` (``dispatch_overlap_frac``),
     ``stall_s`` (``dispatch_stall_seconds``), ``sync_s``
@@ -327,6 +329,7 @@ class DispatchPipeline:
         self._overlap_prep_s = 0.0
         self._stall_s = 0.0
         self._inflight_peak = 0
+        self._reg = telemetry.get_registry()
 
     def stage(self, *arrays):
         """``arrays`` (numpy or CPU tensors) on the pipeline's device: to
@@ -366,6 +369,18 @@ class DispatchPipeline:
         self._handles.append(handle)
         self._inflight.append((handle, _record(handle)))
         self._inflight_peak = max(self._inflight_peak, len(self._inflight))
+        # copied from jepsen_tpu/parallel/pipeline.py:370-381
+        if self._reg.enabled:
+            self._reg.counter(
+                "dispatch_batches_total", "sub-batches dispatched",
+                labels=("queue",)).inc(queue=self.name)
+            self._reg.gauge(
+                "dispatch_inflight", "dispatches currently in flight",
+                labels=("queue",)).set(len(self._inflight), queue=self.name)
+            self._reg.gauge(
+                "dispatch_inflight_peak", "in-flight high-water",
+                labels=("queue",)).set_max(self._inflight_peak,
+                                           queue=self.name)
         return handle
 
     def results(self) -> list:
@@ -376,18 +391,36 @@ class DispatchPipeline:
         out = _fetch(self._handles)
         sync_s = time.perf_counter() - t1
         wall = time.perf_counter() - self._t0
+        overlap_frac = (self._overlap_prep_s / self._prep_s
+                        if self._prep_s > 0 else 0.0)
         _LAST_STATS.value = {
             "queue": self.name,
             "batches": len(self._handles),
             "inflight_peak": self._inflight_peak,
             "host_prep_s": self._prep_s,
             "overlapped_prep_s": self._overlap_prep_s,
-            "overlap_frac": (self._overlap_prep_s / self._prep_s
-                             if self._prep_s > 0 else 0.0),
+            "overlap_frac": overlap_frac,
             "stall_s": self._stall_s,
             "sync_s": sync_s,
             "wall_s": wall,
         }
+        # copied from jepsen_tpu/parallel/pipeline.py:409-424
+        if self._reg.enabled:
+            self._reg.gauge(
+                "dispatch_overlap_frac",
+                "fraction of host staging hidden under device compute, "
+                "last pipeline", labels=("queue",)
+                ).set(overlap_frac, queue=self.name)
+            self._reg.gauge(
+                "dispatch_inflight", "dispatches currently in flight",
+                labels=("queue",)).set(0, queue=self.name)
+            self._reg.histogram(
+                "dispatch_stall_seconds",
+                "time blocked at the depth limit", labels=("queue",)
+                ).observe(self._stall_s, queue=self.name)
+            self._reg.histogram(
+                "dispatch_sync_seconds", "final batched readback wait",
+                labels=("queue",)).observe(sync_s, queue=self.name)
         self._inflight.clear()
         return out
 

@@ -8,9 +8,10 @@ sidecar, the serialized history IR (history_ir/sidecar.py) whose
 ``elle_*`` and ``lin_*`` columns let ``elle.list_append.check_stored``
 and ``checker.linearizable.check_stored`` re-check a run without its
 jsonl. A sidecar that is missing, predates the columns or fails to load
-falls back to ``history.jsonl`` with a logged warning. Not ported: the
-results and test maps, the latest links, the artifact listings and the
-sidecar-failure counter.
+falls back to ``history.jsonl`` with a logged warning, counted in
+``store_sidecar_load_failures_total`` when a registry is live. Not
+ported: the results and test maps, the latest links and the artifact
+listings.
 """
 from __future__ import annotations
 
@@ -130,13 +131,23 @@ def load_columnar(test_name: str, timestamp: str, store_dir: str = BASE_DIR):
     return sidecar.load(p)
 
 
-# copied from jepsen_tpu/store.py:195-211, without the telemetry counter
+# copied from jepsen_tpu/store.py:195-211
 def note_sidecar_load_failure(what: str, exc: BaseException | None = None) -> None:
     """A corrupt or unreadable history.npz sidecar fell back to the
-    jsonl history: log it, so that the fallback is visible instead of
-    silent."""
+    jsonl history: log it and bump ``store_sidecar_load_failures_total``,
+    so that the fallback is visible instead of silent."""
     logger.warning("history.npz sidecar unreadable for %s (%r); "
                    "falling back to history.jsonl", what, exc)
+    try:
+        from jepsen_tpu_torch import telemetry
+        reg = telemetry.get_registry()
+        if reg.enabled:
+            reg.counter(
+                "store_sidecar_load_failures_total",
+                "corrupt/unreadable history.npz sidecars that fell "
+                "back to the jsonl history").inc()
+    except Exception:  # noqa: BLE001 — telemetry never blocks a fallback
+        logger.exception("sidecar-failure telemetry recording failed")
 
 
 # copied from jepsen_tpu/store.py:214-223

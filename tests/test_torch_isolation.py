@@ -47,10 +47,12 @@ def test_port_sources_exist():
             "distributed.py", "utils.py", "setscan.py", "views.py", "explain.py",
             "forensics_kernels.py", "checkpoint.py", "store.py",
             "codec.py", "journal.py", "ir.py", "sidecar.py",
-            "columnar_c.py", "builder.py", "sessions.py"} <= names
+            "columnar_c.py", "builder.py", "sessions.py", "telemetry.py",
+            "perfetto.py", "flight.py"} <= names
     assert (ROOT / "jepsen_tpu_torch/live/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/parallel/__init__.py") in _sources()
+    assert (ROOT / "jepsen_tpu_torch/trace/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/wgl.cpp").exists()
     assert (ROOT / "jepsen_tpu_torch/native/columnar_ext.c").exists()
     assert (ROOT / "jepsen_tpu_torch/elle/__init__.py") in _sources()
@@ -174,6 +176,51 @@ with tempfile.TemporaryDirectory() as d:
         assert out["valid?"] is False, out
         assert not (Path(d) / "iso" / "t0" / "check.ckpt").exists()
 assert writes, "no checkpoint was written"
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+print("LEAKED", leaked)
+"""
+    out = _leaked_modules(code)
+    assert "LEAKED []" in out, out
+
+
+def test_telemetry_cpu_check_loads_neither_jax_nor_reference():
+    """A CPU check with a live registry and a run tracer (Perfetto sink
+    and flight recorder): an invalid one, which localizes and explains,
+    and a segmented one through check.ckpt, resumed. The registry
+    exports, the trace loads as strict JSON, and nothing of the JAX
+    package is loaded."""
+    code = """
+import json, sys, tempfile
+from pathlib import Path
+import torch
+torch.set_num_threads(1)  # small ops: one thread beside the other workers
+from jepsen_tpu_torch import telemetry, trace
+from jepsen_tpu_torch.checker.linearizable import linearizable
+from jepsen_tpu_torch.histories import corrupt_reads, register_history
+from jepsen_tpu_torch.ops import jitlin
+from jepsen_tpu_torch.trace.flight import FlightRecorder
+from jepsen_tpu_torch.trace.perfetto import PerfettoSink
+jitlin.MATRIX_MIN_RETURNS = 10
+jitlin.MATRIX_SEGMENT_EVENTS = 128
+with tempfile.TemporaryDirectory() as d:
+    reg = telemetry.Registry()
+    tracer = trace.RunTracer(perfetto=PerfettoSink(Path(d) / "trace.json"),
+                             flight=FlightRecorder(64))
+    test = {"name": "iso", "start_time": "t0", "store_dir": d,
+            "check_ckpt_interval": 1e-9}
+    h = register_history(300, n_procs=3, seed=2, n_values=4)
+    with telemetry.use(reg), trace.use(tracer):
+        bad = linearizable(accelerator="gpu", device="cpu").check(
+            {}, corrupt_reads(h, n=1, seed=1), {})
+        ok = linearizable(accelerator="gpu", device="cpu").check(test, h, {})
+    tracer.close()
+    reg.export(d)
+    assert bad["valid?"] is False and ok["valid?"] is True
+    names = {e["name"] for e in json.loads(
+        (Path(d) / "trace.json").read_text())}
+    assert {"rung", "explain", "segment", "ckpt-write"} <= names, names
+    assert "explain_total" in (Path(d) / "metrics.prom").read_text()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("LEAKED", leaked)
