@@ -159,11 +159,13 @@ just before it and read just after:
   ``ElleSession`` (``live_elle``: ``finalize`` equal to
   ``list_append.check(accelerator="gpu")`` without ``builder``). Every row of the ``kernels`` line gains
   ``launches_live``.
-* telemetry (phase 17): a live ``telemetry.Registry`` and a
+* telemetry (phase 17, run between phases 13 and 14, which hand it the
+  long history): a live ``telemetry.Registry`` and a
   ``trace.RunTracer`` (a Perfetto sink and a flight recorder in a
   temporary store directory) on the headline check (null and live in
-  turns, medians of 5: the live registry's cost), its corrupted copy
-  with ``explain`` on, the long history's chain writing ``check.ckpt``
+  20 alternating pairs; the live registry's cost, the median of the
+  pairs' ratios, must stay at or under 10 %), its corrupted copy with
+  ``explain`` on, the long history's chain writing ``check.ckpt``
   and the check resuming from it, and config 3's 64 keys; each result
   map and each kernel's launches equal to the same check's with the null
   registry; the registry's counts (``checker_backend_total``,
@@ -171,14 +173,12 @@ just before it and read just after:
   ``checker_ckpt_writes_total``, ``explain_total``,
   ``dispatch_batches_total``), the device memory high-water against the
   card's memory, ``trace.json`` strict JSON with the ``segment``,
-  ``ckpt-write``, ``ckpt-resume``, ``explain`` and ``rung`` events, and a
+  ``ckpt-write``, ``ckpt-resume``, ``explain`` and ``rung`` events, the
+  flight recorder's dump holding its ring, and a
   ``telemetry.profiler_trace`` of one headline check naming the
-  chunk-product and combine kernels. The card's float32 matmul rate
-  (TF32 off) is published as the peak behind ``checker_roofline_frac``,
-  which models the reference's dense f32 products, not this port's
-  kernels, and can pass 1. Every row of the ``kernels`` line gains
-  ``launches_telemetry``; a ``total`` line after it gives the script's
-  seconds.
+  chunk-product and combine kernels. Every row of the ``kernels`` line
+  gains ``launches_telemetry``; a ``total`` line after it gives the
+  script's seconds.
 
 Earlier phases keep their shapes, but for phase 9's 1,024 keys (500 ops
 a key, half of bench.py's depth).
@@ -2801,8 +2801,9 @@ def segmented_phases(name, smi) -> dict:
 #: phase 8), config 3's valid history, its map and the corrupted copy's
 #: streams (``config3``) and the 1,024 keys' streams and results
 #: (``config3_1024``, phase 9), and the long history's encoded stream
-#: (``long_stream``, phase 12). Phase 17 takes the long history, its
-#: stream and config 3's valid history last. Phase 13 makes its other
+#: (``long_stream``, phase 12). Phase 17, which runs right after phase 13,
+#: takes the long history and reads its stream and config 3's valid
+#: history before phase 14 takes them. Phase 13 makes its other
 #: histories itself: with phase 8's 50k-txn Elle histories kept until
 #: then, phases 9 and 10 ran 7-8 s slower in two runs on an H100 host
 LIVE_RUNS: dict = {}
@@ -3274,7 +3275,7 @@ def mesh_phases(name, smi, history, bad, stream, bad_stream) -> tuple:
 
     # 14a. one history's chunks over the mesh: a chunk product and a
     # combine launch a shard and a dispatch
-    long_stream = LIVE_RUNS["long_stream"]
+    long_stream = LIVE_RUNS.pop("long_stream")
     per_shard = {"chunk_product": MESH_WIDTH, "combine_product": MESH_WIDTH}
     for case, st in (("headline", stream), ("headline_corrupted",
                                             bad_stream)):
@@ -3311,7 +3312,7 @@ def mesh_phases(name, smi, history, bad, stream, bad_stream) -> tuple:
                   events=len(long_stream)))
 
     # 14b. key batches over the mesh
-    h3, map3, streams_b = LIVE_RUNS["config3"]
+    h3, map3, streams_b = LIVE_RUNS.pop("config3")
     streams_k, gpu_k = LIVE_RUNS.pop("config3_1024")
     # config 3's corrupted keys: the screen, then one batched dense launch
     # a shard for the 8 keys it leaves undecided
@@ -3990,9 +3991,6 @@ def live_phases(name, smi, history, bad, twin_bad) -> dict:
 # 17. telemetry: the registry, the run tracer and the profiler on the card
 # ---------------------------------------------------------------------------
 
-#: the side of the float32 matmul whose rate phase 17 publishes as the
-#: card's f32 matmul peak
-PEAK_MATMUL_N = 8192
 #: the names of the combine's CUDA kernels (ops/csrc/chunk_combine.cu)
 COMBINE_KERNELS = ("pack_flat_kernel", "pack_rows_kernel",
                    "tree_level_kernel")
@@ -4000,6 +3998,10 @@ COMBINE_KERNELS = ("pack_flat_kernel", "pack_rows_kernel",
 #: a headline check's host time spreads over 10-20 ms between calls on
 #: one host, so medians of 5 pairs cannot resolve a cost of a few percent
 TELEMETRY_PAIRS = 20
+#: the most the live registry and tracer may add to a headline check: the
+#: median over TELEMETRY_PAIRS of the live check's time over the null
+#: one's, less 1
+TELEMETRY_MAX_OVERHEAD = 0.10
 
 
 def instrument_us(chk, stream, reps: int = 200) -> dict:
@@ -4009,7 +4011,9 @@ def instrument_us(chk, stream, reps: int = 200) -> dict:
     a ``torch-matrix`` verdict on ``stream`` (with the card's allocator
     high-water), a one-dispatch ``DispatchPipeline`` on the card (its
     event and fetch included), a rung's slice, and
-    ``device_memory_peak_bytes`` alone."""
+    ``device_memory_peak_bytes`` alone, beside
+    ``torch.cuda.max_memory_allocated``, which reads the same value
+    through the allocator's flattened stats."""
     import torch
     from jepsen_tpu_torch import telemetry, trace
     from jepsen_tpu_torch.checker.linear_cpu import LinearResult
@@ -4029,10 +4033,16 @@ def instrument_us(chk, stream, reps: int = 200) -> dict:
             r.settled = True
 
     steps = {"record_metrics": lambda: chk._record_metrics(
-                 res, 0.04, len(stream), stream),
+                 res, 0.04, len(stream)),
              "dispatch_pipeline": pipeline, "rung_span": rung,
              "device_memory_peak_bytes":
-                 lambda: telemetry.device_memory_peak_bytes("cuda")}
+                 lambda: telemetry.device_memory_peak_bytes("cuda"),
+             "max_memory_allocated":
+                 lambda: torch.cuda.max_memory_allocated("cuda")}
+    if telemetry.device_memory_peak_bytes("cuda") != \
+            torch.cuda.max_memory_allocated("cuda"):
+        raise AssertionError("telemetry: the allocator's peak differs "
+                             "from max_memory_allocated")
     out = {}
     for live in (False, True):
         reg = telemetry.Registry() if live else telemetry.NULL
@@ -4051,24 +4061,6 @@ def instrument_us(chk, stream, reps: int = 200) -> dict:
     return out
 
 
-def f32_matmul_peak() -> dict:
-    """The card's float32 matmul rate with TF32 off: ``torch.matmul`` of
-    two seeded PEAK_MATMUL_N-square matrices, CUDA events over 10 calls
-    after a warm-up."""
-    import torch
-    n = PEAK_MATMUL_N
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    a = torch.randn(n, n, device="cuda", generator=g)
-    b = torch.randn(n, n, device="cuda", generator=g)
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        ms = cuda_ms(lambda: torch.matmul(a, b), 10)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-    return {"n": n, "ms": ms, "flops": 2.0 * n ** 3 / (ms * 1e-3)}
-
-
 def telemetry_phase(name, smi, history, bad, device=None) -> dict:
     """Phase 17: the telemetry registry and the run tracer on the card's
     check path. A live ``telemetry.Registry`` and a ``trace.RunTracer``
@@ -4077,8 +4069,9 @@ def telemetry_phase(name, smi, history, bad, device=None) -> dict:
     ``explain`` on, the long history's segmented chain writing
     ``check.ckpt`` and the check that resumes from it, and config 3's key
     batch; each runs with the null registry too, and its result map and
-    launches must be the same. Returns each kernel's launches in the live
-    checks."""
+    launches must be the same. Runs right after phase 13: it takes the
+    long history from LIVE_RUNS, and leaves the long stream and config 3
+    to phase 14. Returns each kernel's launches in the live checks."""
     import tempfile
     from pathlib import Path
 
@@ -4087,25 +4080,14 @@ def telemetry_phase(name, smi, history, bad, device=None) -> dict:
     from jepsen_tpu_torch.checker import checkpoint as ck
     from jepsen_tpu_torch.checker.linear_encode import encode_register_ops
     from jepsen_tpu_torch.checker.linearizable import linearizable
-    from jepsen_tpu_torch.histories import (independent_register_history,
-                                            register_history)
     from jepsen_tpu_torch.ops import jitlin
     from jepsen_tpu_torch.trace.flight import FlightRecorder
     from jepsen_tpu_torch.trace.perfetto import PerfettoSink
 
     phase_t0 = time.perf_counter()
-    if "long" in LIVE_RUNS:
-        long_h = LIVE_RUNS.pop("long")[0]
-    else:
-        long_h = register_history(LONG_OPS, n_procs=N_PROCS, seed=SEED,
-                                  n_values=N_VALUES)
-    long_stream = LIVE_RUNS.pop("long_stream", None)
-    if long_stream is None:
-        long_stream = encode_register_ops(long_h)
-    h3 = (LIVE_RUNS.pop("config3")[0] if "config3" in LIVE_RUNS
-          else independent_register_history(IND_KEYS, IND_OPS))
-    peak = f32_matmul_peak()
-    telemetry.set_device_peak_flops(peak["flops"])
+    long_h = LIVE_RUNS.pop("long")[0]
+    long_stream = LIVE_RUNS["long_stream"]
+    h3 = LIVE_RUNS["config3"][0]
     chk = linearizable(accelerator="gpu", device=device)
     ind = independent.checker(chk)
     reg = telemetry.Registry()
@@ -4162,12 +4144,6 @@ def telemetry_phase(name, smi, history, bad, device=None) -> dict:
                 times["null"].append(null[2])
                 times["live"].append(got[2])
         n_headline = TELEMETRY_PAIRS + 1
-        # the gauges of the last live headline check: the reference's
-        # modeled dense f32 work over its wall time, and that over the
-        # card's measured f32 matmul rate (no kernel's roofline share)
-        roofline_headline = reg.gauge("checker_roofline_frac").value()
-        achieved_headline = reg.gauge(
-            "checker_achieved_matmul_flops").value()
         # 17b. the corrupted headline with explain on: localized on the
         # card, explained
         null_b = run(lambda: chk.check({}, bad, {}), None)
@@ -4219,6 +4195,17 @@ def telemetry_phase(name, smi, history, bad, device=None) -> dict:
         same("config3", got_k, null_k)
         same_map("telemetry config3", got_k[0], null_k[0])
         tracer.close()
+        # the flight recorder's dump: a header, then its ring
+        flight_path = d / trace.FLIGHT_NAME
+        if not tracer.dump_flight(flight_path, "telemetry"):
+            raise AssertionError("telemetry: the flight dump failed")
+        flight_rows = [json.loads(ln) for ln in
+                       flight_path.read_text().splitlines()]
+        if flight_rows[0]["retained"] != tracer.flight.recorded \
+                or [r.get("name") for r in flight_rows[1:]] != [
+                    e.get("name") for e in tracer.flight.snapshot()]:
+            raise AssertionError("telemetry: the flight dump is not the "
+                                 "ring")
         trace_path = d / trace.TRACE_NAME
         with open(trace_path, encoding="utf-8") as f:
             events = json.load(f)            # strict JSON after close()
@@ -4284,26 +4271,21 @@ def telemetry_phase(name, smi, history, bad, device=None) -> dict:
             by_name[e["name"]] = by_name.get(e["name"], 0) + 1
     med_null = statistics.median(times["null"])
     med_live = statistics.median(times["live"])
-    med5_null = statistics.median(times["null"][:5])
-    med5_live = statistics.median(times["live"][:5])
+    # each pair's live time over its null time: the pairs run back to back,
+    # so the host's drift over the phase cancels
+    overhead = statistics.median(
+        live / null for live, null in zip(times["live"], times["null"])) - 1
     emit({"phase": "telemetry", "headline_null_s": times["null"],
           "headline_live_s": times["live"],
-          "median5_headline_null_s": med5_null,
-          "median5_headline_live_s": med5_live,
-          "live_overhead_frac_median5": med5_live / med5_null - 1.0,
           "median_headline_null_s": med_null,
           "median_headline_live_s": med_live,
-          "live_overhead_frac": med_live / med_null - 1.0,
+          "live_overhead_frac_of_medians": med_live / med_null - 1.0,
+          "live_overhead_frac": overhead,
+          "max_overhead_frac": TELEMETRY_MAX_OVERHEAD,
           "instrument_us": instrument_us(chk, encode_register_ops(history)),
           "counts": {f"{k[0]}{{{k[1] or ''}}}": v
                      for k, v in got_counts.items()},
           "device_memory_peak_bytes": mem, "total_memory": total_mem,
-          "f32_matmul_peak": peak,
-          "roofline_frac_headline": roofline_headline,
-          "achieved_matmul_flops_headline": achieved_headline,
-          "roofline_frac_last": reg.gauge("checker_roofline_frac").value(),
-          "achieved_matmul_flops_last":
-              reg.gauge("checker_achieved_matmul_flops").value(),
           "trace_events": by_name, "trace_bytes": trace_bytes,
           "flight_recorded": tracer.flight.recorded,
           "profile_bytes": prof_bytes, "profile_attempts": attempt + 1,
@@ -4316,6 +4298,10 @@ def telemetry_phase(name, smi, history, bad, device=None) -> dict:
                                or ln.startswith(("# HELP checker_",
                                                  "# TYPE checker_"))],
           **common})
+    if overhead > TELEMETRY_MAX_OVERHEAD:
+        raise AssertionError(f"telemetry: the live registry and tracer add "
+                             f"{overhead:.2%} to a headline check, past "
+                             f"{TELEMETRY_MAX_OVERHEAD:.0%}")
     return live_launches
 
 
@@ -4907,6 +4893,12 @@ def main() -> int:
     stored = stored_phases(name, smi)
     for row in kernels:
         row["launches_stored"] = stored.get(row["name"], 0)
+    # 17. telemetry, run here to take the long history phase 13 hands on:
+    # a live registry and run tracer on the headline, its corrupted copy,
+    # the long history's checkpointed chain and resume and config 3's
+    # batch, each against the null registry; each row gains the live
+    # checks' launches
+    tel = telemetry_phase(name, smi, history, bad)
     # 14-15. checking across devices: four shards on the card, then two
     # processes; each row gains the launches of the mesh cases
     trim_rows, meshed = mesh_phases(name, smi, history, bad, stream,
@@ -4916,6 +4908,8 @@ def main() -> int:
     for row in trim_rows:
         row.update(launches_independent=0, launches_stored=0,
                    launches_mesh=meshed.get(row["name"], 0))
+    for row in kernels:
+        row["launches_telemetry"] = tel.get(row["name"], 0)
     kernels += trim_rows
     # 16. the run's shared history IR and live checking: two checks on
     # one test map, the IR's columns on the card, config 3's split, the
@@ -4924,13 +4918,6 @@ def main() -> int:
     live = live_phases(name, smi, history, bad, twin_bad)
     for row in kernels:
         row["launches_live"] = live.get(row["name"], 0)
-    # 17. telemetry: a live registry and run tracer on the headline, its
-    # corrupted copy, the long history's checkpointed chain and resume and
-    # config 3's batch, each against the null registry; each row gains
-    # the live checks' launches
-    tel = telemetry_phase(name, smi, history, bad)
-    for row in kernels:
-        row["launches_telemetry"] = tel.get(row["name"], 0)
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,

@@ -69,8 +69,8 @@ valid one; a settled check removes it. ``check_ckpt_interval`` and
 
 With a live telemetry registry or run tracer (``telemetry.use``,
 ``trace.use``), a check records the reference's instruments: the settling
-backend, its times and events/s, the card's allocator high-water, the
-matrix rungs' modeled-FLOPs gauges and phase split (``_record_metrics``);
+backend, its times and events/s, the card's allocator high-water, and
+the matrix rungs' phase split (``_record_metrics``);
 each rung tried is a ``rung`` slice on the ladder track, a declined one
 adds the reference's ``demote``, and an invalid verdict an ``explain``
 instant with its op's trace id. Off by default, they cost a few attribute
@@ -260,7 +260,7 @@ class LinearizableChecker(Checker):
         if enc is None:
             res = wgl(history, self.model)
             self._record_metrics(res, time.perf_counter() - t0,
-                                 len(history), None)
+                                 len(history))
             return self._finish(res, history)
         stream, step_py, spec = enc
         from jepsen_tpu_torch.parallel import sharding_knobs
@@ -276,8 +276,7 @@ class LinearizableChecker(Checker):
                                   mesh_devices=mesh_devices)
         if ckpt is not None:
             ckpt.clear()
-        self._record_metrics(res, time.perf_counter() - t0, len(stream),
-                             stream)
+        self._record_metrics(res, time.perf_counter() - t0, len(stream))
         return self._finish(res, history, stream, step_py, spec.init_state,
                             test=test, step_ids=spec.step_ids,
                             explain_on=explain_on,
@@ -473,16 +472,18 @@ class LinearizableChecker(Checker):
 
     # copied from jepsen_tpu/checker/linearizable.py:592-669: the device
     # rungs are the port's, the device memory that of the checker's device
-    # (the reference's first local device), and the phase split has the
-    # port's keys (jitlin.last_phase_seconds)
-    def _record_metrics(self, res: LinearResult, dt: float, n_events: int,
-                        stream) -> None:
+    # (the reference's first local device), the phase split has the
+    # port's keys (jitlin.last_phase_seconds), and the modeled-FLOPs and
+    # roofline gauges are left out: they model dense f32 products that the
+    # port's kernels do not compute. The reference's kernel-variant counter
+    # is left out too: the port's split carries no variant
+    def _record_metrics(self, res: LinearResult, dt: float,
+                        n_events: int) -> None:
         """Telemetry of one check: which backend settled it, first-call
         (the kernels' build and the CUDA context included) and steady
         latency, events/s, the device memory high-water, and on the
-        matrix rungs the modeled-FLOPs gauges (``telemetry.
-        matrix_modeled_flops``) and the host phase split. Reads only host
-        values: no sync, no read-back."""
+        matrix rungs the host phase split. Reads only host values: no
+        sync, no read-back."""
         reg = telemetry.get_registry()
         if not reg.enabled:
             return
@@ -518,20 +519,7 @@ class LinearizableChecker(Checker):
                     reg.gauge("checker_device_memory_peak_bytes",
                               "device allocator high-water"
                               ).set_max(peak_bytes)
-            if backend in MATRIX_RUNGS and stream is not None and dt > 0:
-                n_returns = int((np.asarray(stream.kind) == EV_RETURN).sum())
-                achieved = telemetry.matrix_modeled_flops(
-                    n_returns, stream.n_slots, len(stream.intern)) / dt
-                reg.gauge("checker_achieved_matmul_flops",
-                          "modeled matrix-kernel FLOP/s, last check"
-                          ).set(achieved)
-                peak = telemetry.device_peak_flops()
-                if peak:
-                    reg.gauge(
-                        "checker_roofline_frac",
-                        "modeled f32 matmul FLOP/s over the published f32 "
-                        "matmul peak: no kernel's roofline share, can "
-                        "pass 1").set(achieved / peak)
+            if backend in MATRIX_RUNGS:
                 from jepsen_tpu_torch.ops.jitlin import last_phase_seconds
                 phase_g = reg.gauge(
                     "checker_matrix_phase_seconds",
@@ -541,14 +529,6 @@ class LinearizableChecker(Checker):
                 for ph, secs in split.items():
                     if isinstance(secs, (int, float)):
                         phase_g.set(secs, phase=ph)
-                if "variant" in split:
-                    reg.counter(
-                        "checker_matrix_variant_total",
-                        "matrix dispatches by kernel representation "
-                        "and combine path",
-                        labels=("variant", "combine")).inc(
-                        variant=str(split["variant"]),
-                        combine=str(split.get("combine", "tree")))
         except Exception:  # noqa: BLE001 — telemetry never fails a check
             logger.exception("checker telemetry recording failed")
 

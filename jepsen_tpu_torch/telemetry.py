@@ -4,8 +4,8 @@ jepsen_tpu/telemetry.py).
 A thread-safe registry of Counters, Gauges and log-bucketed Histograms
 with labels, a ``timer()`` context manager, timestamped events, and
 exporters for the Prometheus text exposition format (``metrics.prom``)
-and a JSONL snapshot (``metrics.json``). Every instrument, the exporters
-and the flusher are copies: the same calls give the same text.
+and a JSONL snapshot (``metrics.json``). Every instrument and the
+exporters are copies: the same calls give the same text.
 
 Zero-cost disabled mode: the module-level default registry is
 :data:`NULL`, whose instrument constructors hand back one shared no-op
@@ -14,17 +14,19 @@ test ``reg.enabled`` around hot blocks. A caller turns telemetry on with
 ``with telemetry.use(Registry()): ...`` (or ``install``); the port has no
 run loop yet that installs one for a run.
 
-Device helpers speak of the card the check ran on: ``device_memory_stats``
-and ``device_memory_peak_bytes`` read torch's caching allocator for a
-CUDA device and return None for any other device without touching
+Device helpers speak of the card the check ran on:
+``device_memory_peak_bytes`` reads torch's caching allocator for a CUDA
+device and returns None for any other device without touching
 ``torch.cuda``; ``profiler_trace`` records a ``torch.profiler`` trace.
-``matrix_modeled_flops``, ``matrix_phase_model`` and
-``combine_modeled_hbm_bytes`` are the reference's models of its dense f32
-closure products, which the port's ``chunk_product.cu`` does not compute:
-``checker_roofline_frac`` (modeled work over the published peak of
-``set_device_peak_flops``) is therefore no roofline share of a kernel,
-and can pass 1. The peak comes only from ``set_device_peak_flops``: no
-environment variable is read.
+
+Not ported, to come with the modules that use them: the flusher, the
+thread-stack dump and the fault-window classifier (the run loop, its
+watchdog and nemesis), ``device_memory_stats``, and the reference's
+models of its dense f32 closure products with their published peak
+(``matrix_modeled_flops``, ``matrix_phase_model``,
+``combine_modeled_hbm_bytes``, ``set_device_peak_flops``): the port's
+``chunk_product.cu`` computes no such products, so a gauge over them
+would measure nothing of the port.
 """
 from __future__ import annotations
 
@@ -45,9 +47,8 @@ import torch
 
 logger = logging.getLogger("jepsen_tpu_torch.telemetry")
 
-# copied from jepsen_tpu/telemetry.py:43-642: the buckets, the instruments,
-# the registries and their exporters, the flusher, the stack dump and the
-# fault phases
+# copied from jepsen_tpu/telemetry.py:43-543: the buckets, the instruments,
+# and the registries and their exporters
 
 # Log-spaced latency buckets: 1 µs .. ~275 s in x4 steps (20 bounds plus
 # the +Inf overflow). Wide enough for SSH execs and JIT compiles, fine
@@ -552,223 +553,27 @@ def _atomic_write(path: Path, content: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Background flusher
-# ---------------------------------------------------------------------------
-
-class Flusher:
-    """Periodically exports a registry to a directory while a run is in
-    flight, so a crashed run still leaves a recent metrics snapshot.
-    ``interval_s <= 0`` skips the thread; ``stop()`` always does one
-    final export."""
-
-    def __init__(self, registry: Registry, dirpath, interval_s: float = 10.0):
-        self.registry = registry
-        self.dirpath = dirpath
-        self.interval_s = interval_s
-        self._stop = threading.Event()
-        self._thread: threading.Thread | None = None
-
-    def start(self) -> "Flusher":
-        if self.interval_s and self.interval_s > 0:
-            self._thread = threading.Thread(
-                target=self._loop, daemon=True,
-                name="jepsen-telemetry-flusher")
-            self._thread.start()
-        return self
-
-    def _loop(self) -> None:
-        while not self._stop.wait(self.interval_s):
-            try:
-                self.registry.export(self.dirpath)
-            except Exception:  # noqa: BLE001 — flushing must never kill a run
-                logger.exception("periodic metrics flush failed")
-
-    def stop(self, final_export: bool = True) -> None:
-        self._stop.set()
-        if self._thread is not None:
-            self._thread.join(timeout=10)
-            self._thread = None
-        if final_export:
-            try:
-                self.registry.export(self.dirpath)
-            except Exception:  # noqa: BLE001
-                logger.exception("final metrics export failed")
-
-
-# ---------------------------------------------------------------------------
-# Thread-stack forensics
-# ---------------------------------------------------------------------------
-
-def dump_thread_stacks(target) -> bool:
-    """All-threads stack dump via ``faulthandler`` into ``target`` — a
-    path (appended, with a timestamp header) or an open file object with
-    a real file descriptor. The interpreter's stall watchdog and the
-    tier-1 budget guard both use this so a wedged run/session leaves
-    *where every thread was stuck* on disk instead of nothing. Returns
-    True on success; never raises."""
-    import faulthandler
-    try:
-        if hasattr(target, "write"):
-            faulthandler.dump_traceback(file=target, all_threads=True)
-            return True
-        p = Path(target)
-        p.parent.mkdir(parents=True, exist_ok=True)
-        with open(p, "a", encoding="utf-8") as f:
-            f.write(f"\n==== thread stacks @ {time.time():.3f} ====\n")
-            f.flush()
-            faulthandler.dump_traceback(file=f, all_threads=True)
-        return True
-    except Exception:  # noqa: BLE001 — a diagnostic must never raise
-        logger.exception("thread-stack dump failed")
-        return False
-
-
-# ---------------------------------------------------------------------------
-# Nemesis fault-window classification
-# ---------------------------------------------------------------------------
-
-# Nemesis :f conventions across the packages: start_*/stop_* (partition,
-# clock, membership), kill/start and pause/resume (db_specific). "start"
-# alone is the *heal* of a kill window.
-_FAULT_BEGIN = ("kill", "pause", "partition", "bitflip", "snub")
-_FAULT_END = ("start", "resume", "heal")
-
-
-def fault_phase(f) -> str | None:
-    """'begin' / 'end' when the op opens or closes a fault window, else
-    None (heuristic over the package :f naming conventions)."""
-    if not isinstance(f, str):
-        return None
-    if f.startswith("start_"):
-        return "begin"
-    if f.startswith("stop_"):
-        return "end"
-    if f in _FAULT_BEGIN:
-        return "begin"
-    if f in _FAULT_END:
-        return "end"
-    return None
-
-
-# ---------------------------------------------------------------------------
-# Device helpers: memory high-water, roofline accounting, profiler
+# Device helpers: memory high-water, profiler
 # ---------------------------------------------------------------------------
 
 # the port's own: the reference reads jax.local_devices()[0].memory_stats()
 # (jepsen_tpu/telemetry.py:648-668)
-def device_memory_stats(device) -> dict | None:
-    """``torch.cuda.memory_stats(device)`` for a CUDA device (the caching
-    allocator's counters), else None; a CPU device never touches
-    ``torch.cuda``."""
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        return None
-    try:
-        return torch.cuda.memory_stats(dev) or None
-    except Exception:  # noqa: BLE001 — telemetry never takes a run down
-        return None
-
-
 def device_memory_peak_bytes(device) -> int | None:
-    """The allocator's high-water on a CUDA device,
+    """The allocator's high-water on a CUDA device, the value of
     ``torch.cuda.max_memory_allocated(device)`` (the reference's
     ``peak_bytes_in_use``); None for any other device, without touching
-    ``torch.cuda``."""
+    ``torch.cuda``. Read from the allocator's nested stats: the flat dict
+    that ``max_memory_allocated`` builds from them costs several times
+    more on the host."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return None
     try:
-        return int(torch.cuda.max_memory_allocated(dev))
+        stats = torch.cuda.memory_stats_as_nested_dict(dev)
+        return int(stats.get("allocated_bytes", {}).get("all", {})
+                   .get("peak", 0))
     except Exception:  # noqa: BLE001 — telemetry never takes a run down
         return None
-
-
-# copied from jepsen_tpu/telemetry.py:671-739
-def matrix_modeled_flops(n_returns: int, n_slots: int,
-                         num_states: int) -> float:
-    """Modeled f32 FLOPs of the transfer-matrix kernel for
-    ``n_returns`` returns: each composes one [MV, MV] operator via
-    ~(ceil(log2 S) + 2) dense matmuls (bench.py's roofline accounting,
-    shared here so the checker's runtime gauge and bench agree; a LOWER
-    bound — the elementwise L build is excluded)."""
-    MV = (1 << n_slots) * num_states
-    n_sq = 0
-    while (1 << n_sq) < n_slots:
-        n_sq += 1
-    return n_returns * (n_sq + 2) * 2.0 * MV ** 3
-
-
-def matrix_phase_model(n_returns: int, n_slots: int, num_states: int,
-                       n_chunks: int = 1, n_keys: int = 1) -> dict:
-    """Modeled FLOP shares of one transfer-matrix dispatch, by phase —
-    the analytic companion to the measured host/device split
-    (ops.jitlin.last_phase_seconds). Three on-device phases:
-
-    * ``matmul`` — the closure squarings + kill-apply + compose per
-      return: (ceil(log2 S) + 2) dense [MV, MV] products.
-    * ``lbuild`` — the elementwise L assembly (each of the MV^2 cells
-      sums S gated products).
-    * ``combine`` — the per-key chunk-product chain: C-1 products per
-      key plus the tot0 compose, amortized over the whole dispatch.
-
-    The shares say where a restructure could possibly pay: when
-    ``lbuild_frac`` + ``combine_frac`` is already small, the residual
-    gap to peak is NOT in those phases — it is fixed per-dispatch
-    overhead (host prep + round trip), which the measured phase split
-    attributes directly."""
-    MV = (1 << n_slots) * num_states
-    # the matmul term IS the roofline numerator — shared with
-    # checker_roofline_frac so the attribution can never diverge from
-    # the fraction it explains
-    matmul = matrix_modeled_flops(n_returns, n_slots, num_states)
-    lbuild = n_returns * 2.0 * n_slots * MV * MV
-    combine = n_keys * n_chunks * 2.0 * MV ** 3
-    total = matmul + lbuild + combine
-    return {
-        "modeled_matmul_frac": round(matmul / total, 4),
-        "modeled_lbuild_frac": round(lbuild / total, 6),
-        "modeled_combine_frac": round(combine / total, 6),
-    }
-
-
-def combine_modeled_hbm_bytes(n_keys: int, n_chunks: int, mv: int,
-                              fused: bool, itemsize: int = 2) -> int:
-    """Modeled HBM traffic of the chunk-product combine stage, per
-    dispatch (bf16 matrices: itemsize 2). The tree combine's
-    ceil(log2 C) levels each read two [MV, MV] products and write one
-    per pair; the fused streaming combine (pallas_matrix._build_combine)
-    reads each chunk product exactly once, reads tot0, and writes only
-    the total — the ratio of the two is the ``combine_fused_reduction``
-    bench.py reports, and ``combine_hbm_frac`` divides the active
-    model's bytes by wall time and measured HBM bandwidth."""
-    cell = mv * mv * itemsize
-    if fused:
-        return n_keys * (n_chunks + 2) * cell
-    total = 0
-    c = n_chunks
-    while c > 1:
-        pairs = c // 2
-        total += pairs * 3 * cell       # read 2, write 1 per pair
-        c = pairs + (c % 2)
-    total += 3 * cell                   # the tot0 compose
-    return n_keys * total
-
-
-_DEVICE_PEAK: dict = {}
-
-
-# copied from jepsen_tpu/telemetry.py:741-763, without the
-# JEPSEN_DEVICE_PEAK_FLOPS environment twin
-def set_device_peak_flops(value: float) -> None:
-    """Publishes a measured f32 matmul peak so runtime roofline gauges
-    have a denominator."""
-    _DEVICE_PEAK["f32_matmul_flops"] = float(value)
-
-
-def device_peak_flops() -> float | None:
-    """The peak ``set_device_peak_flops`` published, or None: runtime
-    roofline gauges are then skipped, never guessed."""
-    return _DEVICE_PEAK.get("f32_matmul_flops")
 
 
 # the file profiler_trace writes into its directory

@@ -4,14 +4,13 @@ jepsen_tpu/trace/perfetto.py).
 Writes the JSON array form of the Trace Event Format: ``[`` then one
 event object per line, comma-terminated. Emission is asynchronous: a
 caller pays one deque append; a background writer thread drains the
-queue every :data:`FLUSH_INTERVAL_S`, expands compact op tuples (the same
-:func:`~jepsen_tpu_torch.trace.flight.expand_op_event` the flight recorder
-dumps through), serializes, writes and flushes, so a killed run still
-leaves a loadable prefix (:func:`read_trace_events` reads it). A clean
+queue every :data:`FLUSH_INTERVAL_S`, serializes, writes and flushes, so
+a killed run still leaves a loadable prefix (:func:`read_trace_events` reads it). A clean
 :meth:`PerfettoSink.close` drains everything and appends the ``]``
 terminator, making the file strict JSON. The tracer's logical track
 names map to (pid 1, tid n) lanes, each named by a ``thread_name``
-metadata event.
+metadata event. Not ported: the interpreter's compact op tuples and
+their writer fast path, which come with the run loop that emits them.
 """
 from __future__ import annotations
 
@@ -22,11 +21,9 @@ import time
 from collections import deque
 from pathlib import Path
 
-from jepsen_tpu_torch.trace.flight import expand_op_event
-
 logger = logging.getLogger("jepsen_tpu_torch.trace.perfetto")
 
-# copied from jepsen_tpu/trace/perfetto.py:35-248
+# copied from jepsen_tpu/trace/perfetto.py:35-248, without the op tuples
 
 PID = 1
 FLUSH_INTERVAL_S = 0.1
@@ -47,15 +44,8 @@ class PerfettoSink:
         self.path.parent.mkdir(parents=True, exist_ok=True)
         self._q: deque = deque()
         self._tids: dict[str, int] = {}
-        # writer-side memo tables for the hot op-tuple shapes: worker ->
-        # registered tid, f/process -> their JSON encodings (op streams
-        # draw from tiny vocabularies, so each encodes once)
-        self._worker_tids: dict = {}
-        self._json_memo: dict = {}
         self._events = 0
         self._broken = False
-        # wall-us minus relative-us at run start (see FlightRecorder)
-        self.op_origin_us: int | None = None
         self._lock = threading.Lock()  # serializes drains (writer/close)
         self._stop = threading.Event()
         self._f = open(self.path, "w", encoding="utf-8")
@@ -67,18 +57,13 @@ class PerfettoSink:
             args=(flush_interval_s,))
         self._writer.start()
 
-    def emit(self, ev) -> None:
-        """One tracer event — a full dict ({ph, track, name, ts, ...})
-        or a compact op tuple — onto the write queue; the writer owns
-        expansion, the pid/tid mapping, and the file. The append is
-        deliberately lockless: deque.append is GIL-atomic, and the
-        lock below only serializes the drain side (writer vs close)."""
+    def emit(self, ev: dict) -> None:
+        """One tracer event ({ph, track, name, ts, ...}) onto the write
+        queue; the writer owns the pid/tid mapping and the file. The
+        append is deliberately lockless: deque.append is GIL-atomic, and
+        the lock below only serializes the drain side (writer vs
+        close)."""
         self._q.append(ev)  # lint: ignore[lock-guard]
-
-    def appender(self):
-        """The raw bound queue append for single-writer hot paths
-        (the flight recorder's ``appender`` twin)."""
-        return self._q.append
 
     def _writer_loop(self, interval_s: float) -> None:
         while not self._stop.wait(interval_s):
@@ -98,56 +83,6 @@ class PerfettoSink:
                  "tid": tid, "args": {"name": track}}))
         return tid
 
-    def _jmemo(self, value) -> str:
-        j = self._json_memo.get(value)
-        if j is None:
-            j = self._json_memo[value] = json.dumps(value, default=str)
-        return j
-
-    def _op_line(self, ev: tuple, lines: list[str]) -> str | None:
-        """One compact op tuple -> its JSON line, formatted directly —
-        no intermediate dict, memoized f/process encodings. This is
-        the writer's hot loop: op events dominate a trace, and the
-        direct format keeps the writer thread's GIL share (which the
-        scheduler competes with) to a fraction of json.dumps'.
-        Dispatch (B) tuples are flight-ring context only — the
-        completion's self-contained X slice covers the op here, so a
-        trace.json never pays two events per op. Falls back to the
-        shared dict expansion for odd shapes (an error'd completion, a
-        non-literal time)."""
-        if ev[0] == "B":
-            return None  # subsumed by the completion's X slice
-        _, worker, comp, t0 = ev
-        end = comp.get("time")
-        if not isinstance(t0, int) or not isinstance(end, int) \
-                or comp.get("error") is not None:
-            ev2 = expand_op_event(ev, self.op_origin_us)
-            if ev2 is None:
-                return None
-            from jepsen_tpu_torch.trace import worker_track
-            out = {k: v for k, v in ev2.items() if k != "track"}
-            out["pid"] = PID
-            out["tid"] = self._track_tid(worker_track(worker), lines)
-            return json.dumps(out, default=str)
-        ts = t0 // 1000
-        origin = self.op_origin_us
-        if origin is not None:
-            ts += origin
-        dur = (end - t0) // 1000
-        if dur < 1:
-            dur = 1
-        wt = self._worker_tids.get(worker)
-        if wt is None:
-            from jepsen_tpu_torch.trace import worker_track
-            wt = self._worker_tids[worker] = self._track_tid(
-                worker_track(worker), lines)
-        name_j = self._jmemo(str(comp.get("f")))
-        proc = comp.get("process")
-        return (f'{{"ph":"X","pid":1,"tid":{wt},"ts":{ts},"dur":{dur},'
-                f'"name":{name_j},"args":{{"process":{self._jmemo(proc)},'
-                f'"f":{name_j},"type":{self._jmemo(comp.get("type"))},'
-                f'"trace_id":"{proc}-{t0}"}}}}')
-
     def _drain(self) -> bool:
         """Serializes and writes up to DRAIN_CHUNK queued events.
         Returns True when a backlog remains (the writer yields and
@@ -162,12 +97,6 @@ class PerfettoSink:
                         ev = self._q.popleft()
                     except IndexError:
                         break
-                    if isinstance(ev, tuple):
-                        line = self._op_line(ev, lines)
-                        if line is not None:
-                            lines.append(line)
-                            self._events += 1
-                        continue
                     tid = self._track_tid(ev.get("track", "run"), lines)
                     out = {k: v for k, v in ev.items() if k != "track"}
                     out["pid"] = PID

@@ -5,13 +5,11 @@ jepsen_tpu's on the CPU, and the instruments of the port's check path.
   set_max, dec, observe, the single-writer cells and observers, events,
   and the type and label conflicts) goes into both packages' registries:
   ``render_prom()`` text, ``snapshot()`` rows, ``quantile()`` values and
-  ``Flusher`` export files are equal (tolerance zero; the events' clock
-  is patched to one value in both).
-* The plain models (``matrix_modeled_flops``, ``matrix_phase_model``,
-  ``combine_modeled_hbm_bytes``) equal the reference's on a grid of
-  shapes. The device helpers return None for a CPU device without
-  touching ``torch.cuda``; the peak is read from
-  ``set_device_peak_flops`` alone, never from the environment.
+  ``export`` files are equal (tolerance zero; the events' clock is
+  patched to one value in both).
+* The device memory helper returns None for a CPU device without
+  touching ``torch.cuda``, and reads the allocator's nested peak for a
+  CUDA one.
 * The check path: the port on ``device="cpu"`` and the reference on the
   CPU (its Pallas kernels in interpret mode), each with a live registry
   and tracer, on a headline-shaped history, its corrupted copy with
@@ -45,9 +43,12 @@ ALGORITHMS = {"jitlin-tpu-matrix": "torch-matrix",
               "jitlin-tpu-matrix-sharded": "torch-sharded-matrix",
               "jitlin-tpu": "torch-frontier"}
 # families the reference's check path emits and the port's does not: its
-# Pallas self-test probe (the port has none) and the kernel variant its
-# phase split carries (the port's kernels have one representation)
-REF_ONLY = {"pallas_probe_seconds_total", "checker_matrix_variant_total"}
+# Pallas self-test probe (the port has none), the kernel variant its phase
+# split carries (the port's kernels have one representation), and its
+# modeled dense f32 FLOP/s and their share of a published peak (the
+# port's kernels compute no such products)
+REF_ONLY = {"pallas_probe_seconds_total", "checker_matrix_variant_total",
+            "checker_achieved_matmul_flops", "checker_roofline_frac"}
 # the port's matrix_check_batch pipelines every batch, one history
 # included (the reference only batches of more than MATRIX_PIPELINE_KEYS
 # keys): its dispatch_* instruments count a single-history check too
@@ -163,7 +164,7 @@ def _drive(mod, seed: int):
     return reg, raised
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("seed", range(8))
 def test_registry_sequence_matches_jax(seed, monkeypatch):
     ref, port = _modules()
     for mod in (ref, port):
@@ -216,16 +217,16 @@ def test_log_buckets_reject_as_jax(args):
             mod.log_buckets(*args)
 
 
-def test_flusher_export_files_match_jax(tmp_path, monkeypatch):
+@pytest.mark.parametrize("seed", [5, 6])
+def test_export_files_match_jax(tmp_path, monkeypatch, seed):
     ref, port = _modules()
     for mod in (ref, port):
         monkeypatch.setattr(mod, "time", _Clock())
     files = {}
     for key, mod in (("ref", ref), ("port", port)):
-        reg, _ = _drive(mod, 5)
+        reg, _ = _drive(mod, seed)
         d = tmp_path / key
-        fl = mod.Flusher(reg, d, interval_s=0).start()
-        fl.stop()
+        reg.export(d)
         reg.export(d, prefix="again")
         files[key] = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
     assert sorted(files["port"]) == ["again.json", "again.prom",
@@ -234,16 +235,6 @@ def test_flusher_export_files_match_jax(tmp_path, monkeypatch):
     rows = [json.loads(ln) for ln in
             files["port"]["metrics.json"].decode().splitlines()]
     assert rows[-1]["type"] == "event"
-
-
-def test_flusher_thread_exports_and_stops(tmp_path):
-    _, port = _modules()
-    reg = port.Registry()
-    reg.counter("x_total").inc()
-    fl = port.Flusher(reg, tmp_path, interval_s=0.01).start()
-    fl.stop()
-    assert fl._thread is None
-    assert (tmp_path / "metrics.prom").read_text() == reg.render_prom()
 
 
 def test_null_registry_and_install_as_jax():
@@ -273,22 +264,6 @@ def test_null_registry_and_install_as_jax():
         assert mod.get_registry() is mod.NULL
 
 
-@pytest.mark.parametrize("f", ["start_partition", "stop_clock", "kill",
-                               "start", "pause", "resume", "heal", "read",
-                               None, 3])
-def test_fault_phase_matches_jax(f):
-    ref, port = _modules()
-    assert port.fault_phase(f) == ref.fault_phase(f)
-
-
-def test_dump_thread_stacks(tmp_path):
-    _, port = _modules()
-    p = tmp_path / "sub" / "stacks.txt"
-    assert port.dump_thread_stacks(p) is True
-    assert "thread stacks" in p.read_text()
-    assert port.dump_thread_stacks(tmp_path) is False  # a directory
-
-
 def test_atomic_write_leaves_no_tmp(tmp_path):
     _, port = _modules()
     port._atomic_write(tmp_path / "a.txt", "one")
@@ -298,36 +273,8 @@ def test_atomic_write_leaves_no_tmp(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# plain models and device helpers
+# device helpers
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("S", [1, 2, 3, 5, 8])
-@pytest.mark.parametrize("V", [1, 8, 16])
-def test_plain_models_match_jax(S, V):
-    ref, port = _modules()
-    for R in (0, 1, 4_096, 5_165):
-        assert port.matrix_modeled_flops(R, S, V) == \
-            ref.matrix_modeled_flops(R, S, V)
-        for C, B in ((1, 1), (256, 1), (16, 64)):
-            if R:
-                assert port.matrix_phase_model(R, S, V, C, B) == \
-                    ref.matrix_phase_model(R, S, V, C, B)
-            MV = (1 << S) * V
-            for fused in (True, False):
-                assert port.combine_modeled_hbm_bytes(B, C, MV, fused) == \
-                    ref.combine_modeled_hbm_bytes(B, C, MV, fused)
-
-
-def test_peak_flops_comes_from_set_alone(monkeypatch):
-    ref, port = _modules()
-    monkeypatch.setattr(port, "_DEVICE_PEAK", {})
-    monkeypatch.setattr(ref, "_DEVICE_PEAK", {})
-    monkeypatch.setenv("JEPSEN_DEVICE_PEAK_FLOPS", "5e13")
-    assert ref.device_peak_flops() == 5e13
-    assert port.device_peak_flops() is None
-    port.set_device_peak_flops(4.9e13)
-    assert port.device_peak_flops() == 4.9e13
-
 
 def test_device_memory_helpers_leave_cuda_alone(monkeypatch):
     _, port = _modules()
@@ -335,12 +282,47 @@ def test_device_memory_helpers_leave_cuda_alone(monkeypatch):
     def boom(*a, **kw):
         raise AssertionError("touched torch.cuda")
 
-    for fn in ("memory_stats", "max_memory_allocated", "is_available",
-               "current_device", "init"):
+    for fn in ("memory_stats", "memory_stats_as_nested_dict",
+               "max_memory_allocated", "is_available", "current_device",
+               "init"):
         monkeypatch.setattr(torch.cuda, fn, boom)
-    for dev in ("cpu", torch.device("cpu")):
-        assert port.device_memory_stats(dev) is None
+    for dev in ("cpu", torch.device("cpu"), "meta"):
         assert port.device_memory_peak_bytes(dev) is None
+
+
+@pytest.mark.parametrize("peak", [0, 1, 123_456_789, 80 * 2**30])
+def test_device_memory_peak_is_max_memory_allocated(monkeypatch, peak):
+    """For a CUDA device the helper reads the allocator's nested stats:
+    the value ``torch.cuda.max_memory_allocated`` reads from the same
+    stats, flattened (0 before the allocator's first use). A stats read
+    that fails gives None."""
+    from torch.cuda import memory as cuda_memory
+    _, port = _modules()
+    nested = {"allocated_bytes": {
+        pool: {"current": 7, "peak": peak if pool == "all" else 3,
+               "allocated": 11, "freed": 4}
+        for pool in ("all", "large_pool", "small_pool")},
+        "num_alloc_retries": 0}
+    seen = []
+
+    def stats(device=None):
+        seen.append(device)
+        return nested
+
+    monkeypatch.setattr(cuda_memory, "memory_stats_as_nested_dict", stats)
+    monkeypatch.setattr(torch.cuda, "memory_stats_as_nested_dict", stats)
+    want = torch.cuda.max_memory_allocated("cuda:1")
+    assert port.device_memory_peak_bytes("cuda:1") == want == peak
+    assert seen[-1] == torch.device("cuda:1")
+    nested.clear()
+    assert port.device_memory_peak_bytes("cuda") == \
+        torch.cuda.max_memory_allocated("cuda") == 0
+
+    def broken(device=None):
+        raise RuntimeError("no allocator")
+
+    monkeypatch.setattr(torch.cuda, "memory_stats_as_nested_dict", broken)
+    assert port.device_memory_peak_bytes("cuda") is None
 
 
 def test_profiler_trace_writes_a_chrome_trace(tmp_path):
@@ -705,25 +687,6 @@ def test_phase_labels_are_the_split_keys(both, tmp_path):
     assert set(rows) == PHASES["port"]
 
 
-def test_roofline_gauge_with_a_published_peak(both, tmp_path, monkeypatch):
-    from jepsen_tpu_torch import telemetry
-    from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
-
-    monkeypatch.setattr(telemetry, "_DEVICE_PEAK", {})
-    got = _observe("port", lambda: LinearizableChecker(
-        accelerator="gpu", device="cpu").check({}, _headline(), {}),
-        tmp_path / "a.json")
-    assert "checker_roofline_frac" not in {r["name"]
-                                           for r in got[1].snapshot()}
-    telemetry.set_device_peak_flops(1e12)
-    got = _observe("port", lambda: LinearizableChecker(
-        accelerator="gpu", device="cpu").check({}, _headline(), {}),
-        tmp_path / "b.json")
-    achieved = got[1].gauge("checker_achieved_matmul_flops").value()
-    assert achieved > 0
-    assert got[1].gauge("checker_roofline_frac").value() == achieved / 1e12
-
-
 def test_wgl_check_telemetry_matches_jax(both, tmp_path):
     """``algorithm="wgl"``: the object-model search, recorded as its
     backend with no rung span, in both packages."""
@@ -767,8 +730,6 @@ def test_null_registry_and_tracer_do_no_work(both, monkeypatch, tmp_path):
 
     monkeypatch.setattr(telemetry.Registry, "_family", spy("_family"))
     monkeypatch.setattr(tr, "now_us", spy("now_us"))
-    monkeypatch.setattr(telemetry, "matrix_modeled_flops",
-                        spy("matrix_modeled_flops"))
     monkeypatch.setattr(telemetry, "device_memory_peak_bytes",
                         spy("device_memory_peak_bytes"))
     monkeypatch.setattr(jitlin, "MATRIX_SEGMENT_EVENTS", 1024)

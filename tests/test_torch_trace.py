@@ -1,11 +1,11 @@
 """jepsen_tpu_torch's run tracer (``trace/``) against jepsen_tpu's on the
-CPU: one numpy-seeded sequence of events (slices, instants, windows,
-scoped spans and the interpreter's compact op tuples) goes through both
+CPU: one numpy-seeded sequence of the check path's events (complete
+slices and instants, timed and on the patched clock) goes through both
 packages' ``RunTracer`` with a Perfetto sink and a flight recorder, with
 ``now_us`` patched to one counter in both. The Perfetto files are equal
 byte for byte, the flight recorder's ring (wraparound included) and its
-dump are equal, and so are the trace ids, the track names, the tolerant
-reader and the knobs, which the port reads from the test map alone."""
+dump are equal, and so are the trace ids, the track names and the
+tolerant reader."""
 from __future__ import annotations
 
 import json
@@ -40,61 +40,33 @@ def _drive(mod, path, capacity: int, seed: int):
     rng = np.random.default_rng(seed)
     tracer = mod.RunTracer(perfetto=perfetto.PerfettoSink(path),
                            flight=flight.FlightRecorder(capacity))
-    tracer.set_op_origin(1_000_000)
-    sink = tracer.op_sink()
-    tracks = list(mod.TRACKS) + [mod.worker_track(i) for i in range(3)] + [
-        mod.worker_track("nemesis")]
-    open_windows = []
+    tracks = [mod.TRACK_CHECKER, mod.TRACK_LADDER, mod.TRACK_CHECKPOINT]
     for i in range(200):
-        kind = int(rng.integers(9))
+        kind = int(rng.integers(5))
         track = tracks[int(rng.integers(len(tracks)))]
         args = {"i": i, "v": int(rng.integers(100)),
-                "s": f"x{int(rng.integers(5))}"}
+                "s": f"x{int(rng.integers(5))}",
+                "ok": bool(rng.integers(2))}
         if kind == 0:
-            tracer.begin(track, f"b{i % 4}", args)
-            tracer.end(track, {"done": True})
-        elif kind == 1:
+            # a rung slice, its duration clamped to at least 1 us
             tracer.complete(track, "rung", 1_000 * i,
-                            int(rng.integers(0, 3)), args=args)
+                            int(rng.integers(-2, 3)), args=args)
+        elif kind == 1:
+            tracer.complete(track, "segment", 1_000 * i,
+                            float(rng.exponential(50.0)))
         elif kind == 2:
             tracer.instant(track, "ckpt-write", args=args)
         elif kind == 3:
-            open_windows.append(i)
-            tracer.window_begin(track, "partition", i, args=args)
-        elif kind == 4 and open_windows:
-            tracer.window_end(track, "partition", open_windows.pop(0))
-        elif kind == 5:
-            with tracer.span(track, "segment", args=args):
-                pass
-        elif kind == 6:
-            # a dispatch and its completion, as the interpreter appends
-            # them (times in relative ns)
-            w = int(rng.integers(3))
-            t0 = 1_000 * i
-            op = {"process": w, "type": "invoke", "f": "read",
-                  "time": t0}
-            sink((flight.OP_BEGIN, w, op))
-            comp = {"process": w, "type": "ok", "f": "read",
-                    "time": t0 + int(rng.integers(1, 5000))}
-            sink((flight.OP_COMPLETE, w, comp, t0))
-        elif kind == 7:
-            # odd shapes: an error'd completion and a float time
-            sink((flight.OP_COMPLETE, "nemesis",
-                  {"process": "nemesis", "type": "info",
-                   "f": "start_partition", "time": 2_000 * i,
-                   "error": "timeout"}, 1_000 * i))
-            sink((flight.OP_COMPLETE, 1,
-                  {"process": 1, "type": "ok", "f": "write",
-                   "time": 1_500.5 * i}, 1_000.0 * i))
+            tracer.instant(track, "explain", args=args,
+                           ts_us=int(rng.integers(1 << 40)))
         else:
-            w = int(rng.integers(3))
-            sink((flight.OP_BEGIN, w, {"process": w, "type": "invoke",
-                                       "f": "cas", "time": 3_000 * i}))
+            tracer.instant(track, "demote")
     tracer.close()
     return tracer
 
 
-@pytest.mark.parametrize("capacity,seed", [(16, 0), (1000, 1), (1, 2)])
+@pytest.mark.parametrize("capacity,seed", [
+    (16, 0), (1000, 1), (1, 2), (199, 3), (200, 4), (201, 5), (64, 6)])
 def test_tracer_files_and_ring_match_jax(tmp_path, monkeypatch, capacity,
                                          seed):
     ref, port = _packages()
@@ -106,12 +78,12 @@ def test_tracer_files_and_ring_match_jax(tmp_path, monkeypatch, capacity,
     assert text == (tmp_path / "ref.json").read_text()
     events = json.loads(text)       # strict JSON after close()
     assert events[-1]["name"] == "trace_done"
-    assert got.perfetto.events == want.perfetto.events > 100
+    assert got.perfetto.events == want.perfetto.events == 200
     assert got.flight.snapshot() == want.flight.snapshot()
     assert got.flight.recorded == want.flight.recorded == min(capacity,
                                                               got.flight
                                                               .recorded)
-    # the dump: a header naming the trigger, then the ring, expanded
+    # the dump: a header naming the trigger, then the ring
     for key, tracer in (("ref", want), ("port", got)):
         assert tracer.dump_flight(tmp_path / f"{key}.jsonl", "stall")
     rows = {}
@@ -125,31 +97,16 @@ def test_tracer_files_and_ring_match_jax(tmp_path, monkeypatch, capacity,
 
 
 @pytest.mark.parametrize("process,time_ns", [
-    (0, 0), (3, 1_700_000_123), ("nemesis", 42), (None, None), (7, 1.5)])
+    (0, 0), (3, 1_700_000_123), ("nemesis", 42), (None, None), (7, 1.5),
+    (-1, -5), ("p", "t"), (2**63, 10**20)])
 def test_trace_ids_and_tracks_match_jax(process, time_ns):
     ref, port = _packages()
     assert port.trace_id_for(process, time_ns) == \
         ref.trace_id_for(process, time_ns)
-    assert port.worker_track(process) == ref.worker_track(process)
-    assert port.TRACKS == ref.TRACKS
+    assert (port.TRACK_CHECKER, port.TRACK_LADDER, port.TRACK_CHECKPOINT) \
+        == (ref.TRACK_CHECKER, ref.TRACK_LADDER, ref.TRACK_CHECKPOINT)
     assert (port.TRACE_NAME, port.FLIGHT_NAME, port.DEFAULT_FLIGHT_EVENTS) \
         == (ref.TRACE_NAME, ref.FLIGHT_NAME, ref.DEFAULT_FLIGHT_EVENTS)
-
-
-@pytest.mark.parametrize("op", [
-    ("B", 2, {"process": 2, "f": "read", "time": 5_000}),
-    ("B", "nemesis", {"process": "nemesis", "f": "kill", "time": None}),
-    ("X", 1, {"process": 1, "f": "write", "type": "ok", "time": 9_000},
-     4_000),
-    ("X", 1, {"process": 1, "f": "write", "type": "fail", "time": 9_000,
-              "error": "boom"}, None),
-    ("X", 1, {"process": 1, "f": "write", "type": "ok"}, 3),
-    ("X", 1, "not an op", 3)])
-@pytest.mark.parametrize("origin", [None, 123_456])
-def test_expand_op_event_matches_jax(op, origin):
-    from jepsen_tpu.trace.flight import expand_op_event as ref_expand
-    from jepsen_tpu_torch.trace.flight import expand_op_event
-    assert expand_op_event(op, origin) == ref_expand(op, origin)
 
 
 def test_reader_tolerates_a_torn_tail_as_jax(tmp_path):
@@ -167,55 +124,6 @@ def test_flight_recorder_needs_capacity():
     from jepsen_tpu_torch.trace.flight import FlightRecorder
     with pytest.raises(ValueError):
         FlightRecorder(0)
-
-
-@pytest.mark.parametrize("value", [None, "", True, False, 1, 0, "yes",
-                                   "off", "garbage", 2.0])
-def test_trace_knob_reads_the_test_map_as_jax(value, monkeypatch):
-    ref, port = _packages()
-    monkeypatch.delenv("JEPSEN_TPU_TRACE", raising=False)
-    test = {} if value is None else {"trace": value}
-    assert port.trace_enabled(test) == ref.trace_enabled(test)
-
-
-@pytest.mark.parametrize("value", [None, "", 0, -3, 64, "128", 2.9, True,
-                                   "garbage", [1]])
-def test_flight_knob_reads_the_test_map_as_jax(value, monkeypatch):
-    ref, port = _packages()
-    monkeypatch.delenv("JEPSEN_TPU_FLIGHT_RECORDER_EVENTS", raising=False)
-    test = {} if value is None else {"flight_recorder_events": value}
-    assert port.flight_recorder_events(test) == \
-        ref.flight_recorder_events(test)
-
-
-def test_knobs_have_no_environment_twin(monkeypatch):
-    ref, port = _packages()
-    monkeypatch.setenv("JEPSEN_TPU_TRACE", "1")
-    monkeypatch.setenv("JEPSEN_TPU_FLIGHT_RECORDER_EVENTS", "7")
-    assert ref.trace_enabled({}) is True
-    assert ref.flight_recorder_events({}) == 7
-    assert port.trace_enabled({}) is False
-    assert port.flight_recorder_events({}) == port.DEFAULT_FLIGHT_EVENTS
-
-
-def test_for_test_opens_the_store_trace(tmp_path):
-    ref, port = _packages()
-    test = {"name": "run", "start_time": "20261018T000000.000Z",
-            "store_dir": str(tmp_path), "trace": True,
-            "flight_recorder_events": 8}
-    tracer = port.for_test(test)
-    assert tracer.enabled and tracer.flight.capacity == 8
-    tracer.instant(port.TRACK_CHECKER, "explain", args={"op_index": 3})
-    tracer.close()
-    tracer.close()          # idempotent
-    p = tmp_path / "run" / test["start_time"] / port.TRACE_NAME
-    assert [e["name"] for e in json.loads(p.read_text())] == [
-        "thread_name", "explain", "trace_done"]
-    assert port.for_test({"flight_recorder_events": 0}) is port.NULL_TRACER
-    off = port.for_test({})
-    assert off.perfetto is None and off.flight.capacity == \
-        port.DEFAULT_FLIGHT_EVENTS
-    assert type(ref.for_test({})) is ref.RunTracer
 
 
 def test_flight_dump_counts_its_trigger(tmp_path):
@@ -240,39 +148,19 @@ def test_flight_dump_counts_its_trigger(tmp_path):
     assert 'trace_flight_dumps_total{reason="fatal"} 1' in rows[1]
 
 
-def test_crash_hook_dumps_unless_closed(tmp_path):
-    _, port = _packages()
-    from jepsen_tpu_torch.trace.flight import FlightRecorder
-    tracer = port.RunTracer(flight=FlightRecorder(4))
-    tracer.instant(port.TRACK_CHECKER, "explain")
-    tracer.arm_crash_dump(tmp_path / "crash.jsonl")
-    tracer._atexit_dump()
-    assert json.loads((tmp_path / "crash.jsonl").read_text().splitlines()[
-        0])["reason"] == "atexit"
-    closed = port.RunTracer(flight=FlightRecorder(4))
-    closed.arm_crash_dump(tmp_path / "closed.jsonl")
-    closed.close()
-    closed._atexit_dump()
-    assert not (tmp_path / "closed.jsonl").exists()
-
-
 def test_null_tracer_and_install_as_jax(tmp_path):
     ref, port = _packages()
     for mod in (ref, port):
         null = mod.NULL_TRACER
         assert mod.get_tracer() is null and not null.enabled
-        assert null.op_sink() is None and null.perfetto is None
-        for call in (null.begin, null.end, null.complete, null.instant,
-                     null.window_begin, null.window_end):
-            call("t", "n")
-        with null.span("t", "n") as s:
-            assert s is null
+        assert null.perfetto is None and null.flight is None
+        null.complete("t", "n", 0, 1)
+        null.instant("t", "n")
         assert null.dump_flight(tmp_path / "n", "x") is False
-        null.arm_crash_dump(tmp_path / "n")
-        null.set_op_origin(0)
+        assert not (tmp_path / "n").exists()
         null.close()
         live = mod.RunTracer()
-        assert not live.enabled and live.op_sink() is None
+        assert not live.enabled
         with mod.use(live) as t:
             assert t is live and mod.get_tracer() is live
             assert mod.install(None) is live
