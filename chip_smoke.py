@@ -177,8 +177,24 @@ just before it and read just after:
   flight recorder's dump holding its ring, and a
   ``telemetry.profiler_trace`` of one headline check naming the
   chunk-product and combine kernels. Every row of the ``kernels`` line
-  gains ``launches_telemetry``; a ``total`` line after it gives the
-  script's seconds.
+  gains ``launches_telemetry``.
+* the live daemon over the native ingest spine (phase 18, after phase
+  16): the headline, its corrupted copy and config 3 at 256 keys of 40
+  ops, each appended to its run's ``history.wal.jsonl`` in chunks of
+  1,000 ops between polls of one ``live.LiveDaemon(store_root,
+  accelerator="auto")``, then settled by ``run_until_idle`` once each
+  ``history.jsonl`` lands (``daemon`` line: each poll's ms, the final
+  statuses, the spine's fallback counts, the launches). Each run's
+  final verdict must be the offline check's (the corrupted copy's
+  first anomaly the CPU twin's failed op), no tracker may break, no
+  frontier may bail out of the C, and the chunk-product and combine
+  kernels must launch inside the polls. ``ingest_rates`` times the C
+  spine against its Python twins: the WAL scan of 200,000 lines
+  (``parse_wal_chunk`` against ``parse_wal_chunk_py``), the live
+  register encode of the same ops, and the frontier closure of the
+  headline's stream. Every row of the ``kernels`` line gains
+  ``launches_daemon``; a ``total`` line after it gives the script's
+  seconds.
 
 Earlier phases keep their shapes, but for phase 9's 1,024 keys (500 ops
 a key, half of bench.py's depth).
@@ -3988,6 +4004,196 @@ def live_phases(name, smi, history, bad, twin_bad) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 18. the live daemon over the native ingest spine
+# ---------------------------------------------------------------------------
+
+DAEMON_CHUNK = 1_000     # ops appended to each run's WAL between polls
+DAEMON_KEYS, DAEMON_KEY_OPS = 256, 40   # config 3's shape, 256 keys
+INGEST_OPS = 100_000     # the rates' history: 200,000 WAL lines
+INGEST_REPS = 3
+
+
+def median_s(fn) -> tuple:
+    """(median seconds of ``INGEST_REPS`` calls of ``fn()``, its last
+    result)."""
+    times, out = timed(fn, INGEST_REPS)
+    return statistics.median(times), out
+
+
+def ingest_rates(name, smi, history) -> dict:
+    """The C spine against its Python twins on the card's host, each the
+    median of ``INGEST_REPS`` calls: the WAL scan of 200,000 lines, the
+    live register encode of the same ops, and the frontier closure of
+    the headline's stream (the twin's loop over the same columns as
+    tuples, which the C declines)."""
+    from types import SimpleNamespace
+
+    from jepsen_tpu_torch.checker.linear_cpu import FrontierSession
+    from jepsen_tpu_torch.histories import register_history
+    from jepsen_tpu_torch.history import Intern
+    from jepsen_tpu_torch.history_ir import ingest
+    from jepsen_tpu_torch.history_ir.builder import LiveRegisterEncoder
+    from jepsen_tpu_torch.journal import parse_wal_chunk_py
+    h = register_history(INGEST_OPS, n_procs=N_PROCS, seed=SEED,
+                         n_values=N_VALUES)
+    wal = "".join(json.dumps(op) + "\n" for op in h).encode()
+    c_scan_s, got = median_s(lambda: ingest.parse_wal_chunk(wal))
+    py_scan_s, want = median_s(lambda: parse_wal_chunk_py(wal))
+    if got[1:] != want[1:] or got[0] != want[0] or got[0] != h:
+        raise AssertionError("ingest_rates: the C scan differs from "
+                             "parse_wal_chunk_py")
+    ops = got[0]
+
+    def encode(twin: bool):
+        # an encoder with its own encode_args is outside the C's regime:
+        # add_many and encode_resolved run the Python loops
+        enc = LiveRegisterEncoder(Intern())
+        if twin:
+            enc = LiveRegisterEncoder(Intern(), encode_args=enc.encode_args)
+        enc.add_many(ops)
+        enc.encode_resolved()
+        return enc
+    c_enc_s, enc = median_s(lambda: encode(False))
+    py_enc_s, twin_enc = median_s(lambda: encode(True))
+    cols = ("kind", "slot", "f", "a", "b", "op_index")
+    if any(getattr(enc.stream, c) != getattr(twin_enc.stream, c)
+           for c in cols) or enc._next != twin_enc._next:
+        raise AssertionError("ingest_rates: the C encode differs from "
+                             "the Python twin's")
+    head = LiveRegisterEncoder(Intern())
+    head.add_many(history)
+    head.finalize()
+    st = head.stream
+    as_tuples = SimpleNamespace(intern=st.intern, **{
+        c: tuple(getattr(st, c)) for c in cols})
+    c_fr_s, fr = median_s(lambda: FrontierSession().absorb(st))
+    py_fr_s, twin_fr = median_s(lambda: FrontierSession().absorb(as_tuples))
+    if vars(fr) != vars(twin_fr) or fr.valid is not True:
+        raise AssertionError(f"ingest_rates: frontier {fr} against "
+                             f"{twin_fr}")
+    n, ev = len(ops), len(st)
+    row = {"phase": "ingest_rates", "wal_lines": n, "wal_bytes": len(wal),
+           "headline_events": ev, "reps": INGEST_REPS,
+           "scan_c_s": c_scan_s, "scan_python_s": py_scan_s,
+           "scan_c_ops_per_s": n / c_scan_s,
+           "scan_python_ops_per_s": n / py_scan_s,
+           "encode_c_s": c_enc_s, "encode_python_s": py_enc_s,
+           "encode_c_ops_per_s": n / c_enc_s,
+           "encode_python_ops_per_s": n / py_enc_s,
+           "frontier_c_s": c_fr_s, "frontier_python_s": py_fr_s,
+           "frontier_c_events_per_s": ev / c_fr_s,
+           "frontier_python_events_per_s": ev / py_fr_s,
+           "card": name, "power": smi}
+    emit(row)
+    return row
+
+
+def daemon_phase(name, smi, history, bad, twin_bad) -> dict:
+    """Phase 18: three runs' WALs grow by ``DAEMON_CHUNK`` ops between
+    polls of one ``LiveDaemon(store_root, accelerator="auto")`` (the
+    headline, its corrupted copy, config 3 at ``DAEMON_KEYS`` keys), then
+    each run's ``history.jsonl`` lands and ``run_until_idle`` settles
+    them. Each final ``live-status.json`` must hold the offline check's
+    verdict (and the corrupted copy's first anomaly), no tracker may
+    break, no frontier may bail out of the C, and both Pallas ports must
+    launch inside the polls. Returns each kernel's launches in the
+    daemon's polls and finalizes."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from jepsen_tpu_torch import independent, telemetry
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.histories import independent_register_history
+    from jepsen_tpu_torch.live import LiveDaemon, load_live_status
+    phase_t0 = time.perf_counter()
+    common = {"card": name, "power": smi}
+    h3 = independent_register_history(DAEMON_KEYS, DAEMON_KEY_OPS)
+    runs = {"headline": history, "corrupted": bad, "config3": h3}
+    lin = linearizable(accelerator="gpu")
+    offline = {"headline": lin.check({}, history, {}),
+               "corrupted": lin.check({}, bad, {}),
+               "config3": independent.checker(lin).check({}, h3, {})}
+    first = twin_bad.failed_op_index
+    if (offline["headline"]["valid?"], offline["corrupted"]["valid?"],
+            offline["config3"]["valid?"]) != (True, False, True) or \
+            offline["corrupted"]["explain"]["first-anomaly-op"] != first:
+        raise AssertionError(f"daemon: the offline checks {offline}")
+    reg = telemetry.Registry()
+    with tempfile.TemporaryDirectory() as d, telemetry.use(reg):
+        root = Path(d)
+        dirs = {}
+        for run in runs:
+            dirs[run] = root / run / "20261018T000000.000"
+            dirs[run].mkdir(parents=True)
+            (dirs[run] / "history.wal.jsonl").touch()
+        daemon = LiveDaemon(str(root), accelerator="auto", registry=reg)
+        reset_launches()
+        poll_ms, broken = [], set()
+        for lo in range(0, max(len(h) for h in runs.values()),
+                        DAEMON_CHUNK):
+            for run, h in runs.items():
+                with open(dirs[run] / "history.wal.jsonl", "a") as f:
+                    f.write("".join(json.dumps(op) + "\n"
+                                    for op in h[lo:lo + DAEMON_CHUNK]))
+            t0 = time.perf_counter()
+            daemon.poll_once()
+            torch.cuda.synchronize()
+            poll_ms.append((time.perf_counter() - t0) * 1e3)
+            broken |= {t.label for t in daemon.trackers.values()
+                       if t.broken}
+        polled = read_launches()
+        for run, h in runs.items():
+            (dirs[run] / "history.jsonl").write_text(
+                "".join(json.dumps(op) + "\n" for op in h))
+        t0 = time.perf_counter()
+        daemon.run_until_idle(timeout_s=600)
+        torch.cuda.synchronize()
+        idle_s = time.perf_counter() - t0
+        launches = read_launches()
+        finals = {run: load_live_status(dirs[run]) for run in runs}
+        prom = (root / "live-metrics.prom").read_text()
+    fallbacks = {r["labels"]["reason"]: r["value"] for r in reg.snapshot()
+                 if r["name"] == "native_ingest_fallback_total"}
+    row = {"phase": "daemon", "runs": {run: len(h)
+                                       for run, h in runs.items()},
+           "chunk": DAEMON_CHUNK, "polls": len(poll_ms),
+           "median_poll_ms": statistics.median(poll_ms),
+           "max_poll_ms": max(poll_ms), "poll_ms": poll_ms,
+           "run_until_idle_s": idle_s,
+           "final": {run: {k: st.get(k) for k in (
+               "state", "valid_so_far", "first_anomaly_op", "backend",
+               "ops_absorbed", "checked_ops", "polls", "error")}
+               for run, st in finals.items()},
+           "offline_first_anomaly_op": first,
+           "fallbacks": fallbacks, "launches_in_polls": {
+               k: n for k, n in polled.items() if n},
+           "launches": {k: n for k, n in launches.items() if n},
+           "seconds": time.perf_counter() - phase_t0, **common}
+    emit(row)
+    want = {"headline": (True, None), "corrupted": (False, first),
+            "config3": (True, None)}
+    for run, st in finals.items():
+        res = st.get("results") or {}
+        if st["state"] != "final" or "error" in st or broken \
+                or (st["valid_so_far"], st["first_anomaly_op"]) != want[run] \
+                or res.get("valid?") is not offline[run]["valid?"] \
+                or st["ops_absorbed"] != len(runs[run]):
+            raise AssertionError(f"daemon {run}: {st} (broken: {broken})")
+    if finals["corrupted"]["results"].get("failed-op-index") != first:
+        raise AssertionError(f"daemon: {finals['corrupted']['results']}")
+    if fallbacks.get("frontier-bail"):
+        raise AssertionError(f"daemon: a frontier bailed out of the C: "
+                             f"{fallbacks}")
+    if not (polled["chunk_product"] and polled["combine_product"]):
+        raise AssertionError(f"daemon: the polls launched {polled}")
+    if "live_verdict" not in prom:
+        raise AssertionError("daemon: live-metrics.prom lacks live_verdict")
+    ingest_rates(name, smi, history)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # 17. telemetry: the registry, the run tracer and the profiler on the card
 # ---------------------------------------------------------------------------
 
@@ -4918,6 +5124,11 @@ def main() -> int:
     live = live_phases(name, smi, history, bad, twin_bad)
     for row in kernels:
         row["launches_live"] = live.get(row["name"], 0)
+    # 18. the live daemon over the native ingest spine: three runs' WALs
+    # tailed, checked and settled; each row gains the daemon's launches
+    tailed = daemon_phase(name, smi, history, bad, twin_bad)
+    for row in kernels:
+        row["launches_daemon"] = tailed.get(row["name"], 0)
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,

@@ -69,15 +69,19 @@ class LinearResult:
     final_configs: list | None = None
 
 
-# copied from jepsen_tpu/checker/linear_cpu.py:78-244 (the pure-Python
-# step loop; no native frontier or coverage probe)
+# copied from jepsen_tpu/checker/linear_cpu.py:78-244, without the
+# coverage probe and its configs_min
 class FrontierSession:
     """Resumable just-in-time linearization: the surviving
     configurations (linearized-pending bitmask, model state), the open
     ops per slot and the pending mask carry between absorbs. Once the
     frontier dies the session latches its failure LinearResult; further
     absorbs are no-ops. :meth:`snapshot` and :meth:`restore` carry the
-    state through a durable checkpoint (checker/checkpoint.py)."""
+    state through a durable checkpoint (checker/checkpoint.py).
+
+    :meth:`absorb` runs the C closure of ``native/columnar_ext.c``
+    (``history_ir.ingest.frontier_absorb``) for the CAS register over
+    a list-backed stream, and this step loop on what the C declines."""
 
     def __init__(
         self,
@@ -105,6 +109,13 @@ class FrontierSession:
             return self.failure
         if end is None:
             end = len(stream.kind)
+        # the C runs the same closure on COPIES and commits only a chunk
+        # that stays alive; a death (or any regime miss) replays the
+        # untouched state below, so the failure forensics are the
+        # Python loop's
+        from jepsen_tpu_torch.history_ir import ingest
+        if ingest.frontier_absorb(self, stream, start, end):
+            return self.result()
         step = self.step
         configs = self.configs
         cur = self.cur

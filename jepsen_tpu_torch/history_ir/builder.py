@@ -10,13 +10,13 @@ adapt over them:
   stream at every poll is the batch ``register_stream``'s prefix;
 * :class:`LiveElleColumns` — the list-append transaction columns.
 
-Only the reference's Python paths are ported: its native branches
-(``ingest.encoder_add_encode`` / ``encoder_add`` and
-``ingest.encoder_encode``, over the C ingest spine of
-``native/columnar_ext.c``) are not, so ``add_many`` and
-``encode_resolved`` always run the Python loops. The reference's
-canonical-column builder and WAL streamer (``IncrementalHistoryBuilder``,
-``WalStreamer``) come with the run loop that would start them.
+``LiveRegisterEncoder.add_many`` and ``encode_resolved`` go through the
+C ingest spine (:mod:`jepsen_tpu_torch.history_ir.ingest` over
+``native/columnar_ext.c``: ``register_add_encode``, ``register_add``,
+``register_encode``), and run the Python loops on the C's regime misses
+with the same state. The reference's canonical-column builder and WAL
+streamer (``IncrementalHistoryBuilder``, ``WalStreamer``) come with the
+run loop that would start them.
 """
 from __future__ import annotations
 
@@ -71,8 +71,7 @@ class ListStream:
         )
 
 
-# copied from jepsen_tpu/history_ir/builder.py:265-550, without the
-# native add and encode
+# copied from jepsen_tpu/history_ir/builder.py:265-550
 class LiveRegisterEncoder:
     """Incremental twin of the register event-stream view
     (:func:`jepsen_tpu_torch.checker.linear_encode.encode_register_ops`):
@@ -154,7 +153,15 @@ class LiveRegisterEncoder:
                     else ("keep",))
 
     def add_many(self, ops: Sequence[dict]) -> None:
-        """:meth:`add` for each of ``ops``, in order."""
+        """Chunked :meth:`add`: one native call a WAL poll instead of a
+        Python frame an op (``history_ir.ingest``); the per-op loop
+        when the encoder is out of the C's regime, with the same
+        state."""
+        from jepsen_tpu_torch.history_ir import ingest
+        if isinstance(ops, list) and ingest.encoder_add_encode(self, ops):
+            return
+        if ingest.encoder_add(self, ops):
+            return
         for op in ops:
             self.add(op)
 
@@ -164,6 +171,13 @@ class LiveRegisterEncoder:
         """Advances the encoder over every op whose resolution is known;
         returns the new count of encoded history ops (the checkable
         prefix length)."""
+        # native fast path: advances the same cursor/slot state in
+        # place; a mid-stream bail (exotic value, unknown f) leaves
+        # ``_next`` AT the offending op so the loop below resumes — and
+        # raises — from bit-identical state
+        from jepsen_tpu_torch.history_ir import ingest
+        if ingest.encoder_encode(self):
+            return self._next
         from jepsen_tpu_torch.checker.linear_encode import (
             EV_INVOKE, EV_RETURN)
         ops = self._ops

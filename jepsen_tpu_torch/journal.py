@@ -4,9 +4,10 @@
 ``history.jsonl`` through. :class:`WalTailer` reads a run's write-ahead
 journal (``history.wal.jsonl``) incrementally, poll by poll, for the
 live checker sessions (:mod:`jepsen_tpu_torch.live`); it parses through
-:func:`parse_wal_chunk_py`, the reference's Python twin of its native
-chunk scanner (the native scanner is not ported). The writer side,
-``Journal`` and ``ForensicLog``, is not ported either.
+the C chunk scanner (``history_ir.ingest.parse_wal_chunk`` over
+``native/columnar_ext.c`` ``ingest_chunk``), which gives what
+:func:`parse_wal_chunk_py`, its Python twin, gives. The writer side,
+``Journal`` and ``ForensicLog``, is not ported.
 """
 from __future__ import annotations
 
@@ -54,8 +55,8 @@ def read_jsonl_tolerant(path) -> tuple[list[dict], bool]:
 # copied from jepsen_tpu/journal.py:373-615, parsing with
 # parse_wal_chunk_py
 def parse_wal_chunk_py(chunk: bytes, final: bool = False):
-    """The reference's Python twin of its native ``ingest_chunk``
-    scanner: the WAL chunk protocol.
+    """The Python twin of the C ``ingest_chunk`` scanner
+    (``history_ir.ingest.parse_wal_chunk``): the WAL chunk protocol.
 
     Takes the raw bytes read from a WAL at some resume cursor and
     returns ``(ops, consumed, torn, truncated)``:
@@ -238,7 +239,11 @@ class WalTailer:
         chunk = self._read_new()
         if not chunk:
             return []
-        ops, consumed, torn, truncated = parse_wal_chunk_py(
+        # the hot loop is the C scanner's (native/columnar_ext.c
+        # ingest_chunk), which hands a line it cannot parse exactly to
+        # json.loads; parse_wal_chunk_py gives the same four values
+        from jepsen_tpu_torch.history_ir import ingest
+        ops, consumed, torn, truncated = ingest.parse_wal_chunk(
             chunk, final=final)
         self.lines_read += len(ops)
         if torn:

@@ -45,8 +45,10 @@ sharded screen or of the localization propagates from ``verdict()``,
 where the reference retries a failed shard on one device and swallows a
 failed localization. A bad op still poisons its session (``verdict``
 then says "unknown" with the error) and does not kill it. The rung
-labels are ``torch-matrix`` and ``frontier-cpu``. Not ported: the live
-daemon and the schedule fuzzer's ``coverage_probe``.
+labels are ``torch-matrix`` and ``frontier-cpu``. An error of a poll
+reaches the live daemon (:mod:`jepsen_tpu_torch.live.daemon`), whose
+per-run breaker opens after ``LIVE_BREAKER_THRESHOLD`` failing polls.
+Not ported: the schedule fuzzer's ``coverage_probe``.
 
 Sessions are single-threaded by contract: one poller owns them; nothing
 here takes locks.

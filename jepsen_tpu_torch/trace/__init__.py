@@ -52,6 +52,8 @@ DEFAULT_FLIGHT_EVENTS = 4096
 TRACK_CHECKER = "checker"
 TRACK_LADDER = "checker-ladder"
 TRACK_CHECKPOINT = "checkpoint"
+# the live daemon's poll, check and finalize slices (live/daemon.py)
+TRACK_LIVE = "live"
 
 
 def trace_id_for(process, time_ns) -> str:

@@ -2,11 +2,15 @@
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Iterable, Sequence
+
+logger = logging.getLogger("jepsen_tpu_torch")
 
 
 # copied from jepsen_tpu/utils/__init__.py:34-45
@@ -54,3 +58,22 @@ def op2str(op: dict) -> str:
     if err is not None:
         s += f"\t{err}"
     return s
+
+
+# copied from jepsen_tpu/utils/__init__.py:133-161, without the total
+# wait bound (``max_wait_s``), which the port's one caller does not pass
+JOIN_HEARTBEAT_S = 30.0
+
+
+def join_noisy(thread: threading.Thread, what: str,
+               heartbeat_s: float = JOIN_HEARTBEAT_S) -> None:
+    """Joins ``thread`` with the same wait-forever semantics as a bare
+    ``join()``, but bounded per wait with a heartbeat log — the caller
+    is never wedged SILENTLY, and a stuck thread is diagnosable from
+    the log."""
+    waited = 0.0
+    while thread.is_alive():
+        thread.join(timeout=heartbeat_s)
+        if thread.is_alive():
+            waited += heartbeat_s
+            logger.warning("%s still running after %.0fs", what, waited)

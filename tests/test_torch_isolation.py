@@ -48,7 +48,7 @@ def test_port_sources_exist():
             "forensics_kernels.py", "checkpoint.py", "store.py",
             "codec.py", "journal.py", "ir.py", "sidecar.py",
             "columnar_c.py", "builder.py", "sessions.py", "telemetry.py",
-            "perfetto.py", "flight.py"} <= names
+            "perfetto.py", "flight.py", "ingest.py", "daemon.py"} <= names
     assert (ROOT / "jepsen_tpu_torch/live/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/parallel/__init__.py") in _sources()
@@ -298,6 +298,38 @@ with tempfile.TemporaryDirectory() as d:
     assert out["valid?"] is False, out
     assert history_ir.of(test, ops) is test["_history_ir"]
     assert test["_history_ir"].ops is ops
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+print("LEAKED", leaked)
+"""
+    out = _leaked_modules(code)
+    assert "LEAKED []" in out, out
+
+
+def test_live_daemon_loads_neither_jax_nor_reference():
+    """A run's WAL tailed by the live daemon through the C ingest spine
+    to its final verdict."""
+    code = """
+import json, sys, tempfile
+from pathlib import Path
+import torch
+torch.set_num_threads(1)
+from jepsen_tpu_torch.histories import corrupt_reads, register_history
+from jepsen_tpu_torch.live import LiveDaemon, load_live_status
+h = corrupt_reads(register_history(200, n_procs=3, seed=2, n_values=4),
+                  n=1, seed=1)
+with tempfile.TemporaryDirectory() as d:
+    run = Path(d) / "reg" / "20260803T000000.000"
+    run.mkdir(parents=True)
+    lines = "".join(json.dumps(op) + "\\n" for op in h)
+    (run / "history.wal.jsonl").write_text(lines)
+    daemon = LiveDaemon(store_root=d, accelerator="cpu", device="cpu")
+    daemon.poll_once()
+    (run / "history.jsonl").write_text(lines)
+    daemon.run_until_idle(timeout_s=60)
+    status = load_live_status(run)
+    assert status["state"] == "final", status
+    assert status["results"]["valid?"] is False, status
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("LEAKED", leaked)
