@@ -179,20 +179,24 @@ just before it and read just after:
   chunk-product and combine kernels. Every row of the ``kernels`` line
   gains ``launches_telemetry``.
 * the live daemon over the native ingest spine (phase 18, after phase
-  16): the headline, its corrupted copy and config 3 at 256 keys of 40
-  ops, each appended to its run's ``history.wal.jsonl`` in chunks of
-  1,000 ops between polls of one ``live.LiveDaemon(store_root,
+  16): the headline, its corrupted copy and config 3 at 16 keys of
+  1,000 ops, each appended to its run's ``history.wal.jsonl`` in a
+  twentieth of the run a poll (1,000 ops for the headline, 1,600 for
+  config 3) between polls of one ``live.LiveDaemon(store_root,
   accelerator="auto")``, then settled by ``run_until_idle`` once each
   ``history.jsonl`` lands (``daemon`` line: each poll's ms, the final
-  statuses, the spine's fallback counts, the launches). Each run's
-  final verdict must be the offline check's (the corrupted copy's
-  first anomaly the CPU twin's failed op), no tracker may break, no
-  frontier may bail out of the C, and the chunk-product and combine
-  kernels must launch inside the polls. ``ingest_rates`` times the C
-  spine against its Python twins: the WAL scan of 200,000 lines
-  (``parse_wal_chunk`` against ``parse_wal_chunk_py``), the live
-  register encode of the same ops, and the frontier closure of the
-  headline's stream. Every row of the ``kernels`` line gains
+  statuses, the spine's fallback counts, the launches, and those of the
+  config-3 run's own checks). Each run's final verdict must be the
+  offline check's (the corrupted copy's first anomaly the CPU twin's
+  failed op), no tracker may break, no frontier may bail out of the C,
+  and the headline runs' checks must launch the chunk-product and
+  combine kernels inside the polls. Config 3's keys stay below the
+  screen's ``MATRIX_MIN_RETURNS`` (about 800 returns a key against
+  2,000), so its run checks on the CPU frontier, in C.
+  ``ingest_rates`` times the C spine against its Python twins: the WAL
+  scan of 200,000 lines (``parse_wal_chunk`` against
+  ``parse_wal_chunk_py``), the live register encode of the same ops,
+  and the frontier closure of the headline's stream. Every row of the ``kernels`` line gains
   ``launches_daemon``; a ``total`` line after it gives the script's
   seconds.
 
@@ -4007,8 +4011,8 @@ def live_phases(name, smi, history, bad, twin_bad) -> dict:
 # 18. the live daemon over the native ingest spine
 # ---------------------------------------------------------------------------
 
-DAEMON_CHUNK = 1_000     # ops appended to each run's WAL between polls
-DAEMON_KEYS, DAEMON_KEY_OPS = 256, 40   # config 3's shape, 256 keys
+DAEMON_POLLS = 20        # each run's WAL grows a twentieth a poll
+DAEMON_KEYS = 16         # config 3 at its 1,000 ops a key (IND_OPS)
 INGEST_OPS = 100_000     # the rates' history: 200,000 WAL lines
 INGEST_REPS = 3
 
@@ -4089,15 +4093,19 @@ def ingest_rates(name, smi, history) -> dict:
 
 
 def daemon_phase(name, smi, history, bad, twin_bad) -> dict:
-    """Phase 18: three runs' WALs grow by ``DAEMON_CHUNK`` ops between
-    polls of one ``LiveDaemon(store_root, accelerator="auto")`` (the
-    headline, its corrupted copy, config 3 at ``DAEMON_KEYS`` keys), then
-    each run's ``history.jsonl`` lands and ``run_until_idle`` settles
-    them. Each final ``live-status.json`` must hold the offline check's
-    verdict (and the corrupted copy's first anomaly), no tracker may
-    break, no frontier may bail out of the C, and both Pallas ports must
-    launch inside the polls. Returns each kernel's launches in the
-    daemon's polls and finalizes."""
+    """Phase 18: three runs' WALs grow by a ``DAEMON_POLLS``-th of the
+    run between polls of one ``LiveDaemon(store_root,
+    accelerator="auto")`` (the headline, its corrupted copy, config 3 at
+    ``DAEMON_KEYS`` keys of ``IND_OPS``), then each run's
+    ``history.jsonl`` lands and ``run_until_idle`` settles them. Each
+    final ``live-status.json`` must hold the offline check's verdict
+    (and the corrupted copy's first anomaly), no tracker may break, no
+    frontier may bail out of the C, and both Pallas ports must launch
+    inside the headline runs' checks in the polls. The config-3 run's
+    own launches are counted apart: its keys (about 800 returns each)
+    are below ``MATRIX_MIN_RETURNS``, so it checks on the C frontier.
+    Returns each kernel's launches in the daemon's polls and
+    finalizes."""
     import tempfile
     from pathlib import Path
 
@@ -4105,10 +4113,11 @@ def daemon_phase(name, smi, history, bad, twin_bad) -> dict:
     from jepsen_tpu_torch import independent, telemetry
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.histories import independent_register_history
-    from jepsen_tpu_torch.live import LiveDaemon, load_live_status
+    from jepsen_tpu_torch.live import (
+        LiveDaemon, MultiKeyLinearSession, load_live_status)
     phase_t0 = time.perf_counter()
     common = {"card": name, "power": smi}
-    h3 = independent_register_history(DAEMON_KEYS, DAEMON_KEY_OPS)
+    h3 = independent_register_history(DAEMON_KEYS, IND_OPS)
     runs = {"headline": history, "corrupted": bad, "config3": h3}
     lin = linearizable(accelerator="gpu")
     offline = {"headline": lin.check({}, history, {}),
@@ -4128,20 +4137,37 @@ def daemon_phase(name, smi, history, bad, twin_bad) -> dict:
             dirs[run].mkdir(parents=True)
             (dirs[run] / "history.wal.jsonl").touch()
         daemon = LiveDaemon(str(root), accelerator="auto", registry=reg)
+        chunk = {run: -(-len(h) // DAEMON_POLLS) for run, h in runs.items()}
+        # the config-3 run is the one multi-key session: count its own
+        # checks' launches apart from the headline runs'
+        own3 = dict.fromkeys(read_launches(), 0)
+        verdict3 = MultiKeyLinearSession.verdict
+
+        def counted(sess):
+            before = read_launches()
+            try:
+                return verdict3(sess)
+            finally:
+                for k, n in read_launches().items():
+                    own3[k] += n - before[k]
+        MultiKeyLinearSession.verdict = counted
         reset_launches()
         poll_ms, broken = [], set()
-        for lo in range(0, max(len(h) for h in runs.values()),
-                        DAEMON_CHUNK):
-            for run, h in runs.items():
-                with open(dirs[run] / "history.wal.jsonl", "a") as f:
-                    f.write("".join(json.dumps(op) + "\n"
-                                    for op in h[lo:lo + DAEMON_CHUNK]))
-            t0 = time.perf_counter()
-            daemon.poll_once()
-            torch.cuda.synchronize()
-            poll_ms.append((time.perf_counter() - t0) * 1e3)
-            broken |= {t.label for t in daemon.trackers.values()
-                       if t.broken}
+        try:
+            for p in range(DAEMON_POLLS):
+                for run, h in runs.items():
+                    with open(dirs[run] / "history.wal.jsonl", "a") as f:
+                        f.write("".join(
+                            json.dumps(op) + "\n" for op in
+                            h[p * chunk[run]:(p + 1) * chunk[run]]))
+                t0 = time.perf_counter()
+                daemon.poll_once()
+                torch.cuda.synchronize()
+                poll_ms.append((time.perf_counter() - t0) * 1e3)
+                broken |= {t.label for t in daemon.trackers.values()
+                           if t.broken}
+        finally:
+            MultiKeyLinearSession.verdict = verdict3
         polled = read_launches()
         for run, h in runs.items():
             (dirs[run] / "history.jsonl").write_text(
@@ -4157,7 +4183,7 @@ def daemon_phase(name, smi, history, bad, twin_bad) -> dict:
                  if r["name"] == "native_ingest_fallback_total"}
     row = {"phase": "daemon", "runs": {run: len(h)
                                        for run, h in runs.items()},
-           "chunk": DAEMON_CHUNK, "polls": len(poll_ms),
+           "chunk": chunk, "polls": len(poll_ms),
            "median_poll_ms": statistics.median(poll_ms),
            "max_poll_ms": max(poll_ms), "poll_ms": poll_ms,
            "run_until_idle_s": idle_s,
@@ -4168,6 +4194,8 @@ def daemon_phase(name, smi, history, bad, twin_bad) -> dict:
            "offline_first_anomaly_op": first,
            "fallbacks": fallbacks, "launches_in_polls": {
                k: n for k, n in polled.items() if n},
+           "config3_launches_in_polls": {k: n for k, n in own3.items()
+                                         if n},
            "launches": {k: n for k, n in launches.items() if n},
            "seconds": time.perf_counter() - phase_t0, **common}
     emit(row)
@@ -4185,8 +4213,10 @@ def daemon_phase(name, smi, history, bad, twin_bad) -> dict:
     if fallbacks.get("frontier-bail"):
         raise AssertionError(f"daemon: a frontier bailed out of the C: "
                              f"{fallbacks}")
-    if not (polled["chunk_product"] and polled["combine_product"]):
-        raise AssertionError(f"daemon: the polls launched {polled}")
+    if not (polled["chunk_product"] - own3["chunk_product"]
+            and polled["combine_product"] - own3["combine_product"]):
+        raise AssertionError(f"daemon: the polls launched {polled}, the "
+                             f"config-3 run's checks {own3}")
     if "live_verdict" not in prom:
         raise AssertionError("daemon: live-metrics.prom lacks live_verdict")
     ingest_rates(name, smi, history)

@@ -12,7 +12,7 @@ adapt over them:
 
 ``LiveRegisterEncoder.add_many`` and ``encode_resolved`` go through the
 C ingest spine (:mod:`jepsen_tpu_torch.history_ir.ingest` over
-``native/columnar_ext.c``: ``register_add_encode``, ``register_add``,
+``native/columnar_ext.c``: ``register_add_encode`` and
 ``register_encode``), and run the Python loops on the C's regime misses
 with the same state. The reference's canonical-column builder and WAL
 streamer (``IncrementalHistoryBuilder``, ``WalStreamer``) come with the
@@ -158,9 +158,7 @@ class LiveRegisterEncoder:
         when the encoder is out of the C's regime, with the same
         state."""
         from jepsen_tpu_torch.history_ir import ingest
-        if isinstance(ops, list) and ingest.encoder_add_encode(self, ops):
-            return
-        if ingest.encoder_add(self, ops):
+        if ingest.encoder_add_encode(self, ops):
             return
         for op in ops:
             self.add(op)

@@ -35,7 +35,10 @@ Changes from the reference: there is no ``ingest_native`` knob and no
 environment twin, no differential probe at first use with its latch,
 no sanitizer variant, and no "build", "probe" or "san-unavailable"
 fallback. The extension builds with ``g++`` at first use and a failed
-build raises with the compiler's output. ``builder_extend`` and
+build raises with the compiler's output. ``encoder_add`` and the C
+``register_add`` behind it are left out: ``encoder_add_encode`` declines
+on exactly the inputs they decline on, so only the reference's probe
+reached them. ``builder_extend`` and
 ``sim_lane`` are not ported (their callers, ``IncrementalHistoryBuilder``
 and the simulated scheduler, are not in the port), nor is
 ``ingest_burst``, whose one caller is the fleet receiver; each C entry
@@ -128,18 +131,9 @@ def _encode_state(enc) -> tuple:
             enc._next, enc._next_slot, s.n_slots, enc._finalized)
 
 
-# copied from jepsen_tpu/history_ir/ingest.py:301-309
-def encoder_add(enc, ops: list, start: int = 0) -> bool:
-    """LiveRegisterEncoder.add over a chunk, natively. False = caller
-    runs the per-op Python twin."""
-    if not isinstance(ops, list) or not _encoder_eligible(enc):
-        fallback_count("regime")
-        return False
-    columnar_c.mod().register_add(ops, start, _add_state(enc))
-    return True
-
-
-# copied from jepsen_tpu/history_ir/ingest.py:312-341
+# copied from jepsen_tpu/history_ir/ingest.py:312-341, with the
+# ``regime`` count of the reference's encoder_add (:301-309), which the
+# port leaves out: it declines on exactly the inputs this declines on
 def encoder_add_encode(enc, ops: list, start: int = 0) -> bool:
     """Fused LiveRegisterEncoder.add_many + encode_resolved: the
     chunk's op dicts are classified once in C, with the add pass's
@@ -149,6 +143,7 @@ def encoder_add_encode(enc, ops: list, start: int = 0) -> bool:
     at the next verdict lands in the same state. False = caller runs
     the per-op Python add twin (and encoding stays lazy)."""
     if not isinstance(ops, list) or not _encoder_eligible(enc):
+        fallback_count("regime")
         return False
     s = enc.stream
     nxt, next_slot, n_slots, enc_ran, bailed = \

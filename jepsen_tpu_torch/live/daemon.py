@@ -34,9 +34,11 @@ stop re-dispatching a session that failed ``LIVE_BREAKER_THRESHOLD``
 consecutive polls.
 
 Changes from the reference: the top-K of per-run metric series is the
-``run_series_topk`` argument (the reference reads
+module constant ``DEFAULT_RUN_SERIES_TOPK`` (the reference reads
 ``JEPSEN_TPU_LIVE_RUN_SERIES``; the port reads no environment
-variable); ``accelerator`` and ``device`` pass through to the sessions.
+variable); the cadence and budgets are plain numbers, with no tolerant
+parsing of config strings (the port has no test map to read them
+from); ``accelerator`` and ``device`` pass through to the sessions.
 Not ported: the fleet's run leases and write fencing (``lease_store``,
 ``fence``, ``lease``) and the ``on_final`` hook of the schedule fuzzer;
 they come with those modules. The CLI (``jepsen-tpu live``) comes with
@@ -76,37 +78,8 @@ LIVE_BREAKER_THRESHOLD = 3
 # fleet scale (100+ concurrent runs) one series per run per gauge is a
 # cardinality explosion every scrape pays for. The top-K runs by lag
 # keep their own series; the rest fold into one run="other" aggregate.
+# Read at each use, so a test can monkeypatch it.
 DEFAULT_RUN_SERIES_TOPK = 8
-
-# live knob spec: (key, default, min)
-LIVE_KNOBS = (
-    ("live_poll_s", DEFAULT_POLL_S, 0.0),
-    ("live_lag_budget_ops", DEFAULT_LAG_BUDGET_OPS, 0.0),
-    ("live_max_runs", DEFAULT_MAX_RUNS, 1.0),
-    ("live_check_budget_s", DEFAULT_CHECK_BUDGET_S, 0.0),
-)
-
-
-# copied from jepsen_tpu/live/daemon.py:79-99
-def coerce_knob(name: str, value, default: float, lo: float) -> float:
-    """Tolerant numeric-knob coercion: strings parse, garbage logs a
-    warning and falls back to the default — the daemon must come up on
-    a half-garbled config."""
-    if value is None:
-        return default
-    try:
-        if isinstance(value, bool):
-            raise ValueError("bool is not a number")
-        v = float(value)
-    except (TypeError, ValueError):
-        logger.warning("live knob %s=%r is not numeric; using default "
-                       "%r", name, value, default)
-        return default
-    if v < lo:
-        logger.warning("live knob %s=%r below minimum %r; clamping",
-                       name, value, lo)
-        return lo
-    return v
 
 
 # copied from jepsen_tpu/live/daemon.py:102-108
@@ -420,8 +393,7 @@ class RunTracker:
 class LiveDaemon:
     """Multiplexes live checking over every active run under a store
     root (and/or explicitly named run directories). ``accelerator`` and
-    ``device`` are the sessions' (the CUDA device by default);
-    ``run_series_topk`` runs keep their own ``{run}`` metric series."""
+    ``device`` are the sessions' (the CUDA device by default)."""
 
     def __init__(self, store_root: str | None = None, run_dirs=(),
                  poll_s=DEFAULT_POLL_S,
@@ -430,20 +402,13 @@ class LiveDaemon:
                  check_budget_s=DEFAULT_CHECK_BUDGET_S,
                  accelerator: str = "auto", device=None,
                  registry: telemetry.Registry | None = None,
-                 cost_model=None,
-                 run_series_topk=DEFAULT_RUN_SERIES_TOPK):
+                 cost_model=None):
         self.store_root = Path(store_root) if store_root else None
         self.run_dirs = [Path(d) for d in run_dirs]
-        self.poll_s = coerce_knob("live_poll_s", poll_s,
-                                  DEFAULT_POLL_S, 0.0)
-        self.lag_budget_ops = coerce_knob(
-            "live_lag_budget_ops", lag_budget_ops,
-            DEFAULT_LAG_BUDGET_OPS, 0.0)
-        self.max_runs = int(coerce_knob("live_max_runs", max_runs,
-                                        DEFAULT_MAX_RUNS, 1.0))
-        self.check_budget_s = coerce_knob(
-            "live_check_budget_s", check_budget_s,
-            DEFAULT_CHECK_BUDGET_S, 0.0)
+        self.poll_s = poll_s
+        self.lag_budget_ops = lag_budget_ops
+        self.max_runs = max_runs
+        self.check_budget_s = check_budget_s
         self.accelerator = accelerator
         self.device = device
         self.registry = registry if registry is not None \
@@ -454,9 +419,6 @@ class LiveDaemon:
         self.cost_model = cost_model
         self.trackers: dict[str, RunTracker] = {}
         self.polls = 0
-        self.run_series_topk = int(coerce_knob(
-            "run_series_topk", run_series_topk,
-            DEFAULT_RUN_SERIES_TOPK, 1.0))
         # discovery cache: {name_dir: (mtime_ns, [run_dirs])} — a name
         # dir's run list is reused between polls while its mtime holds
         self._scan_cache: dict | None = None
@@ -464,7 +426,8 @@ class LiveDaemon:
         # skipped with ONE stat per poll until something changes inside
         self._settled: dict[str, int] = {}
         # stable {run} label interning for per-run counters (bounded
-        # at run_series_topk exact labels; later runs share "other")
+        # at DEFAULT_RUN_SERIES_TOPK exact labels; later runs share
+        # "other")
         self._run_labels: dict[str, str] = {}
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -517,7 +480,7 @@ class LiveDaemon:
 
     def discover(self) -> int:
         """Adds trackers for active runs (WAL present, not yet final),
-        newest first, bounded by ``live_max_runs``. Returns the number
+        newest first, bounded by ``max_runs``. Returns the number
         of newly-admitted runs. Candidates rejected once are skipped
         with a single run-dir stat until their mtime changes (a WAL or
         status file appearing bumps it), so settled runs cost O(1) per
@@ -559,7 +522,7 @@ class LiveDaemon:
             if full:
                 self.registry.counter(
                     "live_admission_rejected_total",
-                    "runs not admitted because live_max_runs "
+                    "runs not admitted because max_runs "
                     "trackers are active").inc()
                 break
             # construct OUTSIDE the lock: snapshot adoption re-hashes
@@ -612,7 +575,7 @@ class LiveDaemon:
                             ).inc(n, run=self._run_label(tr.label))
 
         # admission: serve the most-lagged runs first; a poll spends at
-        # most live_check_budget_s of predicted checking time, so one
+        # most check_budget_s of predicted checking time, so one
         # hot run defers instead of starving its neighbours
         budget_ops = self.cost_model.admission_budget_ops(
             self.check_budget_s)
@@ -707,15 +670,15 @@ class LiveDaemon:
 
     def _run_label(self, label: str) -> str:
         """Bounded {run} label interning for per-run counters: the first
-        ``run_series_topk`` distinct runs keep their exact label; every
-        later run shares ``"other"`` so a fleet-scale store can't blow
-        up prom series cardinality. Counters can't be re-labeled after
+        ``DEFAULT_RUN_SERIES_TOPK`` distinct runs keep their exact label;
+        every later run shares ``"other"`` so a fleet-scale store can't
+        blow up prom series cardinality. Counters can't be re-labeled after
         the fact (their value is cumulative), so the mapping is sticky
         for the daemon's lifetime."""
         got = self._run_labels.get(label)
         if got is not None:
             return got
-        if len(self._run_labels) < self.run_series_topk:
+        if len(self._run_labels) < DEFAULT_RUN_SERIES_TOPK:
             self._run_labels[label] = label
             return label
         return "other"
@@ -749,8 +712,8 @@ class LiveDaemon:
 
         ranked = sorted(rows, key=lambda r: r[1]["lag_ops"],
                         reverse=True)
-        exact, other = ranked[:self.run_series_topk], \
-            ranked[self.run_series_topk:]
+        exact, other = ranked[:DEFAULT_RUN_SERIES_TOPK], \
+            ranked[DEFAULT_RUN_SERIES_TOPK:]
         for tr, st in exact:
             run = tr.label
             lag_g.set(st["lag_ops"], run=run)

@@ -10,10 +10,13 @@
  * front (_build_py) does, bit for bit; any input outside the fast regime
  * returns None and the caller takes the numpy front.
  *
- * The spine (ingest_chunk, register_add, register_encode,
- * register_add_encode, frontier_absorb): the WAL tail -> parse -> live
- * register encode -> frontier loop of the live checker, dispatched by
- * jepsen_tpu_torch/history_ir/ingest.py.
+ * The spine (ingest_chunk, register_encode, register_add_encode,
+ * frontier_absorb): the WAL tail -> parse -> live register encode ->
+ * frontier loop of the live checker, dispatched by
+ * jepsen_tpu_torch/history_ir/ingest.py. The reference's register_add
+ * (the add pass alone) is left out: its one caller that the fused
+ * register_add_encode does not cover is the reference's first-use
+ * probe, which the port does not have.
  *
  * Built at first use by jepsen_tpu_torch/native/columnar_c.py (g++, plain
  * CPython C API) and loaded as the extension module _columnar_c_torch: the
@@ -536,14 +539,14 @@ done:
 /* ====================================================================
  * Host ingest spine
  *
- * Five entry points move the WAL hot loop (newline scan, JSON parse,
+ * Four entry points move the WAL hot loop (newline scan, JSON parse,
  * live register encode, frontier absorb) off the interpreted path:
  *
  *   ingest_chunk         raw bytes -> ops list (torn-line contract of
  *                        read_jsonl_tolerant / WalTailer.poll, per line)
- *   register_add         ops -> LiveRegisterEncoder resolution state
  *   register_encode      resolution state -> ListStream event columns
- *   register_add_encode  both in one walk of a chunk
+ *   register_add_encode  ops -> LiveRegisterEncoder resolution state
+ *                        and the encode, in one walk of a chunk
  *   frontier_absorb      event columns -> FrontierSession config closure
  *
  * Every function mutates (or returns replacements for) the SAME
@@ -1366,7 +1369,8 @@ static PyObject *intern_id_c(PyObject *ids, PyObject *table, PyObject *v,
     Py_XDECREF(keyref);
     return idx;
 }
-/* copied from jepsen_tpu/native/columnar_ext.c:1545-2245 */
+/* copied from jepsen_tpu/native/columnar_ext.c:1545-2245, without
+ * register_add */
 /* -------------------- live register encoder --------------------------
  * Twins of LiveRegisterEncoder.add / encode_resolved
  * (history_ir/builder.py) for the default-args single-register session.
@@ -1396,133 +1400,6 @@ static int proc_ok(PyObject *p) {
     if (ovf > 0) return 1;  /* huge positive */
     if (ovf < 0) return 0;  /* huge negative */
     return v >= 0;
-}
-
-/* register_add(ops, start, state) -> count
- * state = (_ops, open_inv, outcome, py_add) */
-static PyObject *register_add(PyObject *self, PyObject *args) {
-    (void)self;
-    PyObject *ops, *st;
-    Py_ssize_t start;
-    if (!PyArg_ParseTuple(args, "O!nO!", &PyList_Type, &ops, &start,
-                          &PyTuple_Type, &st))
-        return NULL;
-    if (PyTuple_GET_SIZE(st) != 4) {
-        PyErr_SetString(PyExc_ValueError, "register state tuple != 4");
-        return NULL;
-    }
-    PyObject *enc_ops = PyTuple_GET_ITEM(st, 0);
-    PyObject *open_inv = PyTuple_GET_ITEM(st, 1);
-    PyObject *outcome = PyTuple_GET_ITEM(st, 2);
-    PyObject *py_add = PyTuple_GET_ITEM(st, 3);
-    if (!PyList_CheckExact(enc_ops) || !PyDict_CheckExact(open_inv) ||
-        !PyDict_CheckExact(outcome)) {
-        PyErr_SetString(PyExc_TypeError, "register state shape");
-        return NULL;
-    }
-    Py_ssize_t n = PyList_GET_SIZE(ops);
-    for (Py_ssize_t k = start; k < n; k++) {
-        PyObject *op = PyList_GET_ITEM(ops, k);
-        if (!PyDict_CheckExact(op)) {
-            PyObject *r = PyObject_CallFunctionObjArgs(py_add, op, NULL);
-            if (!r) return NULL;
-            Py_DECREF(r);
-            continue;
-        }
-        Py_ssize_t i = PyList_GET_SIZE(enc_ops);
-        if (PyList_Append(enc_ops, op) < 0) return NULL;
-        PyObject *p = PyDict_GetItemWithError(op, g_s_process);
-        if (!p && PyErr_Occurred()) return NULL;
-        if (!proc_ok(p)) continue;
-        PyObject *typ = PyDict_GetItemWithError(op, g_s_type);
-        if (!typ && PyErr_Occurred()) return NULL;
-        if (!typ || !PyUnicode_CheckExact(typ)) continue;
-        PyObject *j = NULL;
-        if (PyUnicode_CompareWithASCIIString(typ, "invoke") == 0) {
-            j = dict_pop(open_inv, p);
-            if (!j && PyErr_Occurred()) return NULL;
-            if (j) { /* same process re-invokes: prior op resolves keep */
-                if (PyDict_SetItem(outcome, j, g_keep) < 0) {
-                    Py_DECREF(j);
-                    return NULL;
-                }
-                Py_DECREF(j);
-            }
-            PyObject *i_obj = PyLong_FromSsize_t(i);
-            if (!i_obj) return NULL;
-            int rc = PyDict_SetItem(open_inv, p, i_obj);
-            Py_DECREF(i_obj);
-            if (rc < 0) return NULL;
-        } else if (PyUnicode_CompareWithASCIIString(typ, "ok") == 0) {
-            j = dict_pop(open_inv, p);
-            if (!j && PyErr_Occurred()) return NULL;
-            if (j) {
-                PyObject *v = PyDict_GetItemWithError(op, g_s_value);
-                if (!v && PyErr_Occurred()) {
-                    Py_DECREF(j);
-                    return NULL;
-                }
-                PyObject *out;
-                if (v && v != Py_None) {
-                    out = PyTuple_Pack(2, g_s_ok, v);
-                    if (!out) {
-                        Py_DECREF(j);
-                        return NULL;
-                    }
-                } else {
-                    out = g_keep;
-                    Py_INCREF(out);
-                }
-                int rc = PyDict_SetItem(outcome, j, out);
-                Py_DECREF(out);
-                Py_DECREF(j);
-                if (rc < 0) return NULL;
-            }
-        } else if (PyUnicode_CompareWithASCIIString(typ, "fail") == 0) {
-            j = dict_pop(open_inv, p);
-            if (!j && PyErr_Occurred()) return NULL;
-            if (j) {
-                int rc = PyDict_SetItem(outcome, j, g_drop);
-                Py_DECREF(j);
-                if (rc < 0) return NULL;
-            }
-        } else if (PyUnicode_CompareWithASCIIString(typ, "info") == 0) {
-            j = dict_pop(open_inv, p);
-            if (!j && PyErr_Occurred()) return NULL;
-            if (j) {
-                Py_ssize_t ji = PyLong_AsSsize_t(j);
-                if (ji == -1 && PyErr_Occurred()) {
-                    Py_DECREF(j);
-                    return NULL;
-                }
-                PyObject *inv = (ji >= 0 &&
-                                 ji < PyList_GET_SIZE(enc_ops))
-                                    ? PyList_GET_ITEM(enc_ops, ji)
-                                    : NULL;
-                if (!inv || !PyDict_CheckExact(inv)) {
-                    Py_DECREF(j);
-                    PyErr_SetString(PyExc_AttributeError,
-                                    "invocation is not a dict");
-                    return NULL;
-                }
-                PyObject *fj = PyDict_GetItemWithError(inv, g_s_f);
-                if (!fj && PyErr_Occurred()) {
-                    Py_DECREF(j);
-                    return NULL;
-                }
-                int rd = PyObject_RichCompareBool(fj ? fj : Py_None,
-                                                  g_s_read, Py_EQ);
-                if (rd < 0) {
-                    Py_DECREF(j);
-                    return NULL;
-                }
-                int rc = PyDict_SetItem(outcome, j, rd ? g_drop : g_keep);
-                Py_DECREF(j);
-                if (rc < 0) return NULL;
-            }
-        }
-    }
-    return PyLong_FromSsize_t(n - start);
 }
 
 /* Shared encode-step machinery: ONE copy of the invoke/ok advance,
@@ -1859,7 +1736,8 @@ static PyObject *register_add_encode(PyObject *self, PyObject *args) {
         meta = (opmeta *)calloc((size_t)ncache, sizeof(opmeta));
         if (!meta) return PyErr_NoMemory();
     }
-    /* ---- add pass (twin of register_add, plus the cache fill) ---- */
+    /* ---- add pass (twin of LiveRegisterEncoder.add, plus the cache
+     * fill) ---- */
     for (Py_ssize_t k = start; k < n; k++) {
         PyObject *op = PyList_GET_ITEM(ops, k);
         if (!PyDict_CheckExact(op)) {
@@ -2665,7 +2543,6 @@ err:
         return r;                                                     \
     }
 GC_PAUSED_METH(ingest_chunk)
-GC_PAUSED_METH(register_add)
 GC_PAUSED_METH(register_encode)
 GC_PAUSED_METH(register_add_encode)
 GC_PAUSED_METH(frontier_absorb)
@@ -2678,9 +2555,6 @@ static PyMethodDef methods[] = {
      "ingest_chunk(data, final, fallback, skip, torn)\n"
      " -> (ops, consumed, torn, truncated)\n"
      "Newline scan + JSON parse with WalTailer.poll's torn contract."},
-    {"register_add", register_add_gcp, METH_VARARGS,
-     "register_add(ops, start, state) -> count\n"
-     "Resolution twin of LiveRegisterEncoder.add."},
     {"register_encode", register_encode_gcp, METH_VARARGS,
      "register_encode(state) -> (next, next_slot, n_slots, bailed)\n"
      "Event-encode twin of LiveRegisterEncoder.encode_resolved."},

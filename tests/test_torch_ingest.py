@@ -74,7 +74,7 @@ def port_path(request, monkeypatch):
     """The port's C path, or its Python twins alone (the C entries
     decline every call)."""
     if request.param == "twin":
-        for name in ("encoder_add_encode", "encoder_add", "encoder_encode",
+        for name in ("encoder_add_encode", "encoder_encode",
                      "frontier_absorb"):
             monkeypatch.setattr(ingest, name, lambda *a, **k: False)
     return request.param

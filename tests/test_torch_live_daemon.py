@@ -245,7 +245,8 @@ def test_restart_resumes_from_the_snapshot(tmp_path, monkeypatch):
     assert finals["throughout"]["results"]["valid?"] is False
 
 
-def test_top_k_run_series_fold_into_other(tmp_path):
+def test_top_k_run_series_fold_into_other(tmp_path, monkeypatch):
+    monkeypatch.setattr(daemon_mod, "DEFAULT_RUN_SERIES_TOPK", 2)
     runs = {f"r{k}": register_history(30 + 10 * k, n_procs=3, seed=k,
                                       n_values=4) for k in range(4)}
     runs["r3"] = corrupt_reads(runs["r3"], n=1, seed=0)
@@ -253,7 +254,7 @@ def test_top_k_run_series_fold_into_other(tmp_path):
     for name, h in runs.items():
         store.append(name, 0, len(h) - 3)  # open invokes: some lag
     d = LiveDaemon(store_root=str(tmp_path), accelerator="cpu",
-                   device="cpu", run_series_topk=2)
+                   device="cpu")
     statuses = d.poll_once()
     rows = [r for r in d.registry.snapshot()
             if r["name"] in ("live_checker_lag_ops", "live_verdict")]
@@ -361,14 +362,36 @@ def test_poll_check_and_finalize_slices_on_the_live_track(tmp_path):
     assert events[1][2] == events[3][2] == {"runs": 1}
 
 
-def test_knob_coercion_is_tolerant():
-    d = LiveDaemon(store_root=None, poll_s="0.25", lag_budget_ops="oops",
-                   max_runs=-3, check_budget_s=None, run_series_topk="x")
-    assert (d.poll_s, d.lag_budget_ops, d.max_runs, d.check_budget_s,
-            d.run_series_topk) == (0.25, 50_000, 1, 0.5, 8)
-    assert [k for k, _, _ in daemon_mod.LIVE_KNOBS] == [
-        "live_poll_s", "live_lag_budget_ops", "live_max_runs",
-        "live_check_budget_s"]
+def test_max_runs_bounds_admission(tmp_path):
+    """At ``max_runs`` trackers discovery admits no more runs (counted);
+    a run that settles frees its place for the next."""
+    runs = {f"r{k}": register_history(40, n_procs=3, seed=30 + k,
+                                      n_values=4) for k in range(3)}
+    store = Store(tmp_path, runs)
+    for name in runs:
+        store.append(name, 0, len(runs[name]))
+    d = LiveDaemon(store_root=str(tmp_path), accelerator="cpu",
+                   device="cpu", max_runs=2)
+    d.poll_once()
+    assert len(d.trackers) == 2
+    rejected = [r["value"] for r in d.registry.snapshot()
+                if r["name"] == "live_admission_rejected_total"]
+    assert rejected == [1.0]
+    tracked = {tr.name for tr in d.trackers.values()}
+    for name in tracked:
+        store.complete(name)
+    d.poll_once()  # settles the two
+    assert not d.trackers
+    d.poll_once()  # the third takes a free place
+    waiting = set(runs) - tracked
+    assert {tr.name for tr in d.trackers.values()} == waiting
+    for name in waiting:
+        store.complete(name)
+    d.run_until_idle(timeout_s=60)
+    for name, h in runs.items():
+        s = load_live_status(store.run_dir(name))
+        assert s["state"] == "final", name
+        assert s["results"]["valid?"] is True and s["ops_absorbed"] == len(h)
 
 
 def test_completed_run_is_left_to_post_hoc_checks(tmp_path):
