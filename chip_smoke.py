@@ -197,8 +197,27 @@ just before it and read just after:
   scan of 200,000 lines (``parse_wal_chunk`` against
   ``parse_wal_chunk_py``), the live register encode of the same ops,
   and the frontier closure of the headline's stream. Every row of the ``kernels`` line gains
-  ``launches_daemon``; a ``total`` line after it gives the script's
-  seconds.
+  ``launches_daemon``.
+* a suite's composed check (phase 19, ``suite_phase``, after phase 18):
+  the host checkers and reports around the register check on the card,
+  as ``suites.compose_test`` and the register workload compose them.
+  19a: config 3's 64 keys of 1,000 ops with 8 corrupted, through
+  ``compose({stats, exceptions, workload: independent.checker(compose(
+  {linear: linearizable(accelerator="gpu"), timeline})), perf,
+  clock})``; 19b: the corrupted headline through ``compose({stats,
+  exceptions, workload: linearizable(accelerator="gpu"), perf,
+  timeline})`` with ``explain`` on. Each run has a seeded nanosecond
+  clock, a ``start``/``stop`` and a ``start-partition``/``stop-
+  partition`` window with their ``faults.jsonl`` rows, and five
+  ``check-offsets`` ops, and is held against the same composition with
+  ``accelerator="cpu"``: verdicts, maps key by key and every file
+  (timelines byte for byte, ``anomaly.json``, PNG pixels where
+  ``matplotlib`` imports; without it the PNG reports must give the
+  reference's "unknown" and ``plot`` None). The ``suite`` line has the
+  host ms of each compose, of each part alone and of the 64 timeline
+  pages, the files and the launches; every row of the ``kernels`` line
+  gains ``launches_suite``. A ``total`` line after it gives the
+  script's seconds.
 
 Earlier phases keep their shapes, but for phase 9's 1,024 keys (500 ops
 a key, half of bench.py's depth).
@@ -4224,6 +4243,296 @@ def daemon_phase(name, smi, history, bad, twin_bad) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 19. a suite's composed check: the host checkers and reports around the
+# register check on the card
+# ---------------------------------------------------------------------------
+
+SUITE_TS = "20261018T000000.000"
+# the reports that draw a PNG, and the files they draw
+SUITE_PNGS = ("latency-raw.png", "latency-quantiles.png", "rate.png",
+              "clock-skew.png", "linear.png")
+
+
+def suite_checker(run, accelerator, device=None):
+    """A suite's composed check as ``suites.compose_test`` composes it
+    (``jepsen_tpu/suites/__init__.py:53-61``) around run ``run``'s
+    workload: 19a's is the register workload's lifted check
+    (``workloads/register.py:58-62``), 19b's a linearizable check of the
+    whole history, with the run timeline beside it."""
+    from jepsen_tpu_torch import checker as c
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    lin = linearizable(model=CASRegister(), accelerator=accelerator,
+                       device=device)
+    if run == "19a":
+        return c.compose({
+            "stats": c.stats(), "exceptions": c.unhandled_exceptions(),
+            "workload": independent.checker(c.compose({
+                "linear": lin, "timeline": c.timeline_html()})),
+            "perf": c.perf(), "clock": c.clock_plot()})
+    return c.compose({"stats": c.stats(),
+                      "exceptions": c.unhandled_exceptions(),
+                      "workload": lin, "perf": c.perf(),
+                      "timeline": c.timeline_html()})
+
+
+def suite_test_map(root, rows):
+    """A run's test map whose store dir, under ``root``, holds the fault
+    registry's ``rows`` (``faults.jsonl``); and the run's dir."""
+    from pathlib import Path
+    test = {"name": "suite", "start_time": SUITE_TS, "store_dir": str(root)}
+    d = Path(root) / "suite" / SUITE_TS
+    d.mkdir(parents=True)
+    (d / "faults.jsonl").write_text("".join(json.dumps(r) + "\n"
+                                            for r in rows))
+    return test, d
+
+
+def run_files(d) -> list:
+    return sorted(str(p.relative_to(d)) for p in d.rglob("*")
+                  if p.is_file() and p.name != "check.ckpt")
+
+
+def same_run_files(what, got_d, want_d, pngs: bool) -> None:
+    """Raises unless the card run's files are the cpu run's: every HTML
+    page byte for byte, ``anomaly.json`` as JSON (without the forensics'
+    wall time and backend), each PNG's pixels when ``pngs``. The cpu
+    lane of a lifted check renders every invalid key's ``linear.png`` at
+    the run's top (as the reference does) and the batched lane none, so
+    that file is left out of the comparison."""
+    files = [f for f in run_files(want_d) if f != "linear.png"]
+    got_files = [f for f in run_files(got_d) if f != "linear.png"]
+    if files != got_files:
+        raise AssertionError(f"{what}: files {got_files} against {files}")
+    for f in files:
+        a, b = got_d / f, want_d / f
+        if f.endswith(".png"):
+            if pngs:
+                import matplotlib.image as mpimg
+                x, y = mpimg.imread(a), mpimg.imread(b)
+                if x.shape != y.shape or (x != y).any():
+                    raise AssertionError(f"{what}: {f}'s pixels differ")
+        elif f.endswith("anomaly.json"):
+            ja, jb = json.loads(a.read_text()), json.loads(b.read_text())
+            for j in (ja, jb):
+                j.pop("explain_latency_seconds")
+                j.pop("backend")
+            if ja != jb:
+                raise AssertionError(f"{what}: {f} differs")
+        elif a.read_bytes() != b.read_bytes():
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def no_matplotlib(what, out, reports) -> None:
+    """Raises unless each report of ``reports`` in ``out`` gave the
+    reference's outcome without matplotlib: "unknown" with the import
+    error (under each graph of ``perf``)."""
+    for name in reports:
+        sub = out[name]
+        leaves = ([sub[k] for k in ("latency-graph", "rate-graph")]
+                  if name == "perf" else [sub])
+        if sub["valid?"] != "unknown" or any(
+                "matplotlib" not in leaf.get("error", "")
+                for leaf in leaves):
+            raise AssertionError(f"{what}: {name} without matplotlib: "
+                                 f"{sub}")
+
+
+def suite_phase(name, smi, history, bad, device=None, keys=IND_KEYS,
+                ops=IND_OPS, bad_keys=IND_BAD) -> dict:
+    """Phase 19: a suite's composed check of two runs on the card, each
+    held against the same composition with ``accelerator="cpu"`` on the
+    card's host.
+
+    * 19a: config 3's ``keys`` keys of ``ops`` ops, ``bad_keys``
+      corrupted, the register workload's lifted check (the batched lane:
+      the matrix screen and one key-batched frontier launch) with a
+      timeline a key, stats, exceptions, perf and the clock plot;
+    * 19b: the corrupted headline (``bad``) through the linearizable
+      check with ``explain`` on (the matrix rung's localization on the
+      card), stats, exceptions, perf and the run timeline.
+
+    Each run is stamped with a seeded nanosecond clock, a partitioner's
+    ``start``/``stop`` window, a ``start-partition``/``stop-partition``
+    window (19b's over the first anomaly) whose inject and heal rows
+    stand in the run's ``faults.jsonl``, and five ``check-offsets`` ops
+    of five nodes. The verdicts, the workload's maps key by key, the
+    stats, exceptions and clock maps and every file must equal the cpu
+    run's; without ``matplotlib`` the PNG reports must give the
+    reference's "unknown" and ``plot`` None. Returns each kernel's
+    launches in the two composed checks on the card."""
+    import importlib.util
+    import tempfile
+
+    import torch
+    from jepsen_tpu_torch import checker as c
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.histories import (
+        corrupt_keys, independent_register_history, stamp_times,
+        with_nemesis)
+    phase_t0 = time.perf_counter()
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    cuda = device is None or str(device).startswith("cuda")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    h3 = corrupt_keys(independent_register_history(keys, ops), bad_keys,
+                      n=2, seed=0)
+    first_b = min(i for i, op in enumerate(bad) if op["value"] == 999)
+    runs = {}
+    for run, h, windows in (
+            ("19a", h3, [(len(h3) // 6, len(h3) // 3, "start", "stop"),
+                         (len(h3) // 2, 3 * len(h3) // 4,
+                          "start-partition", "stop-partition")]),
+            ("19b", bad, [(len(bad) // 10, len(bad) // 5, "start", "stop"),
+                          (first_b - 500, first_b + 500,
+                           "start-partition", "stop-partition")])):
+        timed_h = stamp_times(h, seed=SEED)
+        runs[run] = with_nemesis(
+            timed_h, windows, seed=SEED,
+            offsets_at=[len(h) * k // 5 for k in range(5)])
+    rows_out = {}
+    launches_suite = dict.fromkeys(read_launches(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for run, (h, rows) in runs.items():
+            test, d = suite_test_map(f"{tmp}/{run}-gpu", rows)
+            cpu_test, cpu_d = suite_test_map(f"{tmp}/{run}-cpu", rows)
+            reset_launches()
+            compose_ms, got = timed_ms(lambda: suite_checker(
+                run, "gpu", device).check(test, h, {}))
+            launches = read_launches()
+            for k, n in launches.items():
+                launches_suite[k] += n
+            cpu_ms, want = timed_ms(lambda: suite_checker(
+                run, "cpu").check(cpu_test, h, {}))
+            # each part alone, on a store dir of its own, as Compose
+            # calls it
+            suite = suite_checker(run, "gpu", device)
+            part_ms = {}
+            for part, chk in suite.checkers.items():
+                t, _ = suite_test_map(f"{tmp}/{run}-{part}", rows)
+                part_ms[part], _ = timed_ms(
+                    lambda: c.check_safe(chk, t, h, {}))
+            extra = {}
+            if run == "19a":
+                # the key split and the timelines alone: 64 pages
+                t, td = suite_test_map(f"{tmp}/{run}-timelines", rows)
+                extra["timelines_alone_ms"], _ = timed_ms(
+                    lambda: independent.checker(c.timeline_html()).check(
+                        t, h, {}))
+                extra["timeline_pages"] = len(run_files(td)) - 1
+            files = run_files(d)
+            # the verdicts and maps against the cpu run
+            what = f"suite {run}"
+            if (got["valid?"], want["valid?"]) != (False, False):
+                raise AssertionError(f"{what}: verdicts {got['valid?']} "
+                                     f"and {want['valid?']}")
+            for part in ("stats", "exceptions", "clock", "perf"):
+                if part in got and got[part] != want[part]:
+                    raise AssertionError(f"{what}: {part} {got[part]} "
+                                         f"against {want[part]}")
+            wl, wl_cpu = got["workload"], want["workload"]
+            if run == "19a":
+                if (wl["failures"], wl["count"]) != (
+                        wl_cpu["failures"], wl_cpu["count"]) or \
+                        wl["failures"] != sorted(str(k) for k in bad_keys):
+                    raise AssertionError(f"{what}: failures "
+                                         f"{wl['failures']}")
+                for k, r in wl["results"].items():
+                    lin, lin_cpu = r["linear"], wl_cpu["results"][k]["linear"]
+                    ex, ex_cpu = lin.get("explain", {}), lin_cpu.get(
+                        "explain", {})
+                    if (r["valid?"], r["timeline"],
+                            ex.get("first-anomaly-op"), ex.get("witness-ops"),
+                            ex.get("artifacts")) != (
+                            wl_cpu["results"][k]["valid?"],
+                            wl_cpu["results"][k]["timeline"],
+                            ex_cpu.get("first-anomaly-op"),
+                            ex_cpu.get("witness-ops"),
+                            ex_cpu.get("artifacts")):
+                        raise AssertionError(f"{what}: key {k}: {r} "
+                                             f"against {wl_cpu['results'][k]}")
+                    if lin["algorithm"] != "jitlin-gpu":
+                        raise AssertionError(f"{what}: the batched lane did "
+                                             f"not take key {k}: {lin}")
+                pages = [f for f in files if f.endswith("/timeline.html")]
+                if len(pages) != keys or any(
+                        f"independent/{k}/anomaly.json" not in files
+                        for k in bad_keys):
+                    raise AssertionError(f"{what}: files {files}")
+            else:
+                for key in ("valid?", "failed-op", "final-configs"):
+                    if wl.get(key) != wl_cpu.get(key):
+                        raise AssertionError(f"{what}: {key} differs")
+                ex, ex_cpu = wl["explain"], wl_cpu["explain"]
+                if (ex["first-anomaly-op"], ex["witness-ops"],
+                        ex["artifacts"]) != (
+                        ex_cpu["first-anomaly-op"], ex_cpu["witness-ops"],
+                        ex_cpu["artifacts"]) \
+                        or wl["algorithm"] != "torch-matrix" \
+                        or got["timeline"] != {"valid?": True}:
+                    raise AssertionError(f"{what}: {wl} against {wl_cpu}")
+                anomaly = json.loads((d / "anomaly.json").read_text())
+                if not any(w.get("overlaps_witness")
+                           for w in anomaly["fault_windows"]):
+                    raise AssertionError(f"{what}: no fault window over the "
+                                         f"witness: {anomaly}")
+                if cuda and not (launches["prefix_alive"]
+                                 and launches["window_rescan"]):
+                    raise AssertionError(f"{what}: launches {launches}")
+            # a CPU rehearsal (``device="cpu"``) runs the plain versions
+            if cuda and not (launches["chunk_product"]
+                             and launches["combine_product"]):
+                raise AssertionError(f"{what}: launches {launches}")
+            same_run_files(what, d, cpu_d, mpl)
+            reports = ("perf", "clock") if run == "19a" else ("perf",)
+            want_pngs = ([p for p in SUITE_PNGS if p != "linear.png"]
+                         if run == "19a" else SUITE_PNGS[:3] + ("linear.png",))
+            if mpl:
+                if any(got[r]["valid?"] is not True for r in reports) or \
+                        any(p not in files for p in want_pngs):
+                    raise AssertionError(f"{what}: reports {files}")
+                if run == "19b" and wl["plot"] != str(d / "linear.png"):
+                    raise AssertionError(f"{what}: plot {wl['plot']}")
+            else:
+                no_matplotlib(what, got, reports)
+                if run == "19b" and (wl["plot"], wl_cpu["plot"]) != (
+                        None, None):
+                    raise AssertionError(f"{what}: plot {wl['plot']}")
+            rows_out[run] = {
+                "ops": len(h), "valid": got["valid?"],
+                "verdicts": {part: r["valid?"] for part, r in got.items()
+                             if part != "valid?"},
+                "failures": wl.get("failures"),
+                "first_anomaly_op": (
+                    (wl.get("explain") or {}).get("first-anomaly-op")
+                    if run == "19b" else
+                    {k: r["linear"]["explain"]["first-anomaly-op"]
+                     for k, r in wl["results"].items()
+                     if "explain" in r["linear"]}),
+                "algorithm": wl.get("algorithm"),
+                "compose_ms": compose_ms, "cpu_compose_ms": cpu_ms,
+                "part_ms": part_ms, **extra,
+                "files": [f for f in files if "/" not in f],
+                "key_files": len([f for f in files if "/" in f]),
+                "launches": {k: n for k, n in launches.items() if n}}
+    emit({"phase": "suite", "matplotlib": mpl, **rows_out,
+          "launches_suite": {k: n for k, n in launches_suite.items() if n},
+          "seconds": time.perf_counter() - phase_t0,
+          "card": name, "power": smi})
+    return launches_suite
+
+
+# ---------------------------------------------------------------------------
 # 17. telemetry: the registry, the run tracer and the profiler on the card
 # ---------------------------------------------------------------------------
 
@@ -5159,6 +5468,13 @@ def main() -> int:
     tailed = daemon_phase(name, smi, history, bad, twin_bad)
     for row in kernels:
         row["launches_daemon"] = tailed.get(row["name"], 0)
+    # 19. a suite's composed check: config 3's corrupted copy and the
+    # corrupted headline through the host checkers and reports around the
+    # register check on the card, each against its cpu run; each row gains
+    # the two composed checks' launches
+    composed = suite_phase(name, smi, history, bad)
+    for row in kernels:
+        row["launches_suite"] = composed.get(row["name"], 0)
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,

@@ -17,10 +17,18 @@ minimal witness (jepsen_tpu/checker/explain.py:54-398).
   ``explain_max_witness_ops`` (stop shrinking below this), tolerantly
   coerced.
 
-Not ported: the artifacts (``compose_anomaly``, ``write_artifacts``,
-``explain_run``, ``_explain_elle_run``: explain.py:427-618), which write
-through the store, the fault registry and the witness timeline. With a
-live registry, :func:`explain_stream` exports ``explain_total{backend}``,
+* **Artifacts.** :func:`write_artifacts` writes ``anomaly.json`` (the
+  first anomaly's op, the witness's op indices with each op's process
+  and timing, :func:`compose_anomaly`, and the fault windows of the
+  run's ``faults.jsonl`` that overlap the witness) and
+  ``witness-timeline.html`` (``checker/timeline.render_witness``) into
+  the run's store dir, under ``independent/<k>`` for a key of a lifted
+  history. Writing them never fails a check.
+
+Not ported: ``explain_run`` and ``_explain_elle_run`` (explain.py:
+538-618), the offline re-derivation of a stored run's forensics, whose
+callers are the CLI and the append and wr workloads (ROADMAP Queue 1
+item 11). With a live registry, :func:`explain_stream` exports ``explain_total{backend}``,
 ``explain_bisect_steps``, ``explain_latency_seconds`` and
 ``witness_ops`` (``_export_metrics``). Unlike the reference,
 :func:`explain_stream` and :func:`first_failure` let an error of the
@@ -30,6 +38,7 @@ fail a check.
 """
 from __future__ import annotations
 
+import json
 import logging
 import time
 
@@ -39,8 +48,16 @@ from jepsen_tpu_torch import telemetry
 
 logger = logging.getLogger("jepsen_tpu_torch.checker.explain")
 
+# copied from jepsen_tpu/checker/explain.py:56-64
+ANOMALY_NAME = "anomaly.json"
+WITNESS_TIMELINE_NAME = "witness-timeline.html"
+
 DEFAULT_SHRINK_BUDGET = 128     # total ddmin candidate evaluations
 DEFAULT_MAX_WITNESS_OPS = 16    # stop shrinking at this many ops
+
+# anomaly.json caps detail lists so a pathological witness can't bloat
+# the artifact past what a human would read
+MAX_DETAIL_OPS = 200
 
 
 # copied from jepsen_tpu/checker/explain.py:67-78
@@ -392,4 +409,114 @@ def _forensics_from_loc(stream, loc, budget: int, max_ops: int) -> dict:
                        fatal_event, loc.failed_event)
         out["first_anomaly"] = {"event": int(loc.failed_event),
                                 "op_index": int(loc.failed_op_index)}
+    return out
+
+
+# copied from jepsen_tpu/checker/explain.py:427-498
+def compose_anomaly(history, forensics: dict, registry_rows=None) -> dict:
+    """The full anomaly.json payload: forensics enriched with per-op
+    detail (process, f, value, invoke/completion times) and the fault
+    windows from the durable registry that overlap the witness."""
+    payload = {k: v for k, v in forensics.items()}
+    hist = history or []
+    completion_of: dict[int, dict] = {}
+    invoke_of: dict[int, int] = {}   # completion index -> invoke index
+    open_inv: dict = {}
+    for i, op in enumerate(hist):
+        p, typ = op.get("process"), op.get("type")
+        if typ == "invoke":
+            open_inv[p] = i
+        elif typ in ("ok", "fail", "info"):
+            j = open_inv.pop(p, None)
+            if j is not None:
+                completion_of[j] = op
+                invoke_of[i] = j
+
+    def op_detail(i: int) -> dict:
+        """Per-op detail for either half of an op: witness indices are
+        INVOKE indices, while first_anomaly's op_index is the fatal
+        RETURN's (completion's) index — both resolve to the full
+        invoke+completion pair."""
+        if not (0 <= i < len(hist)):
+            return {"index": int(i)}
+        op = hist[i]
+        inv, comp = op, completion_of.get(i)
+        if comp is None and i in invoke_of:
+            inv, comp = hist[invoke_of[i]], op
+        d = {"index": int(i), "process": op.get("process"),
+             "f": op.get("f"), "value": op.get("value"),
+             "type": op.get("type"), "time": inv.get("time")}
+        if comp is not None:
+            d["completion_type"] = comp.get("type")
+            d["completion_value"] = comp.get("value")
+            if comp.get("time") is not None and inv.get("time") is not None:
+                d["latency_ns"] = comp["time"] - inv["time"]
+        return d
+
+    fa = dict(payload.get("first_anomaly") or {})
+    fa.update(op_detail(fa.get("op_index", -1)))
+    payload["first_anomaly"] = fa
+    wit = dict(payload.get("witness") or {})
+    indices = list(wit.get("op_indices") or [])
+    wit["ops"] = [op_detail(i) for i in indices[:MAX_DETAIL_OPS]]
+    if len(indices) > MAX_DETAIL_OPS:
+        wit["ops_truncated"] = len(indices) - MAX_DETAIL_OPS
+    payload["witness"] = wit
+
+    try:
+        from jepsen_tpu_torch.nemesis import faults as faults_mod
+        windows = faults_mod.history_windows(hist, registry_rows or [])
+        times = [hist[i].get("time") for i in indices
+                 if 0 <= i < len(hist) and hist[i].get("time") is not None]
+        fa_t = fa.get("time")
+        if fa_t is not None:
+            times.append(fa_t)
+        if times:
+            lo, hi = min(times), max(times)
+            for w in windows:
+                w0, w1 = w.get("start_time"), w.get("end_time")
+                if w0 is None:
+                    w["overlaps_witness"] = False
+                else:
+                    w["overlaps_witness"] = (w1 is None or w1 >= lo) \
+                        and w0 <= hi
+        payload["fault_windows"] = windows
+    except Exception:  # noqa: BLE001 — the overlay is best-effort
+        logger.exception("fault-window overlay failed")
+        payload.setdefault("fault_windows", [])
+    return payload
+
+
+# copied from jepsen_tpu/checker/explain.py:501-531, over the port's store,
+# fault registry and timeline
+def write_artifacts(test: dict, history, forensics: dict,
+                    opts: dict | None = None) -> dict:
+    """Writes ``anomaly.json`` + ``witness-timeline.html`` into the
+    run's store dir (nested under ``subdirectory`` for independent's
+    per-key lift). Returns {artifact-name: path}; empty on failure —
+    artifact writing never masks a verdict."""
+    out: dict = {}
+    if not test:
+        return out
+    try:
+        from jepsen_tpu_torch import store
+        from jepsen_tpu_torch.nemesis import faults as faults_mod
+        sub = (opts or {}).get("subdirectory")
+        rows = faults_mod.load_rows(
+            store.path(test, faults_mod.FAULTS_NAME))
+        payload = compose_anomaly(history, forensics, registry_rows=rows)
+        p = store.path_mk(test, *filter(None, [sub, ANOMALY_NAME]))
+        p.write_text(json.dumps(payload, indent=2, default=repr) + "\n")
+        out[ANOMALY_NAME] = p
+        try:
+            from jepsen_tpu_torch.checker import timeline
+            html = timeline.render_witness(test, history or [], payload)
+            tp = store.path_mk(test,
+                               *filter(None, [sub, WITNESS_TIMELINE_NAME]))
+            tp.write_text(html)
+            out[WITNESS_TIMELINE_NAME] = tp
+        except Exception:  # noqa: BLE001 — json evidence beats no evidence
+            logger.exception("witness timeline rendering failed")
+    except Exception:  # noqa: BLE001
+        logger.exception("anomaly artifact write failed")
     return out

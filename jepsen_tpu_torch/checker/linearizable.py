@@ -57,9 +57,17 @@ every invalid verdict from a rung without them does.
 adds anomaly forensics to an invalid result of the int-encoded rungs:
 ``out["explain"]`` holds the first anomaly's op, the size of a shrunk
 witness, the backend (``matrix-bisect`` or ``frontier-cpu``) and the
-bisection steps. The forensics never fail a check. Their localization
-runs on the checker's device, or on the CPU under ``accelerator="cpu"``.
-Not ported: the artifacts the reference writes beside them.
+bisection steps, and with a test map that addresses a store dir, the
+artifacts written there (``anomaly.json`` and ``witness-timeline.html``,
+``explain.write_artifacts``). The forensics never fail a check. Their
+localization runs on the checker's device, or on the CPU under
+``accelerator="cpu"``.
+
+An invalid result also carries ``plot``: the path of ``linear.png``
+(``checker/linear_report.render_failure``: the ops around the failure
+and the dying configurations) in the test's store dir, or None when the
+test map addresses none or the rendering fails (``matplotlib`` missing,
+among others). Rendering never masks a verdict.
 
 A test map with a ``start_time`` gives the check a durable checkpoint,
 ``store_dir/name/start_time/check.ckpt`` (checker/checkpoint.py): the
@@ -93,7 +101,7 @@ from jepsen_tpu_torch import telemetry
 from jepsen_tpu_torch import trace as trace_mod
 from jepsen_tpu_torch.checker import Checker
 from jepsen_tpu_torch.checker.explain import (
-    enabled, explain_stream, max_witness_ops, shrink_budget)
+    enabled, explain_stream, max_witness_ops, shrink_budget, write_artifacts)
 from jepsen_tpu_torch.checker.linear_cpu import (
     LinearResult, cas_register_step_py, check_stream, multi_register_step_py,
     wgl,
@@ -261,7 +269,7 @@ class LinearizableChecker(Checker):
             res = wgl(history, self.model)
             self._record_metrics(res, time.perf_counter() - t0,
                                  len(history))
-            return self._finish(res, history)
+            return self._finish(res, history, test=test)
         stream, step_py, spec = enc
         from jepsen_tpu_torch.parallel import sharding_knobs
         sharded, mesh_devices = sharding_knobs(test, opts)
@@ -282,7 +290,7 @@ class LinearizableChecker(Checker):
                             explain_on=explain_on,
                             explain_loc=extras.get("loc"),
                             device=("cpu" if accelerator == "cpu"
-                                    else self.device))
+                                    else self.device), opts=opts)
 
     # copied from jepsen_tpu/checker/linearizable.py:195-212
     @staticmethod
@@ -565,12 +573,11 @@ class LinearizableChecker(Checker):
         except Exception:  # noqa: BLE001 — tracing never masks a verdict
             logger.exception("anomaly trace emission failed")
 
-    # copied from jepsen_tpu/checker/linearizable.py:675-713 without the
-    # plot and the explain artifacts
+    # copied from jepsen_tpu/checker/linearizable.py:675-713
     def _finish(self, res: LinearResult, history, stream=None,
                 step_py=None, init_state: int = 0, test=None, step_ids=None,
                 explain_on: bool = False, explain_loc=None,
-                device=None) -> dict:
+                device=None, opts=None) -> dict:
         out: dict[str, Any] = {
             "valid?": res.valid,
             "algorithm": res.algorithm,
@@ -590,18 +597,20 @@ class LinearizableChecker(Checker):
                     res.final_configs = res2.final_configs
             if res.final_configs is not None:
                 out["final-configs"] = res.final_configs
-            self._explain(out, res, test, stream, step_py, init_state,
-                          step_ids, explain_on, explain_loc, device)
+            out["plot"] = self._render(res, history, test)
+            self._explain(out, res, history, test, stream, step_py,
+                          init_state, step_ids, explain_on, explain_loc,
+                          device, opts)
         return out
 
-    # copied from jepsen_tpu/checker/linearizable.py:752-786 without
-    # write_artifacts
+    # copied from jepsen_tpu/checker/linearizable.py:752-786
     @staticmethod
-    def _explain(out, res, test, stream, step_py, init_state, step_ids,
-                 explain_on, explain_loc, device) -> None:
+    def _explain(out, res, history, test, stream, step_py, init_state,
+                 step_ids, explain_on, explain_loc, device, opts) -> None:
         """Anomaly forensics for an INVALID verdict: localize and shrink a
-        minimal witness, and surface a summary in the result. Never fails
-        the check; ``explain: False`` turns it off."""
+        minimal witness, write ``anomaly.json`` and the witness timeline
+        into the store dir, and surface a summary in the result. Never
+        fails the check; ``explain: False`` turns it off."""
         if not explain_on or stream is None:
             return
         try:
@@ -619,8 +628,28 @@ class LinearizableChecker(Checker):
                 "backend": forensics["backend"],
                 "bisect-steps": forensics["bisect_steps"],
             }
+            if test is not None:
+                arts = write_artifacts(test, history, forensics, opts=opts)
+                if arts:
+                    out["explain"]["artifacts"] = sorted(
+                        str(k) for k in arts)
         except Exception:  # noqa: BLE001 — forensics never mask a verdict
             logger.exception("anomaly forensics failed")
+
+    # copied from jepsen_tpu/checker/linearizable.py:787-798
+    @staticmethod
+    def _render(res, history, test) -> str | None:
+        """linear.png into the test's store dir (checker.clj:205-212)."""
+        if test is None:
+            return None
+        try:
+            from jepsen_tpu_torch import store
+            from jepsen_tpu_torch.checker.linear_report import render_failure
+            path = str(store.path_mk(test, "linear.png"))
+            return render_failure(history, res, path)
+        except Exception:  # noqa: BLE001  rendering must not mask verdicts
+            logger.exception("linear.png rendering failed")
+            return None
 
 
 def linearizable(model=None, **kw) -> Checker:

@@ -1,8 +1,9 @@
 """Seeded synthetic histories for smoke runs and tests: single-register
 and multi-register (multi-key-acid) histories for the linearizability
 check, list-append and rw-register txn histories for the Elle checks,
-seeded graphs and clusters for the Elle kernels alone, and set-add/read
-histories for the set-full check."""
+seeded graphs and clusters for the Elle kernels alone, set-add/read
+histories for the set-full check, and a run's clock and nemesis for the
+reports of a suite's composed check."""
 from __future__ import annotations
 
 import numpy as np
@@ -459,3 +460,64 @@ def set_full_history(n_els: int = 20_000, read_every: int = 50,
                             "value": value, "time": t + 1})
             t += 2
     return history
+
+
+# the nodes of a run's cluster: five, as the reference's suites default to
+NODES = ("n1", "n2", "n3", "n4", "n5")
+
+
+def stamp_times(history: list[dict], seed: int = 0,
+                gap_ns: int = 1_000_000) -> list[dict]:
+    """A copy of ``history`` whose ops carry a ``time`` in nanoseconds, as
+    a run's relative clock records them: seeded steps between consecutive
+    ops, uniform in [1, 2 * ``gap_ns``)."""
+    steps = np.random.default_rng(seed).integers(1, 2 * gap_ns,
+                                                 len(history))
+    return [{**op, "time": t}
+            for op, t in zip(history, np.cumsum(steps).tolist())]
+
+
+def with_nemesis(history: list[dict], windows, offsets_at=(),
+                 seed: int = 0) -> tuple[list[dict], list[dict]]:
+    """A copy of a timed ``history`` with a nemesis's ops in it, and the
+    ``faults.jsonl`` rows a run's fault registry would hold for them.
+    Each ``(lo, hi, start_f, stop_f)`` of ``windows`` puts an info op
+    ``start_f`` before op ``lo`` and ``stop_f`` before op ``hi`` (or last,
+    past the end), each at the time of the op it precedes; a window
+    whose ``start_f`` names a fault (``nemesis.faults.classify``) gets an
+    inject row and a heal row, stamped in wall seconds. Each index of
+    ``offsets_at`` puts a ``check-offsets`` op there, carrying seeded
+    ``clock-offsets`` (ms) of every node of ``NODES``. Nemesis ops carry
+    no [key, value] tuple, so a lifted history's split leaves them out."""
+    from jepsen_tpu_torch.nemesis.faults import classify
+    rng = np.random.default_rng(seed)
+    end = history[-1].get("time", 0) if history else 0
+    before: dict[int, list[dict]] = {}
+    rows: list[dict] = []
+
+    def put(i, f, value):
+        t = history[i]["time"] if i < len(history) else end
+        op = {"type": "info", "process": "nemesis", "f": f, "value": value,
+              "time": t}
+        before.setdefault(min(i, len(history)), []).append(op)
+        return t
+
+    for n, (lo, hi, start_f, stop_f) in enumerate(windows):
+        t0 = put(lo, start_f, None)
+        t1 = put(hi, stop_f, None)
+        phase, kind = classify(start_f)
+        if phase == "begin":
+            rows.append({"op": "inject", "id": n, "kind": kind,
+                         "f": start_f, "value": None,
+                         "time": 1.7e9 + t0 / 1e9})
+            rows.append({"op": "heal", "id": n, "via": "nemesis",
+                         "time": 1.7e9 + t1 / 1e9})
+    for i in offsets_at:
+        put(i, "check-offsets", {"clock-offsets": {
+            node: round(float(rng.normal(0.0, 50.0)), 3) for node in NODES}})
+    out: list[dict] = []
+    for i, op in enumerate(history):
+        out += before.get(i, [])
+        out.append(op)
+    out += before.get(len(history), [])
+    return out, rows

@@ -14,6 +14,11 @@ TYPE_CODE = {t: i for i, t in enumerate(TYPES)}
 NEMESIS_PROCESS = -1
 
 
+# copied from jepsen_tpu/history.py:61-62
+def is_client_op(o: dict) -> bool:
+    return isinstance(o.get("process"), int) and o["process"] >= 0
+
+
 # copied from jepsen_tpu/history.py:75-93
 def pair_index(history: Sequence[dict]) -> tuple[np.ndarray, np.ndarray]:
     """For an indexed history, returns (completion_of, invocation_of) int32

@@ -17,9 +17,13 @@ launch, as in the reference.
 With ``explain`` on (the default; ``checker/explain.py``), each invalid
 key of the batched lane gets the reference's per-key forensics
 (``_explain_key``): ``results[k]["explain"]`` names the first anomaly's
-op, the size of its witness and the backend. A key in the matrix regime
-localizes on the card; a shorter key reruns the exact Python twin, since
-the batched lane keeps no per-key failure.
+op, the size of its witness and the backend, and, when the test map has
+a ``name``, the artifacts written under ``independent/<k>``
+(``anomaly.json``, ``witness-timeline.html``). A key in the matrix
+regime localizes on the card; a shorter key reruns the exact Python
+twin, since the batched lane keeps no per-key failure. The other
+checkers of a Compose (a ``timeline``, say) write under the same
+``independent/<k>``.
 
 The batched lane reads ``checker_sharded`` and ``mesh_devices``
 (``parallel.sharding_knobs``): False keeps one device, True shards the
@@ -36,8 +40,7 @@ check, and the batched lane's other checkers of a Compose, see the test
 map with ``ir_enabled: False``, so no sub-history's IR evicts the run's
 (the reference passes that map to the per-key checks only).
 
-Not ported: the forensics' artifacts under ``independent/<k>`` and the
-key-lifting generators. An error in the batched lane propagates; the
+Not ported: the key-lifting generators. An error in the batched lane propagates; the
 reference catches it and checks key by key instead.
 """
 from __future__ import annotations
@@ -124,13 +127,13 @@ class IndependentChecker(Checker):
     def name(self):
         return f"independent({self.checker.name()})"
 
-    # copied from jepsen_tpu/independent.py:265-295 without the artifacts
+    # copied from jepsen_tpu/independent.py:265-295
     @staticmethod
-    def _explain_key(test, stream, step_py, spec, failure, result: dict,
-                     device) -> None:
+    def _explain_key(test, sub_history, stream, step_py, spec, failure,
+                     result: dict, key_opts: dict, device) -> None:
         """Anomaly forensics for one invalid key of the batched lane:
-        localize and shrink over the key's own stream. Never fails the
-        batch."""
+        localize and shrink over the key's own stream, artifacts under
+        independent/<k>. Never fails the batch."""
         from jepsen_tpu_torch.checker import explain as explain_mod
         try:
             tmap = test if isinstance(test, dict) else {}
@@ -147,6 +150,12 @@ class IndependentChecker(Checker):
                 "witness-ops": len(forensics["witness"]["op_indices"]),
                 "backend": forensics["backend"],
             }
+            if isinstance(test, dict) and test.get("name"):
+                arts = explain_mod.write_artifacts(
+                    test, sub_history, forensics, opts=key_opts)
+                if arts:
+                    result["explain"]["artifacts"] = sorted(
+                        str(k) for k in arts)
         except Exception:  # noqa: BLE001 — forensics never mask a verdict
             logger.exception("per-key anomaly forensics failed")
 
@@ -291,8 +300,9 @@ class IndependentChecker(Checker):
                         "backend": "matrix-bisect-distributed"}
         else:
             for fk, stream, failure in invalid:
-                self._explain_key(test, stream, step_py, spec, failure,
-                                  results[fk], chk.device)
+                self._explain_key(test, subs[fk], stream, step_py, spec,
+                                  failure, results[fk],
+                                  self._key_opts(opts, fk), chk.device)
         if lin_name is None:
             return results
         pairs = list(subs.items())

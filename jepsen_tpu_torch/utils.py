@@ -8,9 +8,12 @@ import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Callable, Iterable, Sequence
+from typing import Any, Callable, Iterable, Sequence
 
 logger = logging.getLogger("jepsen_tpu_torch")
+
+# copied from jepsen_tpu/utils/__init__.py:25
+NANOS_PER_MILLI = 1_000_000
 
 
 # copied from jepsen_tpu/utils/__init__.py:34-45
@@ -44,6 +47,65 @@ def quantile(sorted_xs: Sequence[float], q: float) -> float:
         return math.nan
     i = min(len(sorted_xs) - 1, max(0, int(math.ceil(q * len(sorted_xs))) - 1))
     return sorted_xs[i]
+
+
+# copied from jepsen_tpu/utils/__init__.py:81-82
+def nanos_to_ms(n: int) -> float:
+    return n / NANOS_PER_MILLI
+
+
+# copied from jepsen_tpu/utils/__init__.py:444-446
+def fraction(a: float, b: float) -> float:
+    """a/b, but 1 when b is zero (checker.clj stats convention)."""
+    return a / b if b else 1.0
+
+
+# copied from jepsen_tpu/utils/__init__.py:391-412
+def history_to_latencies(history: list[dict]) -> list[dict]:
+    """Pairs invocations with completions, attaching :latency (nanos) to both,
+    and :completion to the invocation (util.clj:700-735). Unmatched invokes
+    get latency = max time seen."""
+    history = [dict(op) for op in history]
+    pending: dict[Any, int] = {}
+    max_time = 0
+    for i, op in enumerate(history):
+        t = op.get("time", 0)
+        max_time = max(max_time, t)
+        if op.get("type") == "invoke":
+            pending[op.get("process")] = i
+        elif op.get("type") in ("ok", "fail", "info"):
+            j = pending.pop(op.get("process"), None)
+            if j is not None:
+                latency = t - history[j].get("time", 0)
+                history[j]["latency"] = latency
+                op["latency"] = latency
+                history[j]["completion"] = op
+    for i in pending.values():
+        history[i]["latency"] = max_time - history[i].get("time", 0)
+    return history
+
+
+# copied from jepsen_tpu/utils/__init__.py:415-433
+def nemesis_intervals(history: list[dict], start_fs=("start",),
+                      stop_fs=("stop",)) -> list[tuple]:
+    """Pairs up intervals of nemesis activity: [(start-op, stop-op-or-None)]
+    (util.clj:736-783)."""
+    intervals = []
+    starts: list[dict] = []
+    for op in history:
+        if op.get("process") != "nemesis":
+            continue
+        if op.get("type") != "info":
+            continue
+        f = op.get("f")
+        if f in start_fs:
+            starts.append(op)
+        elif f in stop_fs:
+            if starts:
+                intervals.append((starts.pop(0), op))
+    for s in starts:
+        intervals.append((s, None))
+    return intervals
 
 
 # copied from jepsen_tpu/utils/__init__.py:374-384

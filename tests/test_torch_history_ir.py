@@ -460,7 +460,7 @@ def _comparable(out: dict) -> dict:
     """A result map without the fields that name the backend (the
     port's ``torch-*`` and ``jitlin-gpu`` against the reference's
     ``jitlin-tpu*``) or its frontier's peak, which differ by rung, and
-    without the reference's ``plot`` (not ported)."""
+    without ``plot``, a path under each package's own store dir."""
     out = {k: v for k, v in out.items()
            if k not in ("algorithm", "configs-max", "plot")}
     if isinstance(out.get("results"), dict):

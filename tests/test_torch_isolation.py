@@ -48,8 +48,11 @@ def test_port_sources_exist():
             "forensics_kernels.py", "checkpoint.py", "store.py",
             "codec.py", "journal.py", "ir.py", "sidecar.py",
             "columnar_c.py", "builder.py", "sessions.py", "telemetry.py",
-            "perfetto.py", "flight.py", "ingest.py", "daemon.py"} <= names
+            "perfetto.py", "flight.py", "ingest.py", "daemon.py",
+            "timeline.py", "perf_plots.py", "clock.py", "linear_report.py",
+            "faults.py"} <= names
     assert (ROOT / "jepsen_tpu_torch/live/__init__.py") in _sources()
+    assert (ROOT / "jepsen_tpu_torch/nemesis/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/parallel/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/trace/__init__.py") in _sources()
@@ -330,6 +333,48 @@ with tempfile.TemporaryDirectory() as d:
     status = load_live_status(run)
     assert status["state"] == "final", status
     assert status["results"]["valid?"] is False, status
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+print("LEAKED", leaked)
+"""
+    out = _leaked_modules(code)
+    assert "LEAKED []" in out, out
+
+
+def test_composed_suite_check_loads_neither_jax_nor_reference():
+    """A suite's composed check on the CPU (stats, exceptions, the lifted
+    register workload with its timeline, perf, clock) over a run with a
+    nemesis and a fault registry: the reports and the artifacts land in
+    the store dir, and nothing of the JAX package is loaded."""
+    code = """
+import json, sys, tempfile
+from pathlib import Path
+import torch
+torch.set_num_threads(1)
+from jepsen_tpu_torch import checker as c, independent
+from jepsen_tpu_torch.checker.linearizable import linearizable
+from jepsen_tpu_torch.histories import (
+    corrupt_keys, independent_register_history, stamp_times, with_nemesis)
+h = corrupt_keys(independent_register_history(3, 40, n_procs=3), [1])
+h, rows = with_nemesis(stamp_times(h), [(10, 90, "partition", "heal")],
+                       offsets_at=(5,))
+suite = c.compose({
+    "stats": c.stats(), "exceptions": c.unhandled_exceptions(),
+    "workload": independent.checker(c.compose({
+        "linear": linearizable(accelerator="gpu", device="cpu"),
+        "timeline": c.timeline_html()})),
+    "perf": c.perf(), "clock": c.clock_plot()})
+with tempfile.TemporaryDirectory() as d:
+    run = Path(d) / "suite" / "t0"
+    run.mkdir(parents=True)
+    (run / "faults.jsonl").write_text(
+        "".join(json.dumps(r) + "\\n" for r in rows))
+    out = suite.check({"name": "suite", "start_time": "t0",
+                       "store_dir": d}, h, {})
+    assert out["workload"]["failures"] == ["1"], out
+    names = {p.name for p in run.rglob("*")}
+    assert {"anomaly.json", "witness-timeline.html", "timeline.html",
+            "rate.png", "clock-skew.png"} <= names, names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("LEAKED", leaked)

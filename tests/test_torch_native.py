@@ -125,14 +125,12 @@ def test_native_capacity_is_unknown(max_configs):
 @pytest.mark.parametrize("case", sorted(HISTORIES))
 def test_linearizable_cpu_takes_native_rung(case):
     """``accelerator="cpu"``: the port's checker settles on the native
-    rung with the JAX package's result map (its ``plot`` aside, which the
-    port does not render)."""
+    rung with the JAX package's result map."""
     from jepsen_tpu.checker.linearizable import linearizable as ref_lin
     from jepsen_tpu_torch.checker.linearizable import linearizable
 
     h = HISTORIES[case]()
     ref = ref_lin(accelerator="cpu").check({}, h, {"explain": False})
-    assert ref.pop("plot", None) is None
     got = linearizable(accelerator="cpu").check({}, h, {"explain": False})
     assert got == ref
     assert got["algorithm"] == "jitlin-native"

@@ -555,14 +555,18 @@ def test_checker_with_store_matches_jax(tmp_path, monkeypatch, plant):
                                        {"checker_sharded": False})
     assert got["algorithm"] == ALGORITHMS[ref["algorithm"]] == \
         "torch-matrix"
-    # the JAX package also writes the forensics artifacts into the store
-    # and names them; the port does not write them (ROADMAP Queue 1 item 11)
-    if "explain" in ref:
-        assert ref["explain"].pop("artifacts")
-    assert set(got) <= set(ref)
+    # both write linear.png and the forensics artifacts into their own
+    # store dirs and name them
+    assert set(got) == set(ref)
     for key in got:
-        if key != "algorithm":
+        if key == "plot" and ref[key] is not None:
+            assert Path(got[key]).relative_to(tmp_path / "port") == \
+                Path(ref[key]).relative_to(tmp_path / "ref")
+        elif key != "algorithm":
             assert got[key] == ref[key], key
+    if plant is not None:
+        assert got["explain"]["artifacts"] == ["anomaly.json",
+                                               "witness-timeline.html"]
     assert got["valid?"] is (plant is None)
     s = _streams(h)[1]
     n_cuts = len(jitlin.quiescent_cuts(s.kind, 1024))
