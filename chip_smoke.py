@@ -216,8 +216,28 @@ just before it and read just after:
   reference's "unknown" and ``plot`` None). The ``suite`` line has the
   host ms of each compose, of each part alone and of the 64 timeline
   pages, the files and the launches; every row of the ``kernels`` line
-  gains ``launches_suite``. A ``total`` line after it gives the
-  script's seconds.
+  gains ``launches_suite``.
+* the run loop (phase 20, ``run_phase``, after phase 19): two whole
+  test runs through the port's ``core.run`` over the dummy remote, the
+  etcd suite's fake test map as ``compose_test`` builds it (nodes n1-n5,
+  concurrency 5, ``NoopNet``, ``KVStore``, the register workload at its
+  defaults, the partition, kill and pause packages at a 1 s interval,
+  ``compose({stats, exceptions, workload, perf})``, a 10 s time limit,
+  the generator's context and the nemesis draws seeded). 20a's client is
+  the fake register client: valid, with the chunk product and the
+  combine launched and no key left undecided by the matrix screen. 20b's
+  is a stale-read double (one read in 500 answers with the key's
+  previous value): invalid, with the undecided keys in one
+  ``frontier_dense_batch`` launch. Each run's stored history is
+  re-checked with ``accelerator="cpu"`` (verdict, invalid keys and every
+  key's failed op equal), and its store must hold ``history.jsonl``,
+  ``results.json``, ``test.json`` and a ``faults.jsonl`` whose windows
+  all healed, and no WAL. The ``run`` line gives each run's ops, keys,
+  ops/s of ``run_case``, the seconds of ``run_case``, ``analyze`` and
+  the workload's check, the check's share of the run's wall, the files
+  and the launches; every row of the ``kernels`` line gains
+  ``launches_run``. A ``total`` line after it gives the script's
+  seconds.
 
 Earlier phases keep their shapes, but for phase 9's 1,024 keys (500 ops
 a key, half of bench.py's depth).
@@ -4533,6 +4553,335 @@ def suite_phase(name, smi, history, bad, device=None, keys=IND_KEYS,
 
 
 # ---------------------------------------------------------------------------
+# 20. the run loop: a whole test through core.run over the dummy remote
+# ---------------------------------------------------------------------------
+
+#: the README's quick start runs the etcd suite's fake test for 10 s
+RUN_TIME_LIMIT = 10.0
+#: one read in this many answers with the key's previous value in 20b
+STALE_EVERY = 500
+#: a stale answer waits for a read this long after its key's last write
+STALE_AFTER_S = 0.001
+
+
+def _stale_client(kv, seed: int):
+    """Phase 20b's client: the fake register client, but one read in
+    ``STALE_EVERY`` (drawn from a generator seeded by ``seed`` and shared
+    by the clients of one store) answers with a key's previous value. A
+    drawn answer goes to the next read whose key's latest write returned
+    at least ``STALE_AFTER_S`` before it and changed the value, so that
+    the stale answer cannot be ordered before that write: with five
+    threads on a key, a read that overlaps the write may see either
+    value."""
+    import random
+    import threading
+
+    from jepsen_tpu_torch.fakes import KVClient
+
+    class StaleKVClient(KVClient):
+        shared = {"lock": threading.Lock(), "prev": {}, "owed": 0,
+                  "stale": 0, "rng": random.Random(seed)}
+
+        def invoke(self, test, op):
+            f, v = op.get("f"), op.get("value")
+            s = self.shared
+            if f == "read":
+                k = v[0]
+                with s["lock"]:
+                    if s["rng"].randrange(STALE_EVERY) == 0:
+                        s["owed"] += 1
+                    prev = s["prev"].get(k)
+                    if s["owed"] and prev is not None \
+                            and prev[0] != self.db.read(k) \
+                            and time.monotonic() - prev[1] > STALE_AFTER_S:
+                        s["owed"] -= 1
+                        s["stale"] += 1
+                        return {**op, "type": "ok", "value": [k, prev[0]]}
+                return super().invoke(test, op)
+            if f in ("write", "cas"):
+                with s["lock"]:
+                    before = self.db.read(v[0])
+                    out = super().invoke(test, op)
+                    if out["type"] == "ok":
+                        s["prev"][v[0]] = (before, time.monotonic())
+                    return out
+            return super().invoke(test, op)
+
+    return StaleKVClient(kv)
+
+
+def run_test_map(store_dir: str, client_fn, time_limit: float,
+                 accelerator: str, device=None) -> tuple:
+    """The etcd suite's fake test map (jepsen_tpu/suites/__init__.py:
+    22-64 ``compose_test`` and the fake branch of :67-186
+    ``build_suite_test``), over the port: nodes n1-n5, concurrency 5, the
+    dummy remote, no OS, ``NoopNet``, the ``KVStore`` and a client over it
+    (``client_fn(kv)``), the register workload at its defaults, the
+    partition, kill and pause packages at a 1 s interval, and
+    ``compose({stats, exceptions, workload, perf})``. Returns the map and
+    a dict the workload check's seconds land in."""
+    from jepsen_tpu_torch import checker as c
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.fakes import KVStore
+    from jepsen_tpu_torch.nemesis import combined
+    from jepsen_tpu_torch.net import NoopNet
+    from jepsen_tpu_torch.workloads import register
+
+    kv = KVStore()
+    base = {"name": "etcd-register",
+            "nodes": ["n1", "n2", "n3", "n4", "n5"], "concurrency": 5,
+            "time_limit": time_limit, "ssh": {"dummy": True},
+            "store_dir": store_dir, "db": kv, "client": client_fn(kv),
+            "os": None, "net": NoopNet()}
+    wl = register.workload(base, accelerator=accelerator, device=device)
+    pkg = combined.nemesis_package({"db": kv, "interval": 1.0,
+                                    "faults": {"partition", "kill", "pause"}})
+    timing: dict = {}
+
+    class TimedCheck(c.Checker):
+        """The workload's checker, its seconds kept in ``timing``."""
+
+        def check(self, test, history, opts):
+            t0 = time.perf_counter()
+            try:
+                return wl["checker"].check(test, history, opts)
+            finally:
+                timing["check_s"] = time.perf_counter() - t0
+
+    test = dict(base)
+    test["generator"] = gen.phases(
+        gen.time_limit(time_limit, gen.any_gen(
+            gen.clients(wl["generator"]),
+            gen.nemesis_gen(pkg["generator"]))),
+        gen.nemesis_gen(pkg["final_generator"]))
+    test["checker"] = c.compose({
+        "stats": c.stats(), "exceptions": c.unhandled_exceptions(),
+        "workload": TimedCheck(), "perf": c.perf()})
+    test["nemesis"] = pkg["nemesis"]
+    return test, timing
+
+
+class _RunProbe:
+    """Around one core.run: seeds the generator's context and the nemesis
+    draws with ``seed``, times ``run_case`` and ``analyze``, and counts
+    the keys the batched lane hands to the key-batched frontier scan
+    (the keys whose matrix verdict came back undecided). Restores every
+    name it replaced on exit."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+        self.seconds: dict = {}
+        self.undecided_keys = 0
+
+    def __enter__(self):
+        import random
+
+        from jepsen_tpu_torch import core, parallel
+        from jepsen_tpu_torch.generator import interpreter
+        self._saved = [(interpreter, "context", interpreter.context),
+                       (core, "run_case", core.run_case),
+                       (core, "analyze", core.analyze),
+                       (parallel, "_scan_batch", parallel._scan_batch)]
+        self._state = random.getstate()
+        random.seed(self.seed)
+        ctx_fn, seed = interpreter.context, self.seed
+        interpreter.context = lambda test, rng=None: ctx_fn(
+            test, rng=random.Random(seed))
+
+        def timed(key, fn):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.seconds[key] = time.perf_counter() - t0
+            return wrapper
+
+        core.run_case = timed("run_case_s", core.run_case)
+        core.analyze = timed("analyze_s", core.analyze)
+        scan = parallel._scan_batch
+
+        def counted(streams, *a, **kw):
+            self.undecided_keys += len(streams)
+            return scan(streams, *a, **kw)
+
+        parallel._scan_batch = counted
+        return self
+
+    def __exit__(self, *exc):
+        import random
+        for mod, attr, value in self._saved:
+            setattr(mod, attr, value)
+        random.setstate(self._state)
+        return False
+
+
+def run_verdicts(res: dict, history: list) -> tuple:
+    """A lifted register check's verdict, its invalid keys and each key's
+    (verdict, failed op's history index). A key the batched lane settled
+    names its failed op by ``explain``'s ``first-anomaly-op``, a position
+    in the key's sub-history."""
+    from jepsen_tpu_torch import independent
+    keys = {str(k): k for k in independent.history_keys(history)}
+    per_key = {}
+    for sk, r in (res.get("results") or {}).items():
+        r = r.get("linear", r)
+        op = r.get("failed-op")
+        first = (r.get("explain") or {}).get("first-anomaly-op")
+        if op is None and first is not None:
+            op = independent.subhistory(keys[sk], history)[first]
+        per_key[sk] = (r.get("valid?"),
+                       None if op is None else op.get("index"))
+    return res.get("valid?"), sorted(res.get("failures") or []), per_key
+
+
+def run_phase(name, smi, device=None, time_limit=RUN_TIME_LIMIT) -> dict:
+    """Phase 20: whole test runs through the port's ``core.run`` on the
+    card, the etcd suite's fake test map (:func:`run_test_map`) with the
+    generator's context and the nemesis draws seeded by ``SEED``.
+
+    * 20a: the fake register client. The workload's verdict must be
+      valid, and the analysis must launch the chunk product and the
+      combine; a frontier launch may come only with keys whose matrix
+      verdict came back undecided (``undecided_keys``: the keys the
+      batched lane hands to the frontier scan), and none are expected.
+    * 20b: the stale-read double (:func:`_stale_client`). The verdict
+      must be invalid with at least one invalid key, and the undecided
+      keys take one ``frontier_dense_batch`` launch.
+
+    Each run's stored history (``store.load_history``, indexed as
+    ``analyze`` indexes it) is re-checked by the port with
+    ``accelerator="cpu"``: the verdict, the invalid keys and each key's
+    failed op must equal the card's. The store must hold
+    ``history.jsonl``, ``results.json``, ``test.json`` and a
+    ``faults.jsonl`` whose windows all closed, and no WAL. Returns each
+    kernel's launches in the two runs."""
+    import importlib.util
+    import tempfile
+
+    from jepsen_tpu_torch import core, independent, store
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.fakes import KVClient
+    from jepsen_tpu_torch.history import index
+    from jepsen_tpu_torch.nemesis import faults as faults_mod
+    phase_t0 = time.perf_counter()
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    cuda = device is None or str(device).startswith("cuda")
+    out, launches_run = {}, dict.fromkeys(read_launches(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for run, client_fn in (("20a", KVClient),
+                               ("20b", lambda kv: _stale_client(kv, SEED))):
+            test, timing = run_test_map(f"{tmp}/{run}", client_fn,
+                                        time_limit, "gpu", device)
+            what = f"run {run}"
+            with _RunProbe(SEED) as probe:
+                reset_launches()
+                t0 = time.perf_counter()
+                result = core.run(test)
+                wall_s = time.perf_counter() - t0
+                launches = read_launches()
+            for k, n in launches.items():
+                launches_run[k] += n
+            res = result["results"]
+            wl = res["workload"]
+            history = result["history"]
+            stored = index(store.load_history(
+                result["name"], result["start_time"], f"{tmp}/{run}"))
+            t0 = time.perf_counter()
+            # no forensics: the cpu lane's failed-op is the comparison,
+            # and a test map without store coordinates writes no artifact
+            cpu = independent.checker(linearizable(
+                accelerator="cpu")).check({}, stored, {"explain": False})
+            cpu_s = time.perf_counter() - t0
+            got, want = run_verdicts(wl, history), run_verdicts(cpu, stored)
+            if got != want:
+                bad = {k: (v, want[2].get(k)) for k, v in got[2].items()
+                       if v != want[2].get(k)}
+                raise AssertionError(f"{what}: the card's verdicts differ "
+                                     f"from the cpu re-check: {got[:2]} "
+                                     f"against {want[:2]}, keys {bad}")
+            lin_algos = {r["linear"].get("algorithm")
+                         for r in wl["results"].values()}
+            # without matplotlib (the chip machine) perf gives the
+            # reference's "unknown", and so does the composed verdict of
+            # a valid run
+            parts = {k: v["valid?"] for k, v in res.items()
+                     if isinstance(v, dict)}
+            if (parts["stats"], parts["exceptions"], parts["perf"]) != (
+                    True, True, True if mpl else "unknown"):
+                raise AssertionError(f"{what}: verdicts {parts}")
+            if run == "20a":
+                if wl["valid?"] is not True or wl["failures"] or \
+                        res["valid?"] != (True if mpl else "unknown"):
+                    raise AssertionError(f"{what}: not valid: {parts} "
+                                         f"failures {wl['failures']}")
+                # a frontier launch only for the keys the screen left
+                # undecided (none are expected)
+                scans = launches["frontier_dense_batch"] \
+                    + launches["frontier_sparse_batch"]
+                if cuda and (scans > 0) != (probe.undecided_keys > 0):
+                    raise AssertionError(
+                        f"{what}: {probe.undecided_keys} undecided keys, "
+                        f"launches {launches}")
+            else:
+                if wl["valid?"] is not False or not wl["failures"] \
+                        or res["valid?"] is not False:
+                    raise AssertionError(
+                        f"{what}: {test['client'].shared['stale']} stale "
+                        f"reads gave {wl['valid?']} {wl['failures']}")
+                if cuda and launches["frontier_dense_batch"] != 1:
+                    raise AssertionError(f"{what}: launches {launches}")
+            if cuda and not (launches["chunk_product"]
+                             and launches["combine_product"]):
+                raise AssertionError(f"{what}: launches {launches}")
+            if lin_algos != {"jitlin-gpu"}:
+                raise AssertionError(f"{what}: the batched lane did not "
+                                     f"settle every key: {lin_algos}")
+            d = store.test_dir(result)
+            files = sorted(p.name for p in d.iterdir())
+            need = {"history.jsonl", "results.json", "test.json",
+                    "faults.jsonl"}
+            if not need <= set(files) or "history.wal.jsonl" in files:
+                raise AssertionError(f"{what}: files {files}")
+            rows = faults_mod.load_rows(d / "faults.jsonl")
+            windows = faults_mod.pair_rows(rows)
+            kinds = sorted({w["kind"] for w in windows})
+            if not windows or not set(kinds) <= {"net", "process", "pause"} \
+                    or not all(w["healed"] for w in windows):
+                raise AssertionError(f"{what}: fault windows {windows}")
+            secs = probe.seconds
+            n_ops = sum(1 for op in history if op["process"] != "nemesis")
+            out[run] = {
+                "ops": len(history), "client_ops": n_ops,
+                "keys": len(wl["results"]), "valid": res["valid?"],
+                "verdicts": parts,
+                "failures": wl["failures"],
+                "failed_ops": {k: v[1] for k, v in got[2].items()
+                               if v[0] is not True},
+                "stale_reads": (test["client"].shared["stale"]
+                                if run == "20b" else 0),
+                "undecided_keys": probe.undecided_keys,
+                "ops_per_s": len(history) / secs["run_case_s"],
+                "run_case_s": secs["run_case_s"],
+                "analyze_s": secs["analyze_s"],
+                "check_s": timing["check_s"], "wall_s": wall_s,
+                "check_share": timing["check_s"] / wall_s,
+                "cpu_recheck_s": cpu_s,
+                "fault_windows": {k: sum(w["kind"] == k for w in windows)
+                                  for k in kinds},
+                "files": files,
+                "key_files": sum(1 for _ in (d / "independent").rglob("*")
+                                 if _.is_file()),
+                "launches": {k: n for k, n in launches.items() if n}}
+    emit({"phase": "run", "time_limit_s": time_limit, "matplotlib": mpl,
+          **out,
+          "launches_run": {k: n for k, n in launches_run.items() if n},
+          "seconds": time.perf_counter() - phase_t0,
+          "card": name, "power": smi})
+    return launches_run
+
+
+# ---------------------------------------------------------------------------
 # 17. telemetry: the registry, the run tracer and the profiler on the card
 # ---------------------------------------------------------------------------
 
@@ -5475,6 +5824,11 @@ def main() -> int:
     composed = suite_phase(name, smi, history, bad)
     for row in kernels:
         row["launches_suite"] = composed.get(row["name"], 0)
+    # 20. the run loop: two whole fake-register test runs through core.run,
+    # each re-checked on the cpu; each row gains the two runs' launches
+    ran = run_phase(name, smi)
+    for row in kernels:
+        row["launches_run"] = ran.get(row["name"], 0)
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,

@@ -1,9 +1,10 @@
-"""Value interning shared by the encoders and the checkers, and the
+"""Op constructors and history helpers (the run loop indexes its history
+here), value interning shared by the encoders and the checkers, and the
 struct-of-arrays form of a history that the history IR promotes."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Sequence
+from typing import Any, Iterable, Iterator, Sequence
 
 import numpy as np
 
@@ -14,9 +15,49 @@ TYPE_CODE = {t: i for i, t in enumerate(TYPES)}
 NEMESIS_PROCESS = -1
 
 
+# copied from jepsen_tpu/history.py:35-59
+def op(type: str, process, f, value=None, time: int = 0, **extra) -> dict:
+    o = {"type": type, "process": process, "f": f, "value": value, "time": time}
+    o.update(extra)
+    return o
+
+
+def invoke_op(process, f, value=None, **extra) -> dict:
+    return op(INVOKE, process, f, value, **extra)
+
+
+def is_invoke(o: dict) -> bool:
+    return o.get("type") == INVOKE
+
+
+def is_ok(o: dict) -> bool:
+    return o.get("type") == OK
+
+
+def is_fail(o: dict) -> bool:
+    return o.get("type") == FAIL
+
+
+def is_info(o: dict) -> bool:
+    return o.get("type") == INFO
+
+
+
 # copied from jepsen_tpu/history.py:61-62
 def is_client_op(o: dict) -> bool:
     return isinstance(o.get("process"), int) and o["process"] >= 0
+
+
+# copied from jepsen_tpu/history.py:65-73
+def index(history: Iterable[dict]) -> list[dict]:
+    """Assigns sequential :index to every op (knossos.history/index,
+    invoked at core.clj:228). Returns new op dicts; originals untouched."""
+    out = []
+    for i, o in enumerate(history):
+        o = dict(o)
+        o["index"] = i
+        out.append(o)
+    return out
 
 
 # copied from jepsen_tpu/history.py:75-93
@@ -39,6 +80,24 @@ def pair_index(history: Sequence[dict]) -> tuple[np.ndarray, np.ndarray]:
                 completion_of[j] = i
                 invocation_of[i] = j
     return completion_of, invocation_of
+
+
+# copied from jepsen_tpu/history.py:96-111
+def pairs(history: Sequence[dict]) -> Iterator[tuple[dict, dict | None]]:
+    """Yields (invocation, completion-or-None) pairs in invocation order."""
+    completion_of, _ = pair_index(history)
+    for i, o in enumerate(history):
+        if o.get("type") == INVOKE:
+            j = completion_of[i]
+            yield o, (history[j] if j >= 0 else None)
+
+
+def completions(history: Sequence[dict]) -> list[dict]:
+    return [o for o in history if o.get("type") in (OK, FAIL, INFO)]
+
+
+def invocations(history: Sequence[dict]) -> list[dict]:
+    return [o for o in history if o.get("type") == INVOKE]
 
 
 # copied from jepsen_tpu/history.py:114-140

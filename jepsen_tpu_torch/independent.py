@@ -40,16 +40,24 @@ check, and the batched lane's other checkers of a Compose, see the test
 map with ``ir_enabled: False``, so no sub-history's IR evicts the run's
 (the reference passes that map to the per-key checks only).
 
-Not ported: the key-lifting generators. An error in the batched lane propagates; the
-reference catches it and checks key by key instead.
+The key-lifting generators come along: :func:`tuple_gen`,
+:class:`SequentialGenerator` (one key at a time) and
+:class:`ConcurrentGenerator` (groups of n threads through a key
+rotation), as the register workload drives them. An error in the batched
+lane propagates; the reference catches it and checks key by key
+instead.
 """
 from __future__ import annotations
 
 import logging
+from dataclasses import dataclass, field, replace
+from typing import Any, Callable, Iterable
 
+from jepsen_tpu_torch import generator as gen_mod
 from jepsen_tpu_torch.checker import (
     Checker, Compose, check_safe, merge_valid,
 )
+from jepsen_tpu_torch.generator import Generator, PENDING, as_gen
 from jepsen_tpu_torch.utils import bounded_pmap
 
 logger = logging.getLogger("jepsen_tpu_torch.independent")
@@ -70,6 +78,189 @@ def tuple_value(k, v) -> list:
 
 def is_tuple_value(v) -> bool:
     return isinstance(v, (list, tuple)) and len(v) == 2
+
+
+# copied from jepsen_tpu/independent.py:39-218
+def tuple_gen(k, gen) -> Generator:
+    """Lifts a generator's values into [k, v] tuples."""
+    def lift(op):
+        op = dict(op)
+        op["value"] = tuple_value(k, op.get("value"))
+        return op
+    return gen_mod.Map(lift, gen)
+
+
+@dataclass(frozen=True)
+class SequentialGenerator(Generator):
+    """One key at a time: exhaust gen_fn(k) for each k in order
+    (independent.clj:31-47). ``keys`` may be infinite."""
+
+    keys: "KeyStream" = field(compare=False)
+    gen_fn: Callable = field(compare=False)
+    idx: int = 0
+    current: Any = None
+    started: bool = False
+
+    def _advance(self):
+        k, ok = self.keys.get(self.idx)
+        if not ok:
+            return None
+        return replace(self, idx=self.idx + 1,
+                       current=tuple_gen(k, self.gen_fn(k)), started=True)
+
+    def op(self, test, ctx):
+        state = self if self.started else self._advance()
+        while state is not None:
+            g = as_gen(state.current)
+            res = g.op(test, ctx) if g is not None else None
+            if res is None:
+                state = state._advance()
+                continue
+            op, g2 = res
+            return (op, replace(state, current=g2))
+        return None
+
+    def update(self, test, ctx, event):
+        if not self.started:
+            return self
+        g = as_gen(self.current)
+        if g is None:
+            return self
+        return replace(self, current=g.update(test, ctx, event))
+
+
+def sequential_generator(keys: Iterable, gen_fn: Callable[[Any], Any]) -> Generator:
+    """(independent.clj:31-47)."""
+    return SequentialGenerator(keys=KeyStream(keys), gen_fn=gen_fn)
+
+
+class KeyStream:
+    """Memoizing immutable view over a possibly-infinite key sequence, so
+    ``concurrent_generator`` accepts ``itertools.count()`` the way the
+    reference accepts infinite lazy seqs (independent.clj:211-236).
+    Functional generator copies share one stream; the memo only grows, so
+    ``get(i)`` is referentially transparent."""
+
+    def __init__(self, iterable):
+        self._it = iter(iterable)
+        self._memo: list = []
+        self._done = False
+
+    def get(self, i: int):
+        """(key, True) for index i, or (None, False) past the end."""
+        while not self._done and len(self._memo) <= i:
+            try:
+                self._memo.append(next(self._it))
+            except StopIteration:
+                self._done = True
+        if i < len(self._memo):
+            return self._memo[i], True
+        return None, False
+
+
+@dataclass(frozen=True)
+class ConcurrentGenerator(Generator):
+    """Groups of n threads each work through their own sequence of keys
+    concurrently (independent.clj:101-209). When a group's generator for
+    its current key is exhausted, the group rotates to the next unclaimed
+    key; the whole generator is exhausted when no keys remain and every
+    group's generator is spent.
+    """
+
+    n: int                       # threads per group
+    keys: KeyStream = field(compare=False)  # shared lazy key source
+    gen_fn: Callable = field(compare=False)
+    groups: tuple = ()           # ((threads-frozenset, key, gen) ...)
+    next_idx: int = 0            # next unclaimed index into the stream
+
+    def _claim(self, state, idx):
+        """Next key from the stream, or (None, state) when exhausted."""
+        k, ok = state.keys.get(idx)
+        if not ok:
+            return None, False
+        return k, True
+
+    def _init_groups(self, ctx):
+        """Carve client threads into groups of n."""
+        client_threads = sorted(t for t in ctx.workers if t != gen_mod.NEMESIS)
+        groups = []
+        idx = self.next_idx
+        for i in range(0, len(client_threads) - self.n + 1, self.n):
+            threads = frozenset(client_threads[i:i + self.n])
+            k, ok = self.keys.get(idx)
+            if ok:
+                idx += 1
+                groups.append((threads, k, tuple_gen(k, self.gen_fn(k))))
+            else:
+                groups.append((threads, None, None))
+        return replace(self, next_idx=idx, groups=tuple(groups))
+
+    def op(self, test, ctx):
+        if not self.groups:
+            inited = self._init_groups(ctx)
+            if not inited.groups:
+                return None
+            return inited.op(test, ctx)
+        candidates = []
+        state = self
+        for i, (threads, k, g) in enumerate(state.groups):
+            # rotate exhausted groups to fresh keys
+            while True:
+                gg = as_gen(g)
+                res = gg.op(test, ctx.restrict(threads)) if gg is not None else None
+                if res is not None:
+                    break
+                k2, ok = state.keys.get(state.next_idx)
+                if ok:
+                    k = k2
+                    g = tuple_gen(k, state.gen_fn(k))
+                    groups = list(state.groups)
+                    groups[i] = (threads, k, g)
+                    state = replace(state, next_idx=state.next_idx + 1,
+                                    groups=tuple(groups))
+                else:
+                    g = None
+                    groups = list(state.groups)
+                    groups[i] = (threads, None, None)
+                    state = replace(state, groups=tuple(groups))
+                    break
+            if g is None:
+                continue
+            op, g2 = res
+            candidates.append((op, g2, i))
+        if not candidates:
+            return None
+        best = gen_mod.soonest_op_map(candidates)
+        op, g2, i = best
+        if op is PENDING:
+            return (PENDING, state)
+        groups = list(state.groups)
+        threads, k, _ = groups[i]
+        groups[i] = (threads, k, g2)
+        return (op, replace(state, groups=tuple(groups)))
+
+    def update(self, test, ctx, event):
+        if not self.groups:
+            return self
+        p = event.get("process")
+        t = gen_mod.NEMESIS if p == gen_mod.NEMESIS else ctx.thread_of(p)
+        for i, (threads, k, g) in enumerate(self.groups):
+            if t in threads and g is not None:
+                gg = as_gen(g)
+                if gg is None:
+                    return self
+                groups = list(self.groups)
+                groups[i] = (threads, k,
+                             gg.update(test, ctx.restrict(threads), event))
+                return replace(self, groups=tuple(groups))
+        return self
+
+
+def concurrent_generator(n: int, keys: Iterable, gen_fn: Callable) -> Generator:
+    """(independent.clj:211-236). n threads per key-group; len(client
+    threads) should be a multiple of n. ``keys`` may be infinite
+    (e.g. itertools.count())."""
+    return ConcurrentGenerator(n=n, keys=KeyStream(keys), gen_fn=gen_fn)
 
 
 # copied from jepsen_tpu/independent.py:221-250

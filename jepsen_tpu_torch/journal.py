@@ -6,20 +6,327 @@ journal (``history.wal.jsonl``) incrementally, poll by poll, for the
 live checker sessions (:mod:`jepsen_tpu_torch.live`); it parses through
 the C chunk scanner (``history_ir.ingest.parse_wal_chunk`` over
 ``native/columnar_ext.c`` ``ingest_chunk``), which gives what
-:func:`parse_wal_chunk_py`, its Python twin, gives. The writer side,
-``Journal`` and ``ForensicLog``, is not ported.
+:func:`parse_wal_chunk_py`, its Python twin, gives.
+
+The writer side: :class:`Journal`, the write-ahead journal the
+interpreter's scheduler appends each history-bound op to as it happens
+(flushed to the OS at once, fsynced every ``wal_fsync_interval`` s; a
+full disk parks lines in memory), so a killed run leaves a replayable
+prefix that :class:`WalTailer` and :func:`read_wal` read; and
+:class:`ForensicLog`, the lazily opened ``late.jsonl`` of completions
+quarantined from reaped workers.
 """
 from __future__ import annotations
 
+import errno
 import hashlib
 import json
 import logging
+import os
+import threading
+import time
 from pathlib import Path
 
 logger = logging.getLogger("jepsen_tpu_torch.journal")
 
-# copied from jepsen_tpu/journal.py:44
+# copied from jepsen_tpu/journal.py:44-341
 WAL_NAME = "history.wal.jsonl"
+LATE_NAME = "late.jsonl"
+DEFAULT_FSYNC_INTERVAL_S = 1.0
+# lines held in memory while the disk is full; older lines drop first
+# once exceeded (counted in Journal.parked_dropped) — bounding memory
+# matters more than completeness once ENOSPC persists
+ENOSPC_PARK_MAX_LINES = 10_000
+
+
+class Journal:  # durability: fsync
+    """Append-only jsonl journal with interval fsync.
+
+    ``append`` is called from the interpreter's scheduler thread only;
+    the lock exists so an abnormal-shutdown ``close`` from the
+    orchestrator thread can't race a final append."""
+
+    def __init__(self, path, fsync_interval_s: float = DEFAULT_FSYNC_INTERVAL_S):
+        self.path = Path(path)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        # binary mode: byte-exact offsets make the ENOSPC rollback in
+        # _write_locked possible (truncate back to the last good line
+        # boundary, so a retried park can't duplicate bytes a failed
+        # flush partially landed)
+        self._f = open(self.path, "wb")
+        self.fsync_interval_s = fsync_interval_s
+        self._last_fsync = time.monotonic()
+        self._lock = threading.Lock()
+        self.appended = 0
+        # ENOSPC park state: lines waiting for the disk to drain, the
+        # byte offset of the last fully-flushed line boundary, and
+        # whether the tail may still hold a partial line (only when the
+        # rollback truncate itself failed — terminated with a bare
+        # newline on resume; the tolerant readers skip torn lines)
+        self.parked: list[bytes] = []
+        self.parked_dropped = 0
+        self._good_offset = 0
+        self._parked_closed = False
+        self._dirty_tail = False
+        self._park_logged = False
+
+    def _park(self, parts: list[bytes]) -> None:
+        """Holds lines in the bounded in-memory buffer while the disk
+        is full; oldest lines drop first past the cap."""
+        keep = self.parked + parts
+        overflow = len(keep) - ENOSPC_PARK_MAX_LINES
+        if overflow > 0:
+            self.parked_dropped += overflow
+            keep = keep[overflow:]
+        self.parked = keep
+        if not self._park_logged:
+            self._park_logged = True
+            logger.warning(
+                "WAL %s hit ENOSPC; parking lines in memory (bounded "
+                "at %d) until the disk drains", self.path,
+                ENOSPC_PARK_MAX_LINES)
+
+    def _write_locked(self, parts: list[bytes]) -> bool:
+        """Writes ``parts`` — plus any ENOSPC-parked backlog — under
+        the caller's lock. Returns True on success; False when the disk
+        is (still) full and the lines were parked for the next append;
+        re-raises any other OSError for the caller's permanent-disable
+        path."""
+        if self._f.closed:
+            # the previous ENOSPC dropped the handle (with its
+            # un-flushable buffer); reopen at the rolled-back tail
+            try:
+                self._f = open(self.path, "ab")
+            except OSError as e:
+                if e.errno != errno.ENOSPC:
+                    raise
+                self._park(parts)
+                return False
+            self._parked_closed = False
+        pending = self.parked + parts
+        if self._dirty_tail:
+            # rollback couldn't truncate the partial line a failed
+            # flush landed: a bare newline terminates it into a torn
+            # line the tolerant readers already skip, instead of
+            # gluing the retry onto it
+            pending = [b"\n"] + pending
+        try:
+            # fsync rides the interval in _fsync_locked, invoked by the
+            # append/append_many callers right after a successful write
+            self._f.write(b"".join(pending))  # lint: ignore[fsync-pairing]
+            self._f.flush()
+        except OSError as e:
+            if e.errno != errno.ENOSPC:
+                raise
+            # disk full is transient in a way a dying disk isn't. Drop
+            # the handle — close() discards the un-flushable buffer so
+            # a retry can't double-write it — and roll the OS file back
+            # to the last good line boundary so partially-landed bytes
+            # can't duplicate either; then park the batch for the next
+            # append.
+            try:
+                self._f.close()
+            except OSError:
+                pass
+            self._parked_closed = True
+            try:
+                if self.path.stat().st_size > self._good_offset:
+                    os.truncate(self.path, self._good_offset)
+                self._dirty_tail = False
+            except OSError:
+                self._dirty_tail = True
+            self._park(parts)
+            return False
+        self.appended += len(self.parked) + len(parts)
+        self._good_offset += sum(len(p) for p in pending)
+        self.parked = []
+        self._dirty_tail = False
+        if self._park_logged:
+            self._park_logged = False
+            logger.info("WAL %s recovered from ENOSPC; parked lines "
+                        "flushed (%d dropped while full)", self.path,
+                        self.parked_dropped)
+        return True
+
+    def _fsync_locked(self) -> None:
+        """Interval fsync under the caller's lock (the durability
+        boundary — everything before this instant survives power
+        loss)."""
+        interval = self.fsync_interval_s
+        if interval is None or interval < 0:
+            return
+        now = time.monotonic()
+        if interval == 0 or now - self._last_fsync >= interval:
+            self._f.flush()
+            os.fsync(self._f.fileno())
+            self._last_fsync = now
+            # causal trace: the durability boundary is an event worth
+            # seeing next to the op slices (per-append emission would
+            # double the hot path; the op itself is already traceable
+            # via its derivable trace id)
+            from jepsen_tpu_torch import trace as trace_mod
+            tracer = trace_mod.get_tracer()
+            if tracer.enabled:
+                tracer.instant(trace_mod.TRACK_WAL, "wal-fsync",
+                               args={"appended": self.appended})
+
+    def append(self, op: dict) -> None:
+        """Writes one op as a JSON line, flushed to the OS immediately
+        (SIGKILL-safe) and fsynced on the configured interval
+        (power-loss-safe). Failures — unserializable op, disk full —
+        are logged, never raised: the journal must not take down the
+        run it protects. ``ENOSPC`` parks the line for a retry on the
+        next append; any other OSError closes the journal and the run
+        continues with the in-memory history, exactly the pre-WAL
+        behavior."""
+        from jepsen_tpu_torch.store import _serializable
+        try:
+            line = (json.dumps(_serializable(op)) + "\n").encode("utf-8")
+        except Exception:  # noqa: BLE001 — journaling never kills a run
+            logger.exception("unserializable op dropped from WAL")
+            return
+        with self._lock:
+            if self._f.closed and not self._parked_closed:
+                return
+            try:
+                if self._write_locked([line]):
+                    self._fsync_locked()
+            except OSError:
+                logger.exception("WAL write failed; journaling off for "
+                                 "the rest of the run")
+                try:
+                    self._f.close()
+                except OSError:
+                    pass
+
+    # owner: interpreter scheduler thread (sole writer); the lock only
+    # guards against an abnormal-shutdown close() from the orchestrator
+    def append_many(self, ops) -> None:
+        """Batched twin of :meth:`append` for the chunked scheduler
+        drain (doc/performance.md "Host ingest spine"): serializes the
+        whole batch, then does ONE write+flush — and at most one
+        interval fsync — instead of a syscall pair per op. An
+        unserializable op drops that op only, exactly as in
+        :meth:`append`; the surviving lines still land in batch order,
+        so the WAL bytes are identical to per-op appends of the same
+        sequence."""
+        from jepsen_tpu_torch.store import _serializable
+        parts: list[bytes] = []
+        for op in ops:
+            try:
+                parts.append(
+                    (json.dumps(_serializable(op)) + "\n").encode("utf-8"))
+            except Exception:  # noqa: BLE001 — journaling never kills a run
+                logger.exception("unserializable op dropped from WAL")
+        if not parts:
+            return
+        with self._lock:
+            if self._f.closed and not self._parked_closed:
+                return
+            try:
+                if self._write_locked(parts):
+                    self._fsync_locked()
+            except OSError:
+                logger.exception("WAL write failed; journaling off for "
+                                 "the rest of the run")
+                try:
+                    self._f.close()
+                except OSError:
+                    pass
+
+    def sync(self) -> None:
+        with self._lock:
+            if self._f.closed and not self._parked_closed:
+                return
+            if self.parked or self._parked_closed:
+                try:
+                    if not self._write_locked([]):
+                        return  # still full: nothing new to make durable
+                except OSError:
+                    logger.exception("WAL sync flush failed")
+                    return
+            self._f.flush()
+            os.fsync(self._f.fileno())
+            self._last_fsync = time.monotonic()
+
+    def close(self, discard: bool = False) -> None:
+        """Flushes and closes; ``discard=True`` additionally unlinks the
+        file — core.run discards the WAL once ``store.save_1`` has
+        persisted the authoritative ``history.jsonl`` (a surviving WAL
+        without a history.jsonl next to it marks a crashed run)."""
+        with self._lock:
+            if not self._f.closed or self._parked_closed:
+                try:
+                    if self.parked or self._parked_closed:
+                        self._write_locked([])  # last ENOSPC-drain try
+                    if not self._f.closed:
+                        self._f.flush()
+                        os.fsync(self._f.fileno())
+                except OSError:
+                    logger.exception("WAL final fsync failed")
+                try:
+                    self._f.close()
+                except OSError:
+                    pass
+                self._parked_closed = False
+        if discard:
+            try:
+                self.path.unlink(missing_ok=True)
+            except OSError:
+                logger.exception("couldn't discard WAL %s", self.path)
+
+
+class ForensicLog:
+    """Lazily-opened append-only jsonl for forensic artifacts — the
+    quarantined-late-completion log (``late.jsonl``) the interpreter's
+    deadline layer writes when a reaped zombie worker finally returns
+    (doc/robustness.md). Same never-raise contract as :class:`Journal`:
+    a forensic artifact must not take down the run it documents. The
+    file is only created on first append, so clean runs leave no empty
+    artifacts behind."""
+
+    def __init__(self, path):
+        self.path = Path(path)
+        self._f = None
+        self._broken = False
+        self._lock = threading.Lock()
+        self.appended = 0
+
+    def append(self, row: dict) -> None:
+        from jepsen_tpu_torch.store import _serializable
+        try:
+            line = json.dumps(_serializable(row)) + "\n"
+        except Exception:  # noqa: BLE001 — forensics never kill a run
+            logger.exception("unserializable row dropped from %s",
+                             self.path.name)
+            return
+        with self._lock:
+            if self._broken:
+                return
+            try:
+                if self._f is None:
+                    self.path.parent.mkdir(parents=True, exist_ok=True)
+                    self._f = open(self.path, "a", encoding="utf-8")
+                self._f.write(line)
+                self._f.flush()
+                self.appended += 1
+            except OSError:
+                logger.exception("forensic log %s failed; disabled",
+                                 self.path)
+                self._broken = True
+                if self._f is not None:
+                    try:
+                        self._f.close()
+                    except OSError:
+                        pass
+
+    def close(self) -> None:
+        with self._lock:
+            if self._f is not None and not self._f.closed:
+                try:
+                    self._f.close()
+                except OSError:
+                    logger.exception("forensic log close failed")
 
 
 # copied from jepsen_tpu/journal.py:344-370
@@ -298,3 +605,9 @@ def read_wal(path) -> tuple[list[dict], bool]:
 def wal_path(test: dict):
     from jepsen_tpu_torch import store
     return store.path(test, WAL_NAME)
+
+
+# copied from jepsen_tpu/journal.py:621-623
+def late_path(test: dict):
+    from jepsen_tpu_torch import store
+    return store.path(test, LATE_NAME)

@@ -9,14 +9,18 @@ sidecar, the serialized history IR (history_ir/sidecar.py) whose
 and ``checker.linearizable.check_stored`` re-check a run without its
 jsonl. A sidecar that is missing, predates the columns or fails to load
 falls back to ``history.jsonl`` with a logged warning, counted in
-``store_sidecar_load_failures_total`` when a registry is live. Not
-ported: the results and test maps, the latest links and the artifact
-listings.
+``store_sidecar_load_failures_total`` when a registry is live. The run
+loop's part: ``save_1`` (history, sidecar, test map) before analysis,
+``save_2`` (results, test map) after, the ``latest``/``current`` links,
+the loaders of a stored run, the artifact listings and the per-test
+``jepsen.log``.
 """
 from __future__ import annotations
 
+import datetime
 import json
 import logging
+import shutil
 from pathlib import Path
 from typing import Any
 
@@ -24,6 +28,73 @@ logger = logging.getLogger("jepsen_tpu_torch.store")
 
 # copied from jepsen_tpu/store.py:22
 BASE_DIR = "store"
+
+# copied from jepsen_tpu/store.py:24-88
+# Dropped before serialization (store.clj:160-168)
+NONSERIALIZABLE_KEYS = {
+    "db", "os", "net", "client", "checker", "nemesis", "generator", "model",
+    "remote", "barrier", "tracer",
+}
+
+# Telemetry artifacts a run may leave next to history/results
+# (see doc/observability.md): exported metrics, the span logs (the
+# per-client trace.jsonl and the run-wide Perfetto trace.json), the
+# live checker daemon's streaming verdict, and the jax.profiler trace
+# dir.
+TELEMETRY_FILES = ("metrics.prom", "metrics.json", "trace.jsonl",
+                   "trace.json", "trace-derived.json",
+                   "live-status.json")
+PROFILE_DIR = "profile"
+
+# Robustness forensics (doc/robustness.md): completions quarantined
+# from reaped zombie workers, the stall watchdog's thread-stack dumps,
+# the flight recorder's crash/stall dump (doc/observability.md "Causal
+# trace"), and an interrupted check's durable checkpoint / the live
+# daemon's restart snapshot (both cleared on completion — their
+# PRESENCE marks an interrupted check/daemon). Present only when the
+# run actually produced them.
+FORENSIC_FILES = ("late.jsonl", "stall-threads.txt",
+                  "flight-recorder.jsonl", "check.ckpt",
+                  "live-session.ckpt")
+
+# Anomaly forensics (doc/observability.md "Anomaly forensics"): the
+# first-anomaly + minimal-witness artifact and its rendered timeline,
+# written on INVALID verdicts (and by `jepsen-tpu explain`).
+EXPLAIN_FILES = ("anomaly.json", "witness-timeline.html")
+
+
+def _artifact_files(run_dir: Path, names) -> dict:
+    """{artifact-name: Path} for whichever of ``names`` exist as files
+    in a stored run directory (the shared probe behind each artifact
+    family's helper)."""
+    out: dict[str, Path] = {}
+    for name in names:
+        p = Path(run_dir) / name
+        if p.is_file():
+            out[name] = p
+    return out
+
+
+def telemetry_artifacts(run_dir: Path) -> dict:
+    """{artifact-name: Path} for the telemetry files present in a stored
+    run directory (the web UI links these alongside the classics)."""
+    out = _artifact_files(run_dir, TELEMETRY_FILES)
+    p = Path(run_dir) / PROFILE_DIR
+    if p.is_dir():
+        out[PROFILE_DIR] = p
+    return out
+
+
+def forensic_artifacts(run_dir: Path) -> dict:
+    """{artifact-name: Path} for the robustness forensics present in a
+    stored run directory (late.jsonl / stall-threads.txt)."""
+    return _artifact_files(run_dir, FORENSIC_FILES)
+
+
+def explain_artifacts(run_dir: Path) -> dict:
+    """{artifact-name: Path} for the anomaly-forensics artifacts present
+    in a stored run directory (anomaly.json / witness-timeline.html)."""
+    return _artifact_files(run_dir, EXPLAIN_FILES)
 
 
 # copied from jepsen_tpu/store.py:91-100
@@ -72,6 +143,15 @@ def _serializable(x: Any):
     if isinstance(x, np.generic):
         return x.item()
     return repr(x)
+
+
+# copied from jepsen_tpu/store.py:128-133
+def serializable_test(test: dict) -> dict:
+    return _serializable({
+        k: v for k, v in test.items()
+        if k not in NONSERIALIZABLE_KEYS and not str(k).startswith("_")
+        and k not in ("history", "results")
+    })
 
 
 # copied from jepsen_tpu/store.py:136-146
@@ -179,6 +259,54 @@ def load_linear_columns(test_name: str, timestamp: str,
                           "lin_n_slots")
 
 
+# copied from jepsen_tpu/store.py:241-285
+def write_results(test: dict) -> None:
+    with open(path_mk(test, "results.json"), "w") as f:
+        json.dump(_serializable(test.get("results")), f, indent=2)
+
+
+def write_test(test: dict) -> None:
+    with open(path_mk(test, "test.json"), "w") as f:
+        json.dump(serializable_test(test), f, indent=2, default=repr)
+
+
+def save_1(test: dict) -> dict:
+    """Post-run save: history + test map, before analysis
+    (store.clj:388-399, core.clj:395)."""
+    write_history(test)
+    write_columnar(test)
+    write_test(test)
+    update_symlinks(test)
+    return test
+
+
+def save_2(test: dict) -> dict:
+    """Post-analysis save: results + rewrite test (store.clj:401-413)."""
+    write_results(test)
+    write_test(test)
+    update_symlinks(test)
+    return test
+
+
+def update_symlinks(test: dict) -> None:
+    """store/<name>/latest and store/current (store.clj:316-342)."""
+    d = test_dir(test)
+    for link in [base_dir(test) / str(test.get("name", "noop")) / "latest",
+                 base_dir(test) / "current"]:
+        try:
+            link.parent.mkdir(parents=True, exist_ok=True)
+            if link.is_symlink() or link.exists():
+                link.unlink()
+            link.symlink_to(d.resolve())
+        except OSError:
+            logger.debug("couldn't update symlink %s", link)
+
+
+def load_results(test_name: str, timestamp: str, store_dir: str = BASE_DIR) -> dict:
+    with open(Path(store_dir) / test_name / timestamp / "results.json") as f:
+        return json.load(f)
+
+
 # copied from jepsen_tpu/store.py:288-300
 def load_history(test_name: str, timestamp: str, store_dir: str = BASE_DIR) -> list[dict]:
     """Reads history.jsonl, tolerating the torn final line a crash (or a
@@ -192,3 +320,88 @@ def load_history(test_name: str, timestamp: str, store_dir: str = BASE_DIR) -> l
         logger.warning("history.jsonl at %s has a torn final line; "
                        "dropped it", p)
     return ops
+
+
+# copied from jepsen_tpu/store.py:303-384
+read_history = load_history
+
+
+def load_test(test_name: str, timestamp: str, store_dir: str = BASE_DIR) -> dict:
+    d = Path(store_dir) / test_name / timestamp
+    with open(d / "test.json") as f:
+        test = json.load(f)
+    try:
+        test["history"] = load_history(test_name, timestamp, store_dir)
+    except FileNotFoundError:
+        pass
+    try:
+        test["results"] = load_results(test_name, timestamp, store_dir)
+    except FileNotFoundError:
+        pass
+    return test
+
+
+def tests(test_name: str | None = None, store_dir: str = BASE_DIR) -> dict:
+    """{name: {timestamp: path}} (store.clj:284-303)."""
+    base = Path(store_dir)
+    out: dict = {}
+    if not base.exists():
+        return out
+    names = [test_name] if test_name else [p.name for p in base.iterdir()
+                                           if p.is_dir() and p.name != "current"]
+    for name in names:
+        d = base / name
+        if not d.is_dir():
+            continue
+        out[name] = {p.name: p for p in sorted(d.iterdir())
+                     if p.is_dir() and p.name != "latest" and not p.is_symlink()}
+    return out
+
+
+def latest(store_dir: str = BASE_DIR):
+    """Most recent test dir across all names (store.clj:305-314)."""
+    best = None
+    for name, runs in tests(store_dir=store_dir).items():
+        for ts, p in runs.items():
+            if best is None or ts > best[1]:
+                best = (name, ts, p)
+    return best
+
+
+def delete(test_name: str | None = None, store_dir: str = BASE_DIR) -> None:
+    """Deletes stored runs (store.clj:461-478)."""
+    base = Path(store_dir)
+    target = base / test_name if test_name else base
+    if target.exists():
+        shutil.rmtree(target)
+
+
+def start_time() -> str:
+    return datetime.datetime.now().strftime("%Y%m%dT%H%M%S.%f")[:-3]
+
+
+_log_handler: dict = {}
+
+
+def start_logging(test: dict) -> None:
+    """Per-test jepsen.log file appender + console (store.clj:431-451)."""
+    stop_logging()
+    root = logging.getLogger("jepsen_tpu_torch")
+    root.setLevel(logging.INFO)
+    if not any(isinstance(h, logging.StreamHandler) for h in root.handlers):
+        sh = logging.StreamHandler()
+        sh.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname)s [%(threadName)s] %(name)s: %(message)s"))
+        root.addHandler(sh)
+    fh = logging.FileHandler(path_mk(test, "jepsen.log"))
+    fh.setFormatter(logging.Formatter(
+        "%(asctime)s %(levelname)s [%(threadName)s] %(name)s: %(message)s"))
+    root.addHandler(fh)
+    _log_handler["fh"] = fh
+
+
+def stop_logging() -> None:
+    fh = _log_handler.pop("fh", None)
+    if fh is not None:
+        logging.getLogger("jepsen_tpu_torch").removeHandler(fh)
+        fh.close()

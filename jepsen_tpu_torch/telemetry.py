@@ -11,19 +11,18 @@ Zero-cost disabled mode: the module-level default registry is
 :data:`NULL`, whose instrument constructors hand back one shared no-op
 instrument. Call sites fetch the registry once (``get_registry()``) and
 test ``reg.enabled`` around hot blocks. A caller turns telemetry on with
-``with telemetry.use(Registry()): ...`` (or ``install``); the port has no
-run loop yet that installs one for a run.
+``with telemetry.use(Registry()): ...`` (or ``install``); ``core.run``
+installs one for a run, with a :class:`Flusher` exporting it into the
+store dir. The run loop's helpers: ``dump_thread_stacks`` (the
+interpreter's stall watchdog) and ``fault_phase`` (the nemesis worker).
 
 Device helpers speak of the card the check ran on:
-``device_memory_peak_bytes`` reads torch's caching allocator for a CUDA
-device and returns None for any other device without touching
-``torch.cuda``; ``profiler_trace`` records a ``torch.profiler`` trace.
+``device_memory_peak_bytes`` and ``device_memory_stats`` read torch's
+caching allocator for a CUDA device and return None for any other
+device; ``profiler_trace`` records a ``torch.profiler`` trace.
 
-Not ported, to come with the modules that use them: the flusher, the
-thread-stack dump and the fault-window classifier (the run loop, its
-watchdog and nemesis), ``device_memory_stats``, and the reference's
-models of its dense f32 closure products with their published peak
-(``matrix_modeled_flops``, ``matrix_phase_model``,
+Not ported: the reference's models of its dense f32 closure products
+with their published peak (``matrix_modeled_flops``, ``matrix_phase_model``,
 ``combine_modeled_hbm_bytes``, ``set_device_peak_flops``): the port's
 ``chunk_product.cu`` computes no such products, so a gauge over them
 would measure nothing of the port.
@@ -552,6 +551,110 @@ def _atomic_write(path: Path, content: str) -> None:
         raise
 
 
+# copied from jepsen_tpu/telemetry.py:545-645
+# ---------------------------------------------------------------------------
+# Background flusher
+# ---------------------------------------------------------------------------
+
+class Flusher:
+    """Periodically exports a registry to a directory while a run is in
+    flight, so a crashed run still leaves a recent metrics snapshot.
+    ``interval_s <= 0`` skips the thread; ``stop()`` always does one
+    final export."""
+
+    def __init__(self, registry: Registry, dirpath, interval_s: float = 10.0):
+        self.registry = registry
+        self.dirpath = dirpath
+        self.interval_s = interval_s
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> "Flusher":
+        if self.interval_s and self.interval_s > 0:
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True,
+                name="jepsen-telemetry-flusher")
+            self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.registry.export(self.dirpath)
+            except Exception:  # noqa: BLE001 — flushing must never kill a run
+                logger.exception("periodic metrics flush failed")
+
+    def stop(self, final_export: bool = True) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        if final_export:
+            try:
+                self.registry.export(self.dirpath)
+            except Exception:  # noqa: BLE001
+                logger.exception("final metrics export failed")
+
+
+# ---------------------------------------------------------------------------
+# Thread-stack forensics
+# ---------------------------------------------------------------------------
+
+def dump_thread_stacks(target) -> bool:
+    """All-threads stack dump via ``faulthandler`` into ``target`` — a
+    path (appended, with a timestamp header) or an open file object with
+    a real file descriptor. The interpreter's stall watchdog and the
+    tier-1 budget guard both use this so a wedged run/session leaves
+    *where every thread was stuck* on disk instead of nothing. Returns
+    True on success; never raises."""
+    import faulthandler
+    try:
+        if hasattr(target, "write"):
+            faulthandler.dump_traceback(file=target, all_threads=True)
+            return True
+        p = Path(target)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        with open(p, "a", encoding="utf-8") as f:
+            f.write(f"\n==== thread stacks @ {time.time():.3f} ====\n")
+            f.flush()
+            faulthandler.dump_traceback(file=f, all_threads=True)
+        return True
+    except Exception:  # noqa: BLE001 — a diagnostic must never raise
+        logger.exception("thread-stack dump failed")
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Nemesis fault-window classification
+# ---------------------------------------------------------------------------
+
+# Nemesis :f conventions across the packages: start_*/stop_* (partition,
+# clock, membership), kill/start and pause/resume (db_specific). "start"
+# alone is the *heal* of a kill window.
+_FAULT_BEGIN = ("kill", "pause", "partition", "bitflip", "snub")
+_FAULT_END = ("start", "resume", "heal")
+
+
+def fault_phase(f) -> str | None:
+    """'begin' / 'end' when the op opens or closes a fault window, else
+    None (heuristic over the package :f naming conventions)."""
+    if not isinstance(f, str):
+        return None
+    if f.startswith("start_"):
+        return "begin"
+    if f.startswith("stop_"):
+        return "end"
+    if f in _FAULT_BEGIN:
+        return "begin"
+    if f in _FAULT_END:
+        return "end"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Device helpers: memory high-water, roofline accounting, profiler
+
+
 # ---------------------------------------------------------------------------
 # Device helpers: memory high-water, profiler
 # ---------------------------------------------------------------------------
@@ -572,6 +675,20 @@ def device_memory_peak_bytes(device) -> int | None:
         stats = torch.cuda.memory_stats_as_nested_dict(dev)
         return int(stats.get("allocated_bytes", {}).get("all", {})
                    .get("peak", 0))
+    except Exception:  # noqa: BLE001 — telemetry never takes a run down
+        return None
+
+
+# the port's own: the reference reads jax.local_devices()[0].memory_stats()
+# (jepsen_tpu/telemetry.py:648-658)
+def device_memory_stats(device="cuda") -> dict | None:
+    """``torch.cuda.memory_stats(device)``, or None for a device that is
+    not a card or when CUDA is missing: a CPU run reports nothing."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    try:
+        return dict(torch.cuda.memory_stats(dev)) or None
     except Exception:  # noqa: BLE001 — telemetry never takes a run down
         return None
 

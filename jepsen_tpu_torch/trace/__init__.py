@@ -1,29 +1,28 @@
 """Run-wide causal tracing: one span stream per run, two sinks (the port
 of jepsen_tpu/trace/__init__.py).
 
-Every timeline a check produces (the checker's rung attempts, the
-segmented chain's segments, checkpoint writes and resumes, an invalid
-verdict's anomaly) emits events into one :class:`RunTracer`, causally
+Every timeline a run produces (interpreter dispatch per worker, nemesis
+fault windows from the durable registry, the checker's rung attempts, the
+segmented chain's segments, checkpoint writes and resumes, live-daemon
+polls, WAL fsyncs) emits events into one :class:`RunTracer`, causally
 linked by a stable trace id (:func:`trace_id_for`: a pure function of an
 op's process and invoke time, which the history keeps).
 
 Two sinks, independently enabled:
 
 * :class:`~jepsen_tpu_torch.trace.perfetto.PerfettoSink`: a streaming
-  Perfetto/Chrome ``trace.json`` (Trace Event Format), one event a line.
+  Perfetto/Chrome ``trace.json`` (Trace Event Format), one event a line;
+  on with the test map's ``trace`` knob.
 * :class:`~jepsen_tpu_torch.trace.flight.FlightRecorder`: a bounded ring
-  of the most recent events, dumped to ``flight-recorder.jsonl`` on
-  demand (:meth:`RunTracer.dump_flight`).
+  of the most recent events, dumped to ``flight-recorder.jsonl`` by the
+  stall watchdog, the run's fatal path and an atexit crash hook;
+  ``flight_recorder_events`` sizes it, ``0`` disables.
 
 Zero-cost disabled mode: the module default is :data:`NULL_TRACER`,
 whose every method is a constant no-op, and call sites guard hot blocks
-on ``tracer.enabled``. A caller turns tracing on with ``with
-trace.use(RunTracer(perfetto=..., flight=...)): ...``; the port has no
-run loop yet that installs one for a run. Not ported, to come with that
-run loop and its interpreter, nemesis and live daemon: the tracks they
-write, the interpreter's op-tuple sink and its B/E slices, fault
-windows, scoped spans, the atexit crash dump, the ``trace`` and
-``flight_recorder_events`` knobs with ``for_test``, and
+on ``tracer.enabled``. ``core.run`` installs a live tracer per run
+(:func:`for_test`, from the test map alone: no environment variable is
+read) and restores the previous one after. Not ported:
 ``trace/derive.py``, which re-derives a stored run's trace from its
 history.
 """
@@ -34,14 +33,13 @@ import threading
 import time
 from contextlib import contextmanager
 
-from jepsen_tpu_torch.trace.flight import FlightRecorder
+from jepsen_tpu_torch.trace.flight import OP_BEGIN, OP_COMPLETE, FlightRecorder
 from jepsen_tpu_torch.trace.perfetto import PerfettoSink
 
 logger = logging.getLogger("jepsen_tpu_torch.trace")
 
-# copied from jepsen_tpu/trace/__init__.py:49-358: the check path's tracks,
-# and the tracer without the run loop's op sink, B/E and window slices,
-# scoped spans and crash hook
+# copied from jepsen_tpu/trace/__init__.py:49-418, the knobs from the
+# test map alone
 
 TRACE_NAME = "trace.json"
 FLIGHT_NAME = "flight-recorder.jsonl"
@@ -49,11 +47,26 @@ FLIGHT_NAME = "flight-recorder.jsonl"
 DEFAULT_FLIGHT_EVENTS = 4096
 
 # Track naming convention (lint-enforced for literals, JTM001): kebab-case.
+# Worker tracks are dynamic ("worker-0".."worker-N"); the nemesis worker's
+# track is "nemesis" so fault ops and fault windows share a lane.
+TRACK_SCHEDULER = "scheduler"
+TRACK_NEMESIS = "nemesis"
 TRACK_CHECKER = "checker"
 TRACK_LADDER = "checker-ladder"
 TRACK_CHECKPOINT = "checkpoint"
-# the live daemon's poll, check and finalize slices (live/daemon.py)
 TRACK_LIVE = "live"
+TRACK_WAL = "wal"
+
+TRACKS = (TRACK_SCHEDULER, TRACK_NEMESIS, TRACK_CHECKER,
+          TRACK_LADDER, TRACK_CHECKPOINT, TRACK_LIVE, TRACK_WAL)
+
+
+def worker_track(worker_id) -> str:
+    """The per-worker track name; the nemesis worker gets its own lane
+    (``worker_id`` is the interpreter's NEMESIS sentinel there)."""
+    if isinstance(worker_id, int):
+        return f"worker-{worker_id}"
+    return TRACK_NEMESIS
 
 
 def trace_id_for(process, time_ns) -> str:
@@ -76,17 +89,18 @@ def now_us() -> int:
 
 
 class RunTracer:
-    """One run's span stream. Thread-safe: a check's threads (the key
-    batches' pool, the dispatch pipeline) emit concurrently; each sink
-    serializes internally. Event building happens only when a sink is
-    attached (``enabled``), so the disabled path costs one attribute
-    read."""
+    """One run's span stream. Thread-safe: the interpreter scheduler,
+    worker threads, the nemesis thread, checker watchdog threads and
+    the live daemon's poller all emit concurrently; each sink serializes
+    internally. Event building happens only when a sink is attached
+    (``enabled``), so the disabled path costs one attribute read."""
 
     def __init__(self, perfetto: PerfettoSink | None = None,
                  flight: FlightRecorder | None = None):
         self.perfetto = perfetto
         self.flight = flight
         self.enabled = perfetto is not None or flight is not None
+        self._crash_path = None
         self._closed = False
         self._lock = threading.Lock()
 
@@ -98,6 +112,61 @@ class RunTracer:
             p.emit(ev)
         if fl is not None:
             fl.record(ev)
+
+    # -- the interpreter's single-writer fast path ------------------------
+
+    def set_op_origin(self, origin_us: int) -> None:
+        """One-shot clock pairing (wall-us minus relative-us at run
+        start), captured by the interpreter before its loop: op tuples
+        carry only the op's relative time, and the sinks shift them
+        onto the wall clock with this at expansion time — so the hot
+        path never reads a clock at all."""
+        if self.perfetto is not None:
+            self.perfetto.op_origin_us = origin_us
+        if self.flight is not None:
+            self.flight.op_origin_us = origin_us
+
+    def op_sink(self):
+        """The scheduler's op-event appender (telemetry's ``cell()``
+        analog): a callable taking one compact op tuple —
+        ``(OP_BEGIN, worker, op)`` at dispatch, ``(OP_COMPLETE,
+        worker, completion, invoke_time_ns)`` at completion.
+        Flight-only runs (the default) get the ring's raw
+        ``deque.append``; with a Perfetto sink attached the tuple fans
+        out to both. None when tracing is off."""
+        p, fl = self.perfetto, self.flight
+        if p is not None and fl is not None:
+            p_append, f_append = p.appender(), fl.appender()
+
+            def both(ev) -> None:
+                p_append(ev)
+                f_append(ev)
+            return both
+        if p is not None:
+            return p.appender()
+        if fl is not None:
+            return fl.appender()
+        return None
+
+    def begin(self, track: str, name: str, args: dict | None = None,
+              ts_us: int | None = None) -> None:
+        """Opens a duration slice on ``track`` (Trace Event ``B``). One
+        slice may be open per track at a time — the interpreter's
+        one-op-in-flight-per-worker invariant."""
+        if not self.enabled:
+            return
+        self._emit({"ph": "B", "track": track, "name": name,
+                    "ts": now_us() if ts_us is None else ts_us,
+                    "args": args or {}})
+
+    def end(self, track: str, args: dict | None = None,
+            ts_us: int | None = None) -> None:
+        """Closes the open slice on ``track`` (Trace Event ``E``)."""
+        if not self.enabled:
+            return
+        self._emit({"ph": "E", "track": track,
+                    "ts": now_us() if ts_us is None else ts_us,
+                    "args": args or {}})
 
     def complete(self, track: str, name: str, start_us: int, dur_us: int,
                  args: dict | None = None) -> None:
@@ -117,6 +186,40 @@ class RunTracer:
         self._emit({"ph": "i", "track": track, "name": name,
                     "ts": now_us() if ts_us is None else ts_us,
                     "s": "t", "args": args or {}})
+
+    def window_begin(self, track: str, name: str, wid,
+                     args: dict | None = None,
+                     ts_us: int | None = None) -> None:
+        """Opens an async slice (Trace Event ``b``) — fault windows and
+        client invokes overlap freely, keyed by id instead of nesting."""
+        if not self.enabled:
+            return
+        self._emit({"ph": "b", "track": track, "name": name,
+                    "cat": "window", "id": str(wid),
+                    "ts": now_us() if ts_us is None else ts_us,
+                    "args": args or {}})
+
+    def window_end(self, track: str, name: str, wid,
+                   args: dict | None = None,
+                   ts_us: int | None = None) -> None:
+        if not self.enabled:
+            return
+        self._emit({"ph": "e", "track": track, "name": name,
+                    "cat": "window", "id": str(wid),
+                    "ts": now_us() if ts_us is None else ts_us,
+                    "args": args or {}})
+
+    @contextmanager
+    def span(self, track: str, name: str, args: dict | None = None):
+        """Scoped ``X`` slice: measures the block, emits once at exit."""
+        if not self.enabled:
+            yield self
+            return
+        t0 = now_us()
+        try:
+            yield self
+        finally:
+            self.complete(track, name, t0, now_us() - t0, args=args)
 
     # -- flight-recorder dumping -----------------------------------------
 
@@ -141,14 +244,36 @@ class RunTracer:
                 logger.exception("flight-dump telemetry failed")
         return ok
 
+    def arm_crash_dump(self, path) -> None:
+        """Registers an atexit hook that dumps the flight recorder if
+        this tracer is never closed cleanly — the last line of defense
+        when a run dies outside core.run's fatal-path dump."""
+        import atexit
+        with self._lock:
+            self._crash_path = path
+        atexit.register(self._atexit_dump)
+
+    def _atexit_dump(self) -> None:
+        with self._lock:
+            if self._closed or self._crash_path is None:
+                return
+            path = self._crash_path
+        self.dump_flight(path, reason="atexit")
+
     # -- lifecycle --------------------------------------------------------
 
     def close(self) -> None:
-        """Flushes and terminates the sinks. Idempotent."""
+        """Flushes/terminates the sinks and disarms the crash hook.
+        Idempotent."""
         with self._lock:
             if self._closed:
                 return
             self._closed = True
+        import atexit
+        try:
+            atexit.unregister(self._atexit_dump)
+        except Exception:  # noqa: BLE001
+            pass
         if self.perfetto is not None:
             self.perfetto.close()
 
@@ -160,14 +285,39 @@ class NullTracer:
     perfetto = None
     flight = None
 
+    def begin(self, *a, **kw) -> None:
+        pass
+
+    def end(self, *a, **kw) -> None:
+        pass
+
+    def set_op_origin(self, origin_us: int) -> None:
+        pass
+
+    def op_sink(self):
+        return None
+
     def complete(self, *a, **kw) -> None:
         pass
 
     def instant(self, *a, **kw) -> None:
         pass
 
+    def window_begin(self, *a, **kw) -> None:
+        pass
+
+    def window_end(self, *a, **kw) -> None:
+        pass
+
+    @contextmanager
+    def span(self, *a, **kw):
+        yield self
+
     def dump_flight(self, path, reason: str) -> bool:
         return False
+
+    def arm_crash_dump(self, path) -> None:
+        pass
 
     def close(self) -> None:
         pass
@@ -186,7 +336,7 @@ def get_tracer() -> RunTracer | NullTracer:
 
 def install(tracer: RunTracer | NullTracer | None):
     """Swaps the process-global tracer; returns the previous one so
-    callers can restore it."""
+    callers can restore it (core.run does)."""
     global _TRACER
     with _TRACER_LOCK:
         prev = _TRACER
@@ -201,3 +351,52 @@ def use(tracer: RunTracer | NullTracer):
         yield tracer
     finally:
         install(prev)
+
+
+# ---------------------------------------------------------------------------
+# Knob coercion (KNB house style: tolerant at runtime, preflight errors)
+# ---------------------------------------------------------------------------
+
+def trace_enabled(test: dict | None) -> bool:
+    """The ``trace`` knob of the test map, tolerantly
+    (``parallel.coerce_flag``): garbage warns and reads as unset."""
+    from jepsen_tpu_torch.parallel import coerce_flag
+    return bool(coerce_flag((test or {}).get("trace"), knob="trace"))
+
+
+def flight_recorder_events(test: dict | None) -> int:
+    """The flight-recorder ring capacity: ``flight_recorder_events`` in
+    the test map, else :data:`DEFAULT_FLIGHT_EVENTS`. ``<= 0`` disables;
+    garbage warns and takes the default."""
+    v = (test or {}).get("flight_recorder_events")
+    if v is None or v == "":
+        return DEFAULT_FLIGHT_EVENTS
+    if isinstance(v, bool):
+        logger.warning("unparsable flight_recorder_events=%r; using "
+                       "default %d", v, DEFAULT_FLIGHT_EVENTS)
+        return DEFAULT_FLIGHT_EVENTS
+    try:
+        return max(0, int(float(v)))
+    except (TypeError, ValueError):
+        logger.warning("unparsable flight_recorder_events=%r; using "
+                       "default %d", v, DEFAULT_FLIGHT_EVENTS)
+        return DEFAULT_FLIGHT_EVENTS
+
+
+def for_test(test: dict) -> RunTracer | NullTracer:
+    """Builds the run's tracer from its knobs: a Perfetto sink into the
+    store dir at ``--trace`` verbosity, a flight recorder unless
+    ``flight_recorder_events`` is 0. Returns NULL_TRACER when both are
+    off (the default run's hot paths then pay one attribute read)."""
+    perfetto = None
+    if trace_enabled(test):
+        try:
+            from jepsen_tpu_torch import store
+            perfetto = PerfettoSink(store.path_mk(test, TRACE_NAME))
+        except Exception:  # noqa: BLE001 — no store coords: no trace file
+            logger.exception("couldn't open %s; span sink off", TRACE_NAME)
+    capacity = flight_recorder_events(test)
+    flight = FlightRecorder(capacity) if capacity > 0 else None
+    if perfetto is None and flight is None:
+        return NULL_TRACER
+    return RunTracer(perfetto=perfetto, flight=flight)

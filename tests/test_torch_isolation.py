@@ -50,12 +50,17 @@ def test_port_sources_exist():
             "columnar_c.py", "builder.py", "sessions.py", "telemetry.py",
             "perfetto.py", "flight.py", "ingest.py", "daemon.py",
             "timeline.py", "perf_plots.py", "clock.py", "linear_report.py",
-            "faults.py"} <= names
+            "faults.py", "core.py", "interpreter.py", "simulate.py",
+            "combined.py", "dummy.py", "db.py", "net.py", "client.py",
+            "fakes.py", "register.py", "report.py"} <= names
     assert (ROOT / "jepsen_tpu_torch/live/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/nemesis/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/parallel/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/trace/__init__.py") in _sources()
+    assert (ROOT / "jepsen_tpu_torch/generator/__init__.py") in _sources()
+    assert (ROOT / "jepsen_tpu_torch/control/__init__.py") in _sources()
+    assert (ROOT / "jepsen_tpu_torch/workloads/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/wgl.cpp").exists()
     assert (ROOT / "jepsen_tpu_torch/native/columnar_ext.c").exists()
     assert (ROOT / "jepsen_tpu_torch/elle/__init__.py") in _sources()
@@ -375,6 +380,52 @@ with tempfile.TemporaryDirectory() as d:
     names = {p.name for p in run.rglob("*")}
     assert {"anomaly.json", "witness-timeline.html", "timeline.html",
             "rate.png", "clock-skew.png"} <= names, names
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+print("LEAKED", leaked)
+"""
+    out = _leaked_modules(code)
+    assert "LEAKED []" in out, out
+
+
+def test_whole_run_loads_neither_jax_nor_reference():
+    """A whole test run through core.run over the dummy remote: the fake
+    register test with the partition, kill and pause packages, checked
+    by the lifted register workload on the CPU (the batched lane's plain
+    kernels), its store written and its faults healed."""
+    code = """
+import sys, tempfile
+import torch
+torch.set_num_threads(1)
+import jepsen_tpu_torch.generator as gen
+from jepsen_tpu_torch import checker as chk, core, store
+from jepsen_tpu_torch.fakes import KVClient, KVStore
+from jepsen_tpu_torch.nemesis import combined
+from jepsen_tpu_torch.net import NoopNet
+from jepsen_tpu_torch.ops import jitlin
+from jepsen_tpu_torch.workloads import register
+jitlin.MATRIX_MIN_RETURNS = 10
+with tempfile.TemporaryDirectory() as d:
+    kv = KVStore()
+    test = {"name": "iso-run", "nodes": ["n1", "n2", "n3"],
+            "concurrency": 5, "ssh": {"dummy": True}, "store_dir": d,
+            "db": kv, "client": KVClient(kv), "os": None, "net": NoopNet(),
+            "trace": True}
+    wl = register.workload(test, accelerator="gpu", device="cpu")
+    pkg = combined.nemesis_package({"db": kv, "interval": 0.05,
+                                    "faults": {"partition", "kill", "pause"}})
+    test["generator"] = gen.phases(
+        gen.time_limit(0.4, gen.any_gen(gen.clients(wl["generator"]),
+                                        gen.nemesis_gen(pkg["generator"]))),
+        gen.nemesis_gen(pkg["final_generator"]))
+    test["nemesis"] = pkg["nemesis"]
+    test["checker"] = chk.compose({"stats": chk.stats(),
+                                   "workload": wl["checker"]})
+    out = core.run(test)
+    assert out["results"]["valid?"] is True, out["results"]
+    names = {p.name for p in store.test_dir(out).iterdir()}
+    assert {"history.jsonl", "results.json", "test.json", "faults.jsonl",
+            "trace.json", "metrics.prom"} <= names, names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
 print("LEAKED", leaked)

@@ -180,3 +180,30 @@ def test_native_build_is_reused(tmp_path, monkeypatch):
     src.write_text(native.SRC.read_text() + "\n// another source\n")
     monkeypatch.setattr(native, "SRC", src)
     assert native._so_path() != so
+
+
+@pytest.mark.parametrize("which", ["wgl", "columnar"])
+def test_configure_sets_build_dir_and_variant(tmp_path, monkeypatch, which):
+    """The native knobs are arguments (the reference reads
+    JEPSEN_NATIVE_BUILD_DIR and JEPSEN_TPU_NATIVE_SAN): configure() moves
+    the build directory and picks the sanitizer variant, a library of
+    its own name, and the next load starts anew."""
+    from jepsen_tpu_torch import native
+    from jepsen_tpu_torch.native import columnar_c
+    m = native if which == "wgl" else columnar_c
+    loaded = "_LIB" if m is native else "_MOD"
+    # the loaded library comes back after the test: configure() drops it
+    monkeypatch.setattr(m, loaded, getattr(m, loaded))
+    monkeypatch.setattr(m, "BUILD_DIR", m.BUILD_DIR)
+    monkeypatch.setattr(m, "_SAN", False)
+    plain = m._so_path()
+    m.configure(build_dir=tmp_path, san=True)
+    try:
+        san = m._so_path()
+        assert san.parent == tmp_path and "-san-" in san.name
+        assert san.name != plain.name and m._so_path(san=False).name == \
+            plain.name
+        assert getattr(m, loaded) is None
+    finally:
+        m.configure(build_dir=plain.parent)
+    assert m._so_path() == plain
