@@ -4564,10 +4564,10 @@ STALE_EVERY = 500
 STALE_AFTER_S = 0.001
 
 
-def _stale_client(kv, seed: int):
+def _stale_client(kv, seed: int, every: int = STALE_EVERY):
     """Phase 20b's client: the fake register client, but one read in
-    ``STALE_EVERY`` (drawn from a generator seeded by ``seed`` and shared
-    by the clients of one store) answers with a key's previous value. A
+    ``every`` (drawn from a generator seeded by ``seed`` and shared by
+    the clients of one store) answers with a key's previous value. A
     drawn answer goes to the next read whose key's latest write returned
     at least ``STALE_AFTER_S`` before it and changed the value, so that
     the stale answer cannot be ordered before that write: with five
@@ -4588,7 +4588,7 @@ def _stale_client(kv, seed: int):
             if f == "read":
                 k = v[0]
                 with s["lock"]:
-                    if s["rng"].randrange(STALE_EVERY) == 0:
+                    if s["rng"].randrange(every) == 0:
                         s["owed"] += 1
                     prev = s["prev"].get(k)
                     if s["owed"] and prev is not None \

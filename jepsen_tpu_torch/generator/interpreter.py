@@ -53,8 +53,7 @@ logger = logging.getLogger("jepsen_tpu_torch.interpreter")
 MAX_PENDING_INTERVAL_S = 0.001
 
 # Completions processed (and WAL records coalesced) per scheduler drain
-# chunk; the ``sched_batch_ops`` test knob overrides, ``0``/``None`` restores per-op hops + per-op WAL
-# appends (doc/performance.md "Host ingest spine").
+# chunk (doc/performance.md "Host ingest spine").
 DEFAULT_SCHED_BATCH_OPS = 256
 
 # Deadline defaults (doc/robustness.md). The op timeout is deliberately
@@ -76,19 +75,9 @@ _UNSET = object()
 
 
 def _knob(test: dict, key: str, default: float) -> float | None:
-    """Resolves a timeout knob: test map → default. ``None``/``0``
-    disables and returns None."""
-    v = test.get(key, _UNSET)
-    if v is _UNSET:
-        v = default
-    if not v:
-        return None
-    try:
-        v = float(v)
-    except (TypeError, ValueError):
-        logger.warning("unparsable %s=%r; using default %s", key, v, default)
-        v = default
-    return float(v) if v else None
+    """A timeout knob: the test map's value, else the default.
+    ``None``/``0`` disables and returns None."""
+    return float(test.get(key, default) or 0) or None
 
 
 def _coerce_timeout(v, fallback: float | None) -> float | None:
@@ -121,12 +110,11 @@ class _SchedBus:
     that lets the WAL coalesce a whole chunk into one write+fsync.
     Arrival order is preserved exactly (stages append under the lock),
     so history order, generator updates, and the late-quarantine
-    bookkeeping see the same schedule a per-op queue.Queue would; with
-    ``max_chunk=1`` the bus IS that per-op queue.
+    bookkeeping see the same schedule a per-op queue.Queue would.
     """
 
-    def __init__(self, max_chunk: int = DEFAULT_SCHED_BATCH_OPS):
-        self.max_chunk = max(int(max_chunk), 1)
+    def __init__(self):
+        self.max_chunk = DEFAULT_SCHED_BATCH_OPS
         self._cv = threading.Condition(threading.Lock())
         self._staged: list = []
 
@@ -529,12 +517,10 @@ def run(test: dict) -> list[dict]:  # owner: scheduler
 
     gen = friendly_exceptions(validate(as_gen(test.get("generator"))))
     ctx = context(test)
-    # chunked scheduler (doc/performance.md "Host ingest spine"): the
-    # knob caps both the completions processed per bus drain and the
-    # WAL records coalesced per flush; 0/None restores per-op behavior
-    sched_batch_f = _knob(test, "sched_batch_ops", DEFAULT_SCHED_BATCH_OPS)
-    sched_batch = int(sched_batch_f) if sched_batch_f else 1
-    completions = _SchedBus(max_chunk=sched_batch)
+    # chunked scheduler (doc/performance.md "Host ingest spine"): one
+    # constant caps both the completions processed per bus drain and the
+    # WAL records coalesced per flush
+    completions = _SchedBus()
     workers = {w["id"]: w for w in (
         _spawn_worker(test, wid, completions) for wid in ctx.workers
     )}
@@ -552,11 +538,8 @@ def run(test: dict) -> list[dict]:  # owner: scheduler
     def wal_push(rec) -> None:  # owner: scheduler
         if journal is None:
             return
-        if sched_batch <= 1:
-            journal.append(rec)
-            return
         wal_stage.append(rec)
-        if len(wal_stage) >= sched_batch:
+        if len(wal_stage) >= DEFAULT_SCHED_BATCH_OPS:
             wal_flush()
 
     def wal_flush() -> None:  # owner: scheduler

@@ -39,7 +39,8 @@ from jepsen_tpu_torch.trace.perfetto import PerfettoSink
 logger = logging.getLogger("jepsen_tpu_torch.trace")
 
 # copied from jepsen_tpu/trace/__init__.py:49-418, the knobs from the
-# test map alone
+# test map alone; the tracer's B/E slices and ``span`` wait with their
+# callers (the reference's tracing.py and trace/derive.py)
 
 TRACE_NAME = "trace.json"
 FLIGHT_NAME = "flight-recorder.jsonl"
@@ -56,10 +57,6 @@ TRACK_LADDER = "checker-ladder"
 TRACK_CHECKPOINT = "checkpoint"
 TRACK_LIVE = "live"
 TRACK_WAL = "wal"
-
-TRACKS = (TRACK_SCHEDULER, TRACK_NEMESIS, TRACK_CHECKER,
-          TRACK_LADDER, TRACK_CHECKPOINT, TRACK_LIVE, TRACK_WAL)
-
 
 def worker_track(worker_id) -> str:
     """The per-worker track name; the nemesis worker gets its own lane
@@ -148,26 +145,6 @@ class RunTracer:
             return fl.appender()
         return None
 
-    def begin(self, track: str, name: str, args: dict | None = None,
-              ts_us: int | None = None) -> None:
-        """Opens a duration slice on ``track`` (Trace Event ``B``). One
-        slice may be open per track at a time — the interpreter's
-        one-op-in-flight-per-worker invariant."""
-        if not self.enabled:
-            return
-        self._emit({"ph": "B", "track": track, "name": name,
-                    "ts": now_us() if ts_us is None else ts_us,
-                    "args": args or {}})
-
-    def end(self, track: str, args: dict | None = None,
-            ts_us: int | None = None) -> None:
-        """Closes the open slice on ``track`` (Trace Event ``E``)."""
-        if not self.enabled:
-            return
-        self._emit({"ph": "E", "track": track,
-                    "ts": now_us() if ts_us is None else ts_us,
-                    "args": args or {}})
-
     def complete(self, track: str, name: str, start_us: int, dur_us: int,
                  args: dict | None = None) -> None:
         """A self-contained slice (Trace Event ``X``): emitted once at
@@ -208,18 +185,6 @@ class RunTracer:
                     "cat": "window", "id": str(wid),
                     "ts": now_us() if ts_us is None else ts_us,
                     "args": args or {}})
-
-    @contextmanager
-    def span(self, track: str, name: str, args: dict | None = None):
-        """Scoped ``X`` slice: measures the block, emits once at exit."""
-        if not self.enabled:
-            yield self
-            return
-        t0 = now_us()
-        try:
-            yield self
-        finally:
-            self.complete(track, name, t0, now_us() - t0, args=args)
 
     # -- flight-recorder dumping -----------------------------------------
 
@@ -285,12 +250,6 @@ class NullTracer:
     perfetto = None
     flight = None
 
-    def begin(self, *a, **kw) -> None:
-        pass
-
-    def end(self, *a, **kw) -> None:
-        pass
-
     def set_op_origin(self, origin_us: int) -> None:
         pass
 
@@ -308,10 +267,6 @@ class NullTracer:
 
     def window_end(self, *a, **kw) -> None:
         pass
-
-    @contextmanager
-    def span(self, *a, **kw):
-        yield self
 
     def dump_flight(self, path, reason: str) -> bool:
         return False

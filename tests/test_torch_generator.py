@@ -162,3 +162,38 @@ def test_table_reaches_every_kind_of_op():
                 seen.add("renumbered")
     assert {(True, "info"), (False, "invoke"), (False, "info"),
             "lifted", "renumbered"} <= seen, seen
+
+
+# (spec, StepClock step in seconds, max_wall_s, step limit): a wall cap
+# that a virtual clock turns into a step count, one it never reaches,
+# and the step limit alone
+CAPS = [("mix", 1e-6, 4e-5, STEPS), ("compose-test", 1e-3, 0.25, STEPS),
+        ("three-packages", 1e-6, 1.0, STEPS), ("register-workload", None,
+                                                None, 57),
+        ("stagger", 1e-6, None, 9)]
+
+
+@pytest.mark.parametrize("spec,step_s,max_wall_s,limit", CAPS)
+@pytest.mark.parametrize("simulator", ("perfect", "quick"))
+def test_capped_simulation_equals_reference(spec, step_s, max_wall_s, limit,
+                                            simulator):
+    """``simulate``'s caps against the JAX package's: a ``StepClock``
+    feeding ``max_wall_s`` truncates both at the same op, and ``stats``
+    says alike how each ended (steps, step or wall limited)."""
+    out = {}
+    for side, m in (("port", PORT), ("jax", JAX)):
+        test = {"concurrency": 5}
+        stats = {}
+        caps = {"limit": limit, "stats": stats, "max_wall_s": max_wall_s}
+        if step_s is not None:
+            caps["clock"] = m["sim"].StepClock(step_s)
+        h = getattr(m["sim"], simulator)(
+            test, SPECS[spec](m), m["sim"].default_context(test, seed=3),
+            **caps)
+        out[side] = (_rows(h), stats,
+                     caps["clock"].reads if step_s is not None else None)
+    assert out["port"] == out["jax"]
+    stats = out["port"][1]
+    assert stats["wall_limited"] is (max_wall_s is not None and
+                                     max_wall_s < 1.0)
+    assert stats["step_limited"] is (limit < STEPS)

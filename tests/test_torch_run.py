@@ -6,6 +6,7 @@ verdicts and invalid keys. A ``cuda``-marked case runs the etcd suite's
 fake register test map on the card."""
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import random
@@ -13,7 +14,6 @@ import signal
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 from pathlib import Path
 
@@ -185,52 +185,18 @@ def test_time_limit_wall_clock():
 
 # -- the etcd suite's fake register test, through the port --------------
 
-class StaleKVClient(KVClient):
-    """A KVClient whose reads now and then answer with a key's previous
-    value: one read in ``every``, drawn from a seeded generator shared by
-    the clients of one store, owes a stale answer, which the next read
-    of a key whose last write returned over 1 ms before and changed the
-    value gets (so it cannot be ordered before that write)."""
-
-    def __init__(self, db, node=None, shared=None):
-        super().__init__(db, node)
-        self.shared = shared
-
-    def open(self, test, node):
-        c = type(self)(self.db, node, self.shared)
-        self.db._note("client-open", node)
-        return c
-
-    def invoke(self, test, op):
-        f, v = op.get("f"), op.get("value")
-        s = self.shared
-        if f == "read":
-            k = v[0]
-            with s["lock"]:
-                if s["rng"].randrange(s["every"]) == 0:
-                    s["owed"] += 1
-                prev = s["prev"].get(k)
-                if s["owed"] and prev is not None \
-                        and prev[0] != self.db.read(k) \
-                        and time.monotonic() - prev[1] > 0.001:
-                    s["owed"] -= 1
-                    return {**op, "type": "ok", "value": [k, prev[0]]}
-            return super().invoke(test, op)
-        if f in ("write", "cas"):
-            k = v[0]
-            with s["lock"]:
-                before = self.db.read(k)
-                out = super().invoke(test, op)
-                if out["type"] == "ok":
-                    s["prev"][k] = (before, time.monotonic())
-                return out
-        return super().invoke(test, op)
+def _chip_smoke():
+    """chip_smoke.py as a module (its top level imports the standard
+    library only), for phase 20b's stale-read double."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def stale_client(kv, every, seed):
-    return StaleKVClient(kv, shared={"lock": threading.Lock(), "prev": {},
-                                     "owed": 0, "every": every,
-                                     "rng": random.Random(seed)})
+    return _chip_smoke()._stale_client(kv, seed, every=every)
 
 
 def register_test(tmp, time_limit=0.5, client=None, kv=None,
@@ -378,8 +344,19 @@ def test_killed_run_leaves_faults_that_replay_heals():
         finally:
             proc.send_signal(signal.SIGKILL)
             proc.wait(timeout=30)
-        assert (path.parent / "history.wal.jsonl").exists()
+        wal = path.parent / "history.wal.jsonl"
         assert not (path.parent / "history.jsonl").exists()
+        # the journal's prefix, read alike by the port's readers and the
+        # JAX package's: the partition's invocation and client ops
+        from jepsen_tpu import journal as jjournal
+        from jepsen_tpu_torch import journal
+        rows, truncated = journal.read_wal(wal)
+        assert (rows, truncated) == jjournal.read_wal(wal)
+        assert journal.WalTailer(wal).finalize() == \
+            jjournal.WalTailer(wal).finalize() == rows
+        assert rows[0]["f"] == "start-partition"
+        assert sum(op["f"] == "read" and op["type"] == "ok"
+                   for op in rows) >= 1
         reg = faults_mod.FaultRegistry(path)
         actionable, evidence = faults_mod.actionable_unhealed(reg)
         assert [r["kind"] for r in actionable] == ["net"] and not evidence
@@ -414,3 +391,54 @@ def test_fake_register_run_launches_matrix_kernels_on_card(monkeypatch):
         assert result["results"]["valid?"] is True, result["results"]
         assert mk.chunk_product.launches >= 1
         assert mk.combine_product.launches >= 1
+
+
+# (test map fields, status file fields or None, checker): the live
+# daemon's final verdict is reused only when it is fresh and the checker
+# is a bare linearizable one over a register workload
+_FRESH = {"state": "final", "workload": "register", "ops_absorbed": 4,
+          "results": {"valid?": False, "failed-op-index": 2,
+                      "anomaly-types": ["stale-read"]}}
+LIVE_REUSE = {
+    "fresh": ({"live_reuse": True}, {}, "lin"),
+    "reuse-off": ({}, {}, "lin"),
+    "recovered": ({"live_reuse": True, "wal_recovered": True}, {}, "lin"),
+    "no-status": ({"live_reuse": True}, None, "lin"),
+    "tailing": ({"live_reuse": True}, {"state": "tailing"}, "lin"),
+    "stale": ({"live_reuse": True}, {"ops_absorbed": 3}, "lin"),
+    "no-verdict": ({"live_reuse": True}, {"results": {"n": 1}}, "lin"),
+    "other-workload": ({"live_reuse": True},
+                       {"workload": "register-independent"}, "lin"),
+    "composed-checker": ({"live_reuse": True}, {}, "compose"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIVE_REUSE))
+def test_live_final_results_matches_reference(tmp_path, case):
+    """``core._live_final_results`` over a run directory's
+    ``live-status.json``, against the JAX package's on the same file:
+    the same reuse or refusal; a reused verdict also through the port's
+    ``core.analyze``."""
+    from jepsen_tpu import checker as jchecker
+    from jepsen_tpu import core as jcore
+    from jepsen_tpu.checker.linearizable import linearizable as jlin
+    from jepsen_tpu_torch.live.daemon import LIVE_STATUS_NAME
+    fields, status, which = LIVE_REUSE[case]
+    test = {"name": "reg", "start_time": "t0", "store_dir": str(tmp_path),
+            "history": [{"type": t, "f": "read", "process": 0,
+                         "value": None} for t in ("invoke", "ok") * 2],
+            **fields}
+    if status is not None:
+        store.path_mk(test, LIVE_STATUS_NAME).write_text(
+            json.dumps({**_FRESH, **status}))
+    checkers = {
+        "lin": (linearizable(accelerator="cpu"), jlin(accelerator="cpu")),
+        "compose": (checker.compose({"l": linearizable(accelerator="cpu")}),
+                    jchecker.compose({"l": jlin(accelerator="cpu")}))}
+    mine, theirs = checkers[which]
+    got = core._live_final_results(test, mine)
+    assert got == jcore._live_final_results(test, theirs)
+    assert (got is not None) is (case == "fresh")
+    if got is not None:
+        assert got == {**_FRESH["results"], "live-reused": True}
+        assert core.analyze(dict(test, checker=mine))["results"] == got
