@@ -236,8 +236,31 @@ just before it and read just after:
   ops/s of ``run_case``, the seconds of ``run_case``, ``analyze`` and
   the workload's check, the check's share of the run's wall, the files
   and the launches; every row of the ``kernels`` line gains
-  ``launches_run``. A ``total`` line after it gives the script's
-  seconds.
+  ``launches_run``.
+* the workloads (phase 21, ``workloads_phase``, after phase 20): the
+  kits whose checks reach the card, each through ``core.run`` in the
+  yugabyte suite's fake test map (``run_test_map`` with the kit's config
+  keys and final generator; 5 nodes, and 3 for a second run of each acid
+  kit, whose key groups are 2n threads wide; 5 threads for the rest; a 5
+  s time limit; accelerator "gpu"), once with the honest fake client
+  (valid) and once with a seeded double that breaks one answer in
+  ``BREAK_EVERY`` (invalid): single-key-acid (phase 20b's stale read;
+  the batched lane: the matrix screen, or one key-batched frontier
+  launch for all keys when the batch's slots rule the screen out, as at
+  5 nodes), multi-key-acid (a stale key in a read txn; a frontier launch
+  a key, no dense-route key in the exact twin and, at 3 nodes, the
+  broken run's keys settled on the dense table: ROADMAP Queue 3 item 4's
+  repair), set-full (a lost add; one ``set_classify``), append (a read
+  dropping the key's latest append) and wr (a stale read of a version
+  whose successor a read-then-write txn showed), both with a
+  ``cluster_screen`` launch in the invalid run. Each stored history is
+  re-checked with ``accelerator="cpu"`` (the acid kits' verdicts,
+  invalid keys and failed ops; set-full's map; the Elle kits' verdicts
+  and anomaly types) and each store must be whole. The ``workloads``
+  line gives each run's ops/s of ``run_case``, the check's seconds and
+  share of the wall, the verdict and the launches; every row of the
+  ``kernels`` line gains ``launches_workloads``, which ``launches_run``
+  also counts. A ``total`` line after it gives the script's seconds.
 
 Earlier phases keep their shapes, but for phase 9's 1,024 keys (500 ops
 a key, half of bench.py's depth).
@@ -4564,6 +4587,34 @@ STALE_EVERY = 500
 STALE_AFTER_S = 0.001
 
 
+def _seeded_double(base, seed: int, every: int | None):
+    """A subclass of ``base`` (a ``KVClient``) whose instances share one
+    lock, a generator seeded by ``seed`` and the counts of the answers it
+    broke, and a ``prev`` map for the double's own bookkeeping: ``owe()``
+    draws, one call in ``every`` (``BREAK_EVERY`` when None), whether an
+    answer is owed, and ``paid()`` counts one broken answer in
+    ``shared["broken"]``."""
+    import random
+    import threading
+    every = every or BREAK_EVERY
+
+    class Seeded(base):
+        shared = {"lock": threading.Lock(), "rng": random.Random(seed),
+                  "owed": 0, "broken": 0, "prev": {}}
+
+        def owe(self) -> int:
+            s = self.shared
+            if s["rng"].randrange(every) == 0:
+                s["owed"] += 1
+            return s["owed"]
+
+        def paid(self) -> None:
+            self.shared["owed"] -= 1
+            self.shared["broken"] += 1
+
+    return Seeded
+
+
 def _stale_client(kv, seed: int, every: int = STALE_EVERY):
     """Phase 20b's client: the fake register client, but one read in
     ``every`` (drawn from a generator seeded by ``seed`` and shared by
@@ -4573,29 +4624,21 @@ def _stale_client(kv, seed: int, every: int = STALE_EVERY):
     the stale answer cannot be ordered before that write: with five
     threads on a key, a read that overlaps the write may see either
     value."""
-    import random
-    import threading
-
     from jepsen_tpu_torch.fakes import KVClient
 
-    class StaleKVClient(KVClient):
-        shared = {"lock": threading.Lock(), "prev": {}, "owed": 0,
-                  "stale": 0, "rng": random.Random(seed)}
-
+    class StaleKVClient(_seeded_double(KVClient, seed, every)):
         def invoke(self, test, op):
             f, v = op.get("f"), op.get("value")
             s = self.shared
             if f == "read":
                 k = v[0]
                 with s["lock"]:
-                    if s["rng"].randrange(every) == 0:
-                        s["owed"] += 1
+                    owed = self.owe()
                     prev = s["prev"].get(k)
-                    if s["owed"] and prev is not None \
+                    if owed and prev is not None \
                             and prev[0] != self.db.read(k) \
                             and time.monotonic() - prev[1] > STALE_AFTER_S:
-                        s["owed"] -= 1
-                        s["stale"] += 1
+                        self.paid()
                         return {**op, "type": "ok", "value": [k, prev[0]]}
                 return super().invoke(test, op)
             if f in ("write", "cas"):
@@ -4610,14 +4653,44 @@ def _stale_client(kv, seed: int, every: int = STALE_EVERY):
     return StaleKVClient(kv)
 
 
+def _kit(module: str, **kw):
+    """A ``make(base, accelerator, device)`` for the port's workload kit
+    ``jepsen_tpu_torch.workloads.<module>``, with ``kw``."""
+    def make(base, accelerator, device):
+        import importlib
+        mod = importlib.import_module(f"jepsen_tpu_torch.workloads.{module}")
+        return mod.workload(base, accelerator=accelerator, device=device,
+                            **kw)
+    return make
+
+
+#: workload name -> (the suite whose fake test map runs it, its kit): the
+#: etcd suite's register (phase 20) and the yugabyte suite's YSQL kits
+#: whose checks reach the card (phase 21; jepsen_tpu/suites/yugabyte.py:
+#: 45-47), set-full the set kit with ``full``
+WORKLOAD_KITS = {
+    "register": ("etcd", _kit("register")),
+    "single-key-acid": ("yugabyte", _kit("single_key_acid")),
+    "multi-key-acid": ("yugabyte", _kit("multi_key_acid")),
+    "set-full": ("yugabyte", _kit("set_workload", full=True)),
+    "append": ("yugabyte", _kit("append")),
+    "wr": ("yugabyte", _kit("wr")),
+}
+
+
 def run_test_map(store_dir: str, client_fn, time_limit: float,
-                 accelerator: str, device=None) -> tuple:
-    """The etcd suite's fake test map (jepsen_tpu/suites/__init__.py:
-    22-64 ``compose_test`` and the fake branch of :67-186
-    ``build_suite_test``), over the port: nodes n1-n5, concurrency 5, the
-    dummy remote, no OS, ``NoopNet``, the ``KVStore`` and a client over it
-    (``client_fn(kv)``), the register workload at its defaults, the
-    partition, kill and pause packages at a 1 s interval, and
+                 accelerator: str, device=None, workload: str = "register",
+                 concurrency: int = 5, interval: float = 1.0,
+                 nodes: int = 5) -> tuple:
+    """A suite's fake test map (jepsen_tpu/suites/__init__.py:22-64
+    ``compose_test`` and the fake branch of :67-186 ``build_suite_test``),
+    over the port: ``nodes`` nodes (n1-n5), ``concurrency`` threads, the
+    dummy remote,
+    no OS, ``NoopNet``, the ``KVStore`` and a client over it
+    (``client_fn(kv)``), the ``workload`` kit of :data:`WORKLOAD_KITS` at
+    its defaults (the register workload: the etcd suite's), its config
+    keys merged into the map, the partition, kill and pause packages at
+    ``interval`` (1 s), the kit's final generator after the nemesis's, and
     ``compose({stats, exceptions, workload, perf})``. Returns the map and
     a dict the workload check's seconds land in."""
     from jepsen_tpu_torch import checker as c
@@ -4625,16 +4698,17 @@ def run_test_map(store_dir: str, client_fn, time_limit: float,
     from jepsen_tpu_torch.fakes import KVStore
     from jepsen_tpu_torch.nemesis import combined
     from jepsen_tpu_torch.net import NoopNet
-    from jepsen_tpu_torch.workloads import register
 
+    suite, make = WORKLOAD_KITS[workload]
     kv = KVStore()
-    base = {"name": "etcd-register",
-            "nodes": ["n1", "n2", "n3", "n4", "n5"], "concurrency": 5,
+    base = {"name": f"{suite}-{workload}",
+            "nodes": [f"n{i}" for i in range(1, nodes + 1)],
+            "concurrency": concurrency,
             "time_limit": time_limit, "ssh": {"dummy": True},
             "store_dir": store_dir, "db": kv, "client": client_fn(kv),
             "os": None, "net": NoopNet()}
-    wl = register.workload(base, accelerator=accelerator, device=device)
-    pkg = combined.nemesis_package({"db": kv, "interval": 1.0,
+    wl = make(base, accelerator, device)
+    pkg = combined.nemesis_package({"db": kv, "interval": interval,
                                     "faults": {"partition", "kill", "pause"}})
     timing: dict = {}
 
@@ -4649,13 +4723,20 @@ def run_test_map(store_dir: str, client_fn, time_limit: float,
                 timing["check_s"] = time.perf_counter() - t0
 
     test = dict(base)
-    test["generator"] = gen.phases(
-        gen.time_limit(time_limit, gen.any_gen(
-            gen.clients(wl["generator"]),
-            gen.nemesis_gen(pkg["generator"]))),
-        gen.nemesis_gen(pkg["final_generator"]))
+    for k, v in wl.items():
+        if k not in ("generator", "checker", "final_generator") \
+                and k not in test:
+            test[k] = v
+    phases = [gen.time_limit(time_limit, gen.any_gen(
+                  gen.clients(wl["generator"]),
+                  gen.nemesis_gen(pkg["generator"]))),
+              gen.nemesis_gen(pkg["final_generator"])]
+    if wl.get("final_generator") is not None:
+        phases.append(gen.clients(wl["final_generator"]))
+    test["generator"] = gen.phases(*phases)
     test["checker"] = c.compose({
-        "stats": c.stats(), "exceptions": c.unhandled_exceptions(),
+        "stats": c.stats(ungated_fs=wl.get("stats_ungated_fs", ())),
+        "exceptions": c.unhandled_exceptions(),
         "workload": TimedCheck(), "perf": c.perf()})
     test["nemesis"] = pkg["nemesis"]
     return test, timing
@@ -4735,6 +4816,24 @@ def run_verdicts(res: dict, history: list) -> tuple:
     return res.get("valid?"), sorted(res.get("failures") or []), per_key
 
 
+def run_store_files(what: str, d) -> tuple:
+    """A whole run's store dir ``d``: its files, which must hold
+    ``history.jsonl``, ``results.json``, ``test.json`` and a
+    ``faults.jsonl`` whose windows (of the partition, kill and pause
+    packages) all closed, and no WAL. Returns (files, windows, kinds)."""
+    from jepsen_tpu_torch.nemesis import faults as faults_mod
+    files = sorted(p.name for p in d.iterdir())
+    need = {"history.jsonl", "results.json", "test.json", "faults.jsonl"}
+    if not need <= set(files) or "history.wal.jsonl" in files:
+        raise AssertionError(f"{what}: files {files}")
+    windows = faults_mod.pair_rows(faults_mod.load_rows(d / "faults.jsonl"))
+    kinds = sorted({w["kind"] for w in windows})
+    if not windows or not set(kinds) <= {"net", "process", "pause"} \
+            or not all(w["healed"] for w in windows):
+        raise AssertionError(f"{what}: fault windows {windows}")
+    return files, windows, kinds
+
+
 def run_phase(name, smi, device=None, time_limit=RUN_TIME_LIMIT) -> dict:
     """Phase 20: whole test runs through the port's ``core.run`` on the
     card, the etcd suite's fake test map (:func:`run_test_map`) with the
@@ -4763,7 +4862,6 @@ def run_phase(name, smi, device=None, time_limit=RUN_TIME_LIMIT) -> dict:
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.fakes import KVClient
     from jepsen_tpu_torch.history import index
-    from jepsen_tpu_torch.nemesis import faults as faults_mod
     phase_t0 = time.perf_counter()
     mpl = importlib.util.find_spec("matplotlib") is not None
     cuda = device is None or str(device).startswith("cuda")
@@ -4827,7 +4925,7 @@ def run_phase(name, smi, device=None, time_limit=RUN_TIME_LIMIT) -> dict:
                 if wl["valid?"] is not False or not wl["failures"] \
                         or res["valid?"] is not False:
                     raise AssertionError(
-                        f"{what}: {test['client'].shared['stale']} stale "
+                        f"{what}: {broken_answers(test['client'])} stale "
                         f"reads gave {wl['valid?']} {wl['failures']}")
                 if cuda and launches["frontier_dense_batch"] != 1:
                     raise AssertionError(f"{what}: launches {launches}")
@@ -4838,17 +4936,7 @@ def run_phase(name, smi, device=None, time_limit=RUN_TIME_LIMIT) -> dict:
                 raise AssertionError(f"{what}: the batched lane did not "
                                      f"settle every key: {lin_algos}")
             d = store.test_dir(result)
-            files = sorted(p.name for p in d.iterdir())
-            need = {"history.jsonl", "results.json", "test.json",
-                    "faults.jsonl"}
-            if not need <= set(files) or "history.wal.jsonl" in files:
-                raise AssertionError(f"{what}: files {files}")
-            rows = faults_mod.load_rows(d / "faults.jsonl")
-            windows = faults_mod.pair_rows(rows)
-            kinds = sorted({w["kind"] for w in windows})
-            if not windows or not set(kinds) <= {"net", "process", "pause"} \
-                    or not all(w["healed"] for w in windows):
-                raise AssertionError(f"{what}: fault windows {windows}")
+            files, windows, kinds = run_store_files(what, d)
             secs = probe.seconds
             n_ops = sum(1 for op in history if op["process"] != "nemesis")
             out[run] = {
@@ -4858,8 +4946,7 @@ def run_phase(name, smi, device=None, time_limit=RUN_TIME_LIMIT) -> dict:
                 "failures": wl["failures"],
                 "failed_ops": {k: v[1] for k, v in got[2].items()
                                if v[0] is not True},
-                "stale_reads": (test["client"].shared["stale"]
-                                if run == "20b" else 0),
+                "stale_reads": broken_answers(test["client"]),
                 "undecided_keys": probe.undecided_keys,
                 "ops_per_s": len(history) / secs["run_case_s"],
                 "run_case_s": secs["run_case_s"],
@@ -4879,6 +4966,391 @@ def run_phase(name, smi, device=None, time_limit=RUN_TIME_LIMIT) -> dict:
           "seconds": time.perf_counter() - phase_t0,
           "card": name, "power": smi})
     return launches_run
+
+
+# ---------------------------------------------------------------------------
+# 21. the workloads: the card-checked kits' whole runs through core.run
+# ---------------------------------------------------------------------------
+
+#: each phase-21 run's time limit
+WORKLOADS_TIME_LIMIT = 5.0
+#: one op in this many (drawn from a generator seeded by SEED) breaks the
+#: workload's guarantee in phase 21's invalid runs
+BREAK_EVERY = 200
+
+
+def _stale_txn_client(kv, seed: int, every: int | None = None):
+    """Multi-key-acid's broken client: the fake multi-register client, but
+    one read txn in ``every`` answers one key with its value before that
+    key's latest write, which changed it and returned at least
+    ``STALE_AFTER_S`` before (a stale read of a multi-key snapshot)."""
+    from jepsen_tpu_torch.fakes import KVClient
+
+    class StaleTxnClient(_seeded_double(KVClient, seed, every)):
+        def invoke(self, test, op):
+            if op.get("f") != "txn":
+                return super().invoke(test, op)
+            group, mops = op["value"]
+            s = self.shared
+            with s["lock"]:
+                if any(m[0] != "r" for m in mops):
+                    before = {k: self.db.read((group, k)) for _, k, _ in mops}
+                    out = super().invoke(test, op)
+                    now = time.monotonic()
+                    for k, v in before.items():
+                        s["prev"][(group, k)] = (v, now)
+                    return out
+                owed = self.owe()
+                out = super().invoke(test, op)
+                for i, (_, k, v) in enumerate(out["value"][1] if owed
+                                              else ()):
+                    prev = s["prev"].get((group, k))
+                    if prev is not None and prev[0] is not None \
+                            and prev[0] != v \
+                            and time.monotonic() - prev[1] > STALE_AFTER_S:
+                        vals = list(out["value"][1])
+                        vals[i] = ["r", k, prev[0]]
+                        self.paid()
+                        return {**out, "value": [group, vals]}
+                return out
+
+    return StaleTxnClient(kv)
+
+
+def _lost_add_client(kv, seed: int, every: int | None = None):
+    """Set-full's broken client: the fake set client, but one add in
+    ``every`` is acknowledged and never stored (a lost add)."""
+    from jepsen_tpu_torch.fakes import KVClient
+
+    class LostAddClient(_seeded_double(KVClient, seed, every)):
+        def invoke(self, test, op):
+            if op.get("f") == "add":
+                with self.shared["lock"]:
+                    if self.owe():
+                        self.paid()
+                        return {**op, "type": "ok"}
+            return super().invoke(test, op)
+
+    return LostAddClient(kv)
+
+
+def _stale_append_client(kv, seed: int, every: int | None = None):
+    """Append's broken client: the fake list-append client, but one txn in
+    ``every`` reads a key without its latest append, whose txn returned
+    at least ``STALE_AFTER_S`` before (a read that drops an acknowledged
+    append)."""
+    from jepsen_tpu_torch.fakes import KVClient
+
+    class DroppedAppendClient(_seeded_double(KVClient, seed, every)):
+        def invoke(self, test, op):
+            if op.get("f") != "txn":
+                return super().invoke(test, op)
+            s = self.shared
+            written = {k for f, k, _ in op["value"] if f != "r"}
+            with s["lock"]:
+                owed = self.owe()
+                before = {k: len(self.db.lists.get(k, ())) for k in written}
+                out = super().invoke(test, op)
+                now = time.monotonic()
+                mops = list(out["value"])
+                for i, (f, k, v) in enumerate(mops if owed else ()):
+                    prev = s["prev"].get(k)
+                    if f == "r" and k not in written and prev is not None \
+                            and len(v) > prev[0] \
+                            and now - prev[1] > STALE_AFTER_S:
+                        mops[i] = ["r", k, v[:prev[0]]]
+                        self.paid()
+                        break
+                for k, n in before.items():
+                    s["prev"][k] = (n, now)
+                return {**out, "value": mops}
+
+    return DroppedAppendClient(kv, txn_style="append")
+
+
+def _stale_wr_client(kv, seed: int, every: int | None = None):
+    """Wr's broken client: the fake rw-register client, but one txn in
+    ``every`` reads a key as the value it held before its latest
+    read-then-write txn, which returned at least ``STALE_AFTER_S`` before
+    (a stale read of a version whose successor that txn's trace shows:
+    the reader precedes the writer by anti-dependency and follows it in
+    real time, a cycle inside a short window)."""
+    from jepsen_tpu_torch.fakes import KVClient
+
+    class StaleWrClient(_seeded_double(KVClient, seed, every)):
+        def invoke(self, test, op):
+            if op.get("f") != "txn":
+                return super().invoke(test, op)
+            s = self.shared
+            written = {k for f, k, _ in op["value"] if f != "r"}
+            with s["lock"]:
+                owed = self.owe()
+                out = super().invoke(test, op)
+                now = time.monotonic()
+                mops = list(out["value"])
+                for i, (f, k, v) in enumerate(mops if owed else ()):
+                    prev = s["prev"].get(k)
+                    if f == "r" and k not in written and prev is not None \
+                            and prev[0] != v \
+                            and now - prev[1] > STALE_AFTER_S:
+                        mops[i] = ["r", k, prev[0]]
+                        self.paid()
+                        break
+                # a key's first read before the txn writes it, then its
+                # write: the read value's successor
+                read, wrote = {}, set()
+                for f, k, v in out["value"]:
+                    if f == "r" and k not in read and k not in wrote:
+                        read[k] = v
+                    elif f == "w":
+                        if read.get(k) is not None and k not in wrote:
+                            s["prev"][k] = (read[k], now)
+                        wrote.add(k)
+                return {**out, "value": mops}
+
+    return StaleWrClient(kv, txn_style="wr")
+
+
+def _honest_client(workload: str):
+    """The suite's fake client for ``workload`` (build_suite_test's fake
+    branch: wr reads registers, the rest read lists or sets)."""
+    from jepsen_tpu_torch.fakes import KVClient
+    style = "wr" if workload == "wr" else "append"
+    return lambda kv: KVClient(kv, txn_style=style)
+
+
+#: phase 21's runs: workload, nodes, threads, the invalid run's double
+#: and the kernels each of its runs must launch. The acid kits' key groups
+#: are 2n threads wide (multi_key_acid.clj:59, single_key_acid.clj:33: at
+#: the suites' 5 threads they emit no op), so a key holds up to 2n slots:
+#: at 5 nodes 10, past the matrix screen's 8 and the dense table's 9; at 3
+#: (yugabyte's smallest replication-factor-3 cluster) 6, within both
+WORKLOAD_RUNS = (
+    ("single-key-acid", 5, 10, lambda kv: _stale_client(
+        kv, SEED, every=BREAK_EVERY), ()),
+    ("single-key-acid", 3, 6, lambda kv: _stale_client(
+        kv, SEED, every=BREAK_EVERY), ("chunk_product", "combine_product")),
+    ("multi-key-acid", 5, 10, lambda kv: _stale_txn_client(kv, SEED), ()),
+    ("multi-key-acid", 3, 6, lambda kv: _stale_txn_client(kv, SEED),
+     ("frontier_dense",)),
+    ("set-full", 5, 5, lambda kv: _lost_add_client(kv, SEED),
+     ("set_classify",)),
+    ("append", 5, 5, lambda kv: _stale_append_client(kv, SEED), ()),
+    ("wr", 5, 5, lambda kv: _stale_wr_client(kv, SEED), ()),
+)
+
+
+def broken_answers(client) -> int:
+    """The answers a double broke (0 for the honest client)."""
+    return getattr(client, "shared", {}).get("broken", 0)
+
+
+def workload_verdicts(workload: str, res: dict, history: list) -> tuple:
+    """What a phase-21 run's card check and its cpu re-check must agree
+    on: a lifted kit's verdict, invalid keys and each key's failed op
+    (:func:`run_verdicts`); set-full's whole result map; an Elle kit's
+    verdict and anomaly types (the cycles it cites as witnesses may
+    differ: the card's φ-cluster search and the cpu oracle's global
+    Tarjan each report their first ten)."""
+    if workload.endswith("-acid"):
+        return run_verdicts(res, history)
+    if workload == "set-full":
+        return res
+    return res["valid?"], res.get("anomaly-types")
+
+
+def acid_keys(workload: str, history: list) -> dict:
+    """Each acid key's (slots, frontier route "dense" or "sparse"):
+    single-key-acid's register encoding, multi-key-acid's packed (3, 5)
+    map of 216 states."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.linear_encode import (
+        encode_multi_register_ops, encode_register_ops)
+    from jepsen_tpu_torch.models import multi_register_spec
+    from jepsen_tpu_torch.ops.jitlin import JitLinKernel
+    multi = workload == "multi-key-acid"
+    kernel = JitLinKernel(step_ids=multi_register_spec(*MR_SHAPE).step_ids
+                          if multi else None)
+    keys, subs = independent.split_history(history)
+    out = {}
+    for k in keys:
+        st = (encode_multi_register_ops(subs[k], *MR_SHAPE) if multi
+              else encode_register_ops(subs[k]))
+        out[str(k)] = (st.n_slots, kernel.route(st.n_slots, len(st.intern)))
+    return out
+
+
+def _run_kernels(workload: str, run: str, res: dict, launches: dict,
+                 undecided: int, history: list) -> str | None:
+    """Why a phase-21 run's launches do not show its check on the card,
+    or None. Single-key-acid's keys all settle in the batched lane on the
+    card: the matrix screen (chunk products and combines), then one
+    key-batched frontier launch for the keys it leaves undecided; or, when
+    the batch's slots or its element budget rule the screen out (the
+    kit's 10 threads a key reach ``MATRIX_MAX_SLOTS``), one key-batched
+    frontier launch for all. Multi-key-acid's keys take a frontier launch
+    a key, and every key on the dense table's route settles there, none
+    in the exact twin (ROADMAP Queue 3 item 4's repair; a sparse key
+    whose K = 256 list overflows goes to the twin, as in phase 11).
+    Set-full launches the classify once; the Elle kits' invalid runs
+    screen their φ clusters."""
+    if workload == "single-key-acid":
+        scans = launches["frontier_dense_batch"] \
+            + launches["frontier_sparse_batch"]
+        screened = launches["chunk_product"] > 0
+        algos = {r["linear"].get("algorithm")
+                 for r in res["results"].values()}
+        if algos != {"jitlin-gpu"} or scans > 1 \
+                or (scans == 1) != (undecided > 0) \
+                or screened != (launches["combine_product"] > 0) \
+                or not (screened or undecided == len(res["results"])):
+            return f"{undecided} undecided keys, algorithms {algos}"
+    elif workload == "multi-key-acid":
+        keys = acid_keys(workload, history)
+        twin = [k for k, r in res["results"].items()
+                if r["linear"].get("algorithm") == "jitlin-cpu(fallback)"
+                and keys[k][1] == "dense"]
+        n_dense = sum(r == "dense" for _, r in keys.values())
+        # the broken run's impossible reads, on the dense route, settle
+        # on the card: none of them in the twin, which took them all
+        # before the repair
+        settled = [k for k, r in res["results"].items()
+                   if r["valid?"] is False and keys[k][1] == "dense"]
+        if twin or launches["frontier_dense"] != n_dense \
+                or launches["frontier_sparse"] != len(keys) - n_dense \
+                or (run == "invalid" and n_dense == len(keys)
+                    and not settled):
+            return f"dense keys in the twin: {twin}"
+    elif workload == "set-full":
+        if launches["set_classify"] != 1:
+            return "not one set_classify"
+    elif run == "invalid" and not launches["cluster_screen"]:
+        return "no cluster_screen"
+    return None
+
+
+def workloads_phase(name, smi, device=None,
+                    time_limit=WORKLOADS_TIME_LIMIT) -> dict:
+    """Phase 21: the card-checked workload kits through the port's
+    ``core.run`` on the card, each in the yugabyte suite's fake test map
+    (:func:`run_test_map`, ``accelerator="gpu"``; set-full is the set kit
+    with ``full``) with the generator's context and the nemesis draws
+    seeded by ``SEED``, twice: with the honest fake client (the verdict
+    must be valid) and with a double that breaks the kit's guarantee
+    (:data:`WORKLOAD_RUNS`; the verdict must be invalid).
+
+    Each run's stored history is re-checked by the port with
+    ``accelerator="cpu"`` (:func:`workload_verdicts` must agree), its
+    store must be whole (:func:`run_store_files`), and its launches must
+    show the check on the card (:func:`_run_kernels`). Prints the
+    ``workloads`` line (each run's ops a second of ``run_case``, the
+    check's seconds and share of the wall, the verdict and launches) and
+    returns each kernel's launches over the ten runs."""
+    import importlib.util
+    import tempfile
+
+    from jepsen_tpu_torch import core, store
+    from jepsen_tpu_torch.history import index
+    phase_t0 = time.perf_counter()
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    cuda = device is None or str(device).startswith("cuda")
+    out, launches_all = {}, dict.fromkeys(read_launches(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for workload, nodes, threads, broken, must in WORKLOAD_RUNS:
+            for run, client_fn in (("valid", _honest_client(workload)),
+                                   ("invalid", broken)):
+                what = f"workload {workload} n{nodes} {run}"
+                d0 = f"{tmp}/{workload}-{nodes}-{run}"
+                test, timing = run_test_map(d0, client_fn, time_limit,
+                                            "gpu", device, workload,
+                                            threads, nodes=nodes)
+                with _RunProbe(SEED) as probe:
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    result = core.run(test)
+                    wall_s = time.perf_counter() - t0
+                    launches = read_launches()
+                for k, n in launches.items():
+                    launches_all[k] += n
+                res = result["results"]
+                wl = res["workload"]
+                stored = index(store.load_history(
+                    result["name"], result["start_time"], d0))
+                cpu_chk = WORKLOAD_KITS[workload][1](test, "cpu",
+                                                     "cpu")["checker"]
+                if workload.endswith("-acid"):
+                    # the lifted linear check alone: a map without store
+                    # coordinates renders no timeline
+                    cpu_chk = type(cpu_chk)(cpu_chk.checker.checkers["linear"])
+                t0 = time.perf_counter()
+                # no forensics: the cpu lane's failed-op is the comparison
+                cpu = cpu_chk.check(None, stored, {"explain": False})
+                cpu_s = time.perf_counter() - t0
+                got = workload_verdicts(workload, wl, result["history"])
+                want = workload_verdicts(workload, cpu, stored)
+                if got != want:
+                    raise AssertionError(f"{what}: the card's verdicts "
+                                         f"differ from the cpu re-check")
+                if wl["valid?"] is not (run == "valid"):
+                    raise AssertionError(
+                        f"{what}: {wl['valid?']}, "
+                        f"{getattr(test['client'], 'shared', {})}")
+                parts = {k: v["valid?"] for k, v in res.items()
+                         if isinstance(v, dict)}
+                if (parts["stats"], parts["exceptions"], parts["perf"]) != (
+                        True, True, True if mpl else "unknown"):
+                    raise AssertionError(f"{what}: verdicts {parts}")
+                why = cuda and (_run_kernels(workload, run, wl, launches,
+                                             probe.undecided_keys,
+                                             result["history"])
+                                or [k for k in must if not launches[k]])
+                if why:
+                    raise AssertionError(f"{what}: {why}: {launches}")
+                files, windows, kinds = run_store_files(
+                    what, store.test_dir(result))
+                secs = probe.seconds
+                history = result["history"]
+                row = {
+                    "nodes": nodes, "threads": threads,
+                    "ops": len(history),
+                    "client_ops": sum(op["process"] != "nemesis"
+                                      for op in history),
+                    "valid": wl["valid?"], "composed_valid": res["valid?"],
+                    "anomalies": (sorted(wl.get("anomaly-types") or [])
+                                  or wl.get("failures")
+                                  or [k for k in ("lost", "stale")
+                                      if wl.get(f"{k}-count")]),
+                    "broken_answers": broken_answers(test["client"]),
+                    "undecided_keys": probe.undecided_keys,
+                    "ops_per_s": len(history) / secs["run_case_s"],
+                    "run_case_s": secs["run_case_s"],
+                    "analyze_s": secs["analyze_s"],
+                    "check_s": timing["check_s"], "wall_s": wall_s,
+                    "check_share": timing["check_s"] / wall_s,
+                    "cpu_recheck_s": cpu_s,
+                    "fault_windows": {k: sum(w["kind"] == k
+                                             for w in windows)
+                                      for k in kinds},
+                    "files": len(files),
+                    "launches": {k: n for k, n in launches.items() if n}}
+                if workload.endswith("-acid"):
+                    keys = acid_keys(workload, history)
+                    algos: dict = {}
+                    for k, r in wl["results"].items():
+                        a = f"{keys[k][1]} {r['linear'].get('algorithm')}"
+                        if r["valid?"] is not True:
+                            a += " invalid"
+                        algos[a] = algos.get(a, 0) + 1
+                    row["routes_algorithms"] = algos
+                    row["max_slots"] = max(s for s, _ in keys.values())
+                out[f"{workload} n{nodes} {run}"] = row
+    emit({"phase": "workloads", "time_limit_s": time_limit,
+          "matplotlib": mpl, "runs": out,
+          "launches_workloads": {k: n for k, n in launches_all.items()
+                                 if n},
+          "seconds": time.perf_counter() - phase_t0,
+          "card": name, "power": smi})
+    return launches_all
 
 
 # ---------------------------------------------------------------------------
@@ -5827,8 +6299,14 @@ def main() -> int:
     # 20. the run loop: two whole fake-register test runs through core.run,
     # each re-checked on the cpu; each row gains the two runs' launches
     ran = run_phase(name, smi)
+    # 21. the workloads: single- and multi-key-acid, set-full, append and
+    # wr through core.run, each valid and broken, each re-checked on the
+    # cpu; each row gains their launches, in launches_run beside phase 20's
+    kits = workloads_phase(name, smi)
     for row in kernels:
-        row["launches_run"] = ran.get(row["name"], 0)
+        row["launches_workloads"] = kits.get(row["name"], 0)
+        row["launches_run"] = ran.get(row["name"], 0) + row[
+            "launches_workloads"]
     emit({"phase": "headline_shapes", "S": S, "V": V, "MV": MV, "C": C,
           "T": T, "valid_returns": int(len(npend)),
           "chunk_product_ops": ops_p, "chunk_product_bytes": bytes_p,

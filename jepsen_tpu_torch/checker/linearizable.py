@@ -269,7 +269,7 @@ class LinearizableChecker(Checker):
             res = wgl(history, self.model)
             self._record_metrics(res, time.perf_counter() - t0,
                                  len(history))
-            return self._finish(res, history, test=test)
+            return self._finish(res, history, test=test, opts=opts)
         stream, step_py, spec = enc
         from jepsen_tpu_torch.parallel import sharding_knobs
         sharded, mesh_devices = sharding_knobs(test, opts)
@@ -597,7 +597,7 @@ class LinearizableChecker(Checker):
                     res.final_configs = res2.final_configs
             if res.final_configs is not None:
                 out["final-configs"] = res.final_configs
-            out["plot"] = self._render(res, history, test)
+            out["plot"] = self._render(res, history, test, opts)
             self._explain(out, res, history, test, stream, step_py,
                           init_state, step_ids, explain_on, explain_loc,
                           device, opts)
@@ -636,16 +636,22 @@ class LinearizableChecker(Checker):
         except Exception:  # noqa: BLE001 — forensics never mask a verdict
             logger.exception("anomaly forensics failed")
 
-    # copied from jepsen_tpu/checker/linearizable.py:787-798
+    # copied from jepsen_tpu/checker/linearizable.py:787-798, under the
+    # opts' subdirectory: the reference writes every key of a lifted check
+    # to the run's one linear.png (ROADMAP Queue 3 item 6)
     @staticmethod
-    def _render(res, history, test) -> str | None:
-        """linear.png into the test's store dir (checker.clj:205-212)."""
+    def _render(res, history, test, opts=None) -> str | None:
+        """linear.png into the test's store dir (checker.clj:205-212),
+        under ``independent/<k>`` for a key of a lifted check, beside its
+        ``anomaly.json``."""
         if test is None:
             return None
         try:
             from jepsen_tpu_torch import store
             from jepsen_tpu_torch.checker.linear_report import render_failure
-            path = str(store.path_mk(test, "linear.png"))
+            sub = (opts or {}).get("subdirectory")
+            path = str(store.path_mk(test, *filter(None, [sub,
+                                                          "linear.png"])))
             return render_failure(history, res, path)
         except Exception:  # noqa: BLE001  rendering must not mask verdicts
             logger.exception("linear.png rendering failed")

@@ -238,16 +238,16 @@ def _live_final_results(test: dict, checker) -> dict | None:
     """The live daemon's final incremental verdict for this run, when it
     is *fresh* (final state covering exactly this history) and the
     checker is one whose live session computes the same result shape —
-    a bare LinearizableChecker (the append workload's AppendChecker
-    branch waits with workloads/append.py). Anything else (composed
-    checkers, stats/timeline bundles, recovered histories) re-checks
-    from scratch; reuse must never lose a sub-result."""
+    a bare LinearizableChecker or elle AppendChecker. Anything else
+    (composed checkers, stats/timeline bundles, recovered histories)
+    re-checks from scratch; reuse must never lose a sub-result."""
     if not test.get("live_reuse") or test.get("wal_recovered"):
         return None
     try:
         from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
         from jepsen_tpu_torch.live.daemon import load_live_status
-        if not isinstance(checker, LinearizableChecker):
+        from jepsen_tpu_torch.workloads.append import AppendChecker
+        if not isinstance(checker, (LinearizableChecker, AppendChecker)):
             return None
         status = load_live_status(store.test_dir(test))
         if not status or status.get("state") != "final":
@@ -263,7 +263,10 @@ def _live_final_results(test: dict, checker) -> dict | None:
         # supported lifted config is IndependentChecker, which fails
         # the isinstance gate above) — reuse must not diverge from
         # what --no-live-reuse would compute
-        if workload != "register":
+        if isinstance(checker, LinearizableChecker) and \
+                workload != "register":
+            return None
+        if isinstance(checker, AppendChecker) and workload != "list-append":
             return None
         logger.info("reusing live daemon's final incremental verdict "
                     "(live-status.json, %d ops); --no-live-reuse "

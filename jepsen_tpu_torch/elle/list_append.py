@@ -392,3 +392,32 @@ def check(history: list[dict], accelerator: str = "auto",
     result["edge-count"] = len(graph.edges)
     result["read-scan-keys"] = scan_counts
     return result
+
+
+# copied from jepsen_tpu/elle/list_append.py:395-420
+def gen(key_count: int = 3, min_txn_length: int = 1, max_txn_length: int = 4,
+        max_writes_per_key: int = 256):
+    """Generates random list-append txns over a rotating key pool."""
+    counters: dict = defaultdict(int)
+    active_keys: list = list(range(key_count))
+    next_key: list = [key_count]
+
+    def one_txn(test, ctx):
+        txn = []
+        length = ctx.rng.randint(min_txn_length, max_txn_length)
+        for _ in range(length):
+            idx = ctx.rng.randrange(len(active_keys))
+            k = active_keys[idx]
+            if ctx.rng.random() < 0.5:
+                txn.append(["r", k, None])
+            else:
+                counters[k] += 1
+                if counters[k] > max_writes_per_key:
+                    # retire the key, open a fresh one in its slot
+                    k = active_keys[idx] = next_key[0]
+                    next_key[0] += 1
+                    counters[k] += 1
+                txn.append(["append", k, counters[k]])
+        return {"f": "txn", "value": txn}
+
+    return one_txn

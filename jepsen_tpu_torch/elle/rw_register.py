@@ -199,3 +199,21 @@ def _version_cycle(edges: set) -> list | None:
     values = list(ids)
     return [values[i] for i in sccs[0]]
 
+
+# copied from jepsen_tpu/elle/rw_register.py:203-219
+def gen(key_count: int = 5, min_txn_length: int = 1, max_txn_length: int = 4):
+    """Random rw-register txns; writes unique per key."""
+    counters: dict = defaultdict(int)
+
+    def one_txn(test, ctx):
+        txn = []
+        for _ in range(ctx.rng.randint(min_txn_length, max_txn_length)):
+            k = ctx.rng.randrange(key_count)
+            if ctx.rng.random() < 0.5:
+                txn.append(["r", k, None])
+            else:
+                counters[k] += 1
+                txn.append(["w", k, counters[k]])
+        return {"f": "txn", "value": txn}
+
+    return one_txn

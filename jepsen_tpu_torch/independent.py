@@ -58,6 +58,7 @@ from jepsen_tpu_torch.checker import (
     Checker, Compose, check_safe, merge_valid,
 )
 from jepsen_tpu_torch.generator import Generator, PENDING, as_gen
+from jepsen_tpu_torch.history import is_client_op
 from jepsen_tpu_torch.utils import bounded_pmap
 
 logger = logging.getLogger("jepsen_tpu_torch.independent")
@@ -78,6 +79,16 @@ def tuple_value(k, v) -> list:
 
 def is_tuple_value(v) -> bool:
     return isinstance(v, (list, tuple)) and len(v) == 2
+
+
+def keyed_value(op: dict):
+    """The [k, v] value of a client op, or None for any other op. A
+    nemesis op's two-element value (a partition's ``["isolated",
+    grudge]``) is no key: the reference's ``is_tuple_value`` takes it for
+    one (ROADMAP Queue 3 item 5); the Clojure original's tuples are their
+    own type, which a nemesis value never is."""
+    v = op.get("value")
+    return v if is_tuple_value(v) and is_client_op(op) else None
 
 
 # copied from jepsen_tpu/independent.py:39-218
@@ -263,13 +274,14 @@ def concurrent_generator(n: int, keys: Iterable, gen_fn: Callable) -> Generator:
     return ConcurrentGenerator(n=n, keys=KeyStream(keys), gen_fn=gen_fn)
 
 
-# copied from jepsen_tpu/independent.py:221-250
+# copied from jepsen_tpu/independent.py:221-250, splitting client ops
+# alone (keyed_value)
 def history_keys(history: list[dict]) -> list:
     """All keys in a lifted history (independent.clj:238-248)."""
     seen = {}
     for op in history:
-        v = op.get("value")
-        if is_tuple_value(v):
+        v = keyed_value(op)
+        if v is not None:
             seen.setdefault(_freeze_key(v[0]), v[0])
     return list(seen.values())
 
@@ -284,8 +296,8 @@ def subhistory(k, history: list[dict]) -> list[dict]:
     fk = _freeze_key(k)
     out = []
     for op in history:
-        v = op.get("value")
-        if is_tuple_value(v) and _freeze_key(v[0]) == fk:
+        v = keyed_value(op)
+        if v is not None and _freeze_key(v[0]) == fk:
             out.append({**op, "value": v[1]})
     return out
 
@@ -295,8 +307,8 @@ def split_history(history: list[dict]) -> tuple[list, dict]:
     history)``}) in one pass over the history, not one a key."""
     keys, subs = [], {}
     for op in history:
-        v = op.get("value")
-        if not is_tuple_value(v):
+        v = keyed_value(op)
+        if v is None:
             continue
         fk = _freeze_key(v[0])
         sub = subs.get(fk)

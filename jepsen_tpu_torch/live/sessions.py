@@ -479,8 +479,8 @@ class MultiKeyLinearSession:
     def add(self, op: dict) -> None:
         from jepsen_tpu_torch import independent
         self.ops_absorbed += 1
-        v = op.get("value")
-        if not independent.is_tuple_value(v):
+        v = independent.keyed_value(op)
+        if v is None:
             return
         k = independent._freeze_key(v[0])
         sess = self.sub.get(k)

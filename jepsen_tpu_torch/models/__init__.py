@@ -476,6 +476,8 @@ class _MultiRegisterStep:
     def __init__(self, n_keys: int, n_values: int):
         self.n_keys, self.n_values = n_keys, n_values
         self.kernel_model = (KERNEL_MULTI_REGISTER, n_keys, n_values)
+        # the map's states, which every step keeps in the map
+        self.num_states = (n_values + 1) ** n_keys
 
     def __call__(self, state, f, a, b):
         V, K = self.n_values, self.n_keys

@@ -12,8 +12,10 @@
 // image under nxt_t of row r), keeps the rows that hold bit s with the bit
 // cleared, and counts the closed table's population into peak. alive and
 // died follow the table's emptiness; inexact is set when a transition of
-// any invoke leaves [0, V). Results: alive, died, inexact, peak and the
-// final table, bit for bit those of the reference's `run.resume`; and the
+// any invoke leaves [0, V) from a state of the model. Results: alive,
+// died, inexact, peak and the final table, bit for bit those of the
+// reference's `run.resume` but for the flag of a multi-register table's
+// padding (see the design below); and the
 // returns the scan closed on the warp path and in all (the path taken,
 // which the caller holds against the plain version's count).
 //
@@ -46,10 +48,11 @@
 // step serves both paths' tables and the out-of-range flag (the warp
 // path steps a lane's 4 states of an invoke together); a multi-register
 // table is bucketed past the (V + 1)^K map states (216 to 256 at 3 x 5),
-// and the flag, like the reference's, also covers the states past them,
-// which no history reaches: a step keeps the map's states in the map, so
-// the flag steps those padding states alone (first_leaving_state) and is
-// still the reference's, bit for bit. The closure runs level by
+// and the flag covers the map's states alone (flag_state_end): the
+// reference's also steps the padding past them, which no history reaches,
+// and so flags every history with a write there. A step keeps the map's
+// states in the map, so a map that fits in the table never sets the flag
+// (first_leaving_state). The closure runs level by
 // level: a row's level is popcount(r & pm), and the rows of level p read
 // only rows r ^ 2^t of level p - 1, already final; a path of the closure
 // adds at most npend bits, so this is the reference's fixpoint. The kill
@@ -365,14 +368,16 @@ frontier_dense_kernel(const int* __restrict__ kind,
     }
     if (tid < 2) cnt[tid] = 0;
   }
-  // inexact: an invoke's transition leaves [0, V) for some state; only
-  // the states from first_leaving_state on can (frontier_model.cuh)
+  // inexact: an invoke's transition leaves [0, V) for some state of the
+  // model; only the states from first_leaving_state to flag_state_end
+  // can (frontier_model.cuh): none of a multi-register map that fits
   bool oob = false;
   const int v_leave = first_leaving_state<kModel>(model, V);
-  for (int e = tid; e < E; e += kThreads) {
+  const int v_end = flag_state_end<kModel>(model, V);
+  for (int e = tid; e < E && v_leave < v_end; e += kThreads) {
     if (kind[e] != kInvoke) continue;
     const int f = fv[e], a = av[e], b = bv[e];
-    for (int v = v_leave; v < V && !oob; ++v) {
+    for (int v = v_leave; v < v_end && !oob; ++v) {
       bool ok;
       const int st = model_step<kModel>(model, v, f, a, b, &ok);
       oob = ok && (st < 0 || st >= V);

@@ -19,7 +19,11 @@ survives the last return.
   kept and ``overflow`` is set.
 
 Both return the reference's ``run.resume`` results, the verdict and the
-final frontier, and match it bit for bit. A wrapper takes its plain
+final frontier, and match it bit for bit, but for one repair: the dense
+out-of-range flag steps the model's own states alone, not a
+multi-register table's padding past the map (ROADMAP Queue 3 item 4),
+so an invalid multi-register history settles on the table where the
+reference calls it "unknown". A wrapper takes its plain
 version only for tensors that lie on the CPU; for CUDA tensors it
 launches its kernel once for the whole history, or raises. Each wrapper
 counts its kernel launches in ``.launches``. The kernels carry copies of
@@ -210,7 +214,10 @@ def frontier_dense_torch(kind, slot, f, a, b, table0, step_ids=None,
     st2, ok = step_ids(v_range[None, :],
                        *(torch.as_tensor(x[inv, None], dtype=torch.int32,
                                          device=dev) for x in (f, a, b)))
-    oob = (ok & ((st2 < 0) | (st2 >= V))).any(dim=1)
+    # only the model's own states count: the table's padding past a
+    # multi-register map is no state a history reaches
+    real = min(V, getattr(step_ids, "num_states", V))
+    oob = (ok & ((st2 < 0) | (st2 >= V)))[:, :real].any(dim=1)
     inv_row = np.full(len(kind), -1)
     inv_row[inv] = np.arange(len(inv))
     mt = torch.zeros((S, V, V), dtype=torch.float32, device=dev)

@@ -195,7 +195,15 @@ def test_independent_keys_write_the_reference_artifacts(tmp_path, lane):
         ref_test, h, {"checker_sharded": False})
     got = independent.checker(linearizable(**port_kw)).check(test, h, {})
     assert got["failures"] == ["1", "2"]
-    assert _mapped(got, d) == _mapped(want, ref_d)
+    want = _mapped(want, ref_d)
+    if lane == "per-key":
+        # the port renders each invalid key's linear.png under its
+        # independent/<k>, where the reference renders every key's to the
+        # run's one linear.png (ROADMAP Queue 3 item 6)
+        for k in ("1", "2"):
+            assert want["results"][k]["plot"] == "linear.png"
+            want["results"][k]["plot"] = f"independent/{k}/linear.png"
+    assert _mapped(got, d) == want
     for k in ("1", "2"):
         assert got["results"][k]["explain"]["artifacts"] == [
             "anomaly.json", "witness-timeline.html"]
@@ -203,16 +211,19 @@ def test_independent_keys_write_the_reference_artifacts(tmp_path, lane):
     # a key's sub-history holds no nemesis op: no fault window per key
     assert json.loads((d / "independent" / "1" / "anomaly.json"
                        ).read_text())["fault_windows"] == []
-    # the per-key lane renders every invalid key's linear.png at the
-    # run's top, as the reference does; the batched lane renders none
-    assert ("linear.png" in _files(d)) is (lane == "per-key")
-    if lane == "batched":
-        _same_files(ref_d, d)
-    else:
-        # two keys render linear.png to one path: compare the rest
-        (d / "linear.png").unlink()
+    # the per-key lane renders one linear.png under each invalid key's
+    # independent/<k> and none at the run's top (the reference renders
+    # both keys to the top's one path); the batched lane renders none
+    pngs = [f for f in _files(d) if f.endswith("linear.png")]
+    assert pngs == ([f"independent/{k}/linear.png" for k in ("1", "2")]
+                    if lane == "per-key" else [])
+    assert ("linear.png" in _files(ref_d)) is (lane == "per-key")
+    if lane == "per-key":
+        # the rest equals the reference's files
+        for f in pngs:
+            (d / f).unlink()
         (ref_d / "linear.png").unlink()
-        _same_files(ref_d, d)
+    _same_files(ref_d, d)
 
 
 def test_compose_anomaly_matches_jax():
@@ -279,7 +290,17 @@ def test_composed_suite_matches_jax(tmp_path, lane):
     if lane == "batched":
         assert got["workload"]["results"]["2"]["linear"]["algorithm"] == \
             "jitlin-gpu"
-    assert _mapped(got, d) == _mapped(want, ref_d)
+    want = _mapped(want, ref_d)
+    if lane == "per-key":
+        # the invalid key's linear.png goes under its independent/2, where
+        # the reference writes it at the run's top (ROADMAP Queue 3 item
+        # 6); one key is invalid, so the two files hold the same pixels
+        lin = want["workload"]["results"]["2"]["linear"]
+        assert lin["plot"] == "linear.png"
+        lin["plot"] = "independent/2/linear.png"
+        assert "linear.png" not in _files(d)
+        (ref_d / "linear.png").rename(ref_d / "independent/2/linear.png")
+    assert _mapped(got, d) == want
     assert {"clock-skew.png", "latency-raw.png", "latency-quantiles.png",
             "rate.png", "independent/2/anomaly.json",
             "independent/2/witness-timeline.html"} <= set(_files(d))

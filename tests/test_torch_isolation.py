@@ -52,7 +52,11 @@ def test_port_sources_exist():
             "timeline.py", "perf_plots.py", "clock.py", "linear_report.py",
             "faults.py", "core.py", "interpreter.py", "simulate.py",
             "combined.py", "dummy.py", "db.py", "net.py", "client.py",
-            "fakes.py", "register.py", "report.py"} <= names
+            "fakes.py", "register.py", "report.py", "artifacts.py",
+            "single_key_acid.py", "multi_key_acid.py", "set_workload.py",
+            "append.py", "wr.py", "mutex.py", "cp_lock.py", "counter.py",
+            "queue_workload.py", "lost_updates.py", "pause_workload.py",
+            "bank.py", "transfer.py", "long_fork.py"} <= names
     assert (ROOT / "jepsen_tpu_torch/live/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/nemesis/__init__.py") in _sources()
     assert (ROOT / "jepsen_tpu_torch/native/__init__.py") in _sources()

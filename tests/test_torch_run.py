@@ -257,6 +257,22 @@ def _verdicts(res, history):
         per_key
 
 
+def _same_verdicts_as_reference(ref, mine, history):
+    """``_verdicts`` of the JAX package's result against the port's. The
+    reference also splits a nemesis op's two-element value (a partition's
+    ``["isolated", grudge]``) as a key and reports it valid; the port
+    splits client ops alone (ROADMAP Queue 3 item 5). Every other key,
+    verdict and failed op is the same."""
+    rv, rf, rkeys = _verdicts(ref, history)
+    nemesis_keys = {str(op["value"][0]) for op in history
+                    if op.get("process") == "nemesis"
+                    and independent.is_tuple_value(op.get("value"))}
+    extra = set(rkeys) - set(_verdicts(mine, history)[2])
+    assert extra <= nemesis_keys
+    assert all(rkeys.pop(k) == (True, None) for k in extra)
+    assert (rv, rf, rkeys) == _verdicts(mine, history)
+
+
 def test_run_history_checked_by_reference_gives_port_result():
     """A port run of the fake register test; its stored history, checked
     by the JAX package's ``independent.checker`` over ``linearizable`` on
@@ -269,8 +285,8 @@ def test_run_history_checked_by_reference_gives_port_result():
         assert mine["valid?"] is True, mine
         history = _stored_history(result, tmp)
         assert len(history) == len(result["history"]) > 100
-        assert _verdicts(_jax_independent_check(history), history) == \
-            _verdicts(mine, history)
+        _same_verdicts_as_reference(_jax_independent_check(history), mine,
+                                    history)
         names = set(os.listdir(store.test_dir(result)))
         assert {"history.jsonl", "results.json", "test.json",
                 "faults.jsonl"} <= names
@@ -295,8 +311,8 @@ def test_stale_read_run_gives_reference_invalid_keys():
         mine = result["results"]
         assert mine["valid?"] is False and mine["failures"], mine
         history = _stored_history(result, tmp)
-        assert _verdicts(_jax_independent_check(history), history) == \
-            _verdicts(mine, history)
+        _same_verdicts_as_reference(_jax_independent_check(history), mine,
+                                    history)
         # the port's device lane (its plain kernels on the CPU) agrees
         again = independent.checker(linearizable(
             accelerator="gpu", device="cpu")).check({}, history, {})
