@@ -4653,62 +4653,62 @@ def _stale_client(kv, seed: int, every: int = STALE_EVERY):
     return StaleKVClient(kv)
 
 
-def _kit(module: str, **kw):
-    """A ``make(base, accelerator, device)`` for the port's workload kit
-    ``jepsen_tpu_torch.workloads.<module>``, with ``kw``."""
-    def make(base, accelerator, device):
-        import importlib
-        mod = importlib.import_module(f"jepsen_tpu_torch.workloads.{module}")
-        return mod.workload(base, accelerator=accelerator, device=device,
-                            **kw)
-    return make
+#: the nemesis packages' interval in phases 20 and 21, as the suites'
+NEMESIS_INTERVAL = 1.0
 
-
-#: workload name -> (the suite whose fake test map runs it, its kit): the
-#: etcd suite's register (phase 20) and the yugabyte suite's YSQL kits
-#: whose checks reach the card (phase 21; jepsen_tpu/suites/yugabyte.py:
-#: 45-47), set-full the set kit with ``full``
+#: workload name -> (its kit, a module of jepsen_tpu_torch.workloads, and
+#: the kit's keyword arguments): the etcd suite's register (phase 20) and
+#: the yugabyte suite's YSQL kits whose checks reach the card (phase 21;
+#: jepsen_tpu/suites/yugabyte.py:45-47), set-full the set kit with ``full``
 WORKLOAD_KITS = {
-    "register": ("etcd", _kit("register")),
-    "single-key-acid": ("yugabyte", _kit("single_key_acid")),
-    "multi-key-acid": ("yugabyte", _kit("multi_key_acid")),
-    "set-full": ("yugabyte", _kit("set_workload", full=True)),
-    "append": ("yugabyte", _kit("append")),
-    "wr": ("yugabyte", _kit("wr")),
+    "register": ("register", {}),
+    "single-key-acid": ("single_key_acid", {}),
+    "multi-key-acid": ("multi_key_acid", {}),
+    "set-full": ("set_workload", {"full": True}),
+    "append": ("append", {}),
+    "wr": ("wr", {}),
 }
+
+
+def workload_kit(workload: str, test: dict, accelerator: str,
+                 device=None) -> dict:
+    """The port's kit for ``workload`` (:data:`WORKLOAD_KITS`) over the
+    test map ``test``."""
+    import importlib
+    module, kw = WORKLOAD_KITS[workload]
+    return importlib.import_module(
+        f"jepsen_tpu_torch.workloads.{module}").workload(
+            test, accelerator=accelerator, device=device, **kw)
 
 
 def run_test_map(store_dir: str, client_fn, time_limit: float,
                  accelerator: str, device=None, workload: str = "register",
-                 concurrency: int = 5, interval: float = 1.0,
-                 nodes: int = 5) -> tuple:
+                 concurrency: int = 5, nodes: int = 5) -> tuple:
     """A suite's fake test map (jepsen_tpu/suites/__init__.py:22-64
     ``compose_test`` and the fake branch of :67-186 ``build_suite_test``),
     over the port: ``nodes`` nodes (n1-n5), ``concurrency`` threads, the
-    dummy remote,
-    no OS, ``NoopNet``, the ``KVStore`` and a client over it
+    dummy remote, no OS, ``NoopNet``, the ``KVStore`` and a client over it
     (``client_fn(kv)``), the ``workload`` kit of :data:`WORKLOAD_KITS` at
     its defaults (the register workload: the etcd suite's), its config
     keys merged into the map, the partition, kill and pause packages at
-    ``interval`` (1 s), the kit's final generator after the nemesis's, and
-    ``compose({stats, exceptions, workload, perf})``. Returns the map and
-    a dict the workload check's seconds land in."""
+    :data:`NEMESIS_INTERVAL`, the kit's final generator after the
+    nemesis's, and ``compose({stats, exceptions, workload, perf})``.
+    Returns the map and a dict the workload check's seconds land in."""
     from jepsen_tpu_torch import checker as c
     from jepsen_tpu_torch import generator as gen
     from jepsen_tpu_torch.fakes import KVStore
     from jepsen_tpu_torch.nemesis import combined
     from jepsen_tpu_torch.net import NoopNet
 
-    suite, make = WORKLOAD_KITS[workload]
     kv = KVStore()
-    base = {"name": f"{suite}-{workload}",
+    base = {"name": f"fake-{workload}",
             "nodes": [f"n{i}" for i in range(1, nodes + 1)],
             "concurrency": concurrency,
             "time_limit": time_limit, "ssh": {"dummy": True},
             "store_dir": store_dir, "db": kv, "client": client_fn(kv),
             "os": None, "net": NoopNet()}
-    wl = make(base, accelerator, device)
-    pkg = combined.nemesis_package({"db": kv, "interval": interval,
+    wl = workload_kit(workload, base, accelerator, device)
+    pkg = combined.nemesis_package({"db": kv, "interval": NEMESIS_INTERVAL,
                                     "faults": {"partition", "kill", "pause"}})
     timing: dict = {}
 
@@ -4744,25 +4744,33 @@ def run_test_map(store_dir: str, client_fn, time_limit: float,
 
 class _RunProbe:
     """Around one core.run: seeds the generator's context and the nemesis
-    draws with ``seed``, times ``run_case`` and ``analyze``, and counts
-    the keys the batched lane hands to the key-batched frontier scan
-    (the keys whose matrix verdict came back undecided). Restores every
-    name it replaced on exit."""
+    draws with ``seed``, times ``run_case`` and ``analyze``, counts the
+    keys the batched lane hands to the key-batched frontier scan (the
+    keys whose matrix verdict came back undecided), and sums the seconds
+    of the linearizable check's exact twin in ``twin_s`` (summed over the
+    keys, which run on several threads). Restores every name it replaced
+    on exit."""
 
     def __init__(self, seed: int):
         self.seed = seed
         self.seconds: dict = {}
         self.undecided_keys = 0
+        self.twin_s = 0.0
 
     def __enter__(self):
         import random
 
+        import threading
+
         from jepsen_tpu_torch import core, parallel
+        from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
         from jepsen_tpu_torch.generator import interpreter
+        lin = LinearizableChecker
         self._saved = [(interpreter, "context", interpreter.context),
                        (core, "run_case", core.run_case),
                        (core, "analyze", core.analyze),
-                       (parallel, "_scan_batch", parallel._scan_batch)]
+                       (parallel, "_scan_batch", parallel._scan_batch),
+                       (lin, "_cpu_rung", lin.__dict__["_cpu_rung"])]
         self._state = random.getstate()
         random.seed(self.seed)
         ctx_fn, seed = interpreter.context, self.seed
@@ -4787,6 +4795,17 @@ class _RunProbe:
             return scan(streams, *a, **kw)
 
         parallel._scan_batch = counted
+        twin, lock = lin._cpu_rung, threading.Lock()
+
+        def twin_timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return twin(*a, **kw)
+            finally:
+                with lock:
+                    self.twin_s += time.perf_counter() - t0
+
+        lin._cpu_rung = staticmethod(twin_timed)
         return self
 
     def __exit__(self, *exc):
@@ -5143,6 +5162,13 @@ WORKLOAD_RUNS = (
 )
 
 
+#: the most of a multi-key-acid run's keys the exact twin may settle: at
+#: 5 nodes a key holds 10 slots, the sparse list's K = 256 configurations
+#: overflow for about a third of the keys (ROADMAP S7), and those keys go
+#: to the twin; at 3 nodes every key is on the dense table and none may
+TWIN_MAX_KEY_SHARE = 0.5
+
+
 def broken_answers(client) -> int:
     """The answers a double broke (0 for the honest client)."""
     return getattr(client, "shared", {}).get("broken", 0)
@@ -5193,8 +5219,9 @@ def _run_kernels(workload: str, run: str, res: dict, launches: dict,
     kit's 10 threads a key reach ``MATRIX_MAX_SLOTS``), one key-batched
     frontier launch for all. Multi-key-acid's keys take a frontier launch
     a key, and every key on the dense table's route settles there, none
-    in the exact twin (ROADMAP Queue 3 item 4's repair; a sparse key
-    whose K = 256 list overflows goes to the twin, as in phase 11).
+    in the exact twin (ROADMAP Queue 3 item 4's repair); a sparse key
+    whose K = 256 list overflows goes to the twin, as in phase 11, and
+    those keys may be at most :data:`TWIN_MAX_KEY_SHARE` of the run's.
     Set-full launches the classify once; the Elle kits' invalid runs
     screen their φ clusters."""
     if workload == "single-key-acid":
@@ -5210,9 +5237,12 @@ def _run_kernels(workload: str, run: str, res: dict, launches: dict,
             return f"{undecided} undecided keys, algorithms {algos}"
     elif workload == "multi-key-acid":
         keys = acid_keys(workload, history)
-        twin = [k for k, r in res["results"].items()
-                if r["linear"].get("algorithm") == "jitlin-cpu(fallback)"
-                and keys[k][1] == "dense"]
+        in_twin = [k for k, r in res["results"].items()
+                   if r["linear"].get("algorithm") == "jitlin-cpu(fallback)"]
+        twin = [k for k in in_twin if keys[k][1] == "dense"]
+        if len(in_twin) > TWIN_MAX_KEY_SHARE * len(keys):
+            return (f"{len(in_twin)} of {len(keys)} keys in the twin, past "
+                    f"{TWIN_MAX_KEY_SHARE}")
         n_dense = sum(r == "dense" for _, r in keys.values())
         # the broken run's impossible reads, on the dense route, settle
         # on the card: none of them in the twin, which took them all
@@ -5279,8 +5309,8 @@ def workloads_phase(name, smi, device=None,
                 wl = res["workload"]
                 stored = index(store.load_history(
                     result["name"], result["start_time"], d0))
-                cpu_chk = WORKLOAD_KITS[workload][1](test, "cpu",
-                                                     "cpu")["checker"]
+                cpu_chk = workload_kit(workload, test, "cpu",
+                                       "cpu")["checker"]
                 if workload.endswith("-acid"):
                     # the lifted linear check alone: a map without store
                     # coordinates renders no timeline
@@ -5346,6 +5376,12 @@ def workloads_phase(name, smi, device=None,
                         algos[a] = algos.get(a, 0) + 1
                     row["routes_algorithms"] = algos
                     row["max_slots"] = max(s for s, _ in keys.values())
+                    n_twin = sum(r["linear"].get("algorithm")
+                                 == "jitlin-cpu(fallback)"
+                                 for r in wl["results"].values())
+                    row["twin_keys"] = n_twin
+                    row["twin_key_share"] = n_twin / len(keys)
+                    row["twin_s"] = probe.twin_s
                 out[f"{workload} n{nodes} {run}"] = row
     emit({"phase": "workloads", "time_limit_s": time_limit,
           "matplotlib": mpl, "runs": out,

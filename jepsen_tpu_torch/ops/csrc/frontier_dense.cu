@@ -48,10 +48,10 @@
 // step serves both paths' tables and the out-of-range flag (the warp
 // path steps a lane's 4 states of an invoke together); a multi-register
 // table is bucketed past the (V + 1)^K map states (216 to 256 at 3 x 5),
-// and the flag covers the map's states alone (flag_state_end): the
-// reference's also steps the padding past them, which no history reaches,
-// and so flags every history with a write there. A step keeps the map's
-// states in the map, so a map that fits in the table never sets the flag
+// and the flag covers the map's states alone: the reference's also steps
+// the padding past them, which no history reaches, and so flags every
+// history with a write there. A step keeps the map's states in the map,
+// so a map that fits in the table never sets the flag
 // (first_leaving_state). The closure runs level by
 // level: a row's level is popcount(r & pm), and the rows of level p read
 // only rows r ^ 2^t of level p - 1, already final; a path of the closure
@@ -369,15 +369,14 @@ frontier_dense_kernel(const int* __restrict__ kind,
     if (tid < 2) cnt[tid] = 0;
   }
   // inexact: an invoke's transition leaves [0, V) for some state of the
-  // model; only the states from first_leaving_state to flag_state_end
-  // can (frontier_model.cuh): none of a multi-register map that fits
+  // model; only the states from first_leaving_state on can
+  // (frontier_model.cuh): none of a multi-register map that fits
   bool oob = false;
   const int v_leave = first_leaving_state<kModel>(model, V);
-  const int v_end = flag_state_end<kModel>(model, V);
-  for (int e = tid; e < E && v_leave < v_end; e += kThreads) {
+  for (int e = tid; e < E; e += kThreads) {
     if (kind[e] != kInvoke) continue;
     const int f = fv[e], a = av[e], b = bv[e];
-    for (int v = v_leave; v < v_end && !oob; ++v) {
+    for (int v = v_leave; v < V && !oob; ++v) {
       bool ok;
       const int st = model_step<kModel>(model, v, f, a, b, &ok);
       oob = ok && (st < 0 || st >= V);

@@ -184,29 +184,18 @@ __device__ __forceinline__ int model_step(const Model& m, int state, int f,
   return next;
 }
 
-// The first state whose transitions can leave [0, V) (the dense table's
-// out-of-range flag need not step the states below it): a multi-register
-// step keeps every state of the map [0, span) in the map, so when the map
-// fits in the table no state of the map can leave; the CAS step may send
-// any state anywhere.
+// The first state whose transitions the dense table's out-of-range flag
+// steps (it steps the states from there to V): a multi-register step keeps
+// every state of the map [0, span) in the map, and the table's padding
+// past the map (216 to 256 at 3 x 5) is no state a history reaches, so a
+// map that fits in the table steps none (V); the CAS step may send any
+// state anywhere.
 template <int kModel>
 __device__ __forceinline__ int first_leaving_state(const Model& m, int V) {
   if constexpr (kModel == kMultiRegister)
-    return m.span <= V ? m.span : 0;
+    return m.span <= V ? V : 0;
   else
     return 0;
-}
-
-// The end of the states the out-of-range flag steps: the model's own
-// states in the table. A multi-register table is bucketed past the map's
-// span (216 to 256 at 3 x 5), and its padding is no state a history
-// reaches, so the flag stops at the span; every CAS state is a value id.
-template <int kModel>
-__device__ __forceinline__ int flag_state_end(const Model& m, int V) {
-  if constexpr (kModel == kMultiRegister)
-    return m.span < V ? m.span : V;
-  else
-    return V;
 }
 
 }  // namespace

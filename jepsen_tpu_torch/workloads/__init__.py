@@ -15,25 +15,10 @@ wait for ROADMAP Queue 1 item 11; asking this package for one raises
 """
 from __future__ import annotations
 
-# copied from jepsen_tpu/workloads/__init__.py:13-23, the ported kits
-from jepsen_tpu_torch.workloads import (  # noqa: F401
-    append,
-    bank,
-    counter,
-    cp_lock,
-    long_fork,
-    lost_updates,
-    multi_key_acid,
-    mutex,
-    pause_workload,
-    queue_workload,
-    register,
-    set_workload,
-    single_key_acid,
-    transfer,
-    wr,
-)
+import importlib
 
+#: the ported kits, each imported here as the reference's package imports
+#: its own (jepsen_tpu/workloads/__init__.py:13-23)
 PORTED = ("append", "bank", "counter", "cp_lock", "long_fork",
           "lost_updates", "multi_key_acid", "mutex", "pause_workload",
           "queue_workload", "register", "set_workload", "single_key_acid",
@@ -45,6 +30,9 @@ UNPORTED = ("adya", "causal", "causal_reverse", "comments",
             "fauna_internal", "fauna_monotonic", "fauna_multimonotonic",
             "ledger", "monotonic", "monotonic_key", "pages", "sequential",
             "table_workload", "upsert", "version_divergence")
+
+for _name in PORTED:
+    importlib.import_module(f"{__name__}.{_name}")
 
 __all__ = list(PORTED)
 

@@ -5,8 +5,10 @@ Clients add unique integers to a set; reads return the whole set. The
 quick checker compares the final read against attempted adds; set-full
 tracks every element's visibility window across all reads.
 
-The port of jepsen_tpu/workloads/set_workload.py. ``device`` passes
-through to set-full's checker (None: the card; the tests pass "cpu").
+The port of jepsen_tpu/workloads/set_workload.py. Unlike the reference's
+kit, whose set-full checks on the host unless asked, ``accelerator``
+defaults to "auto" (the card, as ``checker.set_full`` does); it and
+``device`` pass through to set-full's checker (the tests pass "cpu").
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ def reads(final: bool = False):
 
 
 def workload(test: dict | None = None, full: bool = False,
-             linearizable: bool = False, accelerator: str = "cpu",
+             linearizable: bool = False, accelerator: str = "auto",
              device=None, **_) -> dict:
     return {
         "generator": adds() if full is False else gen.mix([adds(), reads()]),

@@ -6,8 +6,8 @@ that ``make_model`` computes, floor division of a negative x as
 nv).step_ids`` on seeded int32 states and ops, negative and out-of-map
 ones included; the header itself built with ``g++`` and run on the same
 inputs; and the header's out-of-range flag over the states from
-``first_leaving_state`` to ``flag_state_end`` (none of a map that fits
-in the table; every state of the table when the map does not) against
+``first_leaving_state`` on (none of a map that fits in the table; every
+state of the table when the map does not) against
 the flag of the JAX package's ``_build_dense_step``, which also steps a
 table's padding past the map (the port repairs that, ROADMAP Queue 3
 item 4). States, verdicts and flags are integers: tolerance zero."""
@@ -155,10 +155,9 @@ STEPPER_CPP = r"""
 #include <cstdio>
 #include "frontier_model.cuh"
 // step NK NV N, then N (state, a) pairs: each pair's next state and ok;
-// flag NK NV V N, then N ops a: first_leaving_state and flag_state_end,
-// then each op's out-of-range flag as frontier_dense.cu computes it (the
-// states from first_leaving_state to flag_state_end whose transition
-// applies and leaves [0, V))
+// flag NK NV V N, then N ops a: first_leaving_state, then each op's
+// out-of-range flag as frontier_dense.cu computes it (the states from
+// first_leaving_state to V whose transition applies and leaves [0, V))
 int main() {
   char mode[8];
   int nk, nv, V = 0, n;
@@ -172,8 +171,7 @@ int main() {
     return 0;
   }
   const int first = first_leaving_state<kMultiRegister>(m, V);
-  const int end = flag_state_end<kMultiRegister>(m, V);
-  if (flag) std::printf("%d %d\n", first, end);
+  if (flag) std::printf("%d\n", first);
   for (int i = 0; i < n; ++i) {
     int s = 0, a;
     if (!flag && std::scanf("%d", &s) != 1) return 2;
@@ -185,7 +183,7 @@ int main() {
       continue;
     }
     bool oob = false;
-    for (int v = first; v < end && !oob; ++v) {
+    for (int v = first; v < V && !oob; ++v) {
       const int t = model_step<kMultiRegister>(m, v, 0, a, 0, &ok);
       oob = ok && (t < 0 || t >= V);
     }
@@ -251,14 +249,14 @@ def test_header_step_matches_python_twin(header_stepper, shape):
 
 
 def _header_flags(exe, shape, V: int, ops):
-    """The header's first_leaving_state and flag_state_end at V, and each
-    op's out-of-range flag over the states between them, as
-    frontier_dense.cu computes them."""
+    """The header's first_leaving_state at V, and each op's out-of-range
+    flag over the states from it to V, as frontier_dense.cu computes
+    them."""
     text = f"flag {shape[0]} {shape[1]} {V} {len(ops)}\n" + "".join(
         f"{a}\n" for a in ops.tolist())
     out = subprocess.run([str(exe)], input=text, capture_output=True,
                          text=True, check=True).stdout.split()
-    return int(out[0]), int(out[1]), [x == "1" for x in out[2:]]
+    return int(out[0]), [x == "1" for x in out[1:]]
 
 
 @pytest.mark.parametrize("shape,V", [((3, 5), 256), ((2, 3), 16),
@@ -266,8 +264,7 @@ def _header_flags(exe, shape, V: int, ops):
 def test_padding_only_out_of_range_flag_matches_jax(header_stepper, shape,
                                                     V):
     """The header's flag over the model's states (from
-    first_leaving_state, the map's span when it fits in V, else 0, to
-    flag_state_end, the span or V) equals a numpy replay over the states
+    first_leaving_state, V when the map fits in V, else 0, to V) equals a numpy replay over the states
     [0, min(span, V)), op by op, on ops as the encoding packs them and on
     any int32. Where every state of the table is the model's (span >= V)
     it equals the flag of jitlin._build_dense_step; at (3, 5) in a
@@ -287,9 +284,8 @@ def test_padding_only_out_of_range_flag_matches_jax(header_stepper, shape,
     for a in ops:
         ev = [jnp.asarray([x], jnp.int32) for x in (0, 0, 0, int(a), 0)]
         want.append(bool(run(*ev)[2]))
-    first, end, got = _header_flags(header_stepper, shape, V, ops)
-    assert first == (m["span"] if m["span"] <= V else 0)
-    assert end == min(m["span"], V)
+    first, got = _header_flags(header_stepper, shape, V, ops)
+    assert first == (V if m["span"] <= V else 0)
     states = np.arange(min(m["span"], V))
     real = []
     for a in ops:

@@ -309,7 +309,8 @@ CHECKS = {
     "set": (lambda: _driven("set", {}), {},
             _kit_checker("set_workload"), _break_set),
     "set_full": (lambda: _driven("set_full", {}), {},
-                 _kit_checker("set_workload", full=True), _break_set),
+                 _kit_checker("set_workload", full=True,
+                              accelerator="cpu"), _break_set),
     "append": (lambda: _driven("append", {}), {},
                _kit_checker("append", accelerator="cpu"), _break_append),
     "wr": (lambda: _driven("wr", {}, {"txn_style": "wr"}), {},
@@ -616,6 +617,30 @@ def test_unported_kits_raise():
             getattr(w, name)
 
 
+def test_set_full_kit_checks_on_the_card_by_default(monkeypatch):
+    """The JAX package's set kit checks set-full on the host unless asked;
+    the port's, an entry point, defaults to "auto" (the card), as its
+    ``checker.set_full`` does: with no CUDA device its check raises rather
+    than walk the history on the host, and "cpu" walks it as the JAX
+    package's does."""
+    import torch
+    from jepsen_tpu.history import index as jindex
+    from jepsen_tpu.workloads import set_workload as jset
+    from jepsen_tpu_torch.history import index
+    from jepsen_tpu_torch.workloads import set_workload as tset
+    assert jset.workload(full=True)["checker"].accelerator == "cpu"
+    chk = tset.workload(full=True)["checker"]
+    assert chk.accelerator == "auto"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        chk.check({}, index([dict(o) for o in _SET]), {})
+    got = tset.workload(full=True, accelerator="cpu")["checker"].check(
+        {}, index([dict(o) for o in _SET]), {})
+    want = jset.workload(full=True)["checker"].check(
+        {}, jindex([dict(o) for o in _SET]), {})
+    assert got == want and got["valid?"] is True
+
+
 def test_int_keys_as_jax():
     from jepsen_tpu.utils import int_key as jk, int_keyed as jkd
     from jepsen_tpu_torch.utils import int_key, int_keyed
@@ -862,10 +887,11 @@ def test_multi_key_acid_run_checked_by_reference(chip_smoke, run,
         monkeypatch.setattr(mod, "render_failure", lambda *a, **k: None)
     client = (chip_smoke._honest_client("multi-key-acid") if run == "valid"
               else lambda kv: chip_smoke._stale_txn_client(kv, 3, every=10))
+    # faults every 0.1 s, so that a 0.5 s run holds nemesis ops
+    monkeypatch.setattr(chip_smoke, "NEMESIS_INTERVAL", 0.1)
     with tempfile.TemporaryDirectory() as tmp:
         test, _ = chip_smoke.run_test_map(
-            tmp, client, 0.5, "cpu", "cpu", "multi-key-acid", 10,
-            interval=0.1)
+            tmp, client, 0.5, "cpu", "cpu", "multi-key-acid", 10)
         # the verdicts are compared: the workload's check alone (no
         # reports), without the invalid keys' forensics
         test["checker"] = test["checker"].checkers["workload"]
